@@ -4,12 +4,15 @@ The JAX package ``magent_tpu`` is the reference; this package runs the same
 many-agent gridworld on an NVIDIA GPU with PyTorch and hand-written CUDA
 kernels (``csrc/``), and imports nothing of JAX or of ``magent_tpu``.
 
-Ported so far: the lockstep vectorized loop (``parallel.VecGridWorld``) for
-configs on the gridless 1x1 path (battle): device reset, NORTH-only
-observations, the gridless engine step and both random-action samplers.
-Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+Ported so far, for battle-class configs (1x1 bodies, no food, no turn mode,
+no absorb): the stateful ``GridWorld`` API on the engine's grid path (any
+walls), and the lockstep vectorized loop (``parallel.VecGridWorld``) on the
+gridless path — device reset, NORTH-only observations, both random-action
+samplers.  Entry points run on ``cuda`` unless the caller passes
+``device="cpu"``.
 """
 
 from . import gridworld
+from .env import GridWorld
 
-__all__ = ["gridworld"]
+__all__ = ["GridWorld", "gridworld"]

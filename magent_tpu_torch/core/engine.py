@@ -1,30 +1,41 @@
-"""One lockstep env step as batched tensor ops: the gridless 1x1 path.
+"""One env step as batched tensor ops (port of ``magent_tpu/core/engine.py``
+``make_step`` and ``make_clear_dead``).
 
-Port of ``magent_tpu/core/engine.py`` ``make_step(maintain_grid=False)`` for
-configs whose occupancy questions are answered pairwise: 1x1 bodies, no
-food, no turn mode, no absorb, border walls only, and at most
-``QUAD_MAX_AGENTS`` slots (battle).  Phases run in the reference order
-(reference: src/gridworld/GridWorld.cc:456-631)::
+Configs of the battle class — 1x1 bodies, no food, no turn mode, no absorb —
+take one of two paths, chosen once in :func:`make_step`:
+
+- the **gridless** path (``maintain_grid=False``, :class:`VecGridWorld`):
+  every occupancy question is answered pairwise by the kernels of
+  :mod:`magent_tpu_torch.ops.attack_prefix`; ``state.cell_slot`` is neither
+  read nor rebuilt and walls are the border, answered by formula;
+- the **grid** path (``maintain_grid=True``, the stateful ``GridWorld``):
+  attack targets and move blocking are read from ``state.cell_slot`` and
+  ``state.cell_wall`` (any walls), dead bodies are cleared from the grid and
+  the grid is rebuilt after the move.  Damage and move claims go through the
+  pair kernels (``rank_prefix`` hp form, ``move_claims``) up to the quad
+  cap, and through sorts above it.
+
+Phases run in the reference order (reference:
+src/gridworld/GridWorld.cc:456-631)::
 
     attack -> starve -> move -> reward rules -> done check
 
 Attacks execute in a random priority order (a SplitMix mix of a fresh
-threefry subkey and the slot), resolved by the pairwise kernels of
-:mod:`magent_tpu_torch.ops.attack_prefix`; the occupancy grid is neither read
-nor rebuilt (``state.cell_slot`` is left as the reset wrote it).  Every
-tensor carries the env axis B written out; one kernel launch serves the
-batch.
+threefry subkey and the slot).  Every tensor carries the env axis B written
+out; one kernel launch serves the batch.  No state tensor is updated in
+place: callers may keep references to an earlier state.
 """
 
 from __future__ import annotations
 
-import numpy as np
+from typing import NamedTuple
+
 import torch
 
 from .. import random as rnd
 from .. import spec as speclib
 from ..ops import attack_prefix as ap
-from ..spec import OP_ATTACK, OP_COLLIDE, OP_KILL, OP_NULL
+from ..spec import NORTH, OP_ATTACK, OP_COLLIDE, OP_KILL, OP_NULL
 from . import geometry as geo
 from .state import State
 
@@ -44,6 +55,8 @@ class _Tables:
             setattr(self, name,
                     torch.as_tensor(getattr(spec, "s_" + name), device=device))
         self.gof = torch.as_tensor(spec.group_of_slot, device=device)
+        self.slots = torch.arange(spec.n_agents_cap, dtype=torch.int32,
+                                  device=device)
 
 
 def _tables_for(spec: speclib.GameSpec, cache: dict, device) -> _Tables:
@@ -53,27 +66,22 @@ def _tables_for(spec: speclib.GameSpec, cache: dict, device) -> _Tables:
     return cache[device]
 
 
-def _check_gridless(spec: speclib.GameSpec, walls=None) -> None:
-    """Raise unless the spec runs on the ported gridless 1x1 path."""
+class _Route(NamedTuple):
+    """Where a step resolves occupancy, decided once per spec."""
+    grid: bool  # read, clear and rebuild state.cell_slot
+    quad: bool  # pair kernels; else the sort branches (grid path only)
+
+
+def _check_ported(spec: speclib.GameSpec) -> None:
+    """Raise unless the spec runs on a ported path (battle class)."""
     if spec.food_mode or spec.turn_mode or bool(spec.g_can_absorb.any()):
         raise NotImplementedError(
-            "only gridless-capable configs (no food, no turn mode, no absorb) "
-            "are ported; the grid path is ROADMAP.md Queue 1 item 7")
+            "food, turn mode and absorb are not ported yet: their grid-path "
+            "branches are ROADMAP.md Queue 1 item 7")
     if spec.max_body_w != 1:
         raise NotImplementedError(
-            "multi-cell bodies take the gridless rect path, ROADMAP.md "
-            "Queue 1 item 10")
-    if spec.n_agents_cap > ap.QUAD_MAX_AGENTS:
-        raise NotImplementedError(
-            "%d slots exceed QUAD_MAX_AGENTS=%d: the sort path is ROADMAP.md "
-            "Queue 1 item 7" % (spec.n_agents_cap, ap.QUAD_MAX_AGENTS))
-    if walls is not None:
-        interior = np.asarray(walls, bool).copy()
-        interior[0, :] = interior[-1, :] = False
-        interior[:, 0] = interior[:, -1] = False
-        if interior.any():
-            raise NotImplementedError(
-                "interior walls are ROADMAP.md Queue 1 item 10")
+            "multi-cell bodies take the rect paths, ROADMAP.md Queue 1 "
+            "item 10")
 
 
 def _row_lookup(table, idx):
@@ -92,12 +100,115 @@ def attack_rank(state: State, A: int):
     return keys[:, 0], rnd.splitmix_finalize(z)
 
 
-def _attack_phase(spec, T, state: State, rank):
-    """Attack resolution, gridless quad branch (engine.py:212-462; reference
-    GridWorld.cc:470-517, Map.cc:209-310)."""
+def _grid_at(grid, cell):
+    """``grid[b, cell[b, a] // W, cell[b, a] % W]`` for a [B, H, W] grid and
+    flat in-map cells [B, A]."""
+    B = grid.shape[0]
+    return torch.gather(grid.reshape(B, -1), 1, cell.long())
+
+
+def _clear_cells(cell_slot, mask, x, y):
+    """Empty the (1x1) cells of masked slots; the rest write a dump cell
+    past the end (``engine.py:66-75``, ``mode="drop"``)."""
+    B, H, W = cell_slot.shape
+    flat = torch.cat([cell_slot.reshape(B, H * W),
+                      cell_slot.new_full((B, 1), -1)], 1)
+    idx = torch.where(mask, y * W + x, H * W).long()
+    return flat.scatter(1, idx, -1)[:, :H * W].reshape(B, H, W)
+
+
+def _segment_starts(sorted_keys):
+    first = torch.ones_like(sorted_keys[:, :1], dtype=torch.bool)
+    return torch.cat([first, sorted_keys[:, 1:] != sorted_keys[:, :-1]], 1)
+
+
+def _segment_cumsum(values, seg_start):
+    """Per-segment inclusive cumulative sum over sorted segments; values
+    >= 0, so segment bases forward-fill with a cummax (engine.py:54-63)."""
+    cum = torch.cumsum(values, -1)
+    base = torch.where(seg_start, cum - values, float("-inf"))
+    return cum - torch.cummax(base, -1).values
+
+
+def _unsort(values, order):
+    """Scatter per-row values in sorted order back to slot order."""
+    return torch.empty_like(values).scatter(1, order, values)
+
+
+def _damage_pairwise(state, tgt_key, valid, P, dmg_slot, hp_t, kr_t, ks_t):
+    """Quad branch (engine.py:339-388): with P the damage earlier-ranked
+    attackers deal to my target, every attacker-side quantity is
+    elementwise and the damage per target is ONE scatter-max."""
+    B, A = tgt_key.shape
+    cum = P + dmg_slot
+    not_yet_dead = hp_t - P >= 0.0  # target still alive when I strike
+    acted = valid & not_yet_dead
+    is_killer = acted & (hp_t - cum < 0.0)  # be_attack: hp < 0 (GridWorld.h:203-208)
+
+    dmg_t = torch.zeros((B, A + 1), dtype=state.hp.dtype,
+                        device=tgt_key.device).scatter_reduce(
+        1, torch.where(acted, tgt_key, A).long(),
+        torch.where(acted, cum, 0.0), "amax")[:, :A]
+    hp = state.hp - dmg_t
+    died = (dmg_t > 0.0) & (hp < 0.0) & state.active & ~state.dead
+    op_new = torch.where(is_killer, OP_KILL,
+                         torch.where(acted, OP_ATTACK, OP_NULL)).to(torch.int32)
+    obj_new = torch.where(acted, tgt_key, -1)
+    return (hp, died, op_new, obj_new, torch.where(is_killer, kr_t, 0.0),
+            torch.where(is_killer, ks_t, 0.0))
+
+
+def _damage_sorted(state, rank, tgt_key, tgt_c, valid, dmg_slot, kr_t, ks_t):
+    """Sort branch (engine.py:389-448): attackers sorted by (target, raw
+    priority) in one int64 key, segmented cumulative damage per target.
+    The stable sort breaks exact priority ties by slot.  Sums of battle's
+    damages are exact in any order; general damages may differ from the
+    JAX package's scan order in the last bits."""
+    B, A = tgt_key.shape
+    hp_t = torch.where(valid, torch.gather(state.hp, 1, tgt_c.long()),
+                       float("inf"))
+    key = (tgt_key.to(torch.int64) << 32) | rank
+    order = torch.sort(key, dim=-1, stable=True).indices
+
+    def take(t):
+        return torch.gather(t, 1, order)
+
+    s_tgt, s_dmg, s_hp, s_valid = (take(t) for t in (tgt_key, dmg_slot, hp_t,
+                                                    valid))
+    seg_start = _segment_starts(s_tgt)
+    s_cum = _segment_cumsum(s_dmg, seg_start)
+    kill_here = s_valid & (s_hp - s_cum < 0.0)  # be_attack: hp < 0 (GridWorld.h:203-208)
+    prev_kill = torch.cat([torch.zeros_like(kill_here[:, :1]),
+                           kill_here[:, :-1]], 1) & ~seg_start
+    is_killer = kill_here & ~prev_kill
+    acted = s_valid & ~(kill_here & ~is_killer)  # attacks after the kill are no-ops
+
+    # per-target effects: each segment's last row holds the totals
+    applied = torch.where(acted, s_dmg, 0.0)
+    totals = torch.stack([_segment_cumsum(applied, seg_start),
+                          _segment_cumsum(is_killer.to(s_dmg.dtype),
+                                          seg_start)], -1)
+    seg_end = torch.cat([seg_start[:, 1:], torch.ones_like(seg_start[:, :1])],
+                        1)
+    dst = torch.where(seg_end, s_tgt, A).long()[..., None].expand(B, A, 2)
+    tgt_fx = torch.zeros((B, A + 1, 2), dtype=s_dmg.dtype,
+                         device=key.device).scatter(1, dst, totals)[:, :A]
+    hp = state.hp - tgt_fx[..., 0]
+    died = (tgt_fx[..., 1] > 0) & state.active & ~state.dead
+
+    op_new = torch.where(is_killer, OP_KILL,
+                         torch.where(acted, OP_ATTACK, OP_NULL)).to(torch.int32)
+    return (hp, died, _unsort(op_new, order),
+            _unsort(torch.where(acted, s_tgt, -1), order),
+            _unsort(torch.where(is_killer, take(kr_t), 0.0), order),
+            _unsort(torch.where(is_killer, take(ks_t), 0.0), order))
+
+
+def _attack_phase(spec, T, state: State, rank, route: _Route):
+    """Attack resolution (engine.py:212-526; reference GridWorld.cc:470-517,
+    Map.cc:209-310)."""
     A = spec.n_agents_cap
     H, W = spec.height, spec.width
-    B = state.x.shape[0]
     act = state.last_action
     alive = state.active & ~state.dead
 
@@ -111,12 +222,17 @@ def _attack_phase(spec, T, state: State, rank):
     in_board = (tx >= 0) & (tx < W) & (ty >= 0) & (ty < H)
     txc = tx.clamp(0, W - 1)
     tyc = ty.clamp(0, H - 1)
+    hit = is_attack & in_board
 
-    acell = torch.where(is_attack & in_board, tyc * W + txc, ap.QUERY_NONE)
-    own_cell = torch.where(alive, state.y * W + state.x, ap.CELL_DEAD)
-    tgt, hp_t_occ = ap.occupant(acell.to(torch.int32).contiguous(),
-                                own_cell.to(torch.int32).contiguous(),
-                                state.hp.contiguous())
+    if route.grid:
+        # the attacked cell's occupant from the grid (engine.py:295)
+        tgt = torch.where(hit, _grid_at(state.cell_slot, tyc * W + txc), -1)
+    else:
+        acell = torch.where(hit, tyc * W + txc, ap.QUERY_NONE)
+        own_cell = torch.where(alive, state.y * W + state.x, ap.CELL_DEAD)
+        tgt, hp_t_occ = ap.occupant(acell.to(torch.int32).contiguous(),
+                                    own_cell.to(torch.int32).contiguous(),
+                                    state.hp.contiguous())
 
     # target group from the contiguous per-group slot ranges
     tgt_c = tgt.clamp(0, A - 1)
@@ -142,27 +258,22 @@ def _attack_phase(spec, T, state: State, rank):
     kr_t = g_table(spec.g_kill_reward)
     ks_t = g_table(spec.g_kill_supply)
 
-    # order-aware damage: P = damage earlier-ranked attackers deal to my
-    # target; applied damage per target is ONE scatter-max
-    P = ap.rank_prefix(tgt_key, ap.pack_rank(rank, A), dmg_slot.contiguous())
-    hp_t = torch.where(valid, hp_t_occ, float("inf"))
-    cum = P + dmg_slot
-    not_yet_dead = hp_t - P >= 0.0  # target still alive when I strike
-    acted = valid & not_yet_dead
-    is_killer = acted & (hp_t - cum < 0.0)  # be_attack: hp < 0 (GridWorld.h:203-208)
-
-    dmg_t = torch.zeros((B, A + 1), dtype=state.hp.dtype,
-                        device=tgt.device).scatter_reduce(
-        1, torch.where(acted, tgt_key, A).long(),
-        torch.where(acted, cum, 0.0), "amax")[:, :A]
-    hp = state.hp - dmg_t
-    died = (dmg_t > 0.0) & (hp < 0.0) & state.active & ~state.dead
-
-    op_new = torch.where(is_killer, OP_KILL,
-                         torch.where(acted, OP_ATTACK, OP_NULL)).to(torch.int32)
-    obj_new = torch.where(acted, tgt_key, -1)
-    kr_gain = torch.where(is_killer, kr_t, 0.0)
-    supply = torch.where(is_killer, ks_t, 0.0)
+    if route.quad:
+        # order-aware damage: P = damage earlier-ranked attackers deal to my
+        # target; the grid path's sweep also picks up the target's hp
+        rank_key = ap.pack_rank(rank, A)
+        if route.grid:
+            P, hp_t = ap.rank_prefix(tgt_key, rank_key, dmg_slot.contiguous(),
+                                     state.hp.contiguous())
+        else:
+            P = ap.rank_prefix(tgt_key, rank_key, dmg_slot.contiguous())
+            hp_t = hp_t_occ
+        hp_t = torch.where(valid, hp_t, float("inf"))
+        hp, died, op_new, obj_new, kr_gain, supply = _damage_pairwise(
+            state, tgt_key, valid, P, dmg_slot, hp_t, kr_t, ks_t)
+    else:
+        hp, died, op_new, obj_new, kr_gain, supply = _damage_sorted(
+            state, rank, tgt_key, tgt_c, valid, dmg_slot, kr_t, ks_t)
 
     last_op = torch.where(op_new != OP_NULL, op_new, state.last_op)
     op_obj = torch.where(op_new != OP_NULL, obj_new, state.op_obj)
@@ -173,12 +284,15 @@ def _attack_phase(spec, T, state: State, rank):
                      hp)
     # dying targets: reward replaced by dead_penalty (GridWorld.h:203-208)
     next_reward = torch.where(died, T.dead_penalty, next_reward)
+    cell_slot = state.cell_slot
+    if route.grid:
+        cell_slot = _clear_cells(cell_slot, died, state.x, state.y)
     return state.replace(hp=hp, dead=state.dead | died,
                          next_reward=next_reward, last_op=last_op,
-                         op_obj=op_obj)
+                         op_obj=op_obj, cell_slot=cell_slot)
 
 
-def _starve_phase(spec, T, state: State):
+def _starve_phase(spec, T, state: State, route: _Route):
     """hp recovery / decay (engine.py:529-557; reference GridWorld.cc:519-542,
     Agent::starve GridWorld.h:194-201)."""
     alive = state.active & ~state.dead
@@ -191,17 +305,33 @@ def _starve_phase(spec, T, state: State):
     hp = torch.where(alive, torch.where(rec > 0, hp_pos, hp_neg), state.hp)
     starved = alive & (rec <= 0) & (hp < 0.0)
     next_reward = torch.where(starved, T.dead_penalty, state.next_reward)
+    cell_slot = state.cell_slot
+    if route.grid:
+        cell_slot = _clear_cells(cell_slot, starved, state.x, state.y)
     return state.replace(hp=hp, dead=state.dead | starved,
-                         next_reward=next_reward)
+                         next_reward=next_reward, cell_slot=cell_slot)
 
 
-def _move_phase(spec, T, state: State):
-    """Gridless 1x1 move resolution (engine.py:710-762; reference
-    GridWorld.cc:573-613, Map::do_move Map.cc:313-358): a mover succeeds iff
-    its target cell is free of live agents at phase start and no lower slot
-    claims it; border walls (x == 0 or y == 0 here, the far edges are out of
-    bounds) block by formula."""
+def _claims_sorted(tcell):
+    """Sort branch of the move claims (engine.py:793-813): movers sorted by
+    (target cell, slot) in one int64 key; the segment head wins its cell
+    and every row carries its segment head's slot -> (wins, head)."""
+    B, A = tcell.shape
+    slots = torch.arange(A, dtype=torch.int64, device=tcell.device)
+    order = torch.sort(tcell.to(torch.int64) * A + slots, dim=-1).indices
+    seg_start = _segment_starts(torch.gather(tcell, 1, order))
+    head_pos = torch.cummax(torch.where(seg_start, slots, 0), -1).values
+    head = torch.gather(order, 1, head_pos).to(torch.int32)
+    return _unsort(seg_start, order), _unsort(head, order)
+
+
+def _move_phase(spec, T, state: State, route: _Route):
+    """1x1 move resolution (engine.py:699-893; reference GridWorld.cc:573-613,
+    Map::do_move Map.cc:313-358): a mover succeeds iff its target cell is
+    free of live agents and walls at phase start and no lower slot claims
+    it."""
     H, W = spec.height, spec.width
+    B, A = state.x.shape
     act = state.last_action
     alive = state.active & ~state.dead
 
@@ -215,35 +345,89 @@ def _move_phase(spec, T, state: State):
     bw, bh = geo.size_for_dir(state.dir, T.width, T.length)
     in_bounds = (nx >= 0) & (ny >= 0) & (nx + bw < W) & (ny + bh < H)  # Map.cc:454-455
 
-    wall_blocked = (nx == 0) | (ny == 0)
-    ok = is_move & in_bounds & ~wall_blocked
-    tcell = torch.where(ok, ny * W + nx, ap.QUERY_NONE).to(torch.int32)
-    cell = torch.where(alive, state.y * W + state.x, ap.CELL_DEAD).to(
-        torch.int32)
-    cnt, head, occ = ap.move_resolve(tcell.contiguous(), cell.contiguous())
-    # an in-place move always succeeds: its only occupant is the mover, and
-    # any other claimant is occupancy-blocked by the stayer
-    stay = ok & (nx == state.x) & (ny == state.y)
-    occupied = ok & ~stay & (occ >= 0)
-    blank = ok & ~stay & ~occupied
-    wins = blank & (cnt == 0)
-    success = wins | stay
-    coll_obj = torch.where(blank & ~wins, head, torch.where(occupied, occ, -1))
-    collide = is_move & ~success & in_bounds & (coll_obj >= 0)
+    if not route.grid:
+        # border walls (x == 0 or y == 0 here, the far edges are out of
+        # bounds) block by formula; one sweep answers claims and blocking
+        wall_blocked = (nx == 0) | (ny == 0)
+        ok = is_move & in_bounds & ~wall_blocked
+        tcell = torch.where(ok, ny * W + nx, ap.QUERY_NONE).to(torch.int32)
+        cell = torch.where(alive, state.y * W + state.x, ap.CELL_DEAD).to(
+            torch.int32)
+        cnt, head, occ = ap.move_resolve(tcell.contiguous(), cell.contiguous())
+        # an in-place move always succeeds: its only occupant is the mover,
+        # and any other claimant is occupancy-blocked by the stayer
+        stay = ok & (nx == state.x) & (ny == state.y)
+        occupied = ok & ~stay & (occ >= 0)
+        blank = ok & ~stay & ~occupied
+        wins = blank & (cnt == 0)
+        success = wins | stay
+        coll_obj = torch.where(blank & ~wins, head,
+                               torch.where(occupied, occ, -1))
+        collide = is_move & ~success & in_bounds & (coll_obj >= 0)
+        return state.replace(
+            x=torch.where(success, nx, state.x),
+            y=torch.where(success, ny, state.y),
+            last_op=torch.where(collide, OP_COLLIDE, state.last_op).to(
+                torch.int32),
+            op_obj=torch.where(collide, coll_obj, state.op_obj),
+        )
+
+    # one gather of the wall-encoded grid answers "blocked?" and "by whom?"
+    # (engine.py:764-782; Map::get_collide Map.cc:486-501)
+    slots = T.slots
+    enc = torch.where(state.cell_wall, -2, state.cell_slot)
+    e = _grid_at(enc, ny.clamp(0, H - 1) * W + nx.clamp(0, W - 1))
+    reach = is_move & in_bounds
+    blank = reach & ((e == -1) | (e == slots))
+    collide_obj = torch.where(reach & (e >= 0) & (e != slots), e, -1)
+
+    # cell claims: the lowest slot wins (reference buffer order)
+    tcell = torch.where(blank, ny * W + nx, H * W).to(torch.int32)
+    if route.quad:
+        cnt, head = ap.move_claims(tcell.contiguous())
+        wins = blank & (cnt == 0)
+    else:
+        first, head = _claims_sorted(tcell)
+        wins = blank & first
+    coll_obj = torch.where(blank & ~wins, head, collide_obj)
+    collide = is_move & ~wins & in_bounds & (coll_obj >= 0)
+    x = torch.where(wins, nx, state.x)
+    y = torch.where(wins, ny, state.y)
+
+    # rebuild the grid from final positions in one scatter (engine.py:874-885);
+    # dead and empty slots write a dump cell past the end
+    cell = torch.where(state.active & ~state.dead, y * W + x, H * W).long()
+    grid = torch.full((B, H * W + 1), -1, dtype=torch.int32,
+                      device=x.device).scatter(1, cell, slots.expand(B, A))
     return state.replace(
-        x=torch.where(success, nx, state.x),
-        y=torch.where(success, ny, state.y),
-        last_op=torch.where(collide, OP_COLLIDE, state.last_op).to(torch.int32),
+        x=x, y=y,
+        last_op=torch.where(collide, OP_COLLIDE, state.last_op).to(
+            torch.int32),
         op_obj=torch.where(collide, coll_obj, state.op_obj),
+        cell_slot=grid[:, :H * W].reshape(B, H, W),
     )
 
 
-def make_step(spec: speclib.GameSpec, *, walls=None):
-    """Build ``step(state, actions=None) -> State`` for the gridless 1x1
-    path.  Raises NotImplementedError for specs the port does not run yet
-    (see :func:`_check_gridless`).  ``walls``: optional full [H, W] bool wall
-    map; only border walls are supported."""
-    _check_gridless(spec, walls)
+def make_step(spec: speclib.GameSpec, *, maintain_grid: bool = True,
+              n_envs: int = 1):
+    """Build ``step(state, actions=None) -> State`` for a battle-class spec
+    (see :func:`_check_ported`; other specs raise NotImplementedError).
+
+    The route is decided here, once (engine.py:993-1011 without its env-var
+    overrides): the pair kernels serve up to ``QUAD_MAX_SINGLE`` slots for a
+    single world and ``QUAD_MAX_AGENTS`` for a batch; ``maintain_grid=False``
+    takes the gridless path within that cap, and the grid path with its
+    sort branches above it."""
+    _check_ported(spec)
+    A = spec.n_agents_cap
+    quad = A <= (ap.QUAD_MAX_SINGLE if n_envs == 1 else ap.QUAD_MAX_AGENTS)
+    return _build_step(spec, _Route(grid=maintain_grid or not quad, quad=quad))
+
+
+def _build_step(spec: speclib.GameSpec, route: _Route):
+    """The step on a fixed route (tests pick the sort branches here)."""
+    if not (route.grid or route.quad):
+        raise ValueError("the gridless path has no sort branch")
     rules = spec.compiled_rules()
     A = spec.n_agents_cap
     cache: dict = {}
@@ -256,9 +440,9 @@ def make_step(spec: speclib.GameSpec, *, walls=None):
         key, rank = attack_rank(state, A)
         state = state.replace(key=key)
 
-        state = _attack_phase(spec, T, state, rank)
-        state = _starve_phase(spec, T, state)
-        state = _move_phase(spec, T, state)
+        state = _attack_phase(spec, T, state, rank, route)
+        state = _starve_phase(spec, T, state, route)
+        state = _move_phase(spec, T, state, route)
 
         # reward rules (reference: GridWorld::calc_reward, GridWorld.cc:681-692)
         next_reward, group_reward = state.next_reward, state.group_reward
@@ -279,4 +463,74 @@ def make_step(spec: speclib.GameSpec, *, walls=None):
         done = (alive_per_group == 0).any(-1) | terminal
         return state.replace(done=done, step_ct=state.step_ct + 1)
 
+    step.route = route
     return step
+
+
+def make_clear_dead(spec: speclib.GameSpec):
+    """Build ``clear_dead(state) -> State``: stable per-group compaction of
+    the live agents and the per-step reward/op reset (engine.py:1099-1155;
+    reference GridWorld::clear_dead GridWorld.cc:633-665,
+    Agent::init_reward GridWorld.h:168-174)."""
+    A, G = spec.n_agents_cap, spec.n_groups
+    cache: dict = {}
+
+    def consts(device):
+        if device not in cache:
+            as_t = lambda a, dt: torch.as_tensor(a, dtype=dt, device=device)  # noqa: E731
+            cache[device] = (as_t(spec.group_offsets, torch.int64),
+                             as_t(spec.group_of_slot, torch.int64),
+                             as_t(spec.s_step_reward, torch.float32),
+                             torch.arange(A, dtype=torch.int64, device=device))
+        return cache[device]
+
+    def clear_dead(state: State) -> State:
+        B = state.x.shape[0]
+        H, W = state.cell_slot.shape[1:]
+        offsets, gidx, step_reward, slots = consts(state.x.device)
+        keep = state.active & ~state.dead
+        keep_i = keep.to(torch.int64)
+        cum = keep_i.cumsum(-1)
+        base = (cum - keep_i)[:, offsets]  # exclusive count at group starts
+        new_slot = offsets[gidx] + cum - 1 - base[:, gidx]  # valid where keep
+
+        # inverse permutation: which old slot fills each new slot
+        inv = torch.full((B, A + 1), -1, dtype=torch.int64,
+                         device=keep.device).scatter(
+            1, torch.where(keep, new_slot, A), slots.expand(B, A))[:, :A]
+        filled = inv >= 0
+        invc = inv.clamp(0, A - 1)
+
+        def permute(t, default):
+            return torch.where(filled, torch.gather(t, 1, invc), default)
+
+        # remap grid occupancy to the compacted slots
+        remap = torch.full((B, A + 1), -1, dtype=torch.int64,
+                           device=keep.device).scatter(
+            1, torch.where(keep, slots, A), new_slot)[:, :A]
+        occ = state.cell_slot.reshape(B, H * W)
+        occ = torch.where(occ >= 0, torch.gather(remap, 1, occ.clamp(0, A - 1)
+                                                 .long()), occ.long())
+        return state.replace(
+            x=permute(state.x, 0),
+            y=permute(state.y, 0),
+            dir=permute(state.dir, NORTH),
+            hp=permute(state.hp, 0.0),
+            active=filled,
+            dead=torch.zeros_like(state.dead),
+            absorbed=permute(state.absorbed, False),
+            id=permute(state.id, 0),
+            last_action=permute(state.last_action, 0),
+            # init_reward: last <- next, next <- step_reward
+            last_reward=permute(state.next_reward, 0.0),
+            next_reward=torch.where(filled, step_reward, 0.0),
+            last_op=torch.full_like(state.last_op, OP_NULL),
+            op_obj=torch.full_like(state.op_obj, -1),
+            group_reward=torch.zeros_like(state.group_reward),
+            n_in_group=torch.stack(
+                [filled[:, g.offset:g.offset + g.cap].sum(-1)
+                 for g in spec.groups], -1).to(torch.int32),
+            cell_slot=occ.to(torch.int32).reshape(B, H, W),
+        )
+
+    return clear_dead

@@ -1,9 +1,10 @@
-"""``magent.gridworld``-compatible config namespace (reference:
-python/magent/gridworld.py).  The stateful ``GridWorld`` env is not ported
-yet; this module holds the config DSL names only."""
+"""``magent.gridworld``-compatible module: env + config DSL in one namespace
+(reference: python/magent/gridworld.py; as ``magent_tpu/gridworld.py``)."""
 
 from .config import AgentSymbol, Config, CircleRange, Event, EventNode, SectorRange
+from .env import GridWorld, Handle
 
 __all__ = [
-    "AgentSymbol", "Config", "CircleRange", "Event", "EventNode", "SectorRange",
+    "AgentSymbol", "Config", "CircleRange", "Event", "EventNode",
+    "SectorRange", "GridWorld", "Handle",
 ]

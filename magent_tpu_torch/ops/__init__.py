@@ -5,7 +5,8 @@ count)."""
 
 from . import _build
 
-KERNELS = ("window_gather", "occupant", "rank_prefix", "move_resolve")
+KERNELS = ("window_gather", "occupant", "rank_prefix", "move_resolve",
+           "rank_prefix_hp", "move_claims")
 
 
 def launch_counts() -> dict:

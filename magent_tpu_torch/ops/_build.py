@@ -38,7 +38,9 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "magent_occupant": (_P, _P, _P, _I, _I, _P, _P),
     "magent_rank_prefix": (_P, _P, _P, _I, _I, _P),
+    "magent_rank_prefix_hp": (_P, _P, _P, _P, _I, _I, _P, _P),
     "magent_move_resolve": (_P, _P, _I, _I, _P, _P, _P),
+    "magent_move_claims": (_P, _I, _I, _P, _P),
     "magent_window_gather": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 

@@ -8,7 +8,9 @@ same env (reference semantics and the pairwise formulations:
 - :func:`rank_prefix` — damage dealt to the same target by attackers of
   lower random rank (the reference shuffles its attack buffer,
   GridWorld.cc:464-468);
-- :func:`move_resolve` — move contention and blocking.
+- :func:`move_resolve` — move contention and blocking;
+- :func:`move_claims` — move contention alone (the grid path answers
+  blocking from its occupancy grid).
 
 Each has a plain PyTorch version (``*_ref``, ports of the JAX package's
 ``*_xla`` functions, materializing the ``[B, A, A]`` pair mask) and a wrapper
@@ -23,9 +25,12 @@ import torch
 
 from . import _build
 
-# above this capacity the O(A^2) pair work is not routed here (the JAX
-# package keeps its sort path there; the port does not have one yet)
+# above these capacities the engine routes conflict resolution to its sort
+# branches instead of the O(A^2) pair sweeps: batched worlds at
+# QUAD_MAX_AGENTS, a single world at QUAD_MAX_SINGLE (the JAX package's
+# bounds, magent_tpu/ops/attack_prefix.py:51-52)
 QUAD_MAX_AGENTS = 8192
+QUAD_MAX_SINGLE = 16384
 
 # sentinels of the gridless engine: an empty query, a dead agent's cell —
 # distinct, so a dead cell never satisfies a (sentinel) query
@@ -80,7 +85,7 @@ def occupant(acell, cell, hp):
     when not querying), ``cell`` [B, A] int32 own cell (``CELL_DEAD`` when
     dead), ``hp`` [B, A] f32 -> (tgt [B, A] int32, hp_t [B, A] f32).
 
-    Replaces ``magent_tpu/ops/attack_prefix.py:284`` ``occupant_tpu``.
+    Replaces ``magent_tpu/ops/attack_prefix.py:285`` ``occupant_tpu``.
     Bound on the card: 6 ops per pair (compare, count, two selects, two
     adds) over B*A^2 pairs; the operands are KBs.  Design: ``csrc/pair_kernels.cu`` — one thread per
     query, i-operands staged in shared memory tiles, ascending i, one launch
@@ -99,33 +104,50 @@ def occupant(acell, cell, hp):
 
 
 # --------------------------------------------------------------- rank prefix
-def rank_prefix_ref(tgt, rank, dmg):
-    """Plain version (port of ``rank_prefix_xla``, no-hp form):
-    ``P_j = sum_i [tgt_i == tgt_j and rank_i < rank_j] * dmg_i``."""
+def rank_prefix_ref(tgt, rank, dmg, hp=None):
+    """Plain version (port of ``rank_prefix_xla``):
+    ``P_j = sum_i [tgt_i == tgt_j and rank_i < rank_j] * dmg_i``; with ``hp``
+    also ``hp_t_j = sum_i [i == tgt_j] * hp_i`` (0 for the sentinel A)."""
     m = (tgt[..., :, None] == tgt[..., None, :]) & (
         rank[..., :, None] < rank[..., None, :])
-    return (m * dmg[..., :, None]).sum(-2).to(dmg.dtype)
+    P = (m * dmg[..., :, None]).sum(-2).to(dmg.dtype)
+    if hp is None:
+        return P
+    sel = _slots_col(tgt.shape[-1], tgt.device) == tgt[..., None, :]
+    return P, (sel * hp[..., :, None]).sum(-2).to(hp.dtype)
 
 
-def rank_prefix(tgt, rank, dmg):
+def rank_prefix(tgt, rank, dmg, hp=None):
     """Order-aware damage prefix: ``tgt`` [B, A] int32 target slot (A for
     non-attackers), ``rank`` [B, A] int32 strict priority (:func:`pack_rank`),
-    ``dmg`` [B, A] f32 -> P [B, A] f32.
+    ``dmg`` [B, A] f32 -> P [B, A] f32; with ``hp`` [B, A] f32 -> (P, hp_t),
+    ``hp_t`` the target's hp (0 for the sentinel A).
 
-    Replaces ``magent_tpu/ops/attack_prefix.py:127`` ``rank_prefix_tpu``
-    (no-hp form, ``:184-199``).  Bound on the card: 5 ops per pair (two
-    compares, and, select, add) over B*A^2 pairs.  Design: as :func:`occupant`; the f32 sum runs in
+    Replaces ``magent_tpu/ops/attack_prefix.py:128`` ``rank_prefix_tpu``:
+    the no-hp form (``:184-199``, the gridless path) and the hp form
+    (``:152-182``, the grid path).  Bound on the card: 5 ops per pair (two
+    compares, and, select, add) over B*A^2 pairs; the hp form adds one load
+    per query.  Design: as :func:`occupant`; the f32 sum runs in
     ascending slot order, so it is deterministic (it may differ from the
     plain version's reduction order in the last bits for general damages;
-    sums of battle's damage 2.0 are exact)."""
-    if _build.route(tgt, rank, dmg) == "cpu":
-        return rank_prefix_ref(tgt, rank, dmg)
-    B, A, device = _pair_operands("rank_prefix", (tgt, rank), (dmg,))
+    sums of battle's damage 2.0 are exact).  ``hp_t`` is one direct load
+    per query in the kernel, equal to the one-hot sum bit for bit."""
+    operands = (tgt, rank, dmg) + (() if hp is None else (hp,))
+    if _build.route(*operands) == "cpu":
+        return rank_prefix_ref(tgt, rank, dmg, hp)
+    B, A, device = _pair_operands("rank_prefix", (tgt, rank), operands[2:])
     P = torch.empty((B, A), dtype=torch.float32, device=device)
+    if hp is None:
+        if A:
+            _build.launch("magent_rank_prefix", device, tgt.data_ptr(),
+                          rank.data_ptr(), dmg.data_ptr(), B, A, P.data_ptr())
+        return P
+    hp_t = torch.empty((B, A), dtype=torch.float32, device=device)
     if A:
-        _build.launch("magent_rank_prefix", device, tgt.data_ptr(),
-                      rank.data_ptr(), dmg.data_ptr(), B, A, P.data_ptr())
-    return P
+        _build.launch("magent_rank_prefix_hp", device, tgt.data_ptr(),
+                      rank.data_ptr(), dmg.data_ptr(), hp.data_ptr(), B, A,
+                      P.data_ptr(), hp_t.data_ptr())
+    return P, hp_t
 
 
 # -------------------------------------------------------------- move resolve
@@ -151,7 +173,7 @@ def move_resolve(tcell, cell):
     (``QUERY_NONE`` for non-movers), ``cell`` [B, A] int32 own cell
     (``CELL_DEAD`` when dead) -> (cnt, head, occ), each [B, A] int32.
 
-    Replaces ``magent_tpu/ops/attack_prefix.py:345`` ``move_resolve_tpu``.
+    Replaces ``magent_tpu/ops/attack_prefix.py:346`` ``move_resolve_tpu``.
     Bound on the card: 12 integer ops per pair (count 4, head 2,
     occupant 6) over B*A^2 pairs.  Design:
     as :func:`occupant`, three results from one sweep."""
@@ -167,3 +189,35 @@ def move_resolve(tcell, cell):
                       occ.data_ptr())
     return cnt, head, occ
 
+
+# --------------------------------------------------------------- move claims
+def move_claims_ref(tcell):
+    """Plain version (port of ``move_claims_xla``): (count of lower slots
+    with the same target cell, lowest slot with the same target cell — self
+    included, so never the sentinel A)."""
+    A = tcell.shape[-1]
+    slots = _slots_col(A, tcell.device)
+    same = tcell[..., :, None] == tcell[..., None, :]
+    cnt = (same & (slots < slots.T)).sum(-2)
+    head = torch.where(same, slots, A).amin(-2)
+    return cnt.to(torch.int32), head.to(torch.int32)
+
+
+def move_claims(tcell):
+    """Grid-path move contention: ``tcell`` [B, A] int32 target cell (one
+    shared sentinel for non-movers) -> (cnt, head), each [B, A] int32.
+
+    Replaces ``magent_tpu/ops/attack_prefix.py:223`` ``move_claims_tpu``.
+    Bound on the card: 5 integer ops per pair (index, compare, and-count,
+    select, min) over B*A^2 pairs.  Design: as :func:`occupant`, the claim
+    half of :func:`move_resolve`'s sweep.  Sentinel rows count one another,
+    as in the plain version; the engine masks them."""
+    if _build.route(tcell) == "cpu":
+        return move_claims_ref(tcell)
+    B, A, device = _pair_operands("move_claims", (tcell,))
+    cnt = torch.empty((B, A), dtype=torch.int32, device=device)
+    head = torch.empty((B, A), dtype=torch.int32, device=device)
+    if A:
+        _build.launch("magent_move_claims", device, tcell.data_ptr(), B, A,
+                      cnt.data_ptr(), head.data_ptr())
+    return cnt, head

@@ -59,7 +59,8 @@ class VecGridWorld:
         self.spec = spec = speclib.compile_spec(config, caps)
         self.n_envs = n_envs
         # border walls only: interior walls are ROADMAP.md Queue 1 item 10
-        self._step = engine.make_step(spec)
+        self._step = engine.make_step(spec, maintain_grid=False,
+                                      n_envs=n_envs)
         self._observe = [observe.make_observe(spec, g)
                          for g in range(spec.n_groups)]
         self._grids = self._observe[0].grids_fn

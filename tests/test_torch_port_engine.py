@@ -26,7 +26,7 @@ SEEDS = [0, 1, 2, 3]
 def pair(request):
     map_size, caps = SETUPS[request.param]
     p = Pair(request.param, map_size, caps, B)
-    p.port_step = tengine.make_step(p.spec)
+    p.port_step = tengine.make_step(p.spec, maintain_grid=False, n_envs=B)
     p.name = request.param
     return p
 

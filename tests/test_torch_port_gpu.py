@@ -1,13 +1,14 @@
-"""The port's CUDA kernels against their plain versions on the card, and a
-short GPU-vs-CPU run of the lockstep loop.  Marked ``gpu``: each test
-decides at run time whether a card exists and skips without one.  On a
-machine with an H100:  python -m pytest tests/test_torch_port_gpu.py -q"""
+"""The port's CUDA kernels against their plain versions on the card, and
+short GPU-vs-CPU runs of the lockstep loop and of the stateful GridWorld.
+Marked ``gpu``: each test decides at run time whether a card exists and
+skips without one.  On a machine with an H100:
+python -m pytest tests/test_torch_port_gpu.py -q"""
 
 import numpy as np
 import pytest
 import torch
 
-from magent_tpu_torch import ops
+from magent_tpu_torch import GridWorld, ops
 from magent_tpu_torch import random as trandom
 from magent_tpu_torch.builtin.config import battle
 from magent_tpu_torch.core.state import FIELDS
@@ -66,6 +67,57 @@ def test_pair_kernels_match_plain_on_card(cuda, A):
     after = ops.launch_counts()
     for name in ("occupant", "rank_prefix", "move_resolve"):
         assert after[name] == before[name] + 1
+
+
+@pytest.mark.parametrize("A", [97, 777, 2048])
+def test_grid_pair_kernels_match_plain_on_card(cuda, A):
+    """rank_prefix's hp form (hp_t exact, sentinel rows read 0) and
+    move_claims (exact on every row, sentinel rows included)."""
+    x = _pair_inputs(A, 2, A + 1, cuda)
+    before = ops.launch_counts()
+    P, hp_t = tap.rank_prefix(x["tgt"], x["rank"], x["dmg"], x["hp"])
+    want_p, want_hp = tap.rank_prefix_ref(x["tgt"], x["rank"], x["dmg"],
+                                          x["hp"])
+    torch.testing.assert_close(P, want_p, atol=PAIR_ATOL, rtol=0)
+    assert torch.equal(hp_t, want_hp)
+    assert bool((hp_t[x["tgt"] == A] == 0).all())
+    tcell = torch.where(x["acell"] == tap.QUERY_NONE, 3 * A, x["tcell"])
+    for g, w in zip(tap.move_claims(tcell), tap.move_claims_ref(tcell)):
+        assert torch.equal(g, w)
+    after = ops.launch_counts()
+    assert after["rank_prefix_hp"] == before["rank_prefix_hp"] + 1
+    assert after["move_claims"] == before["move_claims"] + 1
+    assert after["rank_prefix"] == before["rank_prefix"]
+
+
+def test_gridworld_gpu_matches_cpu(cuda):
+    """The stateful API on the card and on the CPU: same placements (host
+    LCG), same actions -> equal observations, rewards and states."""
+    envs = [GridWorld("battle", map_size=30, device=d) for d in (cuda, "cpu")]
+    for e in envs:
+        e.reset()
+        e.add_walls(method="random", n=12)
+        for h in e.get_handles():
+            e.add_agents(h, method="random", n=60)
+    rng = np.random.RandomState(0)
+    for _ in range(4):
+        for h in envs[0].get_handles():
+            (gv, gf), (cv, cf) = (e.get_observation(h) for e in envs)
+            np.testing.assert_allclose(gv, cv, atol=1e-6, rtol=0)
+            np.testing.assert_array_equal(gf, cf)
+            acts = rng.randint(0, envs[0].get_action_space(h)[0],
+                               envs[0].get_num(h)).astype(np.int32)
+            for e in envs:
+                e.set_action(h, acts)
+        assert envs[0].step() == envs[1].step()
+        for h in envs[0].get_handles():
+            np.testing.assert_array_equal(envs[0].get_reward(h),
+                                          envs[1].get_reward(h))
+        for e in envs:
+            e.clear_dead()
+        for name in FIELDS:
+            assert torch.equal(getattr(envs[0].state, name).cpu(),
+                               getattr(envs[1].state, name)), name
 
 
 def test_window_gather_matches_plain_on_card(cuda):

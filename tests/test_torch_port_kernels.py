@@ -1,4 +1,4 @@
-"""Plain versions of the port's four kernels against the JAX package: the
+"""Plain versions of the port's kernels against the JAX package: the
 Pallas kernels in interpret mode and their ``*_xla`` references, on the
 same numpy-seeded inputs.  On CPU tensors each port wrapper calls its plain
 version, so the wrappers are held here too; the CUDA kernels themselves are
@@ -108,6 +108,57 @@ def test_rank_prefix_battle_damage_is_exact(arrays):
                                    jnp.asarray(rank[b].numpy()),
                                    jnp.asarray(dmg[b]), interpret=True)
         np.testing.assert_array_equal(got[b], np.asarray(want))
+
+
+def test_rank_prefix_hp_form_matches_jax(arrays):
+    """The grid path's form: P as above plus the target's hp.  A third of
+    the rows carry the no-target sentinel A (zero damage, as the engine
+    gives them) and read hp_t = 0; hp_t is a one-hot sum, so exact."""
+    A = arrays["tgt"].shape[1]
+    rng = np.random.RandomState(A + 1)
+    tgt = np.where(rng.uniform(size=(B, A)) < 0.3, A, arrays["tgt"]).astype(np.int32)
+    dmg = np.where(tgt == A, 0.0, arrays["dmg"]).astype(np.float32)
+    hp = arrays["hp"]
+    rank = tap.pack_rank(_t(arrays["bits"].astype(np.int64)), A)
+    ref = tap.rank_prefix_ref(_t(tgt), rank, _t(dmg), _t(hp))
+    wrapped = tap.rank_prefix(_t(tgt), rank, _t(dmg), _t(hp))
+    for b in range(B):
+        args = (jnp.asarray(tgt[b]), jnp.asarray(rank[b].numpy()),
+                jnp.asarray(dmg[b]), jnp.asarray(hp[b]))
+        for want_p, want_hp in (jap.rank_prefix_tpu(*args, interpret=True),
+                                jap.rank_prefix_xla(*args)):
+            for got_p, got_hp in (ref, wrapped):
+                assert got_hp.dtype == torch.float32
+                np.testing.assert_allclose(got_p[b].numpy(), np.asarray(want_p),
+                                           atol=PAIR_ATOL, rtol=0)
+                np.testing.assert_array_equal(got_hp[b].numpy(),
+                                              np.asarray(want_hp))
+    hp_t = ref[1].numpy()
+    assert (tgt == A).sum() > 0 and (hp_t[tgt == A] == 0).all()
+    np.testing.assert_array_equal(
+        hp_t[tgt < A], np.take_along_axis(hp, np.minimum(tgt, A - 1), 1)[tgt < A])
+
+
+def test_move_claims_matches_jax(arrays):
+    """Both results are ints: exact, on every row — the non-movers share
+    one sentinel cell (the grid path's H*W) and count one another."""
+    A = arrays["tgt"].shape[1]
+    sentinel = 3 * A  # above every target cell, as H*W is on the grid path
+    tcell = np.where(arrays["tcell"] == tap.QUERY_NONE, sentinel,
+                     arrays["tcell"]).astype(np.int32)
+    ref = tap.move_claims_ref(_t(tcell))
+    wrapped = tap.move_claims(_t(tcell))
+    for b in range(B):
+        for want in (jap.move_claims_tpu(jnp.asarray(tcell[b]), interpret=True),
+                     jap.move_claims_xla(jnp.asarray(tcell[b]))):
+            for got in (ref, wrapped):
+                for g, w in zip(got, want):
+                    assert g.dtype == torch.int32
+                    np.testing.assert_array_equal(g[b].numpy(), np.asarray(w))
+    cnt, head = ref
+    sent = tcell == sentinel
+    assert sent.sum() > 1 and (cnt.numpy()[sent] > 0).any()
+    assert (head.numpy() <= np.arange(A)).all()
 
 
 def test_move_resolve_matches_jax(arrays):

@@ -110,18 +110,22 @@ def test_unported_rule_shapes_raise():
 
 
 def test_make_step_rejects_unported_specs():
+    """Multi-cell bodies and food still raise; past the batched quad cap the
+    step now takes the grid path's sort branches instead of raising, and a
+    single world keeps the pair kernels up to QUAD_MAX_SINGLE."""
     with pytest.raises(NotImplementedError, match="multi-cell"):
         tengine.make_step(tspec.compile_spec(jpursuit.get_config(24), [3, 6]))
     big = tspec.compile_spec(tbattle.get_config(200), [4100, 4100])
-    with pytest.raises(NotImplementedError, match="QUAD_MAX_AGENTS"):
-        tengine.make_step(big)
+    assert tengine.make_step(big, maintain_grid=False, n_envs=16).route == \
+        tengine._Route(grid=True, quad=False)
+    assert tengine.make_step(big, maintain_grid=False, n_envs=1).route == \
+        tengine._Route(grid=False, quad=True)
+    huge = tspec.compile_spec(tbattle.get_config(200), [8200, 8200])
+    assert tengine.make_step(huge).route == tengine._Route(grid=True,
+                                                           quad=False)
     spec = tspec.compile_spec(tbattle.get_config(24), [5, 5])
-    walls = np.zeros((24, 24), bool)
-    walls[0, :] = walls[-1, :] = walls[:, 0] = walls[:, -1] = True
-    tengine.make_step(spec, walls=walls)  # border walls only: fine
-    walls[5, 7] = True
-    with pytest.raises(NotImplementedError, match="interior walls"):
-        tengine.make_step(spec, walls=walls)
+    assert tengine.make_step(spec).route == tengine._Route(grid=True,
+                                                           quad=True)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 42, 2**32 - 1])
