@@ -23,10 +23,22 @@ Run from the repository root:  python3 chip_smoke.py
    ``window_gather`` twice), counts the host syncs per step and profiles a
    few steps; then holds the grid path's two kernels against their plain
    versions on the operands of one more step, and times them;
-5. runs 4 steps at battle map 64, 2x200, B=4 and 6 GridWorld steps at
-   battle map 40, 2x64, on the GPU and on the CPU from the same key and
+5. runs pursuit's gridless rect path, the lockstep loop of
+   ``scripts/train_evidence.py`` — ``VecGridWorld(pursuit(64), [51, 102],
+   n_envs=16)`` with its placements (seed 11): holds ``occupant_rect``
+   (with and without ``exclude_self``), ``rect_first_overlap`` (both gates)
+   and ``window_gather4`` (no epilogue, liveness, minimap + self mark +
+   liveness) against their plain versions on one step's operands, times the
+   loop (launches per step: occupant_rect 1, rect_first_overlap 2,
+   rank_prefix 1, window_gather4 2), counts host syncs and profiles it;
+6. runs the same path on one world at ``scripts/bench_pursuit.py``'s
+   density, map 500 (A = 9375): the same kernel checks at those shapes,
+   then 20 timed steps with the same launch counts;
+7. runs 4 steps at battle map 64, 2x200, B=4, 6 GridWorld steps at battle
+   map 40, 2x64, and 4 steps of pursuit map 64, B=16 without and with 3%
+   interior walls, on the GPU and on the CPU from the same keys and
    actions, and asserts equal states, views and features;
-6. prints the ``kernels`` JSON line, then ``{"ok": true, "device": ...}``
+8. prints the ``kernels`` JSON line, then ``{"ok": true, "device": ...}``
    as the last line.
 
 Any failure raises (exit code 1).  Without a CUDA device it exits with 2
@@ -57,6 +69,13 @@ SMALL_MAP, SMALL_N, SMALL_ENVS, SMALL_STEPS = 64, 200, 4, 4
 GW_MAP, GW_WARMUP, GW_TIMED, GW_SYNC_STEPS = 125, 10, 60, 5
 # reduced size for the GridWorld GPU-vs-CPU run: 2x64 agents, map 40
 GW_SMALL_MAP, GW_SMALL_STEPS = 40, 6
+# pursuit: the training protocol of scripts/train_evidence.py (map 64,
+# B=16; placements seed 11) and the one-world throughput protocol of
+# scripts/bench_pursuit.py (map 500; seed 5); interior walls as many as
+# examples/train_pursuit.py adds (3% of the cells)
+P_MAP, P_ENVS, P_SEED = 64, 16, 11
+P_BIG_MAP, P_BIG_SEED = 500, 5
+P_WALL_FRAC, P_SMALL_STEPS = 0.03, 4
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 # The data sheet's 67 TFLOP/s float32 counts an FMA as two operations; the
@@ -84,8 +103,15 @@ VIEW_ATOL = 1e-6
 #   move_claims   i = i0 + k; same; AND i < j; cnt += ; head = min(head, i)
 # rank_prefix_hp is rank_prefix's sweep; its hp_t is one load per query,
 # charged as bytes (hp read, hp_t written).
+#   occupant_rect       four edge compares; best = i (i = i0 + k)  | hsum += hp
+#                       (+1 compare with exclude_self)
+#   rect_first_overlap  two max, two min edges; two compares AND the gate;
+#                       k = (ox - qx) * MB + (oy - qy) (two subtracts, one
+#                       multiply-add); key = k * stride + i; min
+#                       (lower_only: only the pairs i < j)
 PAIR_OPS = {"occupant": (3, 1), "rank_prefix": (2, 1), "move_resolve": (9, 0),
-            "rank_prefix_hp": (2, 1), "move_claims": (5, 0)}
+            "rank_prefix_hp": (2, 1), "move_claims": (5, 0),
+            "occupant_rect": (5, 1), "rect_first_overlap": (12, 0)}
 REPLACES = {
     "window_gather": "magent_tpu/ops/window_gather.py:167",
     "occupant": "magent_tpu/ops/attack_prefix.py:99 (occupant_tpu :285-322)",
@@ -97,6 +123,16 @@ REPLACES = {
                       "(rank_prefix_tpu hp form :152-182)",
     "move_claims": "magent_tpu/ops/attack_prefix.py:99 "
                    "(move_claims_tpu :223-256)",
+    "occupant_rect": "magent_tpu/ops/attack_prefix.py:99 "
+                     "(occupant_rect_tpu :430-501)",
+    "rect_first_overlap": "magent_tpu/ops/attack_prefix.py:99 "
+                          "(rect_first_overlap_tpu :586-675)",
+    # at map 500 the image (6.41 MB) exceeds the JAX package's VMEM budget,
+    # so the reference observes with window_gather_banded (:543, row 13 of
+    # PERF.md, still to port), which the port serves with this kernel
+    "window_gather4": "magent_tpu/ops/window_gather.py:334, :370 "
+                      "(window_gather4 :187-387; at map 500 the reference "
+                      "runs window_gather_banded :543)",
 }
 # the kernels' device symbols, as the profiler names them
 SYMBOLS = {
@@ -104,6 +140,9 @@ SYMBOLS = {
     "rank_prefix": "rank_prefix_kernel<false>",
     "rank_prefix_hp": "rank_prefix_kernel<true>",
     "move_resolve": "move_resolve_kernel", "move_claims": "move_claims_kernel",
+    "occupant_rect": "occupant_rect_kernel",
+    "rect_first_overlap": "rect_first_overlap_kernel",
+    "window_gather4": "window_gather4_kernel",
 }
 SOURCES = {
     "window_gather": "magent_tpu_torch/csrc/window_gather.cu",
@@ -112,7 +151,14 @@ SOURCES = {
     "move_resolve": "magent_tpu_torch/csrc/pair_kernels.cu",
     "rank_prefix_hp": "magent_tpu_torch/csrc/pair_kernels.cu",
     "move_claims": "magent_tpu_torch/csrc/pair_kernels.cu",
+    "occupant_rect": "magent_tpu_torch/csrc/pair_kernels.cu",
+    "rect_first_overlap": "magent_tpu_torch/csrc/pair_kernels.cu",
+    "window_gather4": "magent_tpu_torch/csrc/window_gather.cu",
 }
+# kernels whose float results equal their plain versions exactly: window
+# copies (the epilogue rounds each operation as the plain version does) and
+# occupant_rect's hp (bodies are disjoint: one non-zero term)
+EXACT = ("window_gather", "window_gather4", "occupant_rect")
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -186,36 +232,42 @@ def peak_rates():
     return F32_PER_SM_CLK * sm_clk, INT32_PER_SM_CLK * sm_clk, mhz
 
 
-def window_gather_bytes(args, kwargs, out) -> int:
-    """Bytes the window gather must move: every output written once, pos and
-    mask read once, and each image element that some window reads under a
-    non-zero mask entry read once.  The rest of the padded image (alignment
-    slack, unused padding, cells no agent sees) is never needed."""
+def window_gather_bytes(name, args, kwargs, out) -> int:
+    """Bytes a window gather must move: every output written once, pos,
+    mask and the epilogue operands read once, and each image element that
+    some window reads under a non-zero mask entry read once.  The rest of
+    the padded image (alignment slack, unused padding, cells no agent sees)
+    is never needed."""
     gfull, pos, mask = args
     C, Wp = kwargs["C"], kwargs["Wp"]
+    tl = pos.long() >> 10 if name == "window_gather4" else pos.long()
     oy, ox = torch.nonzero(mask != 0, as_tuple=True)
     touched = torch.zeros(gfull.shape[1:], dtype=torch.bool,
                           device=gfull.device)
     n_read = 0
     for b in range(gfull.shape[0]):
-        p = pos[b].long()
         touched.zero_()
-        touched[(p // Wp)[:, None] + oy, (p % Wp)[:, None] * C + ox] = True
+        touched[(tl[b] // Wp)[:, None] + oy, (tl[b] % Wp)[:, None] * C + ox] = True
         n_read += int(touched.sum())
-    return n_read * gfull.element_size() + nbytes([pos, mask]) + nbytes(out)
+    epilogue = [v for v in kwargs.values() if isinstance(v, torch.Tensor)]
+    return (n_read * gfull.element_size() + nbytes([pos, mask] + epilogue)
+            + nbytes(out))
 
 
 def record_operands(step_fn, wrappers):
     """Run ``step_fn`` with each ``(module, name)`` wrapper recording a copy
-    of its operands; returns ``{name: (args, kwargs)}``."""
-    captured = {}
+    of its operands; returns ``{name: [(args, kwargs) per call]}``."""
+    captured = collections.defaultdict(list)
     originals = {}
     for module, name in wrappers:
         fn = getattr(module, name)
         originals[(module, name)] = fn
 
         def rec(*args, _fn=fn, _name=name, **kwargs):
-            captured[_name] = ([a.clone() for a in args], dict(kwargs))
+            captured[_name].append((
+                [a.clone() for a in args],
+                {k: v.clone() if isinstance(v, torch.Tensor) else v
+                 for k, v in kwargs.items()}))
             return _fn(*args, **kwargs)
 
         setattr(module, name, rec)
@@ -237,22 +289,47 @@ def assert_state_equal(a, b, tag):
                                  "CPU" % (tag, name))
 
 
-def kernel_row(name, args, kwargs, f32_rate, int32_rate):
-    """Hold kernel ``name`` against its plain version on recorded operands
-    (ints and window copies exact, pair sums within PAIR_ATOL), time both,
-    and compute its bound: instructions at ``f32_rate`` / ``int32_rate``
-    per second against bytes at HBM_BYTES_PER_S."""
+def kernel_fns():
+    """{name: (kernel wrapper, plain version)} of every entry point."""
     from magent_tpu_torch.ops import attack_prefix as ap
     from magent_tpu_torch.ops import window_gather as wg
 
-    kernel, plain = {
+    return {
         "window_gather": (wg.window_gather, wg.window_gather_ref),
         "occupant": (ap.occupant, ap.occupant_ref),
         "rank_prefix": (ap.rank_prefix, ap.rank_prefix_ref),
         "rank_prefix_hp": (ap.rank_prefix, ap.rank_prefix_ref),
         "move_resolve": (ap.move_resolve, ap.move_resolve_ref),
         "move_claims": (ap.move_claims, ap.move_claims_ref),
-    }[name]
+        "occupant_rect": (ap.occupant_rect, ap.occupant_rect_ref),
+        "rect_first_overlap": (ap.rect_first_overlap,
+                               ap.rect_first_overlap_ref),
+        "window_gather4": (wg.window_gather4, wg.window_gather4_ref),
+    }
+
+
+def pair_work(name, args, kwargs):
+    """(pairs, int32 and f32 instructions per pair) of a pair-kernel call:
+    the pairs this call's sweep needs (``lower_only``: i < j only)."""
+    B, A = args[0].shape
+    n_int, n_f32 = PAIR_OPS[name]
+    pairs = B * A * A
+    if name == "occupant_rect" and kwargs.get("exclude_self"):
+        n_int += 1
+    if kwargs.get("gate") == "lower_only":
+        pairs = B * A * (A - 1) // 2
+    return pairs, n_int, n_f32
+
+
+def call_stats(name, args, kwargs, f32_rate, int32_rate, form):
+    """Hold kernel ``name`` against its plain version on one call's operands
+    (ints exact; floats exact for EXACT kernels and the hp form's hp_t, else
+    within PAIR_ATOL), check that the call launches its kernel once, time
+    both, and compute the bound: instructions at ``f32_rate`` /
+    ``int32_rate`` per second against bytes at HBM_BYTES_PER_S."""
+    from magent_tpu_torch import ops
+
+    kernel, plain = kernel_fns()[name]
     got = kernel(*args, **kwargs)
     want = plain(*args, **kwargs)
     torch.cuda.synchronize()
@@ -268,19 +345,15 @@ def kernel_row(name, args, kwargs, f32_rate, int32_rate):
                 name, tuple(g.shape), g.dtype, tuple(w.shape), w.dtype))
         if g.dtype.is_floating_point:
             e = float((g - w).abs().max()) if g.numel() else 0.0
-            # window copies and the hp form's hp_t (a one-hot sum) are exact
-            exact = name == "window_gather" or (name == "rank_prefix_hp"
-                                                and k == 1)
+            exact = name in EXACT or (name == "rank_prefix_hp" and k == 1)
             tol = 0.0 if exact else PAIR_ATOL
             if not e <= tol:
-                raise AssertionError("%s: max |kernel - plain| = %g > %g"
-                                     % (name, e, tol))
+                raise AssertionError("%s (%s): max |kernel - plain| = %g > %g"
+                                     % (name, form, e, tol))
             err = max(err, e)
         elif not torch.equal(g, w):
-            raise AssertionError("%s: integer outputs differ from the "
-                                 "plain version" % name)
-    from magent_tpu_torch import ops
-
+            raise AssertionError("%s (%s): integer outputs differ from the "
+                                 "plain version" % (name, form))
     before = ops.launch_counts()[name]
     kernel(*args, **kwargs)
     if ops.launch_counts()[name] != before + 1:
@@ -289,30 +362,51 @@ def kernel_row(name, args, kwargs, f32_rate, int32_rate):
     ms = device_ms(lambda: kernel(*args, **kwargs), 50)
     plain_ms = device_ms(lambda: plain(*args, **kwargs), 5)
     call_ms = cuda_ms(lambda: kernel(*args, **kwargs), 50)
-    if name == "window_gather":
-        io_bytes = window_gather_bytes(args, kwargs, got)
-        ops_ms = got[0].numel() / f32_rate * 1e3  # one multiply each
+    if name in ("window_gather", "window_gather4"):
+        io_bytes = window_gather_bytes(name, args, kwargs, got[0])
+        # f32 operations per output element: the mask multiply, the two
+        # minimap adds, the liveness multiply
+        n_f32 = 1 + (2 if kwargs.get("mm_img") is not None else 0) + (
+            1 if kwargs.get("act") is not None else 0)
+        ops_ms = got[0].numel() * n_f32 / f32_rate * 1e3
     else:
         io_bytes = nbytes(args) + nbytes(got)
-        B, A = args[0].shape
-        n_int, n_f32 = PAIR_OPS[name]
-        ops_ms = B * A * A * max(n_int / int32_rate,
-                                 n_f32 / f32_rate) * 1e3
+        pairs, n_int, n_f32 = pair_work(name, args, kwargs)
+        ops_ms = pairs * max(n_int / int32_rate, n_f32 / f32_rate) * 1e3
     bytes_ms = io_bytes / HBM_BYTES_PER_S * 1e3
+    stats = dict(form=form, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                 bound_ms=max(bytes_ms, ops_ms),
+                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+    print("kernel %-18s %-34s max_abs_err=%g  kernel %.4f ms device (%.4f "
+          "ms a call back to back)  plain %.4f ms device  bound %.6f ms (%s; "
+          "%.4f MB -> %.6f ms, ops -> %.6f ms)  shapes %s" % (
+              name, form, err, ms, call_ms, plain_ms, stats["bound_ms"],
+              stats["bound_by"], io_bytes / 1e6, bytes_ms, ops_ms,
+              [tuple(a.shape) for a in args]), flush=True)
+    return stats
+
+
+def kernel_row(name, calls, f32_rate, int32_rate, extra=()):
+    """The ``kernels`` line's row of entry point ``name``: ``calls`` are the
+    ``(args, kwargs, form)`` of one main-path step's calls, whose numbers
+    are averaged per launch; ``extra`` are further checked forms (other
+    options, other shapes), listed under ``per_call`` with those of the
+    path."""
+    path = [call_stats(name, a, k, f32_rate, int32_rate, form)
+            for a, k, form in calls]
+    more = [call_stats(name, a, k, f32_rate, int32_rate, form)
+            for a, k, form in extra]
+    top = max(path, key=lambda st: st["bound_ms"])
     row = dict(
         name=name, route="cuda", source=SOURCES[name],
-        replaces=REPLACES[name], launches=None, max_abs_err=err,
-        ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
-        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-        library_ms=None,
-    )
-    print("kernel %-14s max_abs_err=%g  kernel %.4f ms device (%.4f ms a "
-          "call back to back)  plain %.4f ms device  bound %.6f ms (%s; "
-          "%.4f MB -> %.6f ms, ops -> %.6f ms)  shapes %s" % (
-              name, err, ms, call_ms, plain_ms, row["bound_ms"],
-              row["bound_by"], io_bytes / 1e6, bytes_ms, ops_ms,
-              [tuple(a.shape) for a in args]),
-          flush=True)
+        replaces=REPLACES[name], launches=None,
+        max_abs_err=max(st["max_abs_err"] for st in path + more),
+        ms=statistics.mean(st["ms"] for st in path),
+        plain_ms=statistics.mean(st["plain_ms"] for st in path),
+        bound_ms=statistics.mean(st["bound_ms"] for st in path),
+        bound_by=top["bound_by"], library_ms=None)
+    if len(path) > 1 or more:
+        row["per_call"] = path + more
     return row
 
 
@@ -331,65 +425,92 @@ def check_kernels(venv, state, key, f32_rate, int32_rate):
         (ap, "move_resolve")])
     rows = {}
     for name in ("window_gather", "occupant", "rank_prefix", "move_resolve"):
-        rows[name] = kernel_row(name, *ops[name], f32_rate, int32_rate)
+        args, kwargs = ops[name][0]
+        rows[name] = kernel_row(name, [(args, kwargs, "battle 2x1000, B=16")],
+                                f32_rate, int32_rate)
     del ops
     torch.cuda.empty_cache()
     return rows
 
 
-def run_main_path(venv, state, key, device_name):
-    """Phase 3: the timed lockstep loop; returns (state, launch counts)."""
+def lockstep_step(venv, carry):
+    """One ``observe_all -> random_actions -> transition`` step on
+    ``carry = [state, key]``; returns a scalar of the outputs to sum."""
+    from magent_tpu_torch import random as rnd
+
+    keys = rnd.split(carry[1])
+    carry[1], akey = keys[0], keys[1]
+    sink = 0.0
+    for view, feat in venv.observe_all(carry[0]):
+        sink = sink + view[:, :, 0, 0, 0].sum() + feat[:, 0, 0].sum()
+    carry[0], rewards, _, _ = venv.transition(carry[0],
+                                              venv.random_actions(akey))
+    return sink + rewards[:, 0].sum()
+
+
+def assert_bodies_disjoint(venv, state):
+    """No two live bodies share a cell, and none stands on a wall."""
+    spec = venv.spec
+    H, W, MB = spec.height, spec.width, spec.max_body_w
+    dev = state.x.device
+    alive = state.active & ~state.dead
+    bw = torch.as_tensor(spec.s_width, device=dev)
+    bh = torch.as_tensor(spec.s_length, device=dev)
+    count = torch.zeros((state.x.shape[0], H * W + 1), dtype=torch.int32,
+                        device=dev)
+    for i in range(MB):
+        for j in range(MB):
+            ok = alive & (i < bw) & (j < bh)
+            cell = torch.where(ok, (state.y + j) * W + state.x + i, H * W)
+            count.scatter_add_(1, cell.long(), ok.to(torch.int32))
+    count = count[:, :H * W]
+    if bool((count > 1).any()):
+        raise AssertionError("two live bodies share a cell")
+    if bool(((count > 0) & state.cell_wall.reshape(count.shape)).any()):
+        raise AssertionError("a live body stands on a wall")
+
+
+def run_lockstep(label, venv, state, key, per_step, device_name):
+    """The timed lockstep loop: warm-up, launch counters set to 0, TIMED_STEPS
+    unsynchronized steps ending in a synchronize, then the counts checked
+    against ``per_step`` launches of each kernel per step; host syncs per
+    step, synchronized phase times, output shapes and finiteness, disjoint
+    bodies.  Returns (launch counts, state, key, ms per step)."""
     from magent_tpu_torch import ops
     from magent_tpu_torch import random as rnd
 
-    def loop(state, key, n):
-        sink = torch.zeros((), device=venv.device)
-        for _ in range(n):
-            keys = rnd.split(key)
-            key, akey = keys[0], keys[1]
-            for view, feat in venv.observe_all(state):
-                sink = sink + view[:, :, 0, 0, 0].sum() + feat[:, 0, 0].sum()
-            actions = venv.random_actions(akey)
-            state, rewards, alive, done = venv.transition(state, actions)
-            sink = sink + rewards[:, 0].sum()
-        return state, key, sink
-
-    state, key, sink = loop(state, key, WARMUP_STEPS)
+    carry = [state, key]
+    for _ in range(WARMUP_STEPS):
+        lockstep_step(venv, carry)
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    state, key, sink = loop(state, key, TIMED_STEPS)
+    sink = torch.zeros((), device=venv.device)
+    for _ in range(TIMED_STEPS):
+        sink = sink + lockstep_step(venv, carry)
     float(sink)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = ops.launch_counts()
     agent_steps = venv.spec.n_agents_cap * venv.n_envs * TIMED_STEPS
-    print("main path: battle %dx%d, B=%d, %d timed steps in %.4f s: "
-          "%.1f agent-steps/s, %.3f ms/step on %s" % (
-              N_PER_GROUP, N_PER_GROUP, N_ENVS, TIMED_STEPS, dt,
-              agent_steps / dt, dt / TIMED_STEPS * 1e3, device_name),
-          flush=True)
+    print("%s: %s slots, B=%d, %d timed steps in %.4f s: %.1f agent-steps/s, "
+          "%.3f ms/step on %s" % (
+              label, [g.cap for g in venv.spec.groups], venv.n_envs,
+              TIMED_STEPS, dt, agent_steps / dt, dt / TIMED_STEPS * 1e3,
+              device_name), flush=True)
     if not np.isfinite(float(sink)):
-        raise AssertionError("main path produced non-finite values")
-    expected = {"window_gather": 2 * TIMED_STEPS, "occupant": TIMED_STEPS,
-                "rank_prefix": TIMED_STEPS, "move_resolve": TIMED_STEPS,
-                "rank_prefix_hp": 0, "move_claims": 0}
+        raise AssertionError("%s produced non-finite values" % label)
+    expected = {name: per_step.get(name, 0) * TIMED_STEPS
+                for name in ops.KERNELS}
     if counts != expected:
-        raise AssertionError("launch counts %s, expected %s" % (counts,
-                                                                 expected))
+        raise AssertionError("%s: launch counts %s, expected %s" % (
+            label, counts, expected))
 
-    carry = [state, key]
-
-    def one_step():
-        keys = rnd.split(carry[1])
-        carry[1], akey = keys[0], keys[1]
-        venv.observe_all(carry[0])
-        carry[0] = venv.transition(carry[0], venv.random_actions(akey))[0]
-
-    syncs, sites = count_host_syncs(one_step, PROFILE_STEPS)
-    print("main path: %.1f host syncs per step (torch.cuda sync debug mode, "
-          "%d steps); per step by call site: %s" % (
-              syncs, PROFILE_STEPS, json.dumps(
+    syncs, sites = count_host_syncs(lambda: lockstep_step(venv, carry),
+                                    PROFILE_STEPS)
+    print("%s: %.1f host syncs per step (torch.cuda sync debug mode, %d "
+          "steps); per step by call site: %s" % (
+              label, syncs, PROFILE_STEPS, json.dumps(
                   {k: v / PROFILE_STEPS for k, v in sites.most_common()})),
           flush=True)
     state, key = carry
@@ -411,27 +532,19 @@ def run_main_path(venv, state, key, device_name):
         state, _, _, _ = venv.transition(state, actions)
         torch.cuda.synchronize()
         phase["transition"].append(time.perf_counter() - t)
-    print("phases (median of 5 synchronized steps, ms): %s" % json.dumps(
-        {k: statistics.median(v) * 1e3 for k, v in phase.items()}),
-        flush=True)
+    print("%s phases (median of 5 synchronized steps, ms): %s" % (
+        label, json.dumps({k: statistics.median(v) * 1e3
+                           for k, v in phase.items()})), flush=True)
     for g, (view, feat) in enumerate(obs):
         cap = venv.spec.groups[g].cap
-        if tuple(view.shape) != (N_ENVS, cap) + venv.view_spaces()[g] or \
-                tuple(feat.shape) != (N_ENVS, cap) + venv.feature_spaces()[g]:
+        if tuple(view.shape) != (venv.n_envs, cap) + venv.view_spaces()[g] or \
+                tuple(feat.shape) != (venv.n_envs, cap) + venv.feature_spaces()[g]:
             raise AssertionError("group %d observation shapes %s %s" % (
                 g, tuple(view.shape), tuple(feat.shape)))
         if not (bool(torch.isfinite(view).all())
                 and bool(torch.isfinite(feat).all())):
             raise AssertionError("group %d observations not finite" % g)
-
-    # no two live agents share a cell
-    W = venv.spec.width
-    alive = state.active & ~state.dead
-    cell = torch.where(alive, state.y * W + state.x, -1 - torch.arange(
-        alive.shape[1], device=alive.device, dtype=torch.int32))
-    srt = torch.sort(cell, dim=1).values
-    if bool(((srt[:, 1:] == srt[:, :-1]) & (srt[:, 1:] >= 0)).any()):
-        raise AssertionError("two live agents share a cell")
+    assert_bodies_disjoint(venv, state)
     return counts, state, key, dt / TIMED_STEPS * 1e3
 
 
@@ -483,53 +596,47 @@ def profile_steps(label, step, n_steps, ms_per_step):
             dev_ms / n_steps, calls / n_steps, name[:90]))
 
 
-def profile_main_path(venv, state, key, ms_per_step):
-    """Phase 3b: the profiler over PROFILE_STEPS more lockstep steps."""
-    from magent_tpu_torch import random as rnd
-
+def profile_lockstep(label, venv, state, key, ms_per_step):
+    """The profiler over PROFILE_STEPS more lockstep steps."""
     carry = [state, key]
-
-    def step():
-        keys = rnd.split(carry[1])
-        carry[1], akey = keys[0], keys[1]
-        venv.observe_all(carry[0])
-        carry[0] = venv.transition(carry[0], venv.random_actions(akey))[0]
-
-    profile_steps("lockstep", step, PROFILE_STEPS, ms_per_step)
+    profile_steps(label, lambda: lockstep_step(venv, carry), PROFILE_STEPS,
+                  ms_per_step)
 
 
-def check_gpu_matches_cpu():
-    """Phase 5: the port on the GPU and on the CPU from the same key."""
+def check_gpu_matches_cpu(label, make_env, n_steps, view_atol):
+    """The port on the GPU and on the CPU from the same keys:
+    ``make_env(device)`` builds each side; states, transition outputs and
+    features exactly equal, views within ``view_atol``."""
     from magent_tpu_torch import random as rnd
-    from magent_tpu_torch.builtin.config import battle
-    from magent_tpu_torch.parallel import VecGridWorld
 
-    cfg = battle.get_config(SMALL_MAP)
-    envs = {d: VecGridWorld(cfg, [SMALL_N, SMALL_N], SMALL_ENVS, device=d)
-            for d in ("cuda", "cpu")}
+    envs = {d: make_env(d) for d in ("cuda", "cpu")}
     states = {d: envs[d].reset(rnd.PRNGKey(5)) for d in envs}
-    assert_state_equal(states["cuda"], states["cpu"], "reset")
+    assert_state_equal(states["cuda"], states["cpu"], "%s reset" % label)
     key = rnd.PRNGKey(6)
-    for step in range(SMALL_STEPS):
+    for step in range(n_steps):
         keys = rnd.split(key)
         key, akey = keys[0], keys[1]
         obs = {d: envs[d].observe_all(states[d]) for d in envs}
         for (gv, gf), (cv, cf) in zip(obs["cuda"], obs["cpu"]):
-            torch.testing.assert_close(gv.cpu(), cv, atol=VIEW_ATOL, rtol=0)
+            torch.testing.assert_close(gv.cpu(), cv, atol=view_atol, rtol=0)
             torch.testing.assert_close(gf.cpu(), cf, atol=0, rtol=0)
         acts = {d: envs[d].random_actions(akey) for d in envs}
         if not torch.equal(acts["cuda"].cpu(), acts["cpu"]):
-            raise AssertionError("random actions differ at step %d" % step)
+            raise AssertionError("%s: random actions differ at step %d"
+                                 % (label, step))
         out = {d: envs[d].transition(states[d], acts[d]) for d in envs}
         states = {d: out[d][0] for d in envs}
-        assert_state_equal(states["cuda"], states["cpu"], "step %d" % step)
+        assert_state_equal(states["cuda"], states["cpu"],
+                           "%s step %d" % (label, step))
         for a, b in zip(out["cuda"][1:], out["cpu"][1:]):
             if not torch.equal(a.cpu(), b):
-                raise AssertionError("transition outputs differ at step %d"
-                                     % step)
-    print("GPU vs CPU: battle map %d, %dx%d, B=%d, %d steps: states, views "
-          "and features equal" % (SMALL_MAP, SMALL_N, SMALL_N, SMALL_ENVS,
-                                  SMALL_STEPS), flush=True)
+                raise AssertionError("%s: transition outputs differ at step "
+                                     "%d" % (label, step))
+    spec = envs["cpu"].spec
+    print("GPU vs CPU: %s, %s slots, B=%d, %d steps: states, views (atol %g) "
+          "and features equal" % (label, [g.cap for g in spec.groups],
+                                  envs["cpu"].n_envs, n_steps, view_atol),
+          flush=True)
 
 
 def place_armies(env, handles):
@@ -630,9 +737,9 @@ def run_gridworld_path(f32_rate, int32_rate, device_name):
           "agent-steps) on %s" % (
               GW_MAP, n0, A, GW_TIMED, dt, ms_per_step, live / dt, live,
               device_name), flush=True)
-    expected = {"window_gather": 2 * GW_TIMED, "rank_prefix_hp": GW_TIMED,
-                "move_claims": GW_TIMED, "occupant": 0, "rank_prefix": 0,
-                "move_resolve": 0}
+    per_step = {"window_gather": 2, "rank_prefix_hp": 1, "move_claims": 1}
+    expected = {name: per_step.get(name, 0) * GW_TIMED
+                for name in ops.KERNELS}
     if counts != expected:
         raise AssertionError("GridWorld launch counts %s, expected %s" % (
             counts, expected))
@@ -662,15 +769,18 @@ def run_gridworld_path(f32_rate, int32_rate, device_name):
     place_interleaved(env, handles)
     rec = record_operands(lambda: gridworld_step(env, handles, rng),
                           [(ap, "rank_prefix"), (ap, "move_claims")])
-    tgt, tcell = rec["rank_prefix"][0][0], rec["move_claims"][0][0]
+    (rp_args, rp_kw), = rec["rank_prefix"]
+    (mc_args, mc_kw), = rec["move_claims"]
+    tgt, tcell = rp_args[0], mc_args[0]
     HW = env.spec.height * env.spec.width
     print("recorded step: %d attackers with a target, %d movers with a "
           "blank cell" % (int((tgt < A).sum()), int((tcell < HW).sum())),
           flush=True)
+    form = "battle map %d, A=%d, B=1" % (GW_MAP, A)
     rows = {"rank_prefix_hp": kernel_row("rank_prefix_hp",
-                                         *rec["rank_prefix"], f32_rate,
+                                         [(rp_args, rp_kw, form)], f32_rate,
                                          int32_rate),
-            "move_claims": kernel_row("move_claims", *rec["move_claims"],
+            "move_claims": kernel_row("move_claims", [(mc_args, mc_kw, form)],
                                       f32_rate, int32_rate)}
     del rec, env
     torch.cuda.empty_cache()
@@ -678,7 +788,7 @@ def run_gridworld_path(f32_rate, int32_rate, device_name):
 
 
 def check_gridworld_gpu_matches_cpu():
-    """Phase 5b: the stateful API on the GPU and on the CPU, same
+    """Phase 7 (GridWorld): the stateful API on the GPU and on the CPU, same
     placements and actions, with clear_dead every step."""
     from magent_tpu_torch import GridWorld
     from magent_tpu_torch.core.state import FIELDS
@@ -734,6 +844,120 @@ def check_gridworld_gpu_matches_cpu():
                           GW_SMALL_STEPS), flush=True)
 
 
+# launches per step of pursuit's gridless rect path (the rest 0)
+PURSUIT_PER_STEP = {"occupant_rect": 1, "rect_first_overlap": 2,
+                    "rank_prefix": 1, "window_gather4": 2}
+RECT_KERNELS = ("occupant_rect", "rect_first_overlap", "window_gather4")
+
+
+def pursuit_env(map_size, n_envs, seed, wall_frac=0.0, device=None):
+    """``VecGridWorld`` of pursuit with the port's copy of the scripts'
+    placements (and interior walls when ``wall_frac`` > 0)."""
+    from magent_tpu_torch.builtin.config import pursuit
+    from magent_tpu_torch.parallel import VecGridWorld
+
+    placements, walls = pursuit.layout(map_size, seed, wall_frac)
+    return VecGridWorld(pursuit.get_config(map_size),
+                        [len(p) for p in placements], n_envs,
+                        placements=placements, walls=walls or None,
+                        device=device)
+
+
+def record_pursuit_step(venv, state, key):
+    """One lockstep step with the rect kernels' wrappers recording their
+    operands -> ({name: [(args, kwargs, form)]}, carry [state, key])."""
+    from magent_tpu_torch.ops import attack_prefix as ap
+    from magent_tpu_torch.ops import window_gather as wg
+
+    carry = [state, key]
+    rec = record_operands(lambda: lockstep_step(venv, carry), [
+        (ap, "occupant_rect"), (ap, "rect_first_overlap"),
+        (wg, "window_gather4")])
+    shape = "map %d, A=%d, B=%d" % (venv.spec.width, venv.spec.n_agents_cap,
+                                    venv.n_envs)
+    calls = {
+        "occupant_rect": [(a, k, shape + ", attack")
+                          for a, k in rec["occupant_rect"]],
+        "rect_first_overlap": [(a, k, "%s, %s" % (shape, k["gate"]))
+                               for a, k in rec["rect_first_overlap"]],
+        "window_gather4": [(a, k, "%s, group %d, liveness" % (shape, g))
+                           for g, (a, k) in enumerate(rec["window_gather4"])],
+    }
+    if [len(calls[n]) for n in RECT_KERNELS] != [1, 2, 2]:
+        raise AssertionError("a pursuit step called the rect kernels %s "
+                             "times" % [len(calls[n]) for n in RECT_KERNELS])
+    return calls, carry
+
+
+def off_path_forms(calls):
+    """The forms the step does not launch, on its operands: occupant_rect
+    with exclude_self, window_gather4 without an epilogue, and with a
+    (seeded random) pooled minimap, self cells and liveness."""
+    (a, k, form), = calls["occupant_rect"]
+    extra = {"occupant_rect": [(a, dict(k, exclude_self=True),
+                                form.replace("attack", "exclude_self"))],
+             "rect_first_overlap": [], "window_gather4": []}
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    for a, k, form in calls["window_gather4"]:
+        extra["window_gather4"].append((
+            a, {n: v for n, v in k.items() if n != "act"},
+            form.replace("liveness", "no epilogue")))
+        img, pos, mask = a
+        vh, vw, C = k["vh"], k["vw"], k["C"]
+        ch = torch.zeros(C)
+        ch[[2, C - 1]] = 1.0
+        mm_mask = ch.repeat(vh, vw)
+        mm_img = torch.rand((img.shape[0], vh, vw * C), generator=gen) * mm_mask
+        self_cell = torch.randint(0, vh * vw, tuple(pos.shape), generator=gen,
+                                  dtype=torch.int32)
+        extra["window_gather4"].append((
+            [img, pos + self_cell.to(pos.device), mask],
+            dict(k, mm_img=mm_img.to(img.device), mm_mask=mm_mask.to(
+                img.device)),
+            form.replace("liveness", "minimap + self mark + liveness")))
+    return extra
+
+
+def run_pursuit_paths(f32_rate, int32_rate, device_name):
+    """Phases 5 and 6: pursuit's gridless rect path at map 64, B=16 and on
+    one world at map 500; returns the rect kernels' rows."""
+    from magent_tpu_torch import random as rnd
+
+    venv = pursuit_env(P_MAP, P_ENVS, P_SEED)
+    calls, carry = record_pursuit_step(venv, venv.reset(rnd.PRNGKey(0)),
+                                       rnd.PRNGKey(1))
+    extra = off_path_forms(calls)
+    rows = {name: kernel_row(name, calls[name], f32_rate, int32_rate,
+                             extra[name]) for name in RECT_KERNELS}
+    del calls, extra
+    counts, state, key, ms_per_step = run_lockstep(
+        "pursuit lockstep, map %d" % P_MAP, venv, *carry, PURSUIT_PER_STEP,
+        device_name)
+    for name in RECT_KERNELS:
+        rows[name]["launches"] = counts[name]
+    profile_lockstep("pursuit lockstep", venv, state, key, ms_per_step)
+    del venv, state, carry
+    torch.cuda.empty_cache()
+
+    big = pursuit_env(P_BIG_MAP, 1, P_BIG_SEED)
+    calls, carry = record_pursuit_step(big, big.reset(rnd.PRNGKey(2)),
+                                       rnd.PRNGKey(3))
+    extra = off_path_forms(calls)
+    for name in RECT_KERNELS:
+        rows[name]["per_call"] = rows[name].get("per_call", []) + [
+            call_stats(name, a, k, f32_rate, int32_rate, form)
+            for a, k, form in calls[name] + extra[name]]
+    del calls, extra
+    torch.cuda.empty_cache()
+    _, state, key, ms_per_step = run_lockstep(
+        "pursuit one world, map %d" % P_BIG_MAP, big, *carry,
+        PURSUIT_PER_STEP, device_name)
+    profile_lockstep("pursuit one world", big, state, key, ms_per_step)
+    del big, state, carry
+    torch.cuda.empty_cache()
+    return rows
+
+
 def _flat(items):
     for item in items:
         if isinstance(item, list):
@@ -774,19 +998,32 @@ def main() -> int:
     print("peak at %.0f MHz max SM clock: %.4g f32 and %.4g int32 "
           "instructions/s" % (mhz, f32_rate, int32_rate), flush=True)
     rows = check_kernels(venv, state, rnd.PRNGKey(1), f32_rate, int32_rate)
-    counts, state, key, ms_per_step = run_main_path(
-        venv, state, rnd.PRNGKey(2), device_name)
+    counts, state, key, ms_per_step = run_lockstep(
+        "main path: battle lockstep", venv, state, rnd.PRNGKey(2),
+        {"window_gather": 2, "occupant": 1, "rank_prefix": 1,
+         "move_resolve": 1}, device_name)
     for name, row in rows.items():
         row["launches"] = counts[name]
-    profile_main_path(venv, state, key, ms_per_step)
+    profile_lockstep("lockstep", venv, state, key, ms_per_step)
     del venv, state
     torch.cuda.empty_cache()
     gw_counts, gw_rows = run_gridworld_path(f32_rate, int32_rate, device_name)
     for name, row in gw_rows.items():
         row["launches"] = gw_counts[name]
     rows.update(gw_rows)
-    check_gpu_matches_cpu()
+    rows.update(run_pursuit_paths(f32_rate, int32_rate, device_name))
+
+    check_gpu_matches_cpu(
+        "battle map %d" % SMALL_MAP,
+        lambda d: VecGridWorld(battle.get_config(SMALL_MAP),
+                               [SMALL_N, SMALL_N], SMALL_ENVS, device=d),
+        SMALL_STEPS, VIEW_ATOL)
     check_gridworld_gpu_matches_cpu()
+    for frac in (0.0, P_WALL_FRAC):
+        check_gpu_matches_cpu(
+            "pursuit map %d, %g interior walls" % (P_MAP, frac),
+            lambda d: pursuit_env(P_MAP, P_ENVS, P_SEED, frac, device=d),
+            P_SMALL_STEPS, 0.0)
 
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {

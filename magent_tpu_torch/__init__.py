@@ -4,10 +4,11 @@ The JAX package ``magent_tpu`` is the reference; this package runs the same
 many-agent gridworld on an NVIDIA GPU with PyTorch and hand-written CUDA
 kernels (``csrc/``), and imports nothing of JAX or of ``magent_tpu``.
 
-Ported so far, for battle-class configs (1x1 bodies, no food, no turn mode,
-no absorb): the stateful ``GridWorld`` API on the engine's grid path (any
-walls), and the lockstep vectorized loop (``parallel.VecGridWorld``) on the
-gridless path — device reset, NORTH-only observations, both random-action
+Ported so far, for configs without food, turn mode or absorb: the stateful
+``GridWorld`` API on the engine's grid path (1x1 bodies, any walls), and
+the lockstep vectorized loop (``parallel.VecGridWorld``) on the gridless
+path, 1x1 bodies and pursuit's multi-cell rect bodies, with optional
+interior walls — device reset, NORTH-only observations, both random-action
 samplers.  Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``.
 """

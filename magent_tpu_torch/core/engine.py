@@ -1,14 +1,18 @@
 """One env step as batched tensor ops (port of ``magent_tpu/core/engine.py``
 ``make_step`` and ``make_clear_dead``).
 
-Configs of the battle class — 1x1 bodies, no food, no turn mode, no absorb —
-take one of two paths, chosen once in :func:`make_step`:
+Configs without food, turn mode or absorb take one of two paths, chosen
+once in :func:`make_step`:
 
 - the **gridless** path (``maintain_grid=False``, :class:`VecGridWorld`):
   every occupancy question is answered pairwise by the kernels of
-  :mod:`magent_tpu_torch.ops.attack_prefix`; ``state.cell_slot`` is neither
-  read nor rebuilt and walls are the border, answered by formula;
-- the **grid** path (``maintain_grid=True``, the stateful ``GridWorld``):
+  :mod:`magent_tpu_torch.ops.attack_prefix` — cell equality for 1x1
+  bodies, rect containment and first rect overlap for multi-cell bodies
+  (pursuit's 2x2 predators); ``state.cell_slot`` is neither read nor
+  rebuilt; border walls are answered by formula, interior walls by one
+  gather of a packed per-body-size overlap grid;
+- the **grid** path (``maintain_grid=True``, the stateful ``GridWorld``,
+  1x1 bodies only):
   attack targets and move blocking are read from ``state.cell_slot`` and
   ``state.cell_wall`` (any walls), dead bodies are cleared from the grid and
   the grid is rebuilt after the move.  Damage and move claims go through the
@@ -30,6 +34,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from .. import random as rnd
@@ -48,21 +53,30 @@ _SLOT_TABLES = (
 
 
 class _Tables:
-    """The spec's per-slot tables (``s_*``) as tensors on one device."""
+    """The spec's per-slot tables (``s_*``) as tensors on one device, and
+    the gridless step's packed wall grid when the map has interior walls
+    (``wall_code`` [H*W] and ``wall_bit`` [A], see :func:`_wall_rect_code`;
+    None for border walls only)."""
 
-    def __init__(self, spec: speclib.GameSpec, device):
+    def __init__(self, spec: speclib.GameSpec, device, wall_ctx=None):
         for name in _SLOT_TABLES:
             setattr(self, name,
                     torch.as_tensor(getattr(spec, "s_" + name), device=device))
         self.gof = torch.as_tensor(spec.group_of_slot, device=device)
         self.slots = torch.arange(spec.n_agents_cap, dtype=torch.int32,
                                   device=device)
+        self.wall_code = self.wall_bit = None
+        if wall_ctx is not None:
+            code, bit = wall_ctx
+            self.wall_code = torch.as_tensor(code.reshape(-1), device=device)
+            self.wall_bit = torch.as_tensor(bit, device=device)
 
 
-def _tables_for(spec: speclib.GameSpec, cache: dict, device) -> _Tables:
+def _tables_for(spec: speclib.GameSpec, cache: dict, device,
+                wall_ctx=None) -> _Tables:
     device = torch.device(device)
     if device not in cache:
-        cache[device] = _Tables(spec, device)
+        cache[device] = _Tables(spec, device, wall_ctx)
     return cache[device]
 
 
@@ -72,16 +86,64 @@ class _Route(NamedTuple):
     quad: bool  # pair kernels; else the sort branches (grid path only)
 
 
+# above this many slots a single multi-cell world leaves the y-segmented
+# pair sweeps for the grid path (the JAX package's engine.py:155)
+SEG_DEFAULT_MAX = 65536
+
+_RECT_GRID = ("multi-cell bodies on the grid path are not ported yet: "
+              "ROADMAP.md Queue 1 item 7")
+
+
 def _check_ported(spec: speclib.GameSpec) -> None:
-    """Raise unless the spec runs on a ported path (battle class)."""
+    """Raise unless the spec runs on a ported path (no food, turn mode or
+    absorb)."""
     if spec.food_mode or spec.turn_mode or bool(spec.g_can_absorb.any()):
         raise NotImplementedError(
             "food, turn mode and absorb are not ported yet: their grid-path "
             "branches are ROADMAP.md Queue 1 item 7")
-    if spec.max_body_w != 1:
-        raise NotImplementedError(
-            "multi-cell bodies take the rect paths, ROADMAP.md Queue 1 "
-            "item 10")
+
+
+def _wall_rect_code(spec: speclib.GameSpec, wall):
+    """Pack per-body-size wall-overlap bitmaps into one int32 grid (host
+    numpy, as ``engine.py:114-144``): bit b of ``code[y, x]`` says a body
+    rect of the b-th distinct (width, length) anchored at (x, y) overlaps a
+    wall cell of the full [H, W] bool map ``wall``; ``s_bit[slot]`` selects
+    the slot's bit.  Gridless specs have no turn mode, so every footprint
+    is the NORTH (width, length) rect.  -> (code [H, W], s_bit [A])."""
+    H, W = spec.height, spec.width
+    wall = np.asarray(wall, bool)
+    if wall.shape != (H, W):
+        raise ValueError("wall map has shape %s, expected %s"
+                         % (wall.shape, (H, W)))
+    sizes = sorted({(int(w), int(l))
+                    for w, l in zip(spec.s_width, spec.s_length)})
+    if len(sizes) > 31:
+        raise ValueError("%d distinct body sizes exceed the 31 bits of the "
+                         "wall code" % len(sizes))
+    code = np.zeros((H, W), np.int32)
+    for b, (bw, bh) in enumerate(sizes):
+        blocked = np.zeros((H, W), bool)
+        for i in range(bw):
+            for j in range(bh):
+                blocked[: H - j, : W - i] |= wall[j:, i:]
+        code |= blocked.astype(np.int32) << b
+    bit_of = {s: b for b, s in enumerate(sizes)}
+    s_bit = np.array([bit_of[(int(w), int(l))]
+                      for w, l in zip(spec.s_width, spec.s_length)], np.int32)
+    return code, s_bit
+
+
+def _wall_blocked_gridless(spec, T: _Tables, nx, ny):
+    """Does the body rect anchored at (nx, ny) overlap a wall?  Border walls
+    only: by formula (x == 0 or y == 0; the far edges are out of bounds).
+    Interior walls: one gather of the packed code grid.  Only meaningful
+    where the move is in bounds (``engine.py:560-575``)."""
+    if T.wall_code is None:
+        return (nx == 0) | (ny == 0)
+    cx = nx.clamp(0, spec.width - 1)
+    cy = ny.clamp(0, spec.height - 1)
+    code = T.wall_code[(cy * spec.width + cx).long()]
+    return ((code >> T.wall_bit) & 1) != 0
 
 
 def _row_lookup(table, idx):
@@ -227,6 +289,15 @@ def _attack_phase(spec, T, state: State, rank, route: _Route):
     if route.grid:
         # the attacked cell's occupant from the grid (engine.py:295)
         tgt = torch.where(hit, _grid_at(state.cell_slot, tyc * W + txc), -1)
+    elif spec.max_body_w > 1:
+        # rect containment (engine.py:254-287, unsegmented): the attacked
+        # cell against the live agents' static NORTH body rects
+        bw, bh = geo.size_for_dir(state.dir, T.width, T.length)
+        tgt, hp_t_occ = ap.occupant_rect(
+            *(torch.where(hit, v, ap.RECT_PAD).contiguous() for v in (txc, tyc)),
+            state.x.contiguous(), state.y.contiguous(),
+            *(torch.where(alive, v, 0).contiguous() for v in (bw, bh)),
+            state.hp.contiguous())
     else:
         acell = torch.where(hit, tyc * W + txc, ap.QUERY_NONE)
         own_cell = torch.where(alive, state.y * W + state.x, ap.CELL_DEAD)
@@ -325,11 +396,62 @@ def _claims_sorted(tcell):
     return _unsort(seg_start, order), _unsort(head, order)
 
 
+def _move_phase_gridless_rect(spec, T, state: State, is_move, in_bounds, nx,
+                              ny, bw, bh, alive):
+    """Gridless move resolution for multi-cell bodies (engine.py:577-697,
+    unsegmented): two pairwise rect sweeps reproduce the grid path's
+    semantics cell for cell —
+
+    1. blocking: the current occupant (self excluded) of the first occupied
+       target-rect cell in the grid path's (i outer, j inner) scan order;
+    2. claims: a blank mover wins iff no lower slot's target rect covers any
+       of its cells; a loser collides with the winner of its first lost
+       cell, the min-(first overlap cell, slot) lower-slot claimant.
+
+    Blocking resolves before claims: a blocked mover never claims on the
+    grid path."""
+    MB = spec.max_body_w
+    wall_blocked = _wall_blocked_gridless(spec, T, nx, ny)
+    ok = is_move & in_bounds
+    # an in-place move always succeeds and claims nothing
+    stay = ok & (nx == state.x) & (ny == state.y)
+    # wall-blocked movers still query sweep 1: the grid path's cell scan
+    # records the first AGENT cell's occupant even when a wall also blocks
+    q_ok = ok & ~stay
+
+    def query_rects(mask):
+        return tuple(torch.where(mask, v, fill).contiguous() for v, fill in (
+            (nx, ap.RECT_PAD), (ny, ap.RECT_PAD), (bw, 0), (bh, 0)))
+
+    occ_slot = ap.rect_first_overlap(
+        *query_rects(q_ok), state.x.contiguous(), state.y.contiguous(),
+        *(torch.where(alive, v, 0).contiguous() for v in (bw, bh)),
+        max_body=MB, gate="exclude_self")
+    occupied = occ_slot < ap.RECT_NONE
+    blank = q_ok & ~occupied & ~wall_blocked
+    claims = query_rects(blank)
+    head_slot = ap.rect_first_overlap(*claims, *claims, max_body=MB,
+                                      gate="lower_only")
+    lost = blank & (head_slot < ap.RECT_NONE)
+    wins = blank & ~lost
+    success = wins | stay
+    coll_obj = torch.where(lost, head_slot,
+                           torch.where(occupied, occ_slot, -1))
+    collide = is_move & ~success & in_bounds & (coll_obj >= 0)
+    return state.replace(
+        x=torch.where(success, nx, state.x),
+        y=torch.where(success, ny, state.y),
+        last_op=torch.where(collide, OP_COLLIDE, state.last_op).to(
+            torch.int32),
+        op_obj=torch.where(collide, coll_obj, state.op_obj),
+    )
+
+
 def _move_phase(spec, T, state: State, route: _Route):
-    """1x1 move resolution (engine.py:699-893; reference GridWorld.cc:573-613,
-    Map::do_move Map.cc:313-358): a mover succeeds iff its target cell is
+    """Move resolution (engine.py:699-893; reference GridWorld.cc:573-613,
+    Map::do_move Map.cc:313-358): a mover succeeds iff its target rect is
     free of live agents and walls at phase start and no lower slot claims
-    it."""
+    any of its cells."""
     H, W = spec.height, spec.width
     B, A = state.x.shape
     act = state.last_action
@@ -345,10 +467,12 @@ def _move_phase(spec, T, state: State, route: _Route):
     bw, bh = geo.size_for_dir(state.dir, T.width, T.length)
     in_bounds = (nx >= 0) & (ny >= 0) & (nx + bw < W) & (ny + bh < H)  # Map.cc:454-455
 
+    if not route.grid and spec.max_body_w > 1:
+        return _move_phase_gridless_rect(spec, T, state, is_move, in_bounds,
+                                         nx, ny, bw, bh, alive)
     if not route.grid:
-        # border walls (x == 0 or y == 0 here, the far edges are out of
-        # bounds) block by formula; one sweep answers claims and blocking
-        wall_blocked = (nx == 0) | (ny == 0)
+        # one sweep answers claims and blocking
+        wall_blocked = _wall_blocked_gridless(spec, T, nx, ny)
         ok = is_move & in_bounds & ~wall_blocked
         tcell = torch.where(ok, ny * W + nx, ap.QUERY_NONE).to(torch.int32)
         cell = torch.where(alive, state.y * W + state.x, ap.CELL_DEAD).to(
@@ -408,23 +532,61 @@ def _move_phase(spec, T, state: State, route: _Route):
     )
 
 
-def make_step(spec: speclib.GameSpec, *, maintain_grid: bool = True,
-              n_envs: int = 1):
-    """Build ``step(state, actions=None) -> State`` for a battle-class spec
-    (see :func:`_check_ported`; other specs raise NotImplementedError).
+def _rect_route(spec: speclib.GameSpec, maintain_grid: bool, n_envs: int):
+    """The route of a multi-cell spec, or NotImplementedError where the JAX
+    package's route is not ported (engine.py:169-196, :1004-1011): the grid
+    path, and the y-segmented sweeps that a single world takes from
+    ``QUAD_MAX_SINGLE`` (inclusive) to ``SEG_DEFAULT_MAX`` slots."""
+    A = spec.n_agents_cap
+    if maintain_grid:
+        raise NotImplementedError(_RECT_GRID)
+    if n_envs == 1 and ap.QUAD_MAX_SINGLE <= A <= SEG_DEFAULT_MAX:
+        raise NotImplementedError(
+            "a single multi-cell world of %d slots takes the y-segmented "
+            "pair sweeps, which are not ported yet: ROADMAP.md Queue 2 items "
+            "11-13" % A)
+    if A > (SEG_DEFAULT_MAX if n_envs == 1 else ap.QUAD_MAX_AGENTS):
+        raise NotImplementedError(
+            "%d slots past the pair-kernel cap: %s" % (A, _RECT_GRID))
+    return _Route(grid=False, quad=True)
 
-    The route is decided here, once (engine.py:993-1011 without its env-var
+
+def make_step(spec: speclib.GameSpec, *, maintain_grid: bool = True,
+              walls=None, n_envs: int = 1):
+    """Build ``step(state, actions=None) -> State`` for a spec without food,
+    turn mode or absorb (others raise NotImplementedError).
+
+    The route is decided here, once (engine.py:993-1020 without its env-var
     overrides): the pair kernels serve up to ``QUAD_MAX_SINGLE`` slots for a
     single world and ``QUAD_MAX_AGENTS`` for a batch; ``maintain_grid=False``
-    takes the gridless path within that cap, and the grid path with its
-    sort branches above it."""
+    takes the gridless path within that cap, and for 1x1 bodies the grid
+    path with its sort branches above it.  Multi-cell bodies run only on the
+    gridless path (see :func:`_rect_route`).
+
+    ``walls``: the static full [H, W] bool wall map of a lockstep layout;
+    where it has interior walls, the gridless step answers wall questions
+    from its packed overlap grid (:func:`_wall_rect_code`).  ``None``, or a
+    map of border walls only, is answered by formula.  The grid path reads
+    ``state.cell_wall`` and ignores it."""
     _check_ported(spec)
     A = spec.n_agents_cap
-    quad = A <= (ap.QUAD_MAX_SINGLE if n_envs == 1 else ap.QUAD_MAX_AGENTS)
-    return _build_step(spec, _Route(grid=maintain_grid or not quad, quad=quad))
+    if spec.max_body_w > 1:
+        route = _rect_route(spec, maintain_grid, n_envs)
+    else:
+        quad = A <= (ap.QUAD_MAX_SINGLE if n_envs == 1 else ap.QUAD_MAX_AGENTS)
+        route = _Route(grid=maintain_grid or not quad, quad=quad)
+    wall_ctx = None
+    if not route.grid and walls is not None:
+        walls = np.asarray(walls, bool)
+        interior = walls.copy()
+        interior[0, :] = interior[-1, :] = False
+        interior[:, 0] = interior[:, -1] = False
+        if interior.any():
+            wall_ctx = _wall_rect_code(spec, walls)
+    return _build_step(spec, route, wall_ctx)
 
 
-def _build_step(spec: speclib.GameSpec, route: _Route):
+def _build_step(spec: speclib.GameSpec, route: _Route, wall_ctx=None):
     """The step on a fixed route (tests pick the sort branches here)."""
     if not (route.grid or route.quad):
         raise ValueError("the gridless path has no sort branch")
@@ -433,7 +595,7 @@ def _build_step(spec: speclib.GameSpec, route: _Route):
     cache: dict = {}
 
     def step(state: State, actions=None) -> State:
-        T = _tables_for(spec, cache, state.x.device)
+        T = _tables_for(spec, cache, state.x.device, wall_ctx)
         if actions is not None:
             state = state.replace(last_action=torch.as_tensor(
                 actions, device=state.x.device).to(torch.int32))

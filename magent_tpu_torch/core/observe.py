@@ -10,14 +10,19 @@ GridWorld::get_observation, GridWorld.cc:292-401) with render-then-slice:
 2. expand the grid into the observer group's padded channel image
    ``[B, Hp, Wp * C]`` by compares against constant channel tables (the
    observer's channel permutation, GridWorld.cc:897-913, is folded in);
-3. slice every agent's ``(vh, vw * C)`` window out of the image with the
+3. slice every agent's ``(vh, vw * C)`` window out of the image with a
    window kernel (:mod:`magent_tpu_torch.ops.window_gather`), times the
    view-range mask;
 4. add the pooled minimap channels and the self mark, build the feature
    vector (GridWorld.cc:327-400) and zero dead slots.
 
-Only what battle needs is ported: 1x1 bodies without absorb (minimap by the
-binning matmul), no turn mode.
+Windows up to 13 rows and 65 lanes (forest's and pursuit's) take
+``window_gather4``, which fuses step 4's minimap adds, self mark and
+liveness factor into the copy; larger ones (battle's 13 x 91), and images
+past ``window_gather4``'s packed positions, take ``window_gather`` and a
+separate epilogue.  Multi-cell bodies render every
+body cell, and their minimap pools by a scatter.  Not ported: turn mode and
+``can_absorb`` observers.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import torch
 
 from .. import spec as speclib
 from ..ops import window_gather as wg
+from . import geometry as geo
 from .state import State
 
 # packed cell encoding: channel code in the high bits, normalized hp as a
@@ -41,10 +47,10 @@ def _check_ported(spec: speclib.GameSpec, group: int):
     if spec.turn_mode:
         raise NotImplementedError(
             "turn-mode observations are ROADMAP.md Queue 1 item 11")
-    if spec.max_body_w != 1 or spec.groups[group].type.can_absorb:
+    if spec.groups[group].type.can_absorb:
         raise NotImplementedError(
-            "the scatter minimap branch (multi-cell bodies, absorb) is not "
-            "ported yet (ROADMAP.md Queue 1 item 10)")
+            "can_absorb observers are not ported yet (ROADMAP.md Queue 1 "
+            "item 7)")
 
 
 def _channel_tables(spec: speclib.GameSpec, group: int):
@@ -69,8 +75,10 @@ def make_grids(spec: speclib.GameSpec):
     """``state -> packed grid [B, Hp, Wp] int32``, padded for the largest
     view; ``grids.geometry`` is ``(Hp, Wp, lanes, pad_y, pad_x)``.  Each cell
     holds ``code << 24 | round(hp / hp_max * 2**23)`` (code: C = empty,
-    0 = wall, group channel for an agent)."""
+    0 = wall, group channel for an agent); every cell of a live agent's body
+    rect holds its value (observe.py:124-141)."""
     H, W, C = spec.height, spec.width, spec.n_channel
+    MB = spec.max_body_w
     max_vh = max(g.type.view_range.height for g in spec.groups)
     max_vw = max(g.type.view_range.width for g in spec.groups)
     Hp, Wp, lanes, pad_y, pad_x = wg.padded_geometry(H, W, C, max_vh, max_vw)
@@ -82,6 +90,19 @@ def make_grids(spec: speclib.GameSpec):
     # folds the division by a constant into this multiply, and the rounded
     # fixed-point hp is held to it bit for bit
     inv_hp_max = np.float32(1.0) / np.asarray(spec.s_hp_max, np.float32)
+    consts: dict = {}
+
+    def body_tables(device):
+        """Body-cell offsets (i, j) of the max_body^2 scan [MB*MB, 1, 1] and
+        the per-slot body width and length [A], on ``device``."""
+        if device not in consts:
+            offs = np.arange(MB, dtype=np.int32)
+            consts[device] = tuple(
+                torch.as_tensor(a, device=device) for a in (
+                    np.repeat(offs, MB)[:, None, None],
+                    np.tile(offs, MB)[:, None, None],
+                    spec.s_width, spec.s_length))
+        return consts[device]
 
     def grids(state: State):
         B = state.x.shape[0]
@@ -94,10 +115,20 @@ def make_grids(spec: speclib.GameSpec):
                         * _HP_SCALE).to(torch.int32).clamp(0, _HP_MASK)
         vals = (torch.as_tensor(agent_ch, device=device) << _HP_SHIFT) | q
         ok = state.active & ~state.dead
-        # dead agents write to a dump cell past the end (live cells are
-        # unique, so only the dump cell sees duplicate writes)
-        cell = torch.where(ok, (state.y + pad_y) * Wp + (state.x + pad_x),
-                           Hp * Wp)
+        # one scatter of every body cell; cells outside a body and dead
+        # agents write to a dump cell past the end (live bodies are
+        # disjoint, so only the dump cell sees duplicate writes)
+        if MB > 1:
+            i, j, width, length = body_tables(device)
+            bw, bh = geo.size_for_dir(state.dir, width, length)
+            ok = ok & (i < bw) & (j < bh)  # [MB*MB, B, A]
+            cell = torch.where(ok, (state.y + j + pad_y) * Wp
+                               + (state.x + i + pad_x), Hp * Wp)
+            cell = cell.permute(1, 0, 2).reshape(B, -1)
+            vals = vals.repeat(1, MB * MB)
+        else:
+            cell = torch.where(ok, (state.y + pad_y) * Wp
+                               + (state.x + pad_x), Hp * Wp)
         flat = torch.cat([base.reshape(B, Hp * Wp),
                           torch.zeros((B, 1), dtype=torch.int32,
                                       device=device)], 1)
@@ -149,7 +180,24 @@ def window_layout(spec: speclib.GameSpec, group: int, geometry, device):
 def make_observe(spec: speclib.GameSpec, group: int):
     """Build ``observe(state, grids=None) -> (view [B, cap, vh, vw, C],
     feature [B, cap, F])`` for one group; ``grids`` lets callers share the
-    packed grid (``observe.grids_fn(state)``) across groups."""
+    packed grid (``observe.grids_fn(state)``) across groups.
+
+    Two window routes mirror the JAX package's kernel per path; the
+    window shape limit is the TPU replica kernel's lane limit, kept so that
+    each path runs the kernel the reference runs there, not a limit of the
+    card.  Windows with ``vh <= 13`` and ``vw * C <= 65`` take
+    ``window_gather4`` with the liveness factor, and with the minimap and
+    self mark when ``minimap_mode`` is on (the replica route,
+    observe.py:263-267 and :346-360, which fuses liveness only together
+    with the minimap; views are non-negative and the factor is 0 or 1, so
+    the numbers are the same); others take ``window_gather`` and the
+    epilogue in PyTorch.  ``window_gather4`` packs ``tl * 1024 +
+    self_cell`` into int32, so it serves only images of at most 2**21
+    cells (pursuit's maps up to 1388 cells a side); larger images take
+    ``window_gather``.  The JAX package's TPU-only condition on the image
+    size (``4 * image_bytes <= VMEM_IMAGE_BUDGET``, the banded kernel
+    beyond it, as pursuit at map 500 runs) is not a condition of the
+    port."""
     _check_ported(spec, group)
     t = spec.groups[group].type
     gs = spec.groups[group]
@@ -169,27 +217,36 @@ def make_observe(spec: speclib.GameSpec, group: int):
     inv_w = float(np.float32(1.0 / W))
     inv_h = float(np.float32(1.0 / H))
 
+    replica = vh <= 13 and vw * C <= 65 and Hp * Wp <= wg.PACKED_CELLS
+    # 1x1 bodies pool the rendered grid with binning matmuls; multi-cell
+    # bodies pool their anchors by a scatter (observe.py:299-326)
+    binning = spec.max_body_w == 1
     minimap = {}
     if spec.minimap_mode:
-        # 0/1 binning matrices: every live agent occupies one cell marked
-        # with its group's code, so the pooled counts are Py @ ind @ Px^T
-        Py = np.zeros((vh, Hp), np.float32)
-        Px = np.zeros((Wp, vw), np.float32)
-        for yy in range(H):
-            Py[min(yy // scale_h, vh - 1), pad_y + yy] = 1.0
-        for xx in range(W):
-            Px[pad_x + xx, min(xx // scale_w, vw - 1)] = 1.0
         # pooled maps -> their observed channels (G = an all-zero map)
         chan_src = np.full(C, -1, np.int32)
         for gg in range(G):
             chan_src[perm[spec.group2channel(gg)] + 2] = gg
+        mm_maskc = (chan_src >= 0).astype(np.float32)
         minimap = dict(
-            Py=Py, Px=Px,
-            codes=(spec.channel_base
-                   + np.arange(G) * spec.channel_scale).astype(np.int32),
             mm_src=np.where(chan_src < 0, G, chan_src).astype(np.int64),
-            mm_maskc=(chan_src >= 0).astype(np.float32),
+            mm_maskc=mm_maskc,
+            mm_mask2d=np.tile(mm_maskc, (vh, vw)),  # [vh, vw*C]
+            gof=spec.group_of_slot.astype(np.int64),
         )
+        if binning:
+            # 0/1 binning matrices: every live agent occupies one cell
+            # marked with its group's code, so the pooled counts are
+            # Py @ ind @ Px^T
+            Py = np.zeros((vh, Hp), np.float32)
+            Px = np.zeros((Wp, vw), np.float32)
+            for yy in range(H):
+                Py[min(yy // scale_h, vh - 1), pad_y + yy] = 1.0
+            for xx in range(W):
+                Px[pad_x + xx, min(xx // scale_w, vw - 1)] = 1.0
+            minimap.update(Py=Py, Px=Px, codes=(
+                spec.channel_base
+                + np.arange(G) * spec.channel_scale).astype(np.int32))
     consts: dict = {}
 
     def on(device):
@@ -200,6 +257,30 @@ def make_observe(spec: speclib.GameSpec, group: int):
             consts[device] = k
         return consts[device]
 
+    def pooled_minimap(state: State, packed, k):
+        """-> (mm [B, vh, vw, C] pooled minimap channels, px, py [B, A] the
+        pooled cells of every slot), GridWorld.cc:327-384; dead agents are
+        not counted."""
+        B = state.x.shape[0]
+        px = (state.x // scale_w).clamp(0, vw - 1)
+        py = (state.y // scale_h).clamp(0, vh - 1)
+        if binning:
+            ind = ((packed >> _HP_SHIFT)[..., None] == k["codes"]).to(
+                torch.float32)  # [B, Hp, Wp, G]
+            pooled = torch.einsum("rh,bhwg,wc->bgrc", k["Py"], ind, k["Px"])
+            totals = pooled.sum((2, 3)).clamp_min(1.0)
+            pooled = pooled / totals[:, :, None, None]  # [B, G, vh, vw]
+        else:
+            counted = (state.active & ~state.dead).to(torch.float32)
+            flat = torch.zeros((B, G * vh * vw), dtype=torch.float32,
+                               device=state.x.device).scatter_add_(
+                1, k["gof"] * (vh * vw) + (py * vw + px).long(), counted)
+            flat = flat.reshape(B, G, vh * vw)
+            totals = flat.sum(-1).clamp_min(1.0)
+            pooled = (flat / totals[..., None]).reshape(B, G, vh, vw)
+        pooled_ext = torch.cat([pooled, torch.zeros_like(pooled[:, :1])], 1)
+        return pooled_ext[:, k["mm_src"]].permute(0, 2, 3, 1), px, py
+
     def observe(state: State, grids=None):
         device = state.x.device
         k = on(device)
@@ -207,31 +288,35 @@ def make_observe(spec: speclib.GameSpec, group: int):
         B = state.x.shape[0]
         packed = grids_fn(state) if grids is None else grids
         img = render_image(spec, group, packed, lanes)
-        view = wg.window_gather(img, layout["pos_fn"](state), layout["mask"],
-                                vh=vh, vw=vw, C=C, Wp=Wp)
-        view = view.reshape(B, gs.cap, vh, vw, C)
-
+        pos = layout["pos_fn"](state)
+        act = state.active[:, sl]
         x = state.x[:, sl]
         y = state.y[:, sl]
         if spec.minimap_mode:
-            # minimap content (GridWorld.cc:327-384), pooled from the
-            # rendered grid (dead agents are not rendered, so not counted)
-            px = (x // scale_w).clamp(0, vw - 1)
-            py = (y // scale_h).clamp(0, vh - 1)
-            ind = ((packed >> _HP_SHIFT)[..., None] == k["codes"]).to(
-                torch.float32)  # [B, Hp, Wp, G]
-            pooled = torch.einsum("rh,bhwg,wc->bgrc", k["Py"], ind, k["Px"])
-            totals = pooled.sum((2, 3)).clamp_min(1.0)
-            pooled = pooled / totals[:, :, None, None]  # [B, G, vh, vw]
-            pooled_ext = torch.cat(
-                [pooled, torch.zeros_like(pooled[:, :1])], 1)
-            mm = pooled_ext[:, k["mm_src"]].permute(0, 2, 3, 1)  # [B, vh, vw, C]
-            self_cell = py * vw + px
-            self_mark = (self_cell[..., None] == torch.arange(
-                vh * vw, device=device)).to(torch.float32)
-            self_mark = self_mark.reshape(B, gs.cap, vh, vw)
-            view = (view + mm[:, None]
-                    + self_mark[..., None] * k["mm_maskc"])
+            mm, px, py = pooled_minimap(state, packed, k)
+            self_cell = py[:, sl] * vw + px[:, sl]
+        if replica:
+            mm_ops = {}
+            if spec.minimap_mode:
+                pos = pos * 1024 + self_cell
+                mm_ops = dict(mm_img=mm.reshape(B, vh, vw * C).contiguous(),
+                              mm_mask=k["mm_mask2d"])
+            else:
+                pos = pos * 1024
+            view = wg.window_gather4(
+                img, pos.to(torch.int32).contiguous(), layout["mask"],
+                act=act.to(torch.int32).contiguous(), vh=vh, vw=vw, C=C,
+                Wp=Wp, **mm_ops).reshape(B, gs.cap, vh, vw, C)
+        else:
+            view = wg.window_gather(img, pos, layout["mask"], vh=vh, vw=vw,
+                                    C=C, Wp=Wp).reshape(B, gs.cap, vh, vw, C)
+            if spec.minimap_mode:
+                self_mark = (self_cell[..., None] == torch.arange(
+                    vh * vw, device=device)).to(torch.float32)
+                self_mark = self_mark.reshape(B, gs.cap, vh, vw)
+                view = (view + mm[:, None]
+                        + self_mark[..., None] * k["mm_maskc"])
+            view = view * act[:, :, None, None, None]
 
         # feature vector (GridWorld.cc:386-396)
         feats = []
@@ -251,11 +336,7 @@ def make_observe(spec: speclib.GameSpec, group: int):
             feats.append((y.to(torch.float32) * inv_h)[..., None])
         if spec.goal_mode:
             feats.append(torch.zeros((B, gs.cap, 2), device=device))
-        feature = torch.cat(feats, -1)
-
-        act = state.active[:, sl]
-        view = view * act[:, :, None, None, None]
-        feature = feature * act[:, :, None]
+        feature = torch.cat(feats, -1) * act[:, :, None]
         return view, feature
 
     observe.grids_fn = grids_fn

@@ -18,6 +18,10 @@
 // loads at any 4-byte offset.  The mask sits in shared memory.  A window
 // whose position would read outside the image is written as zeros (the
 // caller's positions always lie inside: see padded_geometry).
+//
+// window_gather4 (below) adds the replica kernel's fused epilogue; it is
+// bound by the same bytes (pursuit's two groups at map 64, B=16: 4.3 MB of
+// windows written from a 5.5 MB image).
 
 #include <cuda_runtime.h>
 
@@ -66,7 +70,108 @@ __global__ void window_gather_kernel(const float* __restrict__ img,
   }
 }
 
+// window_gather4: the same row copy with the fused epilogue of the TPU's
+// replica kernel (magent_tpu/ops/window_gather.py window_gather4), whose
+// four shifted image replicas only work around the TPU's aligned loads:
+//
+//   out = ((src * mask + mm[b]) + [cell_id == self_cell] * mm_mask) * act
+//   cell_id = r * vw + c / C,  pos = tl * 1024 + self_cell
+//
+// kMM adds the pooled minimap and the self mark, kAct scales by liveness;
+// the launcher instantiates kMM only with kAct, as the observation calls it.
+// The caller keeps tl * 1024 + self_cell inside int32 (at most 2**21 image
+// cells).
+// Every product and sum is rounded on its own (__fmul_rn / __fadd_rn: no
+// FMA contraction), in the plain version's order, so the result equals it
+// bit for bit.  mask, mm_img[b] and mm_mask sit in shared memory.
+template <bool kMM, bool kAct>
+__global__ void window_gather4_kernel(
+    const float* __restrict__ img, const int* __restrict__ pos,
+    const float* __restrict__ mask, const float* __restrict__ mm_img,
+    const float* __restrict__ mm_mask, const int* __restrict__ act, int N,
+    int Hp, int lanes, int Wp, int C, int vh, int vw,
+    float* __restrict__ out) {
+  extern __shared__ float s_buf[];  // mask | mm_img[b] | mm_mask
+  __shared__ long long s_base[kChunk];
+  __shared__ int s_self[kChunk];
+  __shared__ float s_act[kChunk];
+  const int vwc = vw * C;
+  const int n_win = vh * vwc;
+  float* s_mask = s_buf;
+  float* s_mm = s_buf + n_win;
+  float* s_mmm = s_buf + 2 * n_win;
+  const int b = blockIdx.y;
+  const int n0 = blockIdx.x * kChunk;
+  const int nc = min(kChunk, N - n0);
+  for (int e = threadIdx.x; e < n_win; e += blockDim.x) {
+    s_mask[e] = mask[e];
+    if (kMM) {
+      s_mm[e] = mm_img[(size_t)b * n_win + e];
+      s_mmm[e] = mm_mask[e];
+    }
+  }
+  if (threadIdx.x < nc) {
+    const size_t a = (size_t)b * N + n0 + threadIdx.x;
+    const int p = pos[a];
+    const int tl = p >> 10;
+    const int yy = tl / Wp;
+    const int xx = tl - yy * Wp;
+    const bool ok = p >= 0 && yy + vh <= Hp && xx * C + vwc <= lanes;
+    s_base[threadIdx.x] = ok ? (long long)yy * lanes + (long long)xx * C : -1;
+    s_self[threadIdx.x] = p & 1023;
+    s_act[threadIdx.x] = kAct ? (float)act[a] : 1.f;
+  }
+  __syncthreads();
+
+  const float* img_b = img + (size_t)b * Hp * lanes;
+  float* out_b = out + ((size_t)b * N + n0) * n_win;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int n_warps = blockDim.x >> 5;
+  for (int w = warp; w < nc * vh; w += n_warps) {  // w = agent * vh + row
+    const int a = w / vh;
+    const int r = w - a * vh;
+    const long long base = s_base[a];
+    const float* src = img_b + (base < 0 ? 0 : base) + (long long)r * lanes;
+    const int off = r * vwc;
+    float* dst = out_b + (size_t)w * vwc;
+    for (int c = lane; c < vwc; c += 32) {
+      float v = base < 0 ? 0.f : __fmul_rn(src[c], s_mask[off + c]);
+      if (kMM) {
+        v = __fadd_rn(v, s_mm[off + c]);
+        v = __fadd_rn(v, r * vw + c / C == s_self[a] ? s_mmm[off + c] : 0.f);
+      }
+      if (kAct) v = __fmul_rn(v, s_act[a]);
+      dst[c] = v;
+    }
+  }
+}
+
 }  // namespace
+
+extern "C" int magent_window_gather4(const float* img, const int* pos,
+                                     const float* mask, const float* mm_img,
+                                     const float* mm_mask, const int* act,
+                                     int B, int N, int Hp, int lanes, int Wp,
+                                     int C, int vh, int vw, float* out,
+                                     int device, void* stream) {
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return (int)set;
+  const dim3 grid((N + kChunk - 1) / kChunk, B);
+  const bool mm = mm_img != nullptr;
+  const size_t smem = (size_t)(mm ? 3 : 1) * vh * vw * C * sizeof(float);
+  cudaStream_t s = (cudaStream_t)stream;
+#define MAGENT_G4(MM, ACT)                                               \
+  window_gather4_kernel<MM, ACT><<<grid, kThreads, smem, s>>>(           \
+      img, pos, mask, mm_img, mm_mask, act, N, Hp, lanes, Wp, C, vh, vw, \
+      out)
+  if (mm && !act) return (int)cudaErrorInvalidValue;  // minimap needs act
+  if (mm) MAGENT_G4(true, true);
+  else if (act) MAGENT_G4(false, true);
+  else MAGENT_G4(false, false);
+#undef MAGENT_G4
+  return (int)cudaGetLastError();
+}
 
 extern "C" int magent_window_gather(const float* img, const int* pos,
                                     const float* mask, int B, int N, int Hp,

@@ -6,7 +6,8 @@ count)."""
 from . import _build
 
 KERNELS = ("window_gather", "occupant", "rank_prefix", "move_resolve",
-           "rank_prefix_hp", "move_claims")
+           "rank_prefix_hp", "move_claims", "occupant_rect",
+           "rect_first_overlap", "window_gather4")
 
 
 def launch_counts() -> dict:

@@ -42,6 +42,9 @@ _SIGNATURES = {
     "magent_move_resolve": (_P, _P, _I, _I, _P, _P, _P),
     "magent_move_claims": (_P, _I, _I, _P, _P),
     "magent_window_gather": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "magent_occupant_rect": (_P,) * 7 + (_I, _I, _I, _P, _P),
+    "magent_rect_first_overlap": (_P,) * 8 + (_I,) * 5 + (_P,),
+    "magent_window_gather4": (_P,) * 6 + (_I,) * 8 + (_P,),
 }
 
 _lib = None

@@ -10,7 +10,11 @@ same env (reference semantics and the pairwise formulations:
   GridWorld.cc:464-468);
 - :func:`move_resolve` — move contention and blocking;
 - :func:`move_claims` — move contention alone (the grid path answers
-  blocking from its occupancy grid).
+  blocking from its occupancy grid);
+- :func:`occupant_rect` — which body rect contains the attacked cell
+  (multi-cell bodies);
+- :func:`rect_first_overlap` — the first body a query rect overlaps in the
+  grid path's cell scan order (multi-cell move blocking and claims).
 
 Each has a plain PyTorch version (``*_ref``, ports of the JAX package's
 ``*_xla`` functions, materializing the ``[B, A, A]`` pair mask) and a wrapper
@@ -36,6 +40,13 @@ QUAD_MAX_SINGLE = 16384
 # distinct, so a dead cell never satisfies a (sentinel) query
 QUERY_NONE = 2**30
 CELL_DEAD = 2**29
+
+# sentinels of the rect kernels (multi-cell bodies): a non-query's
+# coordinate (with an empty rect, bw = bh = 0, which contains no cell and
+# overlaps nothing), and the "no slot" answer of rect_first_overlap
+RECT_PAD = -2**20
+RECT_NONE = 2**30
+_NONE_KEY = 2**31 - 1  # empty min-reduction of rect_first_overlap
 
 
 def pack_rank(bits: torch.Tensor, n_slots: int) -> torch.Tensor:
@@ -221,3 +232,120 @@ def move_claims(tcell):
         _build.launch("magent_move_claims", device, tcell.data_ptr(), B, A,
                       cnt.data_ptr(), head.data_ptr())
     return cnt, head
+
+
+# ------------------------------------------------------------ occupant rect
+def occupant_rect_ref(qx, qy, x, y, bw, bh, hp, *, exclude_self=False):
+    """Plain version (port of ``occupant_rect_xla``): (the largest slot whose
+    body rect [x, x+bw) x [y, y+bh) contains query cell (qx_j, qy_j), or -1;
+    the matches' summed hp)."""
+    slots = _slots_col(qx.shape[-1], qx.device)
+    m = ((qx[..., None, :] >= x[..., :, None])
+         & (qx[..., None, :] < (x + bw)[..., :, None])
+         & (qy[..., None, :] >= y[..., :, None])
+         & (qy[..., None, :] < (y + bh)[..., :, None]))  # [..., i, j]
+    if exclude_self:
+        m = m & (slots != slots.T)
+    tgt = torch.where(m, slots, -1).amax(-2)
+    hp_t = torch.where(m, hp[..., :, None], 0.0).sum(-2)
+    return tgt.to(torch.int32), hp_t.to(hp.dtype)
+
+
+def occupant_rect(qx, qy, x, y, bw, bh, hp, *, exclude_self=False):
+    """Rect occupant lookup: ``qx``/``qy`` [B, A] int32 query cell
+    (``RECT_PAD`` for non-queries), ``x``/``y``/``bw``/``bh`` [B, A] int32
+    body rects (``bw = bh = 0`` for the dead), ``hp`` [B, A] f32 ->
+    (tgt [B, A] int32, hp_t [B, A] f32).
+
+    Replaces ``magent_tpu/ops/attack_prefix.py:430`` ``occupant_rect_tpu``
+    (without its ``bslot`` operand, which only the segmented path passes).
+    Bound on the card: 6 integer instructions per pair (four compares that
+    AND into one predicate, a predicated slot move, the ``exclude_self``
+    compare) and one f32 add, over B*A^2 pairs; the operands are KBs.
+    Design: ``csrc/pair_kernels.cu``, as :func:`occupant` — one thread per
+    query, body rects staged in shared memory as their four edges, ascending
+    slots, so the last match is the max.  Bodies are disjoint, so at most
+    one slot matches and ``hp_t`` equals the plain version bit for bit."""
+    ints = (qx, qy, x, y, bw, bh)
+    if _build.route(*ints, hp) == "cpu":
+        return occupant_rect_ref(qx, qy, x, y, bw, bh, hp,
+                                 exclude_self=exclude_self)
+    B, A, device = _pair_operands("occupant_rect", ints, (hp,))
+    tgt = torch.empty((B, A), dtype=torch.int32, device=device)
+    hp_t = torch.empty((B, A), dtype=torch.float32, device=device)
+    if A:
+        _build.launch("magent_occupant_rect", device,
+                      *(t.data_ptr() for t in ints), hp.data_ptr(), B, A,
+                      int(exclude_self), tgt.data_ptr(), hp_t.data_ptr())
+    return tgt, hp_t
+
+
+# ------------------------------------------------------- rect first overlap
+_GATES = ("exclude_self", "lower_only")
+
+
+def _rect_stride(A: int, max_body: int, gate: str) -> int:
+    """Key stride ``2**30 // max_body**2`` (k < max_body^2, slot < A <=
+    stride), after validating the static arguments."""
+    if gate not in _GATES:
+        raise ValueError("gate must be one of %s, got %r" % (_GATES, gate))
+    stride = RECT_NONE // (max_body * max_body)
+    if A > stride:
+        raise ValueError("rect_first_overlap: %d slots exceed the key stride "
+                         "%d of max_body %d" % (A, stride, max_body))
+    return stride
+
+
+def rect_first_overlap_ref(qx, qy, tbw, tbh, x, y, bw, bh, *, max_body,
+                           gate):
+    """Plain version (port of ``rect_first_overlap_xla``): per query rect
+    [qx, qx+tbw) x [qy, qy+tbh), the min over gated bodies i of the key
+    ``k * stride + i``, k the first overlapped cell in the (i outer, j
+    inner) scan order, ``(max(qx, x) - qx) * max_body + max(qy, y) - qy``;
+    returns the key's slot, or ``RECT_NONE`` when nothing overlaps."""
+    A = qx.shape[-1]
+    stride = _rect_stride(A, max_body, gate)
+    slots = _slots_col(A, qx.device)
+    ox = torch.maximum(qx[..., None, :], x[..., :, None])
+    oy = torch.maximum(qy[..., None, :], y[..., :, None])
+    ex = torch.minimum((qx + tbw)[..., None, :], (x + bw)[..., :, None])
+    ey = torch.minimum((qy + tbh)[..., None, :], (y + bh)[..., :, None])
+    ov = (ox < ex) & (oy < ey) & (
+        slots != slots.T if gate == "exclude_self" else slots < slots.T)
+    k = (ox - qx[..., None, :]) * max_body + (oy - qy[..., None, :])
+    key = torch.where(ov, k, 0).to(torch.int64) * stride + slots
+    best = torch.where(ov, key, _NONE_KEY).amin(-2)
+    return torch.where(best == _NONE_KEY, RECT_NONE, best % stride).to(
+        torch.int32)
+
+
+def rect_first_overlap(qx, qy, tbw, tbh, x, y, bw, bh, *, max_body, gate):
+    """First overlap of query rects with body rects: ``qx``/``qy``/``tbw``/
+    ``tbh`` [B, A] int32 query rects (``RECT_PAD`` with an empty rect for
+    non-queries), ``x``/``y``/``bw``/``bh`` [B, A] int32 body rects,
+    ``gate`` ``"exclude_self"`` (bodies i != j) or ``"lower_only"`` (i < j),
+    static ``max_body`` -> [B, A] int32 slot or ``RECT_NONE``.
+
+    Replaces ``magent_tpu/ops/attack_prefix.py:586`` ``rect_first_overlap_tpu``
+    (without its ``qslot``/``bslot`` operands, which only the segmented path
+    passes).  Bound on the card: 12 integer instructions per pair (four
+    min/max edges, two overlap compares and the gate, the cell index k, the
+    key, the min) over B*A^2 pairs for ``exclude_self`` and the B*A*(A-1)/2
+    pairs i < j for ``lower_only``.  Design: ``csrc/pair_kernels.cu``, as
+    :func:`occupant` — the query rect in registers, body edges staged in
+    shared memory, one int32 min per pair; under ``lower_only`` a block
+    stops its sweep at its largest query slot (the TPU kernel's triangular
+    block skip).  Ints: equal to the plain version exactly."""
+    A = qx.shape[-1]
+    stride = _rect_stride(A, max_body, gate)
+    ints = (qx, qy, tbw, tbh, x, y, bw, bh)
+    if _build.route(*ints) == "cpu":
+        return rect_first_overlap_ref(*ints, max_body=max_body, gate=gate)
+    B, A, device = _pair_operands("rect_first_overlap", ints)
+    out = torch.empty((B, A), dtype=torch.int32, device=device)
+    if A:
+        _build.launch("magent_rect_first_overlap", device,
+                      *(t.data_ptr() for t in ints), B, A, stride,
+                      int(max_body), int(gate == "lower_only"),
+                      out.data_ptr())
+    return out

@@ -9,7 +9,9 @@ mask (reference: Map::extract_view, src/gridworld/Map.cc:129-207).
 ``magent_tpu/ops/window_gather.py`` ``window_gather_xla``);
 :func:`window_gather` launches the CUDA kernel of ``csrc/window_gather.cu``
 on CUDA tensors and calls the plain version on CPU tensors.  Both take
-unpacked positions ``pos = tl_y * Wp + tl_x``.
+unpacked positions ``pos = tl_y * Wp + tl_x``.  :func:`window_gather4` (and
+its plain version :func:`window_gather4_ref`) adds the fused minimap,
+self-mark and liveness epilogue and takes packed positions.
 """
 
 from __future__ import annotations
@@ -18,8 +20,12 @@ import torch
 
 from . import _build
 
-# the kernel keeps the mask in default (static-limit) shared memory
+# the kernels keep the mask (and window_gather4's minimap operands) in
+# default (static-limit) shared memory
 _MAX_MASK_BYTES = 48 * 1024
+# window_gather4's packed positions tl * 1024 + self_cell fit int32 for
+# every top-left cell tl of an image of at most this many cells
+PACKED_CELLS = 1 << 21
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -94,3 +100,89 @@ def window_gather(gfull, pos, mask, *, vh, vw, C, Wp):
                       vh, vwc, out.data_ptr())
     return out
 
+
+
+def window_gather4_ref(gfull, pos, mask, mm_img=None, mm_mask=None, act=None,
+                       *, vh, vw, C, Wp):
+    """Plain version: :func:`window_gather_ref` on the packed positions
+    ``pos = tl * 1024 + self_cell``, then the epilogue in the kernel's order:
+    ``((view + mm_img) + [cell_id == self_cell] * mm_mask) * act``."""
+    view = window_gather_ref(gfull, pos >> 10, mask, vh=vh, vw=vw, C=C, Wp=Wp)
+    if mm_img is not None:
+        # the minimap cell of every window lane: r * vw + c // C
+        cell_id = (torch.arange(vh, device=gfull.device)[:, None] * vw
+                   + torch.arange(vw * C, device=gfull.device) // C)
+        self_mark = (cell_id == (pos & 1023)[..., None, None]).to(view.dtype)
+        view = view + mm_img[:, None] + self_mark * mm_mask
+    if act is not None:
+        view = view * act.to(view.dtype)[..., None, None]
+    return view
+
+
+def window_gather4(gfull, pos, mask, mm_img=None, mm_mask=None, act=None, *,
+                   vh, vw, C, Wp):
+    """Window gather with a fused epilogue: ``gfull`` [B, Hp, lanes] f32,
+    ``pos`` [B, N] int32 packed ``tl * 1024 + self_cell`` (``tl = tl_y * Wp +
+    tl_x``, ``self_cell`` the agent's pooled minimap cell, < 1024; the
+    image holds at most ``PACKED_CELLS`` cells ``Hp * Wp``), ``mask``
+    [vh, vw*C] f32; optional ``act`` [B, N] int32 0/1 liveness, and with
+    it optional ``mm_img`` [B, vh, vw*C] f32 pooled minimaps and
+    ``mm_mask`` [vh, vw*C] f32 (the minimap channels, which also get the
+    +1 self mark) -> [B, N, vh, vw*C] f32.  The minimap comes only with
+    ``act``, as the observation's one caller passes it.
+
+    Replaces ``magent_tpu/ops/window_gather.py:187`` ``window_gather4`` (the
+    Pallas replica kernel, ``pallas_call`` at ``:334`` with the epilogue and
+    ``:370`` without).  Its four shifted image replicas and SMEM sub-batch
+    splits work around the TPU's aligned loads and do not carry over; nor
+    does its ``out_dtype``.  Unlike the TPU kernel, which applies ``act``
+    only together with the minimap, the liveness factor stands alone here.
+    Bound on the card: bytes, as :func:`window_gather`.  Design:
+    ``csrc/window_gather.cu`` ``window_gather4_kernel`` — the warp-per-row
+    copy of :func:`window_gather` with the epilogue as template flags,
+    ``mm_img[b]`` and ``mm_mask`` beside the mask in shared memory, each
+    operation rounded on its own, so the result equals the plain version
+    exactly."""
+    if (mm_img is None) != (mm_mask is None):
+        raise ValueError("window_gather4: mm_img and mm_mask come together")
+    if mm_img is not None and act is None:
+        raise ValueError("window_gather4: the minimap epilogue comes with act")
+    if vh * vw >= 1024:
+        raise ValueError("window_gather4: a %dx%d window does not fit the "
+                         "10-bit self cell of pos" % (vh, vw))
+    if gfull.shape[1] * Wp > PACKED_CELLS:
+        raise ValueError("window_gather4: an image of %d x %d cells has top-"
+                         "left cells past the 21 bits of pos; use "
+                         "window_gather" % (gfull.shape[1], Wp))
+    optional = tuple(t for t in (mm_img, mm_mask, act) if t is not None)
+    if _build.route(gfull, pos, mask, *optional) == "cpu":
+        return window_gather4_ref(gfull, pos, mask, mm_img, mm_mask, act,
+                                  vh=vh, vw=vw, C=C, Wp=Wp)
+    B, Hp, lanes = gfull.shape
+    N = pos.shape[1]
+    vwc = vw * C
+    device = gfull.device
+    _build.check(gfull, "window_gather4 image", torch.float32,
+                 (B, Hp, lanes), device)
+    _build.check(pos, "window_gather4 pos", torch.int32, (B, N), device)
+    _build.check(mask, "window_gather4 mask", torch.float32, (vh, vwc), device)
+    if mm_img is not None:
+        _build.check(mm_img, "window_gather4 mm_img", torch.float32,
+                     (B, vh, vwc), device)
+        _build.check(mm_mask, "window_gather4 mm_mask", torch.float32,
+                     (vh, vwc), device)
+    if act is not None:
+        _build.check(act, "window_gather4 act", torch.int32, (B, N), device)
+    if (3 if mm_img is not None else 1) * vh * vwc * 4 > _MAX_MASK_BYTES:
+        raise ValueError("window %dx%d too large for the kernel's shared "
+                         "memory" % (vh, vwc))
+    if B > 65535:
+        raise ValueError("window_gather4: at most 65535 envs per launch")
+    out = torch.empty((B, N, vh, vwc), dtype=torch.float32, device=device)
+    if N:
+        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+        _build.launch("magent_window_gather4", device, gfull.data_ptr(),
+                      pos.data_ptr(), mask.data_ptr(), ptr(mm_img),
+                      ptr(mm_mask), ptr(act), B, N, Hp, lanes, Wp, C, vh, vw,
+                      out.data_ptr())
+    return out

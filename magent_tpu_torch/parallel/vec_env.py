@@ -41,26 +41,38 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
-def _wall_map(spec: speclib.GameSpec):
-    """Border walls: the full [H, W] bool wall map of the device reset."""
+def _wall_map(spec: speclib.GameSpec, walls=None):
+    """Full [H, W] bool wall map: the border plus optional interior (x, y)
+    cells.  The one construction site of both the reset's ``cell_wall`` and
+    the step's packed wall grid, so the two cannot disagree
+    (``vec_env.py:34-45``)."""
     H, W = spec.height, spec.width
     wall = np.zeros((H, W), bool)
     wall[0, :] = wall[-1, :] = wall[:, 0] = wall[:, -1] = True
+    if walls is not None and len(walls):
+        wxy = np.asarray(walls, np.int64)
+        wall[wxy[:, 1], wxy[:, 0]] = True
     return wall
 
 
 class VecGridWorld:
     """A batch of ``n_envs`` lockstep environments on ``device`` (default
-    ``cuda``; raises without a card)."""
+    ``cuda``; raises without a card).
+
+    ``placements``: per group, ``[n_g, 2 or 3]`` (x, y[, dir]) rows that
+    fill the group's capacity exactly (required for multi-cell bodies);
+    otherwise agents are placed uniformly at random on free cells.
+    ``walls``: interior (x, y) wall cells shared by every env, added to
+    the border (reference: test_1m.py's n/10 random walls)."""
 
     def __init__(self, config: Config, caps, n_envs: int, placements=None,
-                 device=None):
+                 walls=None, device=None):
         self.device = resolve_device(device)
         self.spec = spec = speclib.compile_spec(config, caps)
         self.n_envs = n_envs
-        # border walls only: interior walls are ROADMAP.md Queue 1 item 10
+        wall = _wall_map(spec, walls)
         self._step = engine.make_step(spec, maintain_grid=False,
-                                      n_envs=n_envs)
+                                      n_envs=n_envs, walls=wall)
         self._observe = [observe.make_observe(spec, g)
                          for g in range(spec.n_groups)]
         self._grids = self._observe[0].grids_fn
@@ -68,7 +80,7 @@ class VecGridWorld:
         H, W, A = spec.height, spec.width, spec.n_agents_cap
         dev = self.device
         gof = spec.group_of_slot
-        self._wall = torch.as_tensor(_wall_map(spec), device=dev)
+        self._wall = torch.as_tensor(wall, device=dev)
         self._hp0 = torch.as_tensor(spec.g_hp_max[gof], device=dev)
         self._step_reward = torch.as_tensor(spec.s_step_reward, device=dev)
         self._n_action = torch.as_tensor(spec.s_n_action, device=dev)
@@ -86,11 +98,21 @@ class VecGridWorld:
             ys = np.concatenate([np.asarray(p)[:, 1] for p in placements])
             cell0 = np.full((H, W), -1, np.int32)
             cell0[ys, xs] = np.arange(A)
+            if spec.max_body_w > 1:
+                # every cell of a body rect (NORTH: width x length),
+                # vec_env.py:90-97
+                for s_, (xx, yy) in enumerate(zip(xs, ys)):
+                    cell0[yy:yy + spec.s_length[s_],
+                          xx:xx + spec.s_width[s_]] = s_
             self._placed = tuple(
                 torch.as_tensor(a.astype(np.int32), device=dev)
                 for a in (xs, ys, cell0))
         else:
-            n_free = int((~_wall_map(spec)).sum())
+            if spec.max_body_w > 1:
+                raise ValueError(
+                    "random placement places 1x1 bodies only; pass explicit "
+                    "placements for multi-cell agent types")
+            n_free = int((~wall).sum())
             if A > n_free:
                 raise ValueError(
                     "cannot place %d agents on a %dx%d map (%d free interior "

@@ -10,33 +10,38 @@ import numpy as np
 
 from magent_tpu.builtin.config import battle as jbattle
 from magent_tpu.builtin.config import forest as jforest
+from magent_tpu.builtin.config import pursuit as jpursuit
 from magent_tpu.core.state import State as JState
 from magent_tpu.parallel import VecGridWorld as JVec
 
 from magent_tpu_torch import random as trandom
 from magent_tpu_torch.builtin.config import battle as tbattle
+from magent_tpu_torch.builtin.config import forest as tforest
+from magent_tpu_torch.builtin.config import pursuit as tpursuit
 from magent_tpu_torch.core.state import FIELDS, state_from_numpy, state_to_numpy
 from magent_tpu_torch.parallel import VecGridWorld as TVec
 
-# (port config, JAX config) constructors; the port has battle's config only,
-# forest's JAX Config object is read by the port's compiler as it is
+# (port config, JAX config) constructors, each package's own copy
 CONFIGS = {
     "battle": (tbattle.get_config, jbattle.get_config),
-    "forest": (jforest.get_config, jforest.get_config),
+    "forest": (tforest.get_config, jforest.get_config),
+    "pursuit": (tpursuit.get_config, jpursuit.get_config),
 }
 
 
 class Pair:
     """A JAX and a port VecGridWorld of one config (port on the CPU), with
     the JAX functions jitted once.  A <= 1024 keeps the JAX package on its
-    gridless quad path off-TPU (engine._use_quad)."""
+    gridless quad path off-TPU (engine._use_quad).  ``name`` is a key of
+    CONFIGS, or a pair of (port, JAX) ``map_size -> Config`` constructors."""
 
-    def __init__(self, name, map_size, caps, n_envs, placements=None):
-        port_cfg, jax_cfg = CONFIGS[name]
+    def __init__(self, name, map_size, caps, n_envs, placements=None,
+                 walls=None):
+        port_cfg, jax_cfg = CONFIGS[name] if isinstance(name, str) else name
         self.jv = JVec(jax_cfg(map_size), caps, n_envs=n_envs,
-                       placements=placements)
+                       placements=placements, walls=walls)
         self.tv = TVec(port_cfg(map_size), caps, n_envs=n_envs,
-                       placements=placements, device="cpu")
+                       placements=placements, walls=walls, device="cpu")
         self.spec = self.tv.spec
         self.reset = jax.jit(self.jv.reset)
         self.step = jax.jit(self.jv.step)

@@ -1,5 +1,7 @@
-"""The port's CUDA kernels against their plain versions on the card, and
-short GPU-vs-CPU runs of the lockstep loop and of the stateful GridWorld.
+"""The port's CUDA kernels against their plain versions on the card (the
+rect kernels and window_gather4 on the operands of a pursuit map-64, B=16
+step), and short GPU-vs-CPU runs of the lockstep loop (battle; pursuit with
+and without interior walls) and of the stateful GridWorld.
 Marked ``gpu``: each test decides at run time whether a card exists and
 skips without one.  On a machine with an H100:
 python -m pytest tests/test_torch_port_gpu.py -q"""
@@ -150,6 +152,111 @@ def test_lockstep_loop_gpu_matches_cpu(cuda):
         for (gv, gf), (cv, cf) in zip(*obs):
             torch.testing.assert_close(gv.cpu(), cv, atol=1e-6, rtol=0)
             assert torch.equal(gf.cpu(), cf)
+        acts = [e.random_actions(akey) for e in envs]
+        states = [e.transition(s, a)[0] for e, s, a in zip(envs, states, acts)]
+        for name in FIELDS:
+            assert torch.equal(getattr(states[0], name).cpu(),
+                               getattr(states[1], name)), name
+
+
+def _pursuit_operands(cuda, walls):
+    """One recorded step of pursuit map 64, B=16 (train_evidence's
+    placements): the operands of every rect kernel and window_gather4 call,
+    recorded from the CPU run, moved to the card."""
+    from magent_tpu_torch.builtin.config import pursuit
+
+    placements, wall_cells = pursuit.layout(64, wall_frac=0.03 if walls else 0)
+    venv = VecGridWorld(pursuit.get_config(64), [51, 102], 16,
+                        placements=placements, walls=wall_cells or None,
+                        device="cpu")
+    calls = {"occupant_rect": [], "rect_first_overlap": [],
+             "window_gather4": []}
+    originals = {}
+    for mod, name in ((tap, "occupant_rect"), (tap, "rect_first_overlap"),
+                      (twg, "window_gather4")):
+        fn = originals[name] = getattr(mod, name)
+
+        def rec(*args, _fn=fn, _name=name, **kwargs):
+            calls[_name].append(([a.to(cuda) for a in args], {
+                k: v.to(cuda) if isinstance(v, torch.Tensor) else v
+                for k, v in kwargs.items()}))
+            return _fn(*args, **kwargs)
+        setattr(mod, name, rec)
+    try:
+        state = venv.reset(trandom.PRNGKey(0))
+        venv.observe_all(state)
+        venv.transition(state, venv.random_actions(trandom.PRNGKey(1)))
+    finally:
+        for mod, name in ((tap, "occupant_rect"), (tap, "rect_first_overlap"),
+                          (twg, "window_gather4")):
+            setattr(mod, name, originals[name])
+    return calls
+
+
+@pytest.mark.parametrize("walls", [False, True])
+def test_rect_kernels_match_plain_on_card(cuda, walls):
+    """occupant_rect (with and without exclude_self) and rect_first_overlap
+    (both gates, as the step calls them) at the pursuit map-64 shapes: ints
+    exact, hp exact (one body per cell)."""
+    calls = _pursuit_operands(cuda, walls)
+    assert len(calls["rect_first_overlap"]) == 2
+    before = ops.launch_counts()
+    (args, kw), = calls["occupant_rect"]
+    for excl in (False, True):
+        got = tap.occupant_rect(*args, exclude_self=excl)
+        want = tap.occupant_rect_ref(*args, exclude_self=excl)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for args, kw in calls["rect_first_overlap"]:
+        assert torch.equal(tap.rect_first_overlap(*args, **kw),
+                           tap.rect_first_overlap_ref(*args, **kw))
+    after = ops.launch_counts()
+    assert after["occupant_rect"] == before["occupant_rect"] + 2
+    assert after["rect_first_overlap"] == before["rect_first_overlap"] + 2
+
+
+def test_window_gather4_matches_plain_on_card(cuda):
+    """window_gather4 at the pursuit map-64 shapes in its three forms: no
+    epilogue, liveness, and minimap + self mark + liveness: exact."""
+    calls = _pursuit_operands(cuda, False)
+    g = torch.Generator(device="cpu").manual_seed(0)
+    before = ops.launch_counts()["window_gather4"]
+    for (img, pos, mask), kw in calls["window_gather4"]:
+        vh, vw, C = kw["vh"], kw["vw"], kw["C"]
+        ch = torch.zeros(C)
+        ch[[2, C - 1]] = 1.0
+        mm_mask = ch.repeat(vh, vw)
+        mm = dict(mm_img=(torch.rand((16, vh, vw * C), generator=g)
+                          * mm_mask).to(cuda), mm_mask=mm_mask.to(cuda))
+        self_cell = torch.randint(0, vh * vw, tuple(pos.shape), generator=g,
+                                  dtype=torch.int32).to(cuda)
+        geo = {k: kw[k] for k in ("vh", "vw", "C", "Wp")}
+        for p, extra in ((pos, {}), (pos, {"act": kw["act"]}),
+                         (pos + self_cell, dict(mm, act=kw["act"]))):
+            got = twg.window_gather4(img, p, mask, **extra, **geo)
+            assert torch.equal(got, twg.window_gather4_ref(img, p, mask,
+                                                           **extra, **geo))
+    assert ops.launch_counts()["window_gather4"] == before + 6
+
+
+@pytest.mark.parametrize("walls", [False, True])
+def test_pursuit_lockstep_gpu_matches_cpu(cuda, walls):
+    """Pursuit map 32, B=2 (with 3% interior walls or without): the GPU run
+    equals the CPU run, views exactly."""
+    from magent_tpu_torch.builtin.config import pursuit
+
+    placements, wall_cells = pursuit.layout(32, seed=3,
+                                            wall_frac=0.03 if walls else 0)
+    envs = [VecGridWorld(pursuit.get_config(32), [12, 25], 2,
+                         placements=placements, walls=wall_cells or None,
+                         device=d) for d in (cuda, "cpu")]
+    states = [e.reset(trandom.PRNGKey(3)) for e in envs]
+    key = trandom.PRNGKey(4)
+    for _ in range(3):
+        keys = trandom.split(key)
+        key, akey = keys[0], keys[1]
+        obs = [e.observe_all(s) for e, s in zip(envs, states)]
+        for (gv, gf), (cv, cf) in zip(*obs):
+            assert torch.equal(gv.cpu(), cv) and torch.equal(gf.cpu(), cf)
         acts = [e.random_actions(akey) for e in envs]
         states = [e.transition(s, a)[0] for e, s, a in zip(envs, states, acts)]
         for name in FIELDS:
