@@ -32,13 +32,31 @@ Run from the repository root:  python3 chip_smoke.py
    loop (launches per step: occupant_rect 1, rect_first_overlap 2,
    rank_prefix 1, window_gather4 2), counts host syncs and profiles it;
 6. runs the same path on one world at ``scripts/bench_pursuit.py``'s
-   density, map 500 (A = 9375): the same kernel checks at those shapes,
-   then 20 timed steps with the same launch counts;
-7. runs 4 steps at battle map 64, 2x200, B=4, 6 GridWorld steps at battle
-   map 40, 2x64, and 4 steps of pursuit map 64, B=16 without and with 3%
-   interior walls, on the GPU and on the CPU from the same keys and
-   actions, and asserts equal states, views and features;
-8. prints the ``kernels`` JSON line, then ``{"ok": true, "device": ...}``
+   density, map 500 (A = 9375): the rect kernels' checks at those shapes
+   and ``window_gather4`` by a direct call on the map-500 image, then 20
+   timed steps, whose 6.41 MB images take ``window_gather_banded`` (launches
+   per step: occupant_rect 1, rect_first_overlap 2, rank_prefix 1,
+   window_gather_banded 2);
+7. runs pursuit at its reference scale, one world at map 1000 (A = 37,500,
+   seed 5), which takes the y-segmented sweeps and the banded gather: holds
+   ``occupant_rect_seg``, ``rect_first_overlap_seg`` (both gates),
+   ``rank_prefix_seg`` and ``window_gather_banded`` against their plain
+   versions on one step's operands (the occupant with random hp, the rank
+   sweep with random damage, and also with runs of sorted rows sharing a
+   target, since pursuit's hp and damage are constant), and the three
+   sweeps' overflow branch on the first 3000 sorted rows of those forms
+   with a window of 512 rows; times 20 steps (launches per step:
+   occupant_rect_seg 1, rect_first_overlap_seg 2, rank_prefix_seg 1,
+   window_gather_banded 2, nothing else; 2 plans), counts the timed steps
+   whose plans overflowed (read after the window), checks the host syncs
+   per step against the map-500 loop's, and profiles it;
+8. runs 4 steps at battle map 64, 2x200, B=4, 6 GridWorld steps at battle
+   map 40, 2x64, 4 steps of pursuit map 64, B=16 without and with 3%
+   interior walls, and 4 steps of pursuit's one world at map 662 (A =
+   16,434: the segmented sweeps and the banded gather), on the GPU and on
+   the CPU from the same keys and actions, and asserts equal states, views
+   and features;
+9. prints the ``kernels`` JSON line, then ``{"ok": true, "device": ...}``
    as the last line.
 
 Any failure raises (exit code 1).  Without a CUDA device it exits with 2
@@ -48,6 +66,7 @@ and prints no result.
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import math
 import os
@@ -76,6 +95,18 @@ GW_SMALL_MAP, GW_SMALL_STEPS = 40, 6
 P_MAP, P_ENVS, P_SEED = 64, 16, 11
 P_BIG_MAP, P_BIG_SEED = 500, 5
 P_WALL_FRAC, P_SMALL_STEPS = 0.03, 4
+# pursuit at the reference's own scale (bench_pursuit.py's defaults, map
+# 1000, one world), the smallest map whose world takes the segmented sweeps
+# (GPU vs CPU), and the overflow check: the first rows of a sorted step
+# with a window narrower than a segment, so that every plan overflows
+P_SEG_MAP, P_SEG_SEED, P_SEG_SMALL_MAP = 1000, 5, 662
+SEG_OVERFLOW_ROWS, SEG_OVERFLOW_WIN = 3000, 512
+# plans per map-1000 step: the occupant and both move sweeps share margin
+# 4, the rank sweep plans margin 8
+SEG_PLANS_PER_STEP = 2
+# the rank sweep's dense form: each run of this many sorted rows shares a
+# target (the step's attackers rarely share one, so its sums are mostly 0)
+SEG_SHARE = 4
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 # The data sheet's 67 TFLOP/s float32 counts an FMA as two operations; the
@@ -109,9 +140,15 @@ VIEW_ATOL = 1e-6
 #                       k = (ox - qx) * MB + (oy - qy) (two subtracts, one
 #                       multiply-add); key = k * stride + i; min
 #                       (lower_only: only the pairs i < j)
+# The segmented forms need the same per pair (occupant_rect_seg keeps the
+# max slot id: one predicated max) over the pairs of each segment's window.
 PAIR_OPS = {"occupant": (3, 1), "rank_prefix": (2, 1), "move_resolve": (9, 0),
             "rank_prefix_hp": (2, 1), "move_claims": (5, 0),
-            "occupant_rect": (5, 1), "rect_first_overlap": (12, 0)}
+            "occupant_rect": (5, 1), "rect_first_overlap": (12, 0),
+            "occupant_rect_seg": (5, 1), "rect_first_overlap_seg": (12, 0),
+            "rank_prefix_seg": (2, 1)}
+SEG_SWEEPS = ("occupant_rect_seg", "rect_first_overlap_seg",
+              "rank_prefix_seg")
 REPLACES = {
     "window_gather": "magent_tpu/ops/window_gather.py:167",
     "occupant": "magent_tpu/ops/attack_prefix.py:99 (occupant_tpu :285-322)",
@@ -127,12 +164,19 @@ REPLACES = {
                      "(occupant_rect_tpu :430-501)",
     "rect_first_overlap": "magent_tpu/ops/attack_prefix.py:99 "
                           "(rect_first_overlap_tpu :586-675)",
-    # at map 500 the image (6.41 MB) exceeds the JAX package's VMEM budget,
-    # so the reference observes with window_gather_banded (:543, row 13 of
-    # PERF.md, still to port), which the port serves with this kernel
     "window_gather4": "magent_tpu/ops/window_gather.py:334, :370 "
-                      "(window_gather4 :187-387; at map 500 the reference "
-                      "runs window_gather_banded :543)",
+                      "(window_gather4 :187-387)",
+    "occupant_rect_seg": "magent_tpu/ops/attack_prefix.py:901 "
+                         "(_occupant_rect_core :864-912, occupant_rect_seg "
+                         ":915-942)",
+    "rect_first_overlap_seg": "magent_tpu/ops/attack_prefix.py:735 "
+                              "(_rect_overlap_core :678-748, "
+                              "rect_first_overlap_seg :814-861)",
+    "rank_prefix_seg": "magent_tpu/ops/attack_prefix.py:971 "
+                       "(_rank_prefix_core :945-980, rank_prefix_seg "
+                       ":983-1007)",
+    "window_gather_banded": "magent_tpu/ops/window_gather.py:543 "
+                            "(window_gather_banded :477-590)",
 }
 # the kernels' device symbols, as the profiler names them
 SYMBOLS = {
@@ -143,6 +187,10 @@ SYMBOLS = {
     "occupant_rect": "occupant_rect_kernel",
     "rect_first_overlap": "rect_first_overlap_kernel",
     "window_gather4": "window_gather4_kernel",
+    "occupant_rect_seg": "occupant_rect_seg_kernel",
+    "rect_first_overlap_seg": "rect_first_overlap_seg_kernel",
+    "rank_prefix_seg": "rank_prefix_seg_kernel",
+    "window_gather_banded": "window_gather_banded_kernel",
 }
 SOURCES = {
     "window_gather": "magent_tpu_torch/csrc/window_gather.cu",
@@ -154,11 +202,16 @@ SOURCES = {
     "occupant_rect": "magent_tpu_torch/csrc/pair_kernels.cu",
     "rect_first_overlap": "magent_tpu_torch/csrc/pair_kernels.cu",
     "window_gather4": "magent_tpu_torch/csrc/window_gather.cu",
+    "occupant_rect_seg": "magent_tpu_torch/csrc/seg_kernels.cu",
+    "rect_first_overlap_seg": "magent_tpu_torch/csrc/seg_kernels.cu",
+    "rank_prefix_seg": "magent_tpu_torch/csrc/seg_kernels.cu",
+    "window_gather_banded": "magent_tpu_torch/csrc/window_gather.cu",
 }
+WINDOW_KERNELS = ("window_gather", "window_gather4", "window_gather_banded")
 # kernels whose float results equal their plain versions exactly: window
 # copies (the epilogue rounds each operation as the plain version does) and
-# occupant_rect's hp (bodies are disjoint: one non-zero term)
-EXACT = ("window_gather", "window_gather4", "occupant_rect")
+# the rect occupants' hp (bodies are disjoint: one non-zero term)
+EXACT = WINDOW_KERNELS + ("occupant_rect", "occupant_rect_seg")
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -214,6 +267,21 @@ def device_ms(fn, reps: int) -> float:
             continue
         per_call.append(start.elapsed_time(end) / reps)
     return statistics.median(per_call)
+
+
+def banded_kernel_call(args, kwargs):
+    """A call of the banded gather's kernel alone on the band table that
+    ``window_gather_banded(*args, **kwargs)`` makes."""
+    from magent_tpu_torch.ops import window_gather as wg
+
+    gfull, pos, mask = args
+    geo = {n: kwargs[n] for n in ("vh", "vw", "C", "Wp", "chunk")}
+    n_bands, _ = wg._band_geometry(gfull.shape[1], geo["vh"],
+                                   kwargs["band_rows"])
+    pos_pad, _, _ = wg.banded_tables(pos, Wp=geo["Wp"],
+                                     band_rows=kwargs["band_rows"],
+                                     n_bands=n_bands, chunk=geo["chunk"])
+    return lambda: wg._banded_launch(gfull, pos_pad, mask, **geo)
 
 
 def nbytes(tensors) -> int:
@@ -305,14 +373,49 @@ def kernel_fns():
         "rect_first_overlap": (ap.rect_first_overlap,
                                ap.rect_first_overlap_ref),
         "window_gather4": (wg.window_gather4, wg.window_gather4_ref),
+        "occupant_rect_seg": (ap.occupant_rect_seg, ap.occupant_rect_seg_ref),
+        "rect_first_overlap_seg": (ap.rect_first_overlap_seg,
+                                   ap.rect_first_overlap_seg_ref),
+        "rank_prefix_seg": (ap.rank_prefix_seg, ap.rank_prefix_seg_ref),
+        "window_gather_banded": (wg.window_gather_banded,
+                                 wg.window_gather_banded_ref),
     }
+
+
+def seg_plan(name, args, kwargs):
+    """The plan a segmented sweep's call runs on: (S, P, start,
+    overflow)."""
+    from magent_tpu_torch.ops import attack_prefix as ap
+
+    sort_y = args[-1] if name == "rank_prefix_seg" else args[-2]
+    return kwargs.get("plan") or ap._seg_plan(sort_y, kwargs["margin"],
+                                              kwargs.get("seg_win"))
+
+
+def seg_pairs(name, args, kwargs) -> int:
+    """The pairs a segmented sweep's call needs on this data: each
+    segment's real rows times its window's real rows, or A^2 when the plan
+    overflows (every pair is examined: the gates compare slot ids)."""
+    from magent_tpu_torch.ops import attack_prefix as ap
+
+    S, P, start, overflow = seg_plan(name, args, kwargs)
+    A = args[0].shape[0]
+    if bool(overflow):
+        return A * A
+    first = torch.arange(S, device=start.device) * ap.SEG_ROWS
+    rows = (A - first).clamp(max=ap.SEG_ROWS)
+    width = (start.long() + P).clamp(max=A) - start.long()
+    return int((rows * width).sum())
 
 
 def pair_work(name, args, kwargs):
     """(pairs, int32 and f32 instructions per pair) of a pair-kernel call:
-    the pairs this call's sweep needs (``lower_only``: i < j only)."""
-    B, A = args[0].shape
+    the pairs this call's sweep needs (``lower_only``: i < j only; the
+    segmented sweeps: :func:`seg_pairs`)."""
     n_int, n_f32 = PAIR_OPS[name]
+    if name in SEG_SWEEPS:
+        return seg_pairs(name, args, kwargs), n_int, n_f32
+    B, A = args[0].shape
     pairs = B * A * A
     if name == "occupant_rect" and kwargs.get("exclude_self"):
         n_int += 1
@@ -321,12 +424,14 @@ def pair_work(name, args, kwargs):
     return pairs, n_int, n_f32
 
 
-def call_stats(name, args, kwargs, f32_rate, int32_rate, form):
+def call_stats(name, args, kwargs, f32_rate, int32_rate, form,
+               nonzero=False):
     """Hold kernel ``name`` against its plain version on one call's operands
     (ints exact; floats exact for EXACT kernels and the hp form's hp_t, else
-    within PAIR_ATOL), check that the call launches its kernel once, time
-    both, and compute the bound: instructions at ``f32_rate`` /
-    ``int32_rate`` per second against bytes at HBM_BYTES_PER_S."""
+    within PAIR_ATOL; with ``nonzero``, the plain version's floats must not
+    all be zero), check that the call launches its kernel once, time both,
+    and compute the bound: instructions at ``f32_rate`` / ``int32_rate``
+    per second against bytes at HBM_BYTES_PER_S."""
     from magent_tpu_torch import ops
 
     kernel, plain = kernel_fns()[name]
@@ -339,6 +444,12 @@ def call_stats(name, args, kwargs, f32_rate, int32_rate, form):
         raise AssertionError("%s: %d results vs plain %d" % (
             name, len(got), len(want)))
     err = 0.0
+    n_nonzero = sum(int((w != 0).sum()) for w in want
+                    if w.dtype.is_floating_point)
+    if nonzero and not n_nonzero:
+        raise AssertionError("%s (%s): the plain version's floats are all "
+                             "zero; the check would hold any kernel" % (
+                                 name, form))
     for k, (g, w) in enumerate(zip(got, want)):
         if g.shape != w.shape or g.dtype != w.dtype:
             raise AssertionError("%s: %s %s vs plain %s %s" % (
@@ -359,11 +470,23 @@ def call_stats(name, args, kwargs, f32_rate, int32_rate, form):
     if ops.launch_counts()[name] != before + 1:
         raise AssertionError("%s: a call did not launch its kernel once"
                              % name)
-    ms = device_ms(lambda: kernel(*args, **kwargs), 50)
-    plain_ms = device_ms(lambda: plain(*args, **kwargs), 5)
-    call_ms = cuda_ms(lambda: kernel(*args, **kwargs), 50)
-    if name in ("window_gather", "window_gather4"):
-        io_bytes = window_gather_bytes(name, args, kwargs, got[0])
+    if name == "window_gather_banded":
+        # the kernel alone on the call's band table; the entry point's ~53
+        # launches per call (the band tables) would overrun the device's
+        # queue of pending launches behind device_ms's spin at 50 calls
+        ms = device_ms(banded_kernel_call(args, kwargs), 50)
+        call_ms = device_ms(lambda: kernel(*args, **kwargs), 10)
+        call_what = "the entry point's device ops"
+    else:
+        ms = device_ms(lambda: kernel(*args, **kwargs), 50)
+        call_ms = cuda_ms(lambda: kernel(*args, **kwargs), 50)
+        call_what = "a call back to back"
+    # the segmented sweeps' plain versions read the plan's overflow flag
+    # on the host, which device_ms's queued spin cannot outlast
+    plain_ms = (cuda_ms if name in SEG_SWEEPS else device_ms)(
+        lambda: plain(*args, **kwargs), 5)
+    if name in WINDOW_KERNELS:
+        io_bytes = window_gather_bytes(name, args, kwargs, got)
         # f32 operations per output element: the mask multiply, the two
         # minimap adds, the liveness multiply
         n_f32 = 1 + (2 if kwargs.get("mm_img") is not None else 0) + (
@@ -377,10 +500,12 @@ def call_stats(name, args, kwargs, f32_rate, int32_rate, form):
     stats = dict(form=form, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                  bound_ms=max(bytes_ms, ops_ms),
                  bound_by="bytes" if bytes_ms >= ops_ms else "operations")
-    print("kernel %-18s %-34s max_abs_err=%g  kernel %.4f ms device (%.4f "
-          "ms a call back to back)  plain %.4f ms device  bound %.6f ms (%s; "
-          "%.4f MB -> %.6f ms, ops -> %.6f ms)  shapes %s" % (
-              name, form, err, ms, call_ms, plain_ms, stats["bound_ms"],
+    stats["call_ms"] = call_ms
+    print("kernel %-18s %-34s max_abs_err=%g (%d non-zero floats)  kernel "
+          "%.4f ms device (%.4f ms %s)  plain %.4f ms device  bound %.6f ms "
+          "(%s; %.4f MB -> %.6f ms, ops -> %.6f ms)  shapes %s" % (
+              name, form, err, n_nonzero, ms, call_ms, call_what, plain_ms,
+              stats["bound_ms"],
               stats["bound_by"], io_bytes / 1e6, bytes_ms, ops_ms,
               [tuple(a.shape) for a in args]), flush=True)
     return stats
@@ -388,14 +513,14 @@ def call_stats(name, args, kwargs, f32_rate, int32_rate, form):
 
 def kernel_row(name, calls, f32_rate, int32_rate, extra=()):
     """The ``kernels`` line's row of entry point ``name``: ``calls`` are the
-    ``(args, kwargs, form)`` of one main-path step's calls, whose numbers
-    are averaged per launch; ``extra`` are further checked forms (other
-    options, other shapes), listed under ``per_call`` with those of the
-    path."""
-    path = [call_stats(name, a, k, f32_rate, int32_rate, form)
-            for a, k, form in calls]
-    more = [call_stats(name, a, k, f32_rate, int32_rate, form)
-            for a, k, form in extra]
+    ``(args, kwargs, form[, nonzero])`` of one main-path step's calls, whose
+    numbers are averaged per launch; ``extra`` are further checked forms
+    (other options, other shapes, other values), listed under ``per_call``
+    with those of the path (``nonzero``: see :func:`call_stats`)."""
+    path = [call_stats(name, a, k, f32_rate, int32_rate, *form)
+            for a, k, *form in calls]
+    more = [call_stats(name, a, k, f32_rate, int32_rate, *form)
+            for a, k, *form in extra]
     top = max(path, key=lambda st: st["bound_ms"])
     row = dict(
         name=name, route="cuda", source=SOURCES[name],
@@ -470,12 +595,14 @@ def assert_bodies_disjoint(venv, state):
         raise AssertionError("a live body stands on a wall")
 
 
-def run_lockstep(label, venv, state, key, per_step, device_name):
+def run_lockstep(label, venv, state, key, per_step, device_name,
+                 timed=contextlib.nullcontext):
     """The timed lockstep loop: warm-up, launch counters set to 0, TIMED_STEPS
-    unsynchronized steps ending in a synchronize, then the counts checked
-    against ``per_step`` launches of each kernel per step; host syncs per
-    step, synchronized phase times, output shapes and finiteness, disjoint
-    bodies.  Returns (launch counts, state, key, ms per step)."""
+    unsynchronized steps (inside the context ``timed()``) ending in a
+    synchronize, then the counts checked against ``per_step`` launches of
+    each kernel per step; host syncs per step, synchronized phase times,
+    output shapes and finiteness, disjoint bodies.  Returns (launch counts,
+    state, key, ms per step, host syncs per step)."""
     from magent_tpu_torch import ops
     from magent_tpu_torch import random as rnd
 
@@ -486,8 +613,9 @@ def run_lockstep(label, venv, state, key, per_step, device_name):
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     sink = torch.zeros((), device=venv.device)
-    for _ in range(TIMED_STEPS):
-        sink = sink + lockstep_step(venv, carry)
+    with timed():
+        for _ in range(TIMED_STEPS):
+            sink = sink + lockstep_step(venv, carry)
     float(sink)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
@@ -545,7 +673,7 @@ def run_lockstep(label, venv, state, key, per_step, device_name):
                 and bool(torch.isfinite(feat).all())):
             raise AssertionError("group %d observations not finite" % g)
     assert_bodies_disjoint(venv, state)
-    return counts, state, key, dt / TIMED_STEPS * 1e3
+    return counts, state, key, dt / TIMED_STEPS * 1e3, syncs
 
 
 def profile_steps(label, step, n_steps, ms_per_step):
@@ -844,9 +972,15 @@ def check_gridworld_gpu_matches_cpu():
                           GW_SMALL_STEPS), flush=True)
 
 
-# launches per step of pursuit's gridless rect path (the rest 0)
+# launches per step of pursuit's gridless rect path (the rest 0): at map 64
+# (B=16), at map 500 (one world, a 6.41 MB image: the banded gather) and at
+# map 1000 (one world of 37,500 slots: the segmented sweeps)
 PURSUIT_PER_STEP = {"occupant_rect": 1, "rect_first_overlap": 2,
                     "rank_prefix": 1, "window_gather4": 2}
+PURSUIT_BIG_PER_STEP = {"occupant_rect": 1, "rect_first_overlap": 2,
+                        "rank_prefix": 1, "window_gather_banded": 2}
+SEG_PER_STEP = {"occupant_rect_seg": 1, "rect_first_overlap_seg": 2,
+                "rank_prefix_seg": 1, "window_gather_banded": 2}
 RECT_KERNELS = ("occupant_rect", "rect_first_overlap", "window_gather4")
 
 
@@ -863,29 +997,35 @@ def pursuit_env(map_size, n_envs, seed, wall_frac=0.0, device=None):
                         device=device)
 
 
-def record_pursuit_step(venv, state, key):
-    """One lockstep step with the rect kernels' wrappers recording their
-    operands -> ({name: [(args, kwargs, form)]}, carry [state, key])."""
+def record_step(venv, state, key, per_call):
+    """One lockstep step with the wrappers named in ``per_call`` recording
+    their operands; checks that the step calls each as often as
+    ``per_call`` says -> ({name: [(args, kwargs, form)]}, carry [state,
+    key])."""
     from magent_tpu_torch.ops import attack_prefix as ap
     from magent_tpu_torch.ops import window_gather as wg
 
     carry = [state, key]
     rec = record_operands(lambda: lockstep_step(venv, carry), [
-        (ap, "occupant_rect"), (ap, "rect_first_overlap"),
-        (wg, "window_gather4")])
+        (wg if name.startswith("window") else ap, name) for name in per_call])
     shape = "map %d, A=%d, B=%d" % (venv.spec.width, venv.spec.n_agents_cap,
                                     venv.n_envs)
-    calls = {
-        "occupant_rect": [(a, k, shape + ", attack")
-                          for a, k in rec["occupant_rect"]],
-        "rect_first_overlap": [(a, k, "%s, %s" % (shape, k["gate"]))
-                               for a, k in rec["rect_first_overlap"]],
-        "window_gather4": [(a, k, "%s, group %d, liveness" % (shape, g))
-                           for g, (a, k) in enumerate(rec["window_gather4"])],
-    }
-    if [len(calls[n]) for n in RECT_KERNELS] != [1, 2, 2]:
-        raise AssertionError("a pursuit step called the rect kernels %s "
-                             "times" % [len(calls[n]) for n in RECT_KERNELS])
+
+    def form(name, k, i):
+        if "gate" in k:
+            return "%s, %s" % (shape, k["gate"])
+        if name.startswith("window"):
+            return "%s, group %d%s" % (shape, i,
+                                       ", liveness" if "act" in k else "")
+        return shape + ", attack"
+
+    calls = {name: [(a, k, form(name, k, i))
+                     for i, (a, k) in enumerate(rec[name])]
+             for name in per_call}
+    got = {name: len(c) for name, c in calls.items()}
+    if got != per_call:
+        raise AssertionError("a pursuit step made the calls %s, expected %s"
+                             % (got, per_call))
     return calls, carry
 
 
@@ -918,19 +1058,35 @@ def off_path_forms(calls):
     return extra
 
 
+def window_gather4_calls(banded_calls):
+    """``window_gather4`` on the images and positions of the banded
+    gather's calls (a direct call: the path observes these images with the
+    banded gather), with every agent live."""
+    out = []
+    for (img, pos, mask), k, form in banded_calls:
+        geo = {n: k[n] for n in ("vh", "vw", "C", "Wp")}
+        out.append(([img, pos * 1024, mask],
+                    dict(geo, act=torch.ones_like(pos)),
+                    form + ", liveness, direct call"))
+    return out
+
+
 def run_pursuit_paths(f32_rate, int32_rate, device_name):
     """Phases 5 and 6: pursuit's gridless rect path at map 64, B=16 and on
-    one world at map 500; returns the rect kernels' rows."""
+    one world at map 500; returns the rect kernels' rows, the map-500
+    banded gather calls and the map-500 loop's host syncs per step."""
     from magent_tpu_torch import random as rnd
 
     venv = pursuit_env(P_MAP, P_ENVS, P_SEED)
-    calls, carry = record_pursuit_step(venv, venv.reset(rnd.PRNGKey(0)),
-                                       rnd.PRNGKey(1))
+    calls, carry = record_step(venv, venv.reset(rnd.PRNGKey(0)),
+                               rnd.PRNGKey(1), {"occupant_rect": 1,
+                                                "rect_first_overlap": 2,
+                                                "window_gather4": 2})
     extra = off_path_forms(calls)
     rows = {name: kernel_row(name, calls[name], f32_rate, int32_rate,
                              extra[name]) for name in RECT_KERNELS}
     del calls, extra
-    counts, state, key, ms_per_step = run_lockstep(
+    counts, state, key, ms_per_step, _ = run_lockstep(
         "pursuit lockstep, map %d" % P_MAP, venv, *carry, PURSUIT_PER_STEP,
         device_name)
     for name in RECT_KERNELS:
@@ -940,8 +1096,12 @@ def run_pursuit_paths(f32_rate, int32_rate, device_name):
     torch.cuda.empty_cache()
 
     big = pursuit_env(P_BIG_MAP, 1, P_BIG_SEED)
-    calls, carry = record_pursuit_step(big, big.reset(rnd.PRNGKey(2)),
-                                       rnd.PRNGKey(3))
+    calls, carry = record_step(big, big.reset(rnd.PRNGKey(2)),
+                               rnd.PRNGKey(3), {"occupant_rect": 1,
+                                                "rect_first_overlap": 2,
+                                                "window_gather_banded": 2})
+    banded = calls.pop("window_gather_banded")
+    calls["window_gather4"] = window_gather4_calls(banded)
     extra = off_path_forms(calls)
     for name in RECT_KERNELS:
         rows[name]["per_call"] = rows[name].get("per_call", []) + [
@@ -949,13 +1109,142 @@ def run_pursuit_paths(f32_rate, int32_rate, device_name):
             for a, k, form in calls[name] + extra[name]]
     del calls, extra
     torch.cuda.empty_cache()
-    _, state, key, ms_per_step = run_lockstep(
+    _, state, key, ms_per_step, syncs = run_lockstep(
         "pursuit one world, map %d" % P_BIG_MAP, big, *carry,
-        PURSUIT_PER_STEP, device_name)
+        PURSUIT_BIG_PER_STEP, device_name)
     profile_lockstep("pursuit one world", big, state, key, ms_per_step)
     del big, state, carry
     torch.cuda.empty_cache()
+    return rows, banded, syncs
+
+
+def valued_seg_forms(calls):
+    """Give the step's occupant and rank sweeps values that can show a
+    wrong row: pursuit's hp is 1 everywhere and it deals no damage, so
+    ``calls``' occupant form takes seeded random hp and its rank form
+    seeded random damage on the valid rows (targets below A), in place;
+    returns the rank sweep's dense form, in which each run of SEG_SHARE
+    sorted rows shares a target (the step's attackers rarely share one).
+    The occupant form and the dense form are marked: their float results
+    must not all be zero."""
+    gen = torch.Generator(device="cpu").manual_seed(P_SEG_SEED)
+
+    def uniform(like):
+        return (0.1 + 0.9 * torch.rand(like.shape[0], generator=gen)).to(
+            like.device)
+
+    (a, k, form), = calls["occupant_rect_seg"]
+    calls["occupant_rect_seg"] = [(a[:6] + [uniform(a[6])] + a[7:], k,
+                                   form + ", random hp", True)]
+    (a, k, form), = calls["rank_prefix_seg"]
+    tgt, rank, _, sort_y = a
+    A = tgt.shape[0]
+    calls["rank_prefix_seg"] = [([tgt, rank, torch.where(
+        tgt < A, uniform(tgt), 0.0), sort_y], k, form + ", random damage")]
+    shared = (torch.arange(A, device=tgt.device) // SEG_SHARE).to(torch.int32)
+    return {"rank_prefix_seg": [(
+        [shared, rank, uniform(tgt), sort_y], k,
+        form + ", runs of %d rows share a target, random damage" % SEG_SHARE,
+        True)]}
+
+
+def seg_overflow_forms(name, forms):
+    """The segmented sweeps' overflow branch on the card: each form on its
+    first SEG_OVERFLOW_ROWS sorted rows with a window of SEG_OVERFLOW_WIN
+    rows, narrower than a 1024-row segment, so that the plan overflows and
+    every row sweeps all rows (the plain version's full sweep with
+    explicit slot ids)."""
+    out = []
+    for args, kw, form, *nonzero in forms:
+        cut = [a[:SEG_OVERFLOW_ROWS] for a in args]
+        k = {n: v for n, v in kw.items() if n != "plan"}
+        k["seg_win"] = SEG_OVERFLOW_WIN
+        k["plan"] = seg_plan(name, cut, k)
+        if not bool(k["plan"][3]):
+            raise AssertionError("%s: the narrow window did not overflow"
+                                 % name)
+        out.append((cut, k, "%s; overflow: first %d sorted rows, window %d"
+                    % (form, SEG_OVERFLOW_ROWS, SEG_OVERFLOW_WIN), *nonzero))
+    return out
+
+
+def run_seg_path(f32_rate, int32_rate, device_name, banded_500, syncs_500):
+    """Phase 7: pursuit on one world at map 1000 through the segmented
+    sweeps and the banded gather; returns the four kernels' rows."""
+    from magent_tpu_torch import random as rnd
+    from magent_tpu_torch.ops import attack_prefix as ap
+
+    big = pursuit_env(P_SEG_MAP, 1, P_SEG_SEED)
+    if not big._step.route.seg or [o.route for o in big._observe] != [
+            "window_gather_banded"] * 2:
+        raise AssertionError("map %d: route %s, observation routes %s" % (
+            P_SEG_MAP, big._step.route, [o.route for o in big._observe]))
+    calls, carry = record_step(big, big.reset(rnd.PRNGKey(4)),
+                               rnd.PRNGKey(5), SEG_PER_STEP)
+    extra = valued_seg_forms(calls)
+    for name in SEG_SWEEPS:
+        forms = extra.get(name, [])
+        extra[name] = forms + seg_overflow_forms(name, calls[name] + forms)
+    extra["window_gather_banded"] = banded_500
+    rows = {name: kernel_row(name, calls[name], f32_rate, int32_rate,
+                             extra[name]) for name in SEG_PER_STEP}
+    del calls, extra
+    torch.cuda.empty_cache()
+
+    # every plan of the timed steps, its overflow flag kept on the device
+    # and read after the run
+    flags = []
+
+    @contextlib.contextmanager
+    def recording_plans():
+        plan = ap._seg_plan
+
+        def recording_plan(*args, **kwargs):
+            out = plan(*args, **kwargs)
+            flags.append(out[3])
+            return out
+
+        ap._seg_plan = recording_plan
+        try:
+            yield
+        finally:
+            ap._seg_plan = plan
+
+    counts, state, key, ms_per_step, syncs = run_lockstep(
+        "pursuit one world, map %d" % P_SEG_MAP, big, *carry, SEG_PER_STEP,
+        device_name, timed=recording_plans)
+    if len(flags) != SEG_PLANS_PER_STEP * TIMED_STEPS:
+        raise AssertionError("map %d: %d plans in %d timed steps, expected "
+                             "%d per step" % (P_SEG_MAP, len(flags),
+                                              TIMED_STEPS, SEG_PLANS_PER_STEP))
+    timed = torch.stack(flags).reshape(TIMED_STEPS, SEG_PLANS_PER_STEP)
+    n_over = int(timed.any(1).sum())
+    print("pursuit one world, map %d: %d of %d timed steps had a plan that "
+          "overflowed (%d of %d plans)" % (
+              P_SEG_MAP, n_over, TIMED_STEPS, int(timed.sum()),
+              timed.numel()), flush=True)
+    if syncs > syncs_500:
+        raise AssertionError("map %d: %.1f host syncs per step, more than "
+                             "the map-%d loop's %.1f" % (
+                                 P_SEG_MAP, syncs, P_BIG_MAP, syncs_500))
+    for name in SEG_PER_STEP:
+        rows[name]["launches"] = counts[name]
+    profile_lockstep("pursuit map %d" % P_SEG_MAP, big, state, key,
+                     ms_per_step)
+    del big, state, carry
+    torch.cuda.empty_cache()
     return rows
+
+
+def seg_world_env(device):
+    """The smallest pursuit map whose one world takes the segmented sweeps
+    (and the banded gather), for the GPU-vs-CPU run."""
+    venv = pursuit_env(P_SEG_SMALL_MAP, 1, P_SEG_SEED, device=device)
+    if not venv._step.route.seg or [o.route for o in venv._observe] != [
+            "window_gather_banded"] * 2:
+        raise AssertionError("map %d does not take the segmented route"
+                             % P_SEG_SMALL_MAP)
+    return venv
 
 
 def _flat(items):
@@ -998,7 +1287,7 @@ def main() -> int:
     print("peak at %.0f MHz max SM clock: %.4g f32 and %.4g int32 "
           "instructions/s" % (mhz, f32_rate, int32_rate), flush=True)
     rows = check_kernels(venv, state, rnd.PRNGKey(1), f32_rate, int32_rate)
-    counts, state, key, ms_per_step = run_lockstep(
+    counts, state, key, ms_per_step, _ = run_lockstep(
         "main path: battle lockstep", venv, state, rnd.PRNGKey(2),
         {"window_gather": 2, "occupant": 1, "rank_prefix": 1,
          "move_resolve": 1}, device_name)
@@ -1011,7 +1300,11 @@ def main() -> int:
     for name, row in gw_rows.items():
         row["launches"] = gw_counts[name]
     rows.update(gw_rows)
-    rows.update(run_pursuit_paths(f32_rate, int32_rate, device_name))
+    rect_rows, banded_500, syncs_500 = run_pursuit_paths(
+        f32_rate, int32_rate, device_name)
+    rows.update(rect_rows)
+    rows.update(run_seg_path(f32_rate, int32_rate, device_name, banded_500,
+                             syncs_500))
 
     check_gpu_matches_cpu(
         "battle map %d" % SMALL_MAP,
@@ -1024,6 +1317,9 @@ def main() -> int:
             "pursuit map %d, %g interior walls" % (P_MAP, frac),
             lambda d: pursuit_env(P_MAP, P_ENVS, P_SEED, frac, device=d),
             P_SMALL_STEPS, 0.0)
+    check_gpu_matches_cpu(
+        "pursuit one world, map %d (segmented sweeps, banded gather)"
+        % P_SEG_SMALL_MAP, seg_world_env, P_SMALL_STEPS, 0.0)
 
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {

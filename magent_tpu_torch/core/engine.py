@@ -10,7 +10,10 @@ once in :func:`make_step`:
   bodies, rect containment and first rect overlap for multi-cell bodies
   (pursuit's 2x2 predators); ``state.cell_slot`` is neither read nor
   rebuilt; border walls are answered by formula, interior walls by one
-  gather of a packed per-body-size overlap grid;
+  gather of a packed per-body-size overlap grid.  One multi-cell world of
+  ``QUAD_MAX_SINGLE`` to ``SEG_DEFAULT_MAX`` slots sorts its agents by y
+  once per step and takes the y-segmented forms of the rect and rank
+  sweeps;
 - the **grid** path (``maintain_grid=True``, the stateful ``GridWorld``,
   1x1 bodies only):
   attack targets and move blocking are read from ``state.cell_slot`` and
@@ -56,12 +59,18 @@ class _Tables:
     """The spec's per-slot tables (``s_*``) as tensors on one device, and
     the gridless step's packed wall grid when the map has interior walls
     (``wall_code`` [H*W] and ``wall_bit`` [A], see :func:`_wall_rect_code`;
-    None for border walls only)."""
+    None for border walls only).  ``att_reach_y`` and ``max_dy``, the
+    largest |y| reach of an attack and of a move (NORTH frames), bound the
+    y-distance of interacting pairs for the segmented sweeps."""
 
     def __init__(self, spec: speclib.GameSpec, device, wall_ctx=None):
         for name in _SLOT_TABLES:
             setattr(self, name,
                     torch.as_tensor(getattr(spec, "s_" + name), device=device))
+        A = spec.n_agents_cap
+        self.att_reach_y = int(np.max(np.abs(
+            spec.s_att_y_offset[:, None] + spec.s_att_dy))) if A else 0
+        self.max_dy = int(np.max(np.abs(spec.s_move_dy))) if A else 0
         self.gof = torch.as_tensor(spec.group_of_slot, device=device)
         self.slots = torch.arange(spec.n_agents_cap, dtype=torch.int32,
                                   device=device)
@@ -84,11 +93,59 @@ class _Route(NamedTuple):
     """Where a step resolves occupancy, decided once per spec."""
     grid: bool  # read, clear and rebuild state.cell_slot
     quad: bool  # pair kernels; else the sort branches (grid path only)
+    seg: bool = False  # y-segmented rect sweeps (one multi-cell world)
 
 
 # above this many slots a single multi-cell world leaves the y-segmented
 # pair sweeps for the grid path (the JAX package's engine.py:155)
 SEG_DEFAULT_MAX = 65536
+
+
+def _seg_win_hint(spec: speclib.GameSpec, A: int, margin: int) -> int:
+    """Partner-window width of the segmented sweeps (``engine.py:159-166``):
+    the agents within ``margin`` rows of a SEG_ROWS segment at uniform
+    density (A / map height), three times over, plus slack; a wider window
+    takes the full sweep."""
+    per_row = -(-A // max(spec.height, 1))
+    return ap.SEG_ROWS + 6 * margin * per_row + 512
+
+
+def _seg_order(state: State):
+    """One stable sort of the single world's y serves every segmented sweep
+    of a step (``engine.py:1043-1051``; positions change only in the move
+    phase, which runs last) -> (sort_y [A] int32, order [A] int64, order
+    [A] int32, {margin: plan} filled by :func:`_seg_kwargs`)."""
+    if state.y.shape[0] != 1:
+        raise ValueError("the segmented sweeps step one world, got a batch "
+                         "of %d" % state.y.shape[0])
+    sort_y, order = torch.sort(state.y[0], stable=True)
+    return sort_y, order, order.to(torch.int32), {}
+
+
+def _seg_kwargs(spec: speclib.GameSpec, seg_ctx, margin: int) -> dict:
+    """A segmented sweep's window keywords at ``margin``, with the plan
+    made once per step for each distinct margin (pursuit's occupant and
+    both move sweeps share margin 4)."""
+    sort_y, _, _, plans = seg_ctx
+    seg_win = _seg_win_hint(spec, spec.n_agents_cap, margin)
+    if margin not in plans:
+        plans[margin] = ap._seg_plan(sort_y, margin, seg_win)
+    return dict(margin=margin, seg_win=seg_win, plan=plans[margin])
+
+
+def _permute(rows, order):
+    """Stack [1, A] operands as int32 rows and permute them to sorted order
+    in one gather -> [k, A] (floats ride as their bits)."""
+    return torch.stack([r[0].view(torch.int32) if r.dtype == torch.float32
+                        else r[0].to(torch.int32) for r in rows])[:, order]
+
+
+def _unpermute(rows, order):
+    """Scatter [k, A] sorted-order int32 rows back to slot order in one
+    write -> [k, 1, A]."""
+    return torch.empty_like(rows).scatter_(
+        1, order.expand(rows.shape), rows)[:, None]
+
 
 _RECT_GRID = ("multi-cell bodies on the grid path are not ported yet: "
               "ROADMAP.md Queue 1 item 7")
@@ -266,9 +323,10 @@ def _damage_sorted(state, rank, tgt_key, tgt_c, valid, dmg_slot, kr_t, ks_t):
             _unsort(torch.where(is_killer, take(ks_t), 0.0), order))
 
 
-def _attack_phase(spec, T, state: State, rank, route: _Route):
+def _attack_phase(spec, T, state: State, rank, route: _Route, seg_ctx=None):
     """Attack resolution (engine.py:212-526; reference GridWorld.cc:470-517,
-    Map.cc:209-310)."""
+    Map.cc:209-310).  ``seg_ctx``: :func:`_seg_order`'s sort on the
+    segmented route."""
     A = spec.n_agents_cap
     H, W = spec.height, spec.width
     act = state.last_action
@@ -289,6 +347,22 @@ def _attack_phase(spec, T, state: State, rank, route: _Route):
     if route.grid:
         # the attacked cell's occupant from the grid (engine.py:295)
         tgt = torch.where(hit, _grid_at(state.cell_slot, tyc * W + txc), -1)
+    elif route.seg:
+        # rect containment, y-segmented (engine.py:259-280): every operand
+        # permuted to sorted order in one gather, both results scattered
+        # back in one write (hp as its bits)
+        sort_y, order, order32, _ = seg_ctx
+        bw, bh = geo.size_for_dir(state.dir, T.width, T.length)
+        q = _permute((torch.where(hit, txc, ap.RECT_PAD),
+                      torch.where(hit, tyc, ap.RECT_PAD), state.x, state.y,
+                      torch.where(alive, bw, 0), torch.where(alive, bh, 0),
+                      state.hp), order)
+        t_s, h_s = ap.occupant_rect_seg(
+            *q[:6], q[6].view(torch.float32), sort_y, order32,
+            **_seg_kwargs(spec, seg_ctx, T.att_reach_y + spec.max_body_w))
+        tgt, hp_bits = _unpermute(torch.stack([t_s, h_s.view(torch.int32)]),
+                                  order)
+        hp_t_occ = hp_bits.view(torch.float32)
     elif spec.max_body_w > 1:
         # rect containment (engine.py:254-287, unsegmented): the attacked
         # cell against the live agents' static NORTH body rects
@@ -336,6 +410,18 @@ def _attack_phase(spec, T, state: State, rank, route: _Route):
         if route.grid:
             P, hp_t = ap.rank_prefix(tgt_key, rank_key, dmg_slot.contiguous(),
                                      state.hp.contiguous())
+        elif route.seg:
+            # attackers interact only through a shared target, which lies
+            # within the attack reach of both (engine.py:347-362)
+            sort_y, order, _, _ = seg_ctx
+            q = _permute((tgt_key, rank_key, dmg_slot), order)
+            P_s = ap.rank_prefix_seg(
+                q[0], q[1], q[2].view(torch.float32), sort_y,
+                **_seg_kwargs(spec, seg_ctx,
+                              2 * (T.att_reach_y + spec.max_body_w)))
+            P = _unpermute(P_s.view(torch.int32)[None], order)[0].view(
+                torch.float32)
+            hp_t = hp_t_occ
         else:
             P = ap.rank_prefix(tgt_key, rank_key, dmg_slot.contiguous())
             hp_t = hp_t_occ
@@ -397,10 +483,10 @@ def _claims_sorted(tcell):
 
 
 def _move_phase_gridless_rect(spec, T, state: State, is_move, in_bounds, nx,
-                              ny, bw, bh, alive):
-    """Gridless move resolution for multi-cell bodies (engine.py:577-697,
-    unsegmented): two pairwise rect sweeps reproduce the grid path's
-    semantics cell for cell —
+                              ny, bw, bh, alive, seg_ctx=None):
+    """Gridless move resolution for multi-cell bodies (engine.py:577-697):
+    two pairwise rect sweeps reproduce the grid path's semantics cell for
+    cell —
 
     1. blocking: the current occupant (self excluded) of the first occupied
        target-rect cell in the grid path's (i outer, j inner) scan order;
@@ -409,7 +495,9 @@ def _move_phase_gridless_rect(spec, T, state: State, is_move, in_bounds, nx,
        cell, the min-(first overlap cell, slot) lower-slot claimant.
 
     Blocking resolves before claims: a blocked mover never claims on the
-    grid path."""
+    grid path.  With ``seg_ctx`` (one big world) both sweeps run
+    y-segmented in sorted order: one packed permutation in, one packed
+    scatter out (engine.py:620-661)."""
     MB = spec.max_body_w
     wall_blocked = _wall_blocked_gridless(spec, T, nx, ny)
     ok = is_move & in_bounds
@@ -419,19 +507,41 @@ def _move_phase_gridless_rect(spec, T, state: State, is_move, in_bounds, nx,
     # records the first AGENT cell's occupant even when a wall also blocks
     q_ok = ok & ~stay
 
-    def query_rects(mask):
+    def query_rects(mask, rx, ry, rw, rh):
         return tuple(torch.where(mask, v, fill).contiguous() for v, fill in (
-            (nx, ap.RECT_PAD), (ny, ap.RECT_PAD), (bw, 0), (bh, 0)))
+            (rx, ap.RECT_PAD), (ry, ap.RECT_PAD), (rw, 0), (rh, 0)))
 
-    occ_slot = ap.rect_first_overlap(
-        *query_rects(q_ok), state.x.contiguous(), state.y.contiguous(),
-        *(torch.where(alive, v, 0).contiguous() for v in (bw, bh)),
-        max_body=MB, gate="exclude_self")
+    if seg_ctx is not None:
+        # the y-margin bounds |y_i - y_j| of an interacting pair: bodies
+        # overlap within MB rows, every target lies within max|move dy|
+        sort_y, order, order32, _ = seg_ctx
+        seg = dict(_seg_kwargs(spec, seg_ctx, MB + 2 * T.max_dy),
+                   max_body=MB)
+        (nx_s, ny_s, bw_s, bh_s, x_s, y_s, qok_s, alive_s,
+         wallb_s) = _permute((nx, ny, bw, bh, state.x, state.y, q_ok, alive,
+                              wall_blocked), order)
+        qok_s, alive_s = qok_s.bool(), alive_s.bool()
+        res1 = ap.rect_first_overlap_seg(
+            *query_rects(qok_s, nx_s, ny_s, bw_s, bh_s), x_s, y_s,
+            *(torch.where(alive_s, v, 0) for v in (bw_s, bh_s)), sort_y,
+            order32, gate="exclude_self", **seg)
+        blank_s = qok_s & (res1 >= ap.RECT_NONE) & ~wallb_s.bool()
+        claims = query_rects(blank_s, nx_s, ny_s, bw_s, bh_s)
+        res2 = ap.rect_first_overlap_seg(*claims, *claims, sort_y, order32,
+                                         gate="lower_only", **seg)
+        occ_slot, head_slot = _unpermute(torch.stack([res1, res2]), order)
+    else:
+        occ_slot = ap.rect_first_overlap(
+            *query_rects(q_ok, nx, ny, bw, bh), state.x.contiguous(),
+            state.y.contiguous(),
+            *(torch.where(alive, v, 0).contiguous() for v in (bw, bh)),
+            max_body=MB, gate="exclude_self")
+        blank_pre = q_ok & (occ_slot >= ap.RECT_NONE) & ~wall_blocked
+        claims = query_rects(blank_pre, nx, ny, bw, bh)
+        head_slot = ap.rect_first_overlap(*claims, *claims, max_body=MB,
+                                          gate="lower_only")
     occupied = occ_slot < ap.RECT_NONE
     blank = q_ok & ~occupied & ~wall_blocked
-    claims = query_rects(blank)
-    head_slot = ap.rect_first_overlap(*claims, *claims, max_body=MB,
-                                      gate="lower_only")
     lost = blank & (head_slot < ap.RECT_NONE)
     wins = blank & ~lost
     success = wins | stay
@@ -447,7 +557,7 @@ def _move_phase_gridless_rect(spec, T, state: State, is_move, in_bounds, nx,
     )
 
 
-def _move_phase(spec, T, state: State, route: _Route):
+def _move_phase(spec, T, state: State, route: _Route, seg_ctx=None):
     """Move resolution (engine.py:699-893; reference GridWorld.cc:573-613,
     Map::do_move Map.cc:313-358): a mover succeeds iff its target rect is
     free of live agents and walls at phase start and no lower slot claims
@@ -469,7 +579,7 @@ def _move_phase(spec, T, state: State, route: _Route):
 
     if not route.grid and spec.max_body_w > 1:
         return _move_phase_gridless_rect(spec, T, state, is_move, in_bounds,
-                                         nx, ny, bw, bh, alive)
+                                         nx, ny, bw, bh, alive, seg_ctx)
     if not route.grid:
         # one sweep answers claims and blocking
         wall_blocked = _wall_blocked_gridless(spec, T, nx, ny)
@@ -533,18 +643,16 @@ def _move_phase(spec, T, state: State, route: _Route):
 
 
 def _rect_route(spec: speclib.GameSpec, maintain_grid: bool, n_envs: int):
-    """The route of a multi-cell spec, or NotImplementedError where the JAX
-    package's route is not ported (engine.py:169-196, :1004-1011): the grid
-    path, and the y-segmented sweeps that a single world takes from
-    ``QUAD_MAX_SINGLE`` (inclusive) to ``SEG_DEFAULT_MAX`` slots."""
+    """The route of a multi-cell spec (engine.py:169-196, :1004-1011): the
+    y-segmented sweeps for a single world from ``QUAD_MAX_SINGLE``
+    (inclusive) to ``SEG_DEFAULT_MAX`` slots, the unsegmented pair sweeps
+    below; NotImplementedError for the grid path, which the JAX package
+    takes beyond."""
     A = spec.n_agents_cap
     if maintain_grid:
         raise NotImplementedError(_RECT_GRID)
     if n_envs == 1 and ap.QUAD_MAX_SINGLE <= A <= SEG_DEFAULT_MAX:
-        raise NotImplementedError(
-            "a single multi-cell world of %d slots takes the y-segmented "
-            "pair sweeps, which are not ported yet: ROADMAP.md Queue 2 items "
-            "11-13" % A)
+        return _Route(grid=False, quad=True, seg=True)
     if A > (SEG_DEFAULT_MAX if n_envs == 1 else ap.QUAD_MAX_AGENTS):
         raise NotImplementedError(
             "%d slots past the pair-kernel cap: %s" % (A, _RECT_GRID))
@@ -561,7 +669,8 @@ def make_step(spec: speclib.GameSpec, *, maintain_grid: bool = True,
     single world and ``QUAD_MAX_AGENTS`` for a batch; ``maintain_grid=False``
     takes the gridless path within that cap, and for 1x1 bodies the grid
     path with its sort branches above it.  Multi-cell bodies run only on the
-    gridless path (see :func:`_rect_route`).
+    gridless path, one world of ``QUAD_MAX_SINGLE`` to ``SEG_DEFAULT_MAX``
+    slots on its y-segmented sweeps (see :func:`_rect_route`).
 
     ``walls``: the static full [H, W] bool wall map of a lockstep layout;
     where it has interior walls, the gridless step answers wall questions
@@ -587,9 +696,13 @@ def make_step(spec: speclib.GameSpec, *, maintain_grid: bool = True,
 
 
 def _build_step(spec: speclib.GameSpec, route: _Route, wall_ctx=None):
-    """The step on a fixed route (tests pick the sort branches here)."""
+    """The step on a fixed route (tests pick the sort branches and the
+    segmented sweeps here)."""
     if not (route.grid or route.quad):
         raise ValueError("the gridless path has no sort branch")
+    if route.seg and (route.grid or spec.max_body_w == 1):
+        raise ValueError("the segmented sweeps serve gridless multi-cell "
+                         "specs only")
     rules = spec.compiled_rules()
     A = spec.n_agents_cap
     cache: dict = {}
@@ -602,9 +715,10 @@ def _build_step(spec: speclib.GameSpec, route: _Route, wall_ctx=None):
         key, rank = attack_rank(state, A)
         state = state.replace(key=key)
 
-        state = _attack_phase(spec, T, state, rank, route)
+        seg_ctx = _seg_order(state) if route.seg else None
+        state = _attack_phase(spec, T, state, rank, route, seg_ctx)
         state = _starve_phase(spec, T, state, route)
-        state = _move_phase(spec, T, state, route)
+        state = _move_phase(spec, T, state, route, seg_ctx)
 
         # reward rules (reference: GridWorld::calc_reward, GridWorld.cc:681-692)
         next_reward, group_reward = state.next_reward, state.group_reward

@@ -16,10 +16,11 @@ GridWorld::get_observation, GridWorld.cc:292-401) with render-then-slice:
 4. add the pooled minimap channels and the self mark, build the feature
    vector (GridWorld.cc:327-400) and zero dead slots.
 
-Windows up to 13 rows and 65 lanes (forest's and pursuit's) take
-``window_gather4``, which fuses step 4's minimap adds, self mark and
-liveness factor into the copy; larger ones (battle's 13 x 91), and images
-past ``window_gather4``'s packed positions, take ``window_gather`` and a
+Images above ``VMEM_IMAGE_BUDGET`` (pursuit from map 500) take
+``window_gather_banded`` and step 4 in band order; below it, windows up to
+13 rows and 65 lanes (forest's and pursuit's) take ``window_gather4``,
+which fuses step 4's minimap adds, self mark and liveness factor into the
+copy, and larger ones (battle's 13 x 91) take ``window_gather`` and a
 separate epilogue.  Multi-cell bodies render every
 body cell, and their minimap pools by a scatter.  Not ported: turn mode and
 ``can_absorb`` observers.
@@ -41,6 +42,14 @@ from .state import State
 _HP_SHIFT = 24
 _HP_MASK = (1 << _HP_SHIFT) - 1
 _HP_SCALE = float(1 << (_HP_SHIFT - 1))
+
+# images of more bytes per env take the banded window gather, as in the JAX
+# package (magent_tpu/core/observe.py:39, whose TPU kernel holds one image
+# in VMEM); module-level, so tests can shrink it to force the banded route
+VMEM_IMAGE_BUDGET = 6 * 1024 * 1024
+_BAND_ROWS = 32
+# a band and its window margin must fit this many bytes (observe.py:251)
+_BAND_BUDGET = 8 * 1024 * 1024
 
 
 def _check_ported(spec: speclib.GameSpec, group: int):
@@ -177,15 +186,32 @@ def window_layout(spec: speclib.GameSpec, group: int, geometry, device):
     return dict(mask=mask, pos_fn=pos_fn)
 
 
+def _epilogue(view, act, mm=None, self_cell=None, mm_maskc=None):
+    """``((view + mm) + self mark * mm_maskc) * act`` over [B, n, vh, vw, C]
+    windows, in the JAX package's order (observe.py:394-400); without
+    ``mm``, the liveness factor alone."""
+    if mm is not None:
+        vh, vw = view.shape[2:4]
+        self_mark = (self_cell[..., None] == torch.arange(
+            vh * vw, device=view.device)).to(torch.float32)
+        view = (view + mm[:, None]
+                + self_mark.reshape(view.shape[:-1])[..., None] * mm_maskc)
+    return view * act[:, :, None, None, None]
+
+
 def make_observe(spec: speclib.GameSpec, group: int):
     """Build ``observe(state, grids=None) -> (view [B, cap, vh, vw, C],
     feature [B, cap, F])`` for one group; ``grids`` lets callers share the
     packed grid (``observe.grids_fn(state)``) across groups.
 
-    Two window routes mirror the JAX package's kernel per path; the
-    window shape limit is the TPU replica kernel's lane limit, kept so that
-    each path runs the kernel the reference runs there, not a limit of the
-    card.  Windows with ``vh <= 13`` and ``vw * C <= 65`` take
+    Three window routes mirror the JAX package's kernel per path, so that
+    each path runs the kernel the reference runs there; the image budget
+    and the window shape limit are the TPU's, not limits of the card.  An
+    image of more than ``VMEM_IMAGE_BUDGET`` bytes per env whose band
+    fits takes ``window_gather_banded`` with the epilogue (minimap, self
+    mark, liveness) applied in band order and one row gather back to slot
+    order (observe.py:244-258, :370-404): pursuit at map 500 and 1000.
+    Below the budget, windows with ``vh <= 13`` and ``vw * C <= 65`` take
     ``window_gather4`` with the liveness factor, and with the minimap and
     self mark when ``minimap_mode`` is on (the replica route,
     observe.py:263-267 and :346-360, which fuses liveness only together
@@ -193,11 +219,9 @@ def make_observe(spec: speclib.GameSpec, group: int):
     the numbers are the same); others take ``window_gather`` and the
     epilogue in PyTorch.  ``window_gather4`` packs ``tl * 1024 +
     self_cell`` into int32, so it serves only images of at most 2**21
-    cells (pursuit's maps up to 1388 cells a side); larger images take
-    ``window_gather``.  The JAX package's TPU-only condition on the image
-    size (``4 * image_bytes <= VMEM_IMAGE_BUDGET``, the banded kernel
-    beyond it, as pursuit at map 500 runs) is not a condition of the
-    port."""
+    cells; larger images take ``window_gather``.  The JAX package's
+    fourfold replica budget (``4 * image_bytes <= VMEM_IMAGE_BUDGET``) is
+    not a condition of the port."""
     _check_ported(spec, group)
     t = spec.groups[group].type
     gs = spec.groups[group]
@@ -217,7 +241,12 @@ def make_observe(spec: speclib.GameSpec, group: int):
     inv_w = float(np.float32(1.0 / W))
     inv_h = float(np.float32(1.0 / H))
 
-    replica = vh <= 13 and vw * C <= 65 and Hp * Wp <= wg.PACKED_CELLS
+    rows_margin = wg._ceil_to(vh + 7, 8)
+    banded = (Hp * lanes * 4 > VMEM_IMAGE_BUDGET
+              and (_BAND_ROWS + rows_margin) * lanes * 4 <= _BAND_BUDGET)
+    band_chunk = min(40, -(-gs.cap // 8) * 8)
+    replica = (not banded and vh <= 13 and vw * C <= 65
+               and Hp * Wp <= wg.PACKED_CELLS)
     # 1x1 bodies pool the rendered grid with binning matmuls; multi-cell
     # bodies pool their anchors by a scatter (observe.py:299-326)
     binning = spec.max_body_w == 1
@@ -292,9 +321,11 @@ def make_observe(spec: speclib.GameSpec, group: int):
         act = state.active[:, sl]
         x = state.x[:, sl]
         y = state.y[:, sl]
+        epi = {}  # the epilogue's minimap operands
         if spec.minimap_mode:
             mm, px, py = pooled_minimap(state, packed, k)
             self_cell = py[:, sl] * vw + px[:, sl]
+            epi = dict(mm=mm, self_cell=self_cell, mm_maskc=k["mm_maskc"])
         if replica:
             mm_ops = {}
             if spec.minimap_mode:
@@ -307,16 +338,30 @@ def make_observe(spec: speclib.GameSpec, group: int):
                 img, pos.to(torch.int32).contiguous(), layout["mask"],
                 act=act.to(torch.int32).contiguous(), vh=vh, vw=vw, C=C,
                 Wp=Wp, **mm_ops).reshape(B, gs.cap, vh, vw, C)
+        elif banded:
+            # the epilogue runs in band order, its per-agent operands
+            # scattered there; one row gather restores slot order
+            out, inv = wg.window_gather_banded(
+                img, pos, layout["mask"], vh=vh, vw=vw, C=C, Wp=Wp,
+                chunk=band_chunk, band_rows=_BAND_ROWS, unsort=False)
+            n_pad = out.shape[1]
+            inv = inv.long()
+
+            def to_band(t):
+                return torch.zeros((B, n_pad), dtype=t.dtype,
+                                   device=device).scatter_(1, inv, t)
+
+            if epi:
+                epi["self_cell"] = to_band(self_cell)
+            out = _epilogue(out.reshape(B, n_pad, vh, vw, C),
+                            to_band(act.to(torch.float32)), **epi)
+            view = torch.gather(out.reshape(B, n_pad, -1), 1, inv[
+                ..., None].expand(B, gs.cap, vh * vw * C)).reshape(
+                B, gs.cap, vh, vw, C)
         else:
             view = wg.window_gather(img, pos, layout["mask"], vh=vh, vw=vw,
                                     C=C, Wp=Wp).reshape(B, gs.cap, vh, vw, C)
-            if spec.minimap_mode:
-                self_mark = (self_cell[..., None] == torch.arange(
-                    vh * vw, device=device)).to(torch.float32)
-                self_mark = self_mark.reshape(B, gs.cap, vh, vw)
-                view = (view + mm[:, None]
-                        + self_mark[..., None] * k["mm_maskc"])
-            view = view * act[:, :, None, None, None]
+            view = _epilogue(view, act, **epi)
 
         # feature vector (GridWorld.cc:386-396)
         feats = []
@@ -340,4 +385,6 @@ def make_observe(spec: speclib.GameSpec, group: int):
         return view, feature
 
     observe.grids_fn = grids_fn
+    observe.route = ("window_gather_banded" if banded else "window_gather4"
+                     if replica else "window_gather")
     return observe

@@ -147,7 +147,80 @@ __global__ void window_gather4_kernel(
   }
 }
 
+// window_gather_banded: the windows of a band-ordered position table
+// (magent_tpu/ops/window_gather.py window_gather_banded, which the JAX
+// package runs for images above its VMEM budget: the TPU sorts agents by
+// 32-row image band so that a program holds one band in VMEM).  Here the
+// table, built in PyTorch, gives consecutive blocks the agents of one band,
+// so a band's rows (48 rows x 21.5 KB at pursuit map 1000: too large for
+// shared memory) are read from L2 by the blocks after the first.  One
+// block per (chunk of `chunk` table rows, env); the warps copy window rows
+// as window_gather_kernel does.  Dummy rows point at their band's first
+// row; window rows past the image read as zeros, as the TPU kernel reads
+// the zero rows padded below its last band.  A pure copy times the mask:
+// equal to the plain version exactly.
+constexpr int kMaxBandChunk = 128;  // _MAX_BAND_CHUNK of ops/window_gather.py
+
+__global__ void window_gather_banded_kernel(const float* __restrict__ img,
+                                            const int* __restrict__ pos,
+                                            const float* __restrict__ mask,
+                                            int n_pad, int chunk, int Hp,
+                                            int lanes, int Wp, int C, int vh,
+                                            int vwc, float* __restrict__ out) {
+  extern __shared__ float s_mask[];  // [vh * vwc]
+  __shared__ int s_row[kMaxBandChunk];
+  __shared__ int s_lane[kMaxBandChunk];
+  const int b = blockIdx.y;
+  const int n0 = blockIdx.x * chunk;
+  for (int e = threadIdx.x; e < vh * vwc; e += blockDim.x) s_mask[e] = mask[e];
+  for (int a = threadIdx.x; a < chunk; a += blockDim.x) {
+    const int p = pos[(size_t)b * n_pad + n0 + a];
+    const int yy = p / Wp;
+    const int xx = p - yy * Wp;
+    const bool ok = p >= 0 && xx * C + vwc <= lanes;
+    s_row[a] = ok ? yy : Hp;  // a row at Hp or below reads as zeros
+    s_lane[a] = ok ? xx * C : 0;
+  }
+  __syncthreads();
+
+  const float* img_b = img + (size_t)b * Hp * lanes;
+  float* out_b = out + ((size_t)b * n_pad + n0) * vh * vwc;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int n_warps = blockDim.x >> 5;
+  for (int w = warp; w < chunk * vh; w += n_warps) {  // w = agent * vh + row
+    const int a = w / vh;
+    const int r = w - a * vh;
+    const int row = s_row[a] + r;
+    float* dst = out_b + (size_t)w * vwc;
+    if (row >= Hp) {
+      for (int c = lane; c < vwc; c += 32) dst[c] = 0.f;
+      continue;
+    }
+    const float* src = img_b + (size_t)row * lanes + s_lane[a];
+    const float* m = s_mask + r * vwc;
+    for (int c = lane; c < vwc; c += 32) dst[c] = src[c] * m[c];
+  }
+}
+
 }  // namespace
+
+extern "C" int magent_window_gather_banded(const float* img, const int* pos,
+                                           const float* mask, int B, int n_pad,
+                                           int chunk, int Hp, int lanes,
+                                           int Wp, int C, int vh, int vwc,
+                                           float* out, int device,
+                                           void* stream) {
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return (int)set;
+  if (chunk <= 0 || chunk > kMaxBandChunk || n_pad % chunk)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(n_pad / chunk, B);
+  const size_t smem = (size_t)vh * vwc * sizeof(float);
+  window_gather_banded_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      img, pos, mask, n_pad, chunk, Hp, lanes, Wp, C, vh, vwc, out);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int magent_window_gather4(const float* img, const int* pos,
                                      const float* mask, const float* mm_img,

@@ -7,7 +7,8 @@ from . import _build
 
 KERNELS = ("window_gather", "occupant", "rank_prefix", "move_resolve",
            "rank_prefix_hp", "move_claims", "occupant_rect",
-           "rect_first_overlap", "window_gather4")
+           "rect_first_overlap", "window_gather4", "occupant_rect_seg",
+           "rect_first_overlap_seg", "rank_prefix_seg", "window_gather_banded")
 
 
 def launch_counts() -> dict:

@@ -25,7 +25,7 @@ import torch
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
-SOURCES = ("pair_kernels.cu", "window_gather.cu")
+SOURCES = ("pair_kernels.cu", "seg_kernels.cu", "window_gather.cu")
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 LIB_PATH = BUILD_DIR / "libmagent_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -45,6 +45,10 @@ _SIGNATURES = {
     "magent_occupant_rect": (_P,) * 7 + (_I, _I, _I, _P, _P),
     "magent_rect_first_overlap": (_P,) * 8 + (_I,) * 5 + (_P,),
     "magent_window_gather4": (_P,) * 6 + (_I,) * 8 + (_P,),
+    "magent_occupant_rect_seg": (_P,) * 10 + (_I, _I, _P, _P),
+    "magent_rect_first_overlap_seg": (_P,) * 11 + (_I,) * 5 + (_P,),
+    "magent_rank_prefix_seg": (_P,) * 5 + (_I, _I, _P),
+    "magent_window_gather_banded": (_P,) * 3 + (_I,) * 9 + (_P,),
 }
 
 _lib = None

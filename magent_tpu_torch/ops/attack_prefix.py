@@ -21,6 +21,12 @@ Each has a plain PyTorch version (``*_ref``, ports of the JAX package's
 that launches the CUDA kernel of ``csrc/pair_kernels.cu`` on CUDA tensors and
 calls the plain version on CPU tensors.  All take batched ``[B, A]``
 operands; one launch covers the whole env batch.
+
+One big world (``QUAD_MAX_SINGLE`` to 65,536 slots) of multi-cell bodies
+takes the y-segmented forms instead: :func:`occupant_rect_seg`,
+:func:`rect_first_overlap_seg` and :func:`rank_prefix_seg` take [A]
+operands sorted by y and sweep each 1024-row segment of queries against a
+window of nearby rows only (kernels in ``csrc/seg_kernels.cu``).
 """
 
 from __future__ import annotations
@@ -115,13 +121,19 @@ def occupant(acell, cell, hp):
 
 
 # --------------------------------------------------------------- rank prefix
+def _rank_pairs(tq, rq, tb, rb, db):
+    """``P_j = sum_i [tb_i == tq_j and rb_i < rq_j] * db_i`` for queries
+    [..., R] against partners [..., P] -> [..., R]."""
+    m = (tb[..., :, None] == tq[..., None, :]) & (
+        rb[..., :, None] < rq[..., None, :])
+    return (m * db[..., :, None]).sum(-2).to(db.dtype)
+
+
 def rank_prefix_ref(tgt, rank, dmg, hp=None):
     """Plain version (port of ``rank_prefix_xla``):
     ``P_j = sum_i [tgt_i == tgt_j and rank_i < rank_j] * dmg_i``; with ``hp``
     also ``hp_t_j = sum_i [i == tgt_j] * hp_i`` (0 for the sentinel A)."""
-    m = (tgt[..., :, None] == tgt[..., None, :]) & (
-        rank[..., :, None] < rank[..., None, :])
-    P = (m * dmg[..., :, None]).sum(-2).to(dmg.dtype)
+    P = _rank_pairs(tgt, rank, tgt, rank, dmg)
     if hp is None:
         return P
     sel = _slots_col(tgt.shape[-1], tgt.device) == tgt[..., None, :]
@@ -235,20 +247,29 @@ def move_claims(tcell):
 
 
 # ------------------------------------------------------------ occupant rect
-def occupant_rect_ref(qx, qy, x, y, bw, bh, hp, *, exclude_self=False):
-    """Plain version (port of ``occupant_rect_xla``): (the largest slot whose
-    body rect [x, x+bw) x [y, y+bh) contains query cell (qx_j, qy_j), or -1;
-    the matches' summed hp)."""
-    slots = _slots_col(qx.shape[-1], qx.device)
+def _occupant_rect_pairs(qx, qy, x, y, bw, bh, hp, bslot, qslot=None):
+    """Queries [..., R] against body rects [..., P] carrying slot ids
+    ``bslot``: (the largest id whose rect contains the query cell, or -1;
+    the matches' summed hp); with ``qslot``, a body never answers the query
+    of its own id."""
     m = ((qx[..., None, :] >= x[..., :, None])
          & (qx[..., None, :] < (x + bw)[..., :, None])
          & (qy[..., None, :] >= y[..., :, None])
          & (qy[..., None, :] < (y + bh)[..., :, None]))  # [..., i, j]
-    if exclude_self:
-        m = m & (slots != slots.T)
-    tgt = torch.where(m, slots, -1).amax(-2)
+    if qslot is not None:
+        m = m & (bslot[..., :, None] != qslot[..., None, :])
+    tgt = torch.where(m, bslot[..., :, None], -1).amax(-2)
     hp_t = torch.where(m, hp[..., :, None], 0.0).sum(-2)
     return tgt.to(torch.int32), hp_t.to(hp.dtype)
+
+
+def occupant_rect_ref(qx, qy, x, y, bw, bh, hp, *, exclude_self=False):
+    """Plain version (port of ``occupant_rect_xla``): (the largest slot whose
+    body rect [x, x+bw) x [y, y+bh) contains query cell (qx_j, qy_j), or -1;
+    the matches' summed hp)."""
+    slots = torch.arange(qx.shape[-1], device=qx.device)
+    return _occupant_rect_pairs(qx, qy, x, y, bw, bh, hp, slots,
+                                slots if exclude_self else None)
 
 
 def occupant_rect(qx, qy, x, y, bw, bh, hp, *, exclude_self=False):
@@ -296,6 +317,28 @@ def _rect_stride(A: int, max_body: int, gate: str) -> int:
     return stride
 
 
+def _rect_overlap_pairs(q, b, max_body, gate, stride):
+    """Query rects ``q = (qx, qy, tbw, tbh, qslot)`` [..., R] against body
+    rects ``b = (x, y, bw, bh, bslot)`` [..., P], both carrying slot ids:
+    per query, the min over gated bodies of ``k * stride + bslot``, decoded
+    to the slot, or ``RECT_NONE``.  The gates compare the ids, never
+    positions."""
+    qx, qy, tbw, tbh, qslot = q
+    x, y, bw, bh, bslot = b
+    ox = torch.maximum(qx[..., None, :], x[..., :, None])
+    oy = torch.maximum(qy[..., None, :], y[..., :, None])
+    ex = torch.minimum((qx + tbw)[..., None, :], (x + bw)[..., :, None])
+    ey = torch.minimum((qy + tbh)[..., None, :], (y + bh)[..., :, None])
+    bs, qs = bslot[..., :, None], qslot[..., None, :]
+    ov = (ox < ex) & (oy < ey) & (bs != qs if gate == "exclude_self"
+                                  else bs < qs)
+    k = (ox - qx[..., None, :]) * max_body + (oy - qy[..., None, :])
+    key = torch.where(ov, k, 0).to(torch.int64) * stride + bs
+    best = torch.where(ov, key, _NONE_KEY).amin(-2)
+    return torch.where(best == _NONE_KEY, RECT_NONE, best % stride).to(
+        torch.int32)
+
+
 def rect_first_overlap_ref(qx, qy, tbw, tbh, x, y, bw, bh, *, max_body,
                            gate):
     """Plain version (port of ``rect_first_overlap_xla``): per query rect
@@ -305,18 +348,9 @@ def rect_first_overlap_ref(qx, qy, tbw, tbh, x, y, bw, bh, *, max_body,
     returns the key's slot, or ``RECT_NONE`` when nothing overlaps."""
     A = qx.shape[-1]
     stride = _rect_stride(A, max_body, gate)
-    slots = _slots_col(A, qx.device)
-    ox = torch.maximum(qx[..., None, :], x[..., :, None])
-    oy = torch.maximum(qy[..., None, :], y[..., :, None])
-    ex = torch.minimum((qx + tbw)[..., None, :], (x + bw)[..., :, None])
-    ey = torch.minimum((qy + tbh)[..., None, :], (y + bh)[..., :, None])
-    ov = (ox < ex) & (oy < ey) & (
-        slots != slots.T if gate == "exclude_self" else slots < slots.T)
-    k = (ox - qx[..., None, :]) * max_body + (oy - qy[..., None, :])
-    key = torch.where(ov, k, 0).to(torch.int64) * stride + slots
-    best = torch.where(ov, key, _NONE_KEY).amin(-2)
-    return torch.where(best == _NONE_KEY, RECT_NONE, best % stride).to(
-        torch.int32)
+    slots = torch.arange(A, device=qx.device)
+    return _rect_overlap_pairs((qx, qy, tbw, tbh, slots),
+                               (x, y, bw, bh, slots), max_body, gate, stride)
 
 
 def rect_first_overlap(qx, qy, tbw, tbh, x, y, bw, bh, *, max_body, gate):
@@ -348,4 +382,253 @@ def rect_first_overlap(qx, qy, tbw, tbh, x, y, bw, bh, *, max_body, gate):
                       *(t.data_ptr() for t in ints), B, A, stride,
                       int(max_body), int(gate == "lower_only"),
                       out.data_ptr())
+    return out
+
+
+# ----------------------------------------------------- y-segmented sweeps
+# A single world of QUAD_MAX_SINGLE to SEG_DEFAULT_MAX slots presents its
+# operands sorted by y; each SEG_ROWS-row segment of queries sweeps only
+# the contiguous window of sorted rows within ``margin`` of its y-range
+# (magent_tpu/ops/attack_prefix.py:751-1007).  The window is a static
+# width, rounded to _SEG_ALIGN rows as the JAX package rounds it to its
+# partner chunk, so that the two packages plan the same windows; a window
+# that would need more rows sets the plan's ``overflow`` flag, and the call
+# then sweeps every row.
+SEG_ROWS = 1024
+SEG_WIN = 2048
+_SEG_ALIGN = 512
+# pad sentinels of the sorted operands: queries sit at RECT_PAD with an
+# empty rect, sort_y past every real row, targets at QUERY_NONE with rank 0
+# and damage 0
+SEG_Y_PAD = 2**20
+
+
+def _ceil_to(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def _pad_operands_to(Ap, pads):
+    """Sentinel-pad 1-D operands ``(tensor, fill)`` to exactly Ap rows."""
+    return [t if t.shape[0] == Ap else
+            torch.cat([t, t.new_full((Ap - t.shape[0],), fill)])
+            for t, fill in pads]
+
+
+def _seg_plan(sort_y, margin, seg_win=None):
+    """Partner-window plan of a y-sorted population of A rows, padded to
+    ``Ap = ceil(A / SEG_ROWS) * SEG_ROWS``: (S segments, window width P,
+    ``start`` [S] int32 first window row, ``overflow`` 0-dim bool: some
+    segment needs more than P rows).  All on the operands' device; nothing
+    is read back.
+
+    Unlike the JAX package's ``_seg_plan``, the boundary segment's ``ymax``
+    is its last real row's y, not the pad sentinel's, so pad rows never
+    widen a window (``ADVICE.md`` item 2).  ``start`` is the same; where A
+    is not a multiple of SEG_ROWS, ``overflow`` can only be set less often.
+    Results on the real rows are the same either way."""
+    A = sort_y.shape[0]
+    Ap = _ceil_to(A, SEG_ROWS)
+    (sort_y_p,) = _pad_operands_to(Ap, [(sort_y, SEG_Y_PAD)])
+    P = min(_ceil_to(seg_win or SEG_WIN, _SEG_ALIGN), Ap)
+    S = Ap // SEG_ROWS
+    first = torch.arange(S, device=sort_y_p.device) * SEG_ROWS
+    ymin = sort_y_p[first]
+    last = (first + SEG_ROWS - 1).clamp(max=max(A - 1, 0))
+    ymax = torch.where(first < A, sort_y_p[last], ymin)
+    lo = torch.searchsorted(sort_y_p, ymin - margin)
+    hi = torch.searchsorted(sort_y_p, ymax + margin, right=True)
+    start = lo.clamp(max=Ap - P).clamp(min=0)
+    overflow = (hi - start > P).any()
+    return S, P, start.to(torch.int32), overflow
+
+
+def _seg_gather(ops, start, P):
+    """[S, P] partner windows ``rows[start_s : start_s + P]`` of 1-D
+    padded operands."""
+    idx = start.long()[:, None] + torch.arange(P, device=start.device)
+    return [op[idx] for op in ops]
+
+
+def _seg_launch_operands(name, ints, floats, sort_y, margin, seg_win, plan):
+    """Validate a segmented kernel's [A] operands and plan its windows
+    (unless ``plan`` is given); returns (A, device, P, start, overflow)."""
+    A = ints[0].shape[0]
+    device = ints[0].device
+    for i, t in enumerate(ints):
+        _build.check(t, "%s operand %d" % (name, i), torch.int32, (A,), device)
+    for i, t in enumerate(floats):
+        _build.check(t, "%s float operand %d" % (name, i), torch.float32,
+                     (A,), device)
+    _build.check(sort_y, "%s sort_y" % name, torch.int32, (A,), device)
+    _, P, start, overflow = plan or _seg_plan(sort_y, margin, seg_win)
+    _build.check(start, "%s plan start" % name, torch.int32,
+                 (_ceil_to(A, SEG_ROWS) // SEG_ROWS,), device)
+    _build.check(overflow, "%s plan overflow" % name, torch.bool, (), device)
+    return A, device, P, start, overflow
+
+
+def rect_first_overlap_seg_ref(qx, qy, tbw, tbh, x, y, bw, bh, sort_y, order,
+                               *, max_body, gate, margin, seg_win=None,
+                               plan=None):
+    """Plain version (the JAX package's ``rect_first_overlap_seg``): pad,
+    plan, gather the [S, P] body windows, sweep each segment's queries
+    against its window with the slot ids of ``order``; when the plan
+    overflows, the full sweep with explicit slot ids instead."""
+    A = qx.shape[0]
+    stride = _rect_stride(A, max_body, gate)
+    Ap = _ceil_to(A, SEG_ROWS)
+    qx_p, qy_p, tbw_p, tbh_p, x_p, y_p, bw_p, bh_p, ord_p = (
+        _pad_operands_to(Ap, [
+            (qx, RECT_PAD), (qy, RECT_PAD), (tbw, 0), (tbh, 0), (x, 0),
+            (y, 0), (bw, 0), (bh, 0), (order, RECT_NONE - 1)]))
+    S, P, start, overflow = plan or _seg_plan(sort_y, margin, seg_win)
+    if bool(overflow):
+        return _rect_overlap_pairs((qx, qy, tbw, tbh, order),
+                                   (x, y, bw, bh, order), max_body, gate,
+                                   stride)
+    wins = _seg_gather((x_p, y_p, bw_p, bh_p, ord_p), start, P)
+    segs = [op.reshape(S, SEG_ROWS) for op in (qx_p, qy_p, tbw_p, tbh_p,
+                                                ord_p)]
+    return _rect_overlap_pairs(segs, wins, max_body, gate,
+                               stride).reshape(Ap)[:A]
+
+
+def rect_first_overlap_seg(qx, qy, tbw, tbh, x, y, bw, bh, sort_y, order, *,
+                           max_body, gate, margin, seg_win=None, plan=None):
+    """:func:`rect_first_overlap` of one big world, y-segmented: [A] int32
+    operands sorted by y (``sort_y`` non-decreasing, ``order[i]`` the
+    original slot of sorted row i), results in sorted-row order carrying
+    the original slot ids, so they equal the slot-ordered sweep's.
+    ``plan``: ``_seg_plan(sort_y, margin, seg_win)``, made once by a caller
+    whose sweeps share a sort and a margin (the step plans once per margin);
+    else the call makes it.
+
+    Replaces ``magent_tpu/ops/attack_prefix.py:814``
+    ``rect_first_overlap_seg`` and its core ``_rect_overlap_core`` (``:678``,
+    ``pallas_call`` at ``:735``); the overflow branch, there
+    ``rect_first_overlap_tpu`` with ``qslot``/``bslot``, is the same kernel
+    sweeping every row.  Bound on the card: 12 integer instructions per
+    pair over A * P pairs (pursuit at map 1000: 37 segments x 1024 x 2560,
+    97.0 M pairs per gate).  Design: ``csrc/seg_kernels.cu`` — one thread
+    per sorted query row, ``blockIdx.x`` a 128-row tile of a segment; the
+    block stages 128 window rows at a time in shared memory and reads its
+    window in place as ``[start_s, start_s + P)`` of the sorted operands,
+    with ``start`` and ``overflow`` read on the device, so the plan costs
+    no host sync and no [S, P] gather.  Rows past A are the pad sentinels
+    (empty rects), skipped, so the operands are not padded in memory.  The
+    gates compare slot ids, so ``lower_only`` has no triangular skip.
+    Ints: equal to the plain version exactly."""
+    ints = (qx, qy, tbw, tbh, x, y, bw, bh, order)
+    stride = _rect_stride(qx.shape[0], max_body, gate)
+    if _build.route(*ints, sort_y) == "cpu":
+        return rect_first_overlap_seg_ref(
+            qx, qy, tbw, tbh, x, y, bw, bh, sort_y, order, max_body=max_body,
+            gate=gate, margin=margin, seg_win=seg_win, plan=plan)
+    A, device, P, start, overflow = _seg_launch_operands(
+        "rect_first_overlap_seg", ints, (), sort_y, margin, seg_win, plan)
+    out = torch.empty((A,), dtype=torch.int32, device=device)
+    if A:
+        _build.launch("magent_rect_first_overlap_seg", device,
+                      *(t.data_ptr() for t in ints), start.data_ptr(),
+                      overflow.data_ptr(), A, P, stride, int(max_body),
+                      int(gate == "lower_only"), out.data_ptr())
+    return out
+
+
+def occupant_rect_seg_ref(qx, qy, x, y, bw, bh, hp, sort_y, order, *, margin,
+                          seg_win=None, plan=None):
+    """Plain version (the JAX package's ``occupant_rect_seg``): as
+    :func:`rect_first_overlap_seg_ref`, the bodies carrying the slot ids of
+    ``order``."""
+    A = qx.shape[0]
+    Ap = _ceil_to(A, SEG_ROWS)
+    qx_p, qy_p, x_p, y_p, bw_p, bh_p, hp_p, ord_p = _pad_operands_to(
+        Ap, [(qx, RECT_PAD), (qy, RECT_PAD), (x, 0), (y, 0), (bw, 0),
+             (bh, 0), (hp, 0.0), (order, -1)])
+    S, P, start, overflow = plan or _seg_plan(sort_y, margin, seg_win)
+    if bool(overflow):
+        return _occupant_rect_pairs(qx, qy, x, y, bw, bh, hp, order)
+    wins = _seg_gather((x_p, y_p, bw_p, bh_p, hp_p, ord_p), start, P)
+    tgt, hp_t = _occupant_rect_pairs(qx_p.reshape(S, SEG_ROWS),
+                                     qy_p.reshape(S, SEG_ROWS), *wins)
+    return tgt.reshape(Ap)[:A], hp_t.reshape(Ap)[:A]
+
+
+def occupant_rect_seg(qx, qy, x, y, bw, bh, hp, sort_y, order, *, margin,
+                      seg_win=None, plan=None):
+    """:func:`occupant_rect` of one big world, y-segmented (no
+    ``exclude_self``: the attack never targets itself): operands sorted
+    by y and ``plan`` as in :func:`rect_first_overlap_seg` -> (tgt [A]
+    int32 original slot or -1, hp_t [A] f32), in sorted-row order.
+
+    Replaces ``magent_tpu/ops/attack_prefix.py:915`` ``occupant_rect_seg``
+    and its core ``_occupant_rect_core`` (``:864``, ``pallas_call`` at
+    ``:901``); the overflow branch, there ``occupant_rect_tpu`` with
+    ``bslot``, is the same kernel sweeping every row.  Bound on the card:
+    5 integer instructions (four edge compares, a predicated max of the
+    slot id) and one f32 add per pair over A * P pairs (map 1000: 97.0 M).
+    Design: as :func:`rect_first_overlap_seg`; the window is not in slot
+    order, so the kernel keeps the max slot id, not the last match.  Bodies
+    are disjoint, so at most one term of ``hp_t`` is non-zero and it
+    equals the plain version bit for bit."""
+    ints = (qx, qy, x, y, bw, bh, order)
+    if _build.route(*ints, hp, sort_y) == "cpu":
+        return occupant_rect_seg_ref(qx, qy, x, y, bw, bh, hp, sort_y, order,
+                                     margin=margin, seg_win=seg_win, plan=plan)
+    A, device, P, start, overflow = _seg_launch_operands(
+        "occupant_rect_seg", ints, (hp,), sort_y, margin, seg_win, plan)
+    tgt = torch.empty((A,), dtype=torch.int32, device=device)
+    hp_t = torch.empty((A,), dtype=torch.float32, device=device)
+    if A:
+        _build.launch("magent_occupant_rect_seg", device,
+                      *(t.data_ptr() for t in ints[:6]), hp.data_ptr(),
+                      order.data_ptr(), start.data_ptr(), overflow.data_ptr(),
+                      A, P, tgt.data_ptr(), hp_t.data_ptr())
+    return tgt, hp_t
+
+
+def rank_prefix_seg_ref(tgt, rank, dmg, sort_y, *, margin, seg_win=None,
+                        plan=None):
+    """Plain version (the JAX package's ``rank_prefix_seg``): positional
+    (the rank keys carry the slot tie-break); the full sweep
+    :func:`rank_prefix_ref` when the plan overflows."""
+    A = tgt.shape[0]
+    Ap = _ceil_to(A, SEG_ROWS)
+    tgt_p, rank_p, dmg_p = _pad_operands_to(
+        Ap, [(tgt, QUERY_NONE), (rank, 0), (dmg, 0.0)])
+    S, P, start, overflow = plan or _seg_plan(sort_y, margin, seg_win)
+    if bool(overflow):
+        return rank_prefix_ref(tgt, rank, dmg)
+    wins = _seg_gather((tgt_p, rank_p, dmg_p), start, P)
+    out = _rank_pairs(tgt_p.reshape(S, SEG_ROWS),
+                      rank_p.reshape(S, SEG_ROWS), *wins)
+    return out.reshape(Ap)[:A]
+
+
+def rank_prefix_seg(tgt, rank, dmg, sort_y, *, margin, seg_win=None,
+                    plan=None):
+    """:func:`rank_prefix` of one big world, y-segmented: [A] operands in
+    y-sorted order (``tgt`` int32 target slot, ``rank`` int32
+    :func:`pack_rank` keys, ``dmg`` f32), ``margin`` = 2 * (attack y-reach
+    + max body), ``plan`` as in :func:`rect_first_overlap_seg` -> P [A]
+    f32 in sorted-row order.
+
+    Replaces ``magent_tpu/ops/attack_prefix.py:983`` ``rank_prefix_seg``
+    and its core ``_rank_prefix_core`` (``:945``, ``pallas_call`` at
+    ``:971``); the overflow branch, there ``rank_prefix_tpu``, is the same
+    kernel sweeping every row.  Bound on the card: 2 integer instructions
+    (two compares) and one f32 add per pair over A * P pairs (map 1000:
+    135.8 M).  Design: as :func:`rect_first_overlap_seg`.  The kernel sums
+    in window order, the plain version in its reduction order: equal when
+    the damages are equal (pursuit's), else within 1e-5."""
+    if _build.route(tgt, rank, dmg, sort_y) == "cpu":
+        return rank_prefix_seg_ref(tgt, rank, dmg, sort_y, margin=margin,
+                                   seg_win=seg_win, plan=plan)
+    A, device, P, start, overflow = _seg_launch_operands(
+        "rank_prefix_seg", (tgt, rank), (dmg,), sort_y, margin, seg_win, plan)
+    out = torch.empty((A,), dtype=torch.float32, device=device)
+    if A:
+        _build.launch("magent_rank_prefix_seg", device, tgt.data_ptr(),
+                      rank.data_ptr(), dmg.data_ptr(), start.data_ptr(),
+                      overflow.data_ptr(), A, P, out.data_ptr())
     return out

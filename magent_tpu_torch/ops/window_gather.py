@@ -12,6 +12,9 @@ on CUDA tensors and calls the plain version on CPU tensors.  Both take
 unpacked positions ``pos = tl_y * Wp + tl_x``.  :func:`window_gather4` (and
 its plain version :func:`window_gather4_ref`) adds the fused minimap,
 self-mark and liveness epilogue and takes packed positions.
+:func:`window_gather_banded` (plain version
+:func:`window_gather_banded_ref`) gathers the windows in band order, for
+images past the JAX package's VMEM budget.
 """
 
 from __future__ import annotations
@@ -26,6 +29,9 @@ _MAX_MASK_BYTES = 48 * 1024
 # window_gather4's packed positions tl * 1024 + self_cell fit int32 for
 # every top-left cell tl of an image of at most this many cells
 PACKED_CELLS = 1 << 21
+# agents per block of window_gather_banded's kernel (its position table
+# sits in static shared memory)
+_MAX_BAND_CHUNK = 128
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -185,4 +191,142 @@ def window_gather4(gfull, pos, mask, mm_img=None, mm_mask=None, act=None, *,
                       pos.data_ptr(), mask.data_ptr(), ptr(mm_img),
                       ptr(mm_mask), ptr(act), B, N, Hp, lanes, Wp, C, vh, vw,
                       out.data_ptr())
+    return out
+
+
+# ---------------------------------------------------------------- banded
+def banded_tables(pos, *, Wp, band_rows, n_bands, chunk):
+    """Band sort and per-band chunk padding of :func:`window_gather_banded`
+    (the JAX package's ``banded_tables``): ``pos`` [B, N] unpacked top-left
+    cells -> (``pos_pad`` [B, n_pad] the positions in band order, each
+    band's run padded to whole chunks with dummies that point at the band's
+    first row; ``chunk_band`` [B, n_chunks] the band of every chunk;
+    ``inv`` [B, N] the row of ``pos_pad`` that holds each slot's window).
+    ``n_pad = ceil(N / chunk) * chunk + n_bands * chunk``.  The sort is
+    stable: agents of one band keep their slot order."""
+    B, N = pos.shape
+    device = pos.device
+    band = pos.long() // (Wp * band_rows)
+    s_band, s_slot = torch.sort(band, dim=1, stable=True)
+    s_pos = torch.gather(pos, 1, s_slot)
+    counts = torch.zeros((B, n_bands), dtype=torch.int64,
+                         device=device).scatter_add_(
+        1, s_band, torch.ones_like(s_band))
+    padded = (counts + chunk - 1) // chunk * chunk
+    pad_off = padded.cumsum(1) - padded
+    start = counts.cumsum(1) - counts
+    rank = torch.arange(N, device=device) - torch.gather(start, 1, s_band)
+    dest = torch.gather(pad_off, 1, s_band) + rank
+    n_pad = _ceil_to(N, chunk) + n_bands * chunk
+    n_chunks = n_pad // chunk
+    chunk_starts = (torch.arange(n_chunks, device=device) * chunk).expand(
+        B, n_chunks).contiguous()
+    # the band whose padded run holds chunk k: the last band whose offset
+    # is at most k * chunk
+    chunk_band = (torch.searchsorted(pad_off, chunk_starts, right=True) - 1
+                  ).clamp(0, n_bands - 1)
+    pos_pad = (chunk_band * (band_rows * Wp))[:, :, None].expand(
+        B, n_chunks, chunk).reshape(B, n_pad).to(torch.int32)
+    pos_pad = pos_pad.scatter(1, dest, s_pos)
+    inv = torch.empty((B, N), dtype=torch.int64, device=device).scatter_(
+        1, s_slot, dest)
+    return pos_pad, chunk_band.to(torch.int32), inv.to(torch.int32)
+
+
+def _band_geometry(Hp, vh, band_rows):
+    """(n_bands, rows below a band that its windows may reach)."""
+    if band_rows % 8:
+        raise ValueError("band_rows must be a multiple of 8, got %d"
+                         % band_rows)
+    return -(-Hp // band_rows), _ceil_to(vh + 8 - 1, 8)
+
+
+def _unsort(out, inv):
+    """Windows in band order [B, n_pad, vh, vwc] -> slot order, by one row
+    gather of the flattened windows."""
+    B, n_pad, vh, vwc = out.shape
+    N = inv.shape[1]
+    flat = out.reshape(B, n_pad, vh * vwc)
+    return torch.gather(flat, 1, inv.long()[:, :, None].expand(
+        B, N, vh * vwc)).reshape(B, N, vh, vwc)
+
+
+def window_gather_banded_ref(gfull, pos, mask, *, vh, vw, C, Wp, chunk=40,
+                             band_rows=32, unsort=True):
+    """Plain version: :func:`banded_tables`, then :func:`window_gather_ref`
+    over the band-ordered table on the image padded with zero rows below,
+    as the JAX kernel reads its bands; ``unsort`` undoes the band order."""
+    B, Hp, lanes = gfull.shape
+    n_bands, rows = _band_geometry(Hp, vh, band_rows)
+    pos_pad, _, inv = banded_tables(pos, Wp=Wp, band_rows=band_rows,
+                                    n_bands=n_bands, chunk=chunk)
+    gpad = torch.nn.functional.pad(
+        gfull, (0, 0, 0, n_bands * band_rows + rows - Hp))
+    out = window_gather_ref(gpad, pos_pad, mask, vh=vh, vw=vw, C=C, Wp=Wp)
+    return _unsort(out, inv) if unsort else (out, inv)
+
+
+def window_gather_banded(gfull, pos, mask, *, vh, vw, C, Wp, chunk=40,
+                         band_rows=32, unsort=True):
+    """Window gather in band order: ``gfull`` [B, Hp, lanes] f32, ``pos``
+    [B, N] int32 unpacked top-left cells, ``mask`` [vh, vw*C] f32 ->
+    [B, N, vh, vw*C] windows in slot order; with ``unsort=False`` the
+    windows in band order [B, n_pad, vh, vw*C] and ``inv`` [B, N] int32
+    (slot n's window is row ``inv[b, n]``; dummy rows hold the window at
+    their band's first row, cut to zero past the image), as the JAX
+    package's function returns them.
+
+    Replaces ``magent_tpu/ops/window_gather.py:477`` ``window_gather_banded``
+    (``pallas_call`` at ``:543``), which the JAX package runs for images
+    above its VMEM budget (pursuit from map 500).  Its ``banded_pack`` slab
+    copy and SMEM split of the launch keep a band in VMEM and do not carry
+    over: the kernel reads ``gfull`` in place.  Bound on the card: bytes —
+    the windows written and the image read once (pursuit at map 1000: 33.5
+    and 42.6 MB of windows from a 22.6 MB image).  Design:
+    ``csrc/window_gather.cu`` ``window_gather_banded_kernel`` — one block
+    per (env, chunk of the band-ordered table), one warp per window row,
+    coalesced row copies times the mask in shared memory; consecutive
+    blocks read one band, which stays in L2.  The table (:func:`banded_tables`)
+    is plain PyTorch.  A pure copy: equal to the plain version exactly."""
+    if _build.route(gfull, pos, mask) == "cpu":
+        return window_gather_banded_ref(gfull, pos, mask, vh=vh, vw=vw, C=C,
+                                        Wp=Wp, chunk=chunk,
+                                        band_rows=band_rows, unsort=unsort)
+    B, Hp, lanes = gfull.shape
+    N = pos.shape[1]
+    vwc = vw * C
+    device = gfull.device
+    _build.check(gfull, "window_gather_banded image", torch.float32,
+                 (B, Hp, lanes), device)
+    _build.check(pos, "window_gather_banded pos", torch.int32, (B, N), device)
+    _build.check(mask, "window_gather_banded mask", torch.float32, (vh, vwc),
+                 device)
+    if vh * vwc * 4 > _MAX_MASK_BYTES:
+        raise ValueError("window %dx%d too large for the kernel's mask"
+                         % (vh, vwc))
+    if not 0 < chunk <= _MAX_BAND_CHUNK:
+        raise ValueError("window_gather_banded: chunk must be in 1..%d, got "
+                         "%d" % (_MAX_BAND_CHUNK, chunk))
+    if B > 65535:
+        raise ValueError("window_gather_banded: at most 65535 envs per launch")
+    n_bands, _ = _band_geometry(Hp, vh, band_rows)
+    pos_pad, _, inv = banded_tables(pos, Wp=Wp, band_rows=band_rows,
+                                    n_bands=n_bands, chunk=chunk)
+    out = _banded_launch(gfull, pos_pad, mask, vh=vh, vw=vw, C=C, Wp=Wp,
+                         chunk=chunk)
+    return _unsort(out, inv) if unsort else (out, inv)
+
+
+def _banded_launch(gfull, pos_pad, mask, *, vh, vw, C, Wp, chunk):
+    """The banded kernel alone, on checked operands and the band-ordered
+    table ``pos_pad`` [B, n_pad] of :func:`banded_tables` -> windows in
+    band order [B, n_pad, vh, vw*C]."""
+    B, Hp, lanes = gfull.shape
+    n_pad = pos_pad.shape[1]
+    vwc = vw * C
+    out = torch.empty((B, n_pad, vh, vwc), dtype=torch.float32,
+                      device=gfull.device)
+    _build.launch("magent_window_gather_banded", gfull.device,
+                  gfull.data_ptr(), pos_pad.data_ptr(), mask.data_ptr(), B,
+                  n_pad, chunk, Hp, lanes, Wp, C, vh, vwc, out.data_ptr())
     return out

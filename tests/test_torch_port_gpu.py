@@ -1,7 +1,10 @@
 """The port's CUDA kernels against their plain versions on the card (the
 rect kernels and window_gather4 on the operands of a pursuit map-64, B=16
-step), and short GPU-vs-CPU runs of the lockstep loop (battle; pursuit with
-and without interior walls) and of the stateful GridWorld.
+step; the segmented sweeps and the banded gather on a pursuit map-250 step;
+the segmented sweeps on the random operands of tests/_torch_seg_operands.py),
+and short GPU-vs-CPU runs of the lockstep loop (battle; pursuit with and
+without interior walls; pursuit's one world on the segmented route) and of
+the stateful GridWorld.
 Marked ``gpu``: each test decides at run time whether a card exists and
 skips without one.  On a machine with an H100:
 python -m pytest tests/test_torch_port_gpu.py -q"""
@@ -17,6 +20,8 @@ from magent_tpu_torch.core.state import FIELDS
 from magent_tpu_torch.ops import attack_prefix as tap
 from magent_tpu_torch.ops import window_gather as twg
 from magent_tpu_torch.parallel import VecGridWorld
+
+from _torch_seg_operands import CASES, seg_calls
 
 pytestmark = pytest.mark.gpu
 
@@ -249,6 +254,165 @@ def test_pursuit_lockstep_gpu_matches_cpu(cuda, walls):
     envs = [VecGridWorld(pursuit.get_config(32), [12, 25], 2,
                          placements=placements, walls=wall_cells or None,
                          device=d) for d in (cuda, "cpu")]
+    states = [e.reset(trandom.PRNGKey(3)) for e in envs]
+    key = trandom.PRNGKey(4)
+    for _ in range(3):
+        keys = trandom.split(key)
+        key, akey = keys[0], keys[1]
+        obs = [e.observe_all(s) for e, s in zip(envs, states)]
+        for (gv, gf), (cv, cf) in zip(*obs):
+            assert torch.equal(gv.cpu(), cv) and torch.equal(gf.cpu(), cf)
+        acts = [e.random_actions(akey) for e in envs]
+        states = [e.transition(s, a)[0] for e, s, a in zip(envs, states, acts)]
+        for name in FIELDS:
+            assert torch.equal(getattr(states[0], name).cpu(),
+                               getattr(states[1], name)), name
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_seg_kernels_match_plain_on_random_operands(cuda, case):
+    """The three segmented sweeps' CUDA kernels on the random operands of
+    tests/test_torch_port_seg_kernels.py (random hp and damage, possibly
+    overlapping rects, slot ids shuffled by the sort; the degenerate case
+    takes the overflow branch) against their plain versions: ints exact,
+    occupant hp within 1e-6 (a query may sum several hp), rank sums within
+    PAIR_ATOL; the compared floats are not all zero."""
+    for name, fn, ref, args, kw in seg_calls(case):
+        args = [a.to(cuda) for a in args]
+        got, want = fn(*args, **kw), ref(*args, **kw)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for g, w in zip(got, want):
+            if g.dtype.is_floating_point:
+                torch.testing.assert_close(g, w, rtol=0, atol=(
+                    PAIR_ATOL if name == "rank_prefix_seg" else 1e-6))
+                assert bool((w != 0).any()), name
+            else:
+                assert torch.equal(g, w), name
+
+
+SEG_KERNELS = ("occupant_rect_seg", "rect_first_overlap_seg",
+               "rank_prefix_seg", "window_gather_banded")
+
+
+def _seg_world(device, walls=False):
+    """Pursuit on one world at map 250 (seed 5) on the segmented route,
+    observed through the banded gather (image budget 1 byte)."""
+    from magent_tpu_torch.builtin.config import pursuit
+    from magent_tpu_torch.core import engine, observe
+
+    placements, wall_cells = pursuit.layout(250, 5, 0.03 if walls else 0)
+    budget = observe.VMEM_IMAGE_BUDGET
+    observe.VMEM_IMAGE_BUDGET = 1
+    try:
+        venv = VecGridWorld(pursuit.get_config(250),
+                            [len(p) for p in placements], 1,
+                            placements=placements, walls=wall_cells or None,
+                            device=device)
+    finally:
+        observe.VMEM_IMAGE_BUDGET = budget
+    wall_ctx = None
+    if wall_cells:
+        from magent_tpu_torch.parallel.vec_env import _wall_map
+        wall_ctx = engine._wall_rect_code(
+            venv.spec, _wall_map(venv.spec, wall_cells))
+    venv._step = engine._build_step(
+        venv.spec, engine._Route(grid=False, quad=True, seg=True), wall_ctx)
+    return venv
+
+
+def _on(v, device):
+    """``v`` on ``device``: a tensor, or a tuple (a plan) of tensors and
+    ints."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device)
+    if isinstance(v, tuple):
+        return tuple(_on(x, device) for x in v)
+    return v
+
+
+def _valued_seg_forms(name, args, kw, gen):
+    """The forms of one recorded seg-sweep call that the card checks:
+    pursuit deals no damage and its hp is 1 everywhere, so the occupant
+    gets random hp and the rank sweep random damage on its valid rows
+    (targets below A), and the rank sweep also runs with every run of 4
+    sorted rows sharing a target, so that its sums are not all zero; each
+    as the step planned it and with the window forced below a segment
+    (seg_win=512), which takes the full sweep -> [(args, kw, nonzero)],
+    ``nonzero``: the float results must not all be zero."""
+    def uniform(n):
+        return (0.1 + 0.9 * torch.rand(n, generator=gen)).to(args[0].device)
+
+    A = args[0].shape[0]
+    forms = [(args, False)]
+    if name == "occupant_rect_seg":
+        forms = [(args[:6] + [uniform(A)] + args[7:], True)]
+    elif name == "rank_prefix_seg":
+        tgt, rank, _, sort_y = args
+        forms = [([tgt, rank, torch.where(tgt < A, uniform(A), 0.0), sort_y],
+                  False),
+                 ([(torch.arange(A, device=tgt.device) // 4).to(torch.int32),
+                   rank, uniform(A), sort_y], True)]
+    narrow = {k: v for k, v in kw.items() if k != "plan"}
+    return [(a, k, nz) for a, nz in forms
+            for k in (kw, dict(narrow, seg_win=512))]
+
+
+def test_seg_kernels_match_plain_on_card(cuda):
+    """The three segmented sweeps and the banded gather on one map-250 step's
+    operands (recorded from the CPU run), as the step calls them and with
+    the window forced below a segment (seg_win=512), which takes the full
+    sweep, the occupant with random hp and the rank sweep with random
+    damage (see :func:`_valued_seg_forms`): ints, windows and occupant hp
+    exact, rank sums within PAIR_ATOL."""
+    venv = _seg_world("cpu")
+    calls = {name: [] for name in SEG_KERNELS}
+    mods = {name: twg if name == "window_gather_banded" else tap
+            for name in SEG_KERNELS}
+    originals = {name: getattr(mods[name], name) for name in SEG_KERNELS}
+    for name, fn in originals.items():
+        def rec(*args, _fn=fn, _name=name, **kwargs):
+            calls[_name].append(([a.to(cuda) for a in args],
+                                 {k: _on(v, cuda) for k, v in kwargs.items()}))
+            return _fn(*args, **kwargs)
+        setattr(mods[name], name, rec)
+    try:
+        state = venv.reset(trandom.PRNGKey(0))
+        venv.observe_all(state)
+        venv.transition(state, venv.random_actions(trandom.PRNGKey(1)))
+    finally:
+        for name, fn in originals.items():
+            setattr(mods[name], name, fn)
+    assert [len(calls[n]) for n in SEG_KERNELS] == [1, 2, 1, 2]
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    before = ops.launch_counts()
+    for name in SEG_KERNELS:
+        kernel = getattr(mods[name], name)
+        plain = getattr(mods[name], name + "_ref")
+        for args, kw in calls[name]:
+            forms = [(args, kw, False)] if name == "window_gather_banded" \
+                else _valued_seg_forms(name, args, kw, gen)
+            for a, k, nonzero in forms:
+                got, want = kernel(*a, **k), plain(*a, **k)
+                got = got if isinstance(got, tuple) else (got,)
+                want = want if isinstance(want, tuple) else (want,)
+                for g, w in zip(got, want):
+                    if name == "rank_prefix_seg":
+                        torch.testing.assert_close(g, w, atol=PAIR_ATOL,
+                                                   rtol=0)
+                    else:
+                        assert torch.equal(g, w), name
+                    if nonzero and w.dtype.is_floating_point:
+                        assert bool((w != 0).any()), name
+    after = ops.launch_counts()
+    assert [after[n] - before[n] for n in SEG_KERNELS] == [2, 4, 4, 2]
+
+
+@pytest.mark.parametrize("walls", [False, True])
+def test_seg_world_gpu_matches_cpu(cuda, walls):
+    """Pursuit map 250, one world on the segmented route and the banded
+    gather: the GPU run equals the CPU run, views exactly."""
+    envs = [_seg_world(d, walls) for d in (cuda, "cpu")]
     states = [e.reset(trandom.PRNGKey(3)) for e in envs]
     key = trandom.PRNGKey(4)
     for _ in range(3):

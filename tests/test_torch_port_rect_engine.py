@@ -258,25 +258,30 @@ def _rect_spec(A):
     return tspec.compile_spec(tpursuit.get_config(2048), [A // 3, A - A // 3])
 
 
-@pytest.mark.parametrize("A,n_envs,raises", [
-    (tap.QUAD_MAX_SINGLE - 1, 1, None),
-    (tap.QUAD_MAX_SINGLE, 1, "Queue 2 items 11-13"),
-    (tengine.SEG_DEFAULT_MAX, 1, "Queue 2 items 11-13"),
+_ROUTES = {"quad": tengine._Route(grid=False, quad=True),
+           "seg": tengine._Route(grid=False, quad=True, seg=True)}
+
+
+@pytest.mark.parametrize("A,n_envs,expect", [
+    (tap.QUAD_MAX_SINGLE - 1, 1, "quad"),
+    (tap.QUAD_MAX_SINGLE, 1, "seg"),
+    (tengine.SEG_DEFAULT_MAX, 1, "seg"),
     (tengine.SEG_DEFAULT_MAX + 1, 1, "Queue 1 item 7"),
-    (tap.QUAD_MAX_AGENTS, 4, None),
+    (tap.QUAD_MAX_AGENTS, 4, "quad"),
     (tap.QUAD_MAX_AGENTS + 1, 4, "Queue 1 item 7"),
 ])
-def test_rect_route_raises_where_not_ported(A, n_envs, raises):
+def test_rect_route_raises_where_not_ported(A, n_envs, expect):
     """The JAX package's routes for multi-cell specs (engine.py:169-196,
     :1004-1011): gridless pair sweeps up to the quad cap, y-segmented sweeps
-    for one world from QUAD_MAX_SINGLE (inclusive), the grid path beyond.
-    The port takes the first and names the ROADMAP item of the others."""
+    for one world from QUAD_MAX_SINGLE (inclusive) to SEG_DEFAULT_MAX, the
+    grid path beyond.  The port takes the first two and names the ROADMAP
+    item of the grid path."""
     spec = _rect_spec(A)
-    if raises is None:
+    if expect in _ROUTES:
         step = tengine.make_step(spec, maintain_grid=False, n_envs=n_envs)
-        assert step.route == tengine._Route(grid=False, quad=True)
+        assert step.route == _ROUTES[expect]
     else:
-        with pytest.raises(NotImplementedError, match=raises):
+        with pytest.raises(NotImplementedError, match=expect):
             tengine.make_step(spec, maintain_grid=False, n_envs=n_envs)
 
 
