@@ -50,14 +50,22 @@ Run from the repository root:  python3 chip_smoke.py
    window_gather_banded 2, nothing else; 2 plans), counts the timed steps
    whose plans overflowed (read after the window), checks the host syncs
    per step against the map-500 loop's, and profiles it;
-8. runs 4 steps at battle map 64, 2x200, B=4, 6 GridWorld steps at battle
+8. runs the window-gather cost ladder (``magent_tpu_torch.tools.
+   profile_window``, the port of ``scripts/profile_window.py``) at the
+   script's geometry (map 200, C=5, 13x13, B=16, N=2048, chunks of 200):
+   holds each of its six levels and ``shared`` against its plain version
+   and ``ladder(mask)`` against ``window_gather4`` (all exact), then, with
+   the launch counters set to 0, times every variant, ``window_gather4``
+   without and with its epilogue included, and prints each one's bound and
+   each level's increment over the one before;
+9. runs 4 steps at battle map 64, 2x200, B=4, 6 GridWorld steps at battle
    map 40, 2x64, 4 steps of pursuit map 64, B=16 without and with 3%
    interior walls, and 4 steps of pursuit's one world at map 662 (A =
    16,434: the segmented sweeps and the banded gather), on the GPU and on
    the CPU from the same keys and actions, and asserts equal states, views
    and features;
-9. prints the ``kernels`` JSON line, then ``{"ok": true, "device": ...}``
-   as the last line.
+10. prints the ``kernels`` JSON line, then ``{"ok": true, "device": ...}``
+    as the last line.
 
 Any failure raises (exit code 1).  Without a CUDA device it exits with 2
 and prints no result.
@@ -67,6 +75,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import functools
 import json
 import math
 import os
@@ -78,6 +87,8 @@ import warnings
 
 import numpy as np
 import torch
+
+from magent_tpu_torch.tools.timing import device_ms
 
 # battle's full width: the BASELINE.json headline workload (bench.py)
 MAP_SIZE, N_PER_GROUP, N_ENVS = 200, 1000, 16
@@ -177,6 +188,9 @@ REPLACES = {
                        ":983-1007)",
     "window_gather_banded": "magent_tpu/ops/window_gather.py:543 "
                             "(window_gather_banded :477-590)",
+    "window_ladder": "scripts/profile_window.py:159 (ladder :111-174)",
+    "window_shared_tile": "scripts/profile_window.py:214 "
+                          "(shared_tile :178-229)",
 }
 # the kernels' device symbols, as the profiler names them
 SYMBOLS = {
@@ -191,6 +205,8 @@ SYMBOLS = {
     "rect_first_overlap_seg": "rect_first_overlap_seg_kernel",
     "rank_prefix_seg": "rank_prefix_seg_kernel",
     "window_gather_banded": "window_gather_banded_kernel",
+    "window_ladder": "window_ladder_kernel",
+    "window_shared_tile": "window_shared_tile_kernel",
 }
 SOURCES = {
     "window_gather": "magent_tpu_torch/csrc/window_gather.cu",
@@ -206,6 +222,8 @@ SOURCES = {
     "rect_first_overlap_seg": "magent_tpu_torch/csrc/seg_kernels.cu",
     "rank_prefix_seg": "magent_tpu_torch/csrc/seg_kernels.cu",
     "window_gather_banded": "magent_tpu_torch/csrc/window_gather.cu",
+    "window_ladder": "magent_tpu_torch/csrc/window_ladder.cu",
+    "window_shared_tile": "magent_tpu_torch/csrc/window_ladder.cu",
 }
 WINDOW_KERNELS = ("window_gather", "window_gather4", "window_gather_banded")
 # kernels whose float results equal their plain versions exactly: window
@@ -231,40 +249,6 @@ def cuda_ms(fn, reps: int) -> float:
             fn()
         end.record()
         end.synchronize()
-        per_call.append(start.elapsed_time(end) / reps)
-    return statistics.median(per_call)
-
-
-def device_ms(fn, reps: int) -> float:
-    """Device time per call of ``fn`` in ms, without the host's launch work
-    (which bounds back-to-back calls of a kernel shorter than it, see
-    :func:`cuda_ms`): a spin kernel (``torch.cuda._sleep``) is queued ahead
-    of the start event and outlasts the host's enqueueing of ``reps``
-    calls, so CUDA events time the calls as the device runs them back to
-    back, each after the device's own launch gap.  The spin doubles until
-    it outlasts the enqueueing.  Median of 3 batches, after a warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    cycles = 1 << 24
-    per_call = []
-    while len(per_call) < 3:
-        spun, start, end = (torch.cuda.Event(enable_timing=True)
-                            for _ in range(3))
-        spun.record()
-        torch.cuda._sleep(cycles)
-        start.record()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        enqueue_ms = (time.perf_counter() - t0) * 1e3
-        end.record()
-        end.synchronize()
-        if spun.elapsed_time(start) <= enqueue_ms:
-            if cycles >= 1 << 30:
-                raise AssertionError("the host took %.3f ms to enqueue %d "
-                                     "calls" % (enqueue_ms, reps))
-            cycles *= 2
-            continue
         per_call.append(start.elapsed_time(end) / reps)
     return statistics.median(per_call)
 
@@ -1236,6 +1220,124 @@ def run_seg_path(f32_rate, int32_rate, device_name, banded_500, syncs_500):
     return rows
 
 
+def ladder_bounds(inp, f32_rate):
+    """{variant: (bound ms, "bytes" or "operations", bytes)} of the cost
+    ladder's variants on ``inp``: every output written once; each input the
+    variant reads, read once (the packed words from ``smem`` up, the whole
+    image from ``load`` up, the mask from ``mask`` up; ``window_gather4``
+    its packed positions, and with the epilogue its operands); one f32
+    operation per output element from ``mask`` up (``prod_mm``: 4, the
+    mask and liveness multiplies and the two minimap adds)."""
+    pos = inp["pos"]
+    n_out = pos.numel() * inp["mask"].numel()
+    out = n_out * 4
+    words = 2 * nbytes([pos])  # word and aux, int32 [B, N] each
+    image, mask = nbytes([inp["gfull"]]), nbytes([inp["mask"]])
+    epilogue = nbytes([inp["mm_img"], inp["mm_mask"], inp["act"]])
+    need = {"floor": (out, 0), "smem": (out + words, 0),
+            "load": (out + words + image, 0),
+            "roll1": (out + words + image, 0),
+            "roll2": (out + words + image, 0),
+            "mask": (out + words + image + mask, 1),
+            "shared": (out + words + image + mask, 1),
+            "prod": (out + nbytes([pos]) + image + mask, 1),
+            "prod_mm": (out + nbytes([pos]) + image + mask + epilogue, 4)}
+    bounds = {}
+    for name, (n_bytes, n_f32) in need.items():
+        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = n_f32 * n_out / f32_rate * 1e3
+        bounds[name] = (max(bytes_ms, ops_ms),
+                        "bytes" if bytes_ms >= ops_ms else "operations",
+                        n_bytes)
+    return bounds
+
+
+def run_window_ladder(f32_rate):
+    """Phase 8: the window-gather cost ladder at the script's geometry;
+    returns the rows of ``window_ladder`` and ``window_shared_tile``."""
+    from magent_tpu_torch import ops
+    from magent_tpu_torch.ops import window_ladder as wl
+    from magent_tpu_torch.tools import profile_window as pw
+
+    B, N, chunk = pw.CARD
+    inp = pw.make_inputs(pw.SEED, B=B, N=N, device="cuda")
+    g, pos, mask = inp["gfull"], inp["pos"], inp["mask"]
+    kw = dict(pw.geometry(inp), chunk=chunk)
+    forms = {level: ("window_ladder",
+                     functools.partial(wl.ladder, level=level),
+                     functools.partial(wl.ladder_ref, level=level))
+             for level in wl.LEVELS}
+    forms["shared"] = ("window_shared_tile", wl.shared_tile,
+                       wl.shared_tile_ref)
+    checked = {}
+    for name, (counter, kernel, plain) in forms.items():
+        before = ops.launch_counts()[counter]
+        got = kernel(g, pos, mask, **kw)
+        if ops.launch_counts()[counter] != before + 1:
+            raise AssertionError("ladder %s: a call did not launch its "
+                                 "kernel once" % name)
+        want = plain(g, pos, mask, **kw)
+        if got.shape != want.shape or not torch.equal(got, want):
+            raise AssertionError("ladder %s: max |kernel - plain| = %g" % (
+                name, float((got - want).abs().max())))
+        checked[name] = dict(
+            max_abs_err=0.0, n_nonzero=int((want != 0).sum()),
+            plain_ms=device_ms(lambda: plain(g, pos, mask, **kw), 5))
+        del got, want
+    pw.check(inp, chunk)
+    print("ladder: every level and shared equal their plain versions "
+          "(max abs error 0; non-zero values %s), ladder(mask) equals "
+          "window_gather4; B=%d, N=%d, chunks of %d, image %s" % (
+              json.dumps({k: v["n_nonzero"] for k, v in checked.items()}),
+              B, N, chunk, tuple(g.shape)), flush=True)
+    torch.cuda.empty_cache()
+
+    ops.reset_launch_counts()
+    ms = pw.profile(pw.VARIANTS, inp, chunk)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    ran = {k for k, v in counts.items() if v}
+    if ran != {"window_ladder", "window_shared_tile", "window_gather4"}:
+        raise AssertionError("the ladder's run launched %s" % counts)
+    bounds = ladder_bounds(inp, f32_rate)
+    steps = pw.increments(ms)
+    for name in pw.VARIANTS:
+        b_ms, by, n_bytes = bounds[name]
+        step = (" (%+.4f over %s)" % steps[name] if name in steps else "")
+        print("ladder %-8s %.4f ms device%s  bound %.6f ms (%s; %.3f MB)  "
+              "%.3f of bound" % (name, ms[name], step, b_ms, by,
+                                 n_bytes / 1e6, b_ms / ms[name]), flush=True)
+    top = max(wl.LEVELS, key=lambda level: steps[level][0])
+    print("ladder: the largest increment is %s, +%.4f ms: %s; mask %.4f ms "
+          "vs window_gather4 %.4f ms, shared %.4f ms; launches %s" % (
+              top, steps[top][0], pw.COMPONENTS[top], ms["mask"], ms["prod"],
+              ms["shared"], json.dumps({k: counts[k] for k in sorted(ran)})),
+          flush=True)
+
+    rows = {}
+    for counter, names in (("window_ladder", wl.LEVELS),
+                           ("window_shared_tile", ("shared",))):
+        per = [dict(form="level %s" % name, max_abs_err=0.0, ms=ms[name],
+                    plain_ms=checked[name]["plain_ms"],
+                    bound_ms=bounds[name][0], bound_by=bounds[name][1])
+               for name in names]
+        # the row's numbers are those of the whole kernel: the mask level
+        top = per[-1]
+        rows[counter] = dict(
+            name=counter, route="cuda", source=SOURCES[counter],
+            replaces=REPLACES[counter], launches=counts[counter],
+            max_abs_err=0.0, ms=top["ms"], plain_ms=top["plain_ms"],
+            bound_ms=top["bound_ms"], bound_by=top["bound_by"],
+            library_ms=None,
+            path="measurement only: tools/profile_window.py, B=%d, N=%d, "
+                 "chunks of %d" % (B, N, chunk))
+        if len(per) > 1:
+            rows[counter]["per_call"] = per
+    del inp, g, pos, mask
+    torch.cuda.empty_cache()
+    return rows
+
+
 def seg_world_env(device):
     """The smallest pursuit map whose one world takes the segmented sweeps
     (and the banded gather), for the GPU-vs-CPU run."""
@@ -1305,6 +1407,7 @@ def main() -> int:
     rows.update(rect_rows)
     rows.update(run_seg_path(f32_rate, int32_rate, device_name, banded_500,
                              syncs_500))
+    rows.update(run_window_ladder(f32_rate))
 
     check_gpu_matches_cpu(
         "battle map %d" % SMALL_MAP,

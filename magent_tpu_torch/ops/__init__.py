@@ -8,7 +8,8 @@ from . import _build
 KERNELS = ("window_gather", "occupant", "rank_prefix", "move_resolve",
            "rank_prefix_hp", "move_claims", "occupant_rect",
            "rect_first_overlap", "window_gather4", "occupant_rect_seg",
-           "rect_first_overlap_seg", "rank_prefix_seg", "window_gather_banded")
+           "rect_first_overlap_seg", "rank_prefix_seg", "window_gather_banded",
+           "window_ladder", "window_shared_tile")
 
 
 def launch_counts() -> dict:

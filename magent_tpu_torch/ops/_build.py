@@ -25,7 +25,8 @@ import torch
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
-SOURCES = ("pair_kernels.cu", "seg_kernels.cu", "window_gather.cu")
+SOURCES = ("pair_kernels.cu", "seg_kernels.cu", "window_gather.cu",
+           "window_ladder.cu")
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 LIB_PATH = BUILD_DIR / "libmagent_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -49,6 +50,8 @@ _SIGNATURES = {
     "magent_rect_first_overlap_seg": (_P,) * 11 + (_I,) * 5 + (_P,),
     "magent_rank_prefix_seg": (_P,) * 5 + (_I, _I, _P),
     "magent_window_gather_banded": (_P,) * 3 + (_I,) * 9 + (_P,),
+    "magent_window_ladder": (_P,) * 4 + (_I,) * 7 + (_P,),
+    "magent_window_shared_tile": (_P,) * 4 + (_I,) * 7 + (_P,),
 }
 
 _lib = None

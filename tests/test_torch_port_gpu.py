@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions on the card (the
 rect kernels and window_gather4 on the operands of a pursuit map-64, B=16
 step; the segmented sweeps and the banded gather on a pursuit map-250 step;
-the segmented sweeps on the random operands of tests/_torch_seg_operands.py),
+the segmented sweeps on the random operands of tests/_torch_seg_operands.py;
+the window-gather cost ladder on tools/profile_window.py's inputs),
 and short GPU-vs-CPU runs of the lockstep loop (battle; pursuit with and
 without interior walls; pursuit's one world on the segmented route) and of
 the stateful GridWorld.
@@ -19,7 +20,9 @@ from magent_tpu_torch.builtin.config import battle
 from magent_tpu_torch.core.state import FIELDS
 from magent_tpu_torch.ops import attack_prefix as tap
 from magent_tpu_torch.ops import window_gather as twg
+from magent_tpu_torch.ops import window_ladder as twl
 from magent_tpu_torch.parallel import VecGridWorld
+from magent_tpu_torch.tools import profile_window as tpw
 
 from _torch_seg_operands import CASES, seg_calls
 
@@ -426,3 +429,27 @@ def test_seg_world_gpu_matches_cpu(cuda, walls):
         for name in FIELDS:
             assert torch.equal(getattr(states[0], name).cpu(),
                                getattr(states[1], name)), name
+
+
+def test_window_ladder_matches_plain_on_card(cuda):
+    """Every ladder level and shared_tile equal their plain versions
+    exactly, and ladder(mask) equals window_gather4, at N=450 with chunks
+    of 40 (blocks cut at chunk boundaries, a ragged last chunk), 200 and
+    past N."""
+    inp = tpw.make_inputs(3, B=3, N=450, device=cuda)
+    g, pos, mask = inp["gfull"], inp["pos"], inp["mask"]
+    geo = tpw.geometry(inp)
+    before = ops.launch_counts()
+    for chunk in (40, 200, 1000):
+        for level in twl.LEVELS:
+            got = twl.ladder(g, pos, mask, level=level, chunk=chunk, **geo)
+            want = twl.ladder_ref(g, pos, mask, level=level, chunk=chunk,
+                                  **geo)
+            assert torch.equal(got, want), level
+        assert torch.equal(got, twg.window_gather4(g, pos * 1024, mask, **geo))
+        got = twl.shared_tile(g, pos, mask, chunk=chunk, **geo)
+        want = twl.shared_tile_ref(g, pos, mask, chunk=chunk, **geo)
+        assert torch.equal(got, want), chunk
+    after = ops.launch_counts()
+    assert after["window_ladder"] == before["window_ladder"] + 18
+    assert after["window_shared_tile"] == before["window_shared_tile"] + 3
