@@ -58,13 +58,30 @@ Run from the repository root:  python3 chip_smoke.py
    the launch counters set to 0, times every variant, ``window_gather4``
    without and with its epilogue included, and prints each one's bound and
    each level's increment over the one before;
-9. runs 4 steps at battle map 64, 2x200, B=4, 6 GridWorld steps at battle
-   map 40, 2x64, 4 steps of pursuit map 64, B=16 without and with 3%
-   interior walls, and 4 steps of pursuit's one world at map 662 (A =
-   16,434: the segmented sweeps and the banded gather), on the GPU and on
-   the CPU from the same keys and actions, and asserts equal states, views
-   and features;
-10. prints the ``kernels`` JSON line, then ``{"ok": true, "device": ...}``
+9. runs the fused DQN trainers at ``scripts/bench_train.py``'s geometry —
+   battle 2x1000, map 200, B=16, bf16 views (``obs_dtype``) and a bf16 net
+   trunk, rollout 8, 4 train steps per call, target refresh every 40, eps
+   0.3, both groups from the trusty battle checkpoints
+   (``params_from_flax``): holds the bf16 forms of the three window kernels
+   against their plain versions (``window_gather`` on the trainer's
+   operands, ``window_gather4`` on phase 5's map-64 operands,
+   ``window_gather_banded`` on phase 7's map-1000 band table), checks that
+   bf16 views are the f32 views rounded (battle 2x1000, pursuit map 64),
+   then runs ``dqn`` (``train_minibatch=16384``) and ``dqn_remat``
+   (``sample_steps=2``): one warm call and 3 timed calls each, with
+   trained agent-steps/s, ms per train step split into rollout and
+   learner, host syncs, device ops and the bf16 window kernel's device
+   time per train step (torch.profiler), peak device memory, and the
+   launch counts (bf16 ``window_gather`` 2 per env step, plus 4 per
+   sampled step in remat); then one step of each trainer on the GPU and on
+   the CPU at a small size (f32, eps 1.0, TF32 off);
+10. runs 4 steps at battle map 64, 2x200, B=4, 6 GridWorld steps at battle
+    map 40, 2x64, 4 steps of pursuit map 64, B=16 without and with 3%
+    interior walls, and 4 steps of pursuit's one world at map 662 (A =
+    16,434: the segmented sweeps and the banded gather), on the GPU and on
+    the CPU from the same keys and actions, and asserts equal states, views
+    and features;
+11. prints the ``kernels`` JSON line, then ``{"ok": true, "device": ...}``
     as the last line.
 
 Any failure raises (exit code 1).  Without a CUDA device it exits with 2
@@ -118,6 +135,26 @@ SEG_PLANS_PER_STEP = 2
 # the rank sweep's dense form: each run of this many sorted rows shares a
 # target (the step's attackers rarely share one, so its sums are mostly 0)
 SEG_SHARE = 4
+
+# the fused trainers: scripts/bench_train.py's geometry (battle 2x1000 at
+# MAP_SIZE, N_ENVS; bf16 views and trunk), from the trusty checkpoints
+TRAIN_ROLLOUT, TRAIN_SPC, TRAIN_TARGET_UPDATE, TRAIN_EPS = 8, 4, 40, 0.3
+TRAIN_MINIBATCH, TRAIN_SAMPLE_STEPS, TRAIN_CALLS, TRAIN_LR = 16384, 2, 3, 1e-4
+TRUSTY = tuple("data/models/trusty-battle-game-%s/tfdqn_0.npz" % side
+               for side in "lr")
+# the trainers' GPU-vs-CPU step: tests/test_train_fused.py's size, f32
+TRAIN_SMALL_MAP, TRAIN_SMALL_CAPS, TRAIN_SMALL_ENVS, TRAIN_SMALL_T = (
+    20, [6, 6], 4, 3)
+# its tolerances (tests/_torch_train_checks.py): f32 sums in other orders
+# on the two devices (losses); the Adam moments to a share of each tensor's
+# largest: a ReLU whose input lies within rounding of 0 opens on one device
+# and not the other and passes a sample's whole gradient (in one step at
+# this size conv1's moments lie 3e-3 of their largest apart); Adam's first
+# step moves a parameter by about lr * sign(g), so parameters within
+# TRAIN_PARAM_ATOL where the gradient's sign is settled (its moment above
+# the moment tolerance), and 2 * lr more elsewhere
+TRAIN_LOSS_RTOL, TRAIN_MOMENT_RTOL = 1e-5, 1e-2
+TRAIN_PARAM_ATOL = 0.2 * TRAIN_LR
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 # The data sheet's 67 TFLOP/s float32 counts an FMA as two operations; the
@@ -191,20 +228,32 @@ REPLACES = {
     "window_ladder": "scripts/profile_window.py:159 (ladder :111-174)",
     "window_shared_tile": "scripts/profile_window.py:214 "
                           "(shared_tile :178-229)",
+    "window_gather_bf16": "magent_tpu/ops/window_gather.py:167 "
+                          "(window_gather, out_dtype=bfloat16: store :154)",
+    "window_gather4_bf16": "magent_tpu/ops/window_gather.py:334, :370 "
+                           "(window_gather4, out_dtype=bfloat16: stores "
+                           ":329, :365)",
+    "window_gather_banded_bf16": "magent_tpu/ops/window_gather.py:543 "
+                                 "(window_gather_banded, out_dtype="
+                                 "bfloat16: store :538)",
 }
 # the kernels' device symbols, as the profiler names them
 SYMBOLS = {
-    "window_gather": "window_gather_kernel", "occupant": "occupant_kernel",
+    "window_gather": "window_gather_kernel<float>",
+    "window_gather_bf16": "window_gather_kernel<__nv_bfloat16>",
+    "occupant": "occupant_kernel",
     "rank_prefix": "rank_prefix_kernel<false>",
     "rank_prefix_hp": "rank_prefix_kernel<true>",
     "move_resolve": "move_resolve_kernel", "move_claims": "move_claims_kernel",
     "occupant_rect": "occupant_rect_kernel",
     "rect_first_overlap": "rect_first_overlap_kernel",
-    "window_gather4": "window_gather4_kernel",
+    "window_gather4": "window_gather4_kernel<float",
+    "window_gather4_bf16": "window_gather4_kernel<__nv_bfloat16",
     "occupant_rect_seg": "occupant_rect_seg_kernel",
     "rect_first_overlap_seg": "rect_first_overlap_seg_kernel",
     "rank_prefix_seg": "rank_prefix_seg_kernel",
-    "window_gather_banded": "window_gather_banded_kernel",
+    "window_gather_banded": "window_gather_banded_kernel<float>",
+    "window_gather_banded_bf16": "window_gather_banded_kernel<__nv_bfloat16>",
     "window_ladder": "window_ladder_kernel",
     "window_shared_tile": "window_shared_tile_kernel",
 }
@@ -224,8 +273,13 @@ SOURCES = {
     "window_gather_banded": "magent_tpu_torch/csrc/window_gather.cu",
     "window_ladder": "magent_tpu_torch/csrc/window_ladder.cu",
     "window_shared_tile": "magent_tpu_torch/csrc/window_ladder.cu",
+    "window_gather_bf16": "magent_tpu_torch/csrc/window_gather.cu",
+    "window_gather4_bf16": "magent_tpu_torch/csrc/window_gather.cu",
+    "window_gather_banded_bf16": "magent_tpu_torch/csrc/window_gather.cu",
 }
-WINDOW_KERNELS = ("window_gather", "window_gather4", "window_gather_banded")
+WINDOW_KERNELS = ("window_gather", "window_gather4", "window_gather_banded",
+                  "window_gather_bf16", "window_gather4_bf16",
+                  "window_gather_banded_bf16")
 # kernels whose float results equal their plain versions exactly: window
 # copies (the epilogue rounds each operation as the plain version does) and
 # the rect occupants' hp (bodies are disjoint: one non-zero term)
@@ -260,6 +314,7 @@ def banded_kernel_call(args, kwargs):
 
     gfull, pos, mask = args
     geo = {n: kwargs[n] for n in ("vh", "vw", "C", "Wp", "chunk")}
+    geo["out_dtype"] = kwargs.get("out_dtype", torch.float32)
     n_bands, _ = wg._band_geometry(gfull.shape[1], geo["vh"],
                                    kwargs["band_rows"])
     pos_pad, _, _ = wg.banded_tables(pos, Wp=geo["Wp"],
@@ -292,7 +347,8 @@ def window_gather_bytes(name, args, kwargs, out) -> int:
     is never needed."""
     gfull, pos, mask = args
     C, Wp = kwargs["C"], kwargs["Wp"]
-    tl = pos.long() >> 10 if name == "window_gather4" else pos.long()
+    tl = pos.long() >> 10 if name.startswith("window_gather4") else \
+        pos.long()
     oy, ox = torch.nonzero(mask != 0, as_tuple=True)
     touched = torch.zeros(gfull.shape[1:], dtype=torch.bool,
                           device=gfull.device)
@@ -363,6 +419,12 @@ def kernel_fns():
         "rank_prefix_seg": (ap.rank_prefix_seg, ap.rank_prefix_seg_ref),
         "window_gather_banded": (wg.window_gather_banded,
                                  wg.window_gather_banded_ref),
+        # the bf16 stores: the same entry points, called with
+        # out_dtype=torch.bfloat16 in their operands' kwargs
+        "window_gather_bf16": (wg.window_gather, wg.window_gather_ref),
+        "window_gather4_bf16": (wg.window_gather4, wg.window_gather4_ref),
+        "window_gather_banded_bf16": (wg.window_gather_banded,
+                                      wg.window_gather_banded_ref),
     }
 
 
@@ -454,7 +516,7 @@ def call_stats(name, args, kwargs, f32_rate, int32_rate, form,
     if ops.launch_counts()[name] != before + 1:
         raise AssertionError("%s: a call did not launch its kernel once"
                              % name)
-    if name == "window_gather_banded":
+    if name.startswith("window_gather_banded"):
         # the kernel alone on the call's band table; the entry point's ~53
         # launches per call (the band tables) would overrun the device's
         # queue of pending launches behind device_ms's spin at 50 calls
@@ -1058,7 +1120,8 @@ def window_gather4_calls(banded_calls):
 def run_pursuit_paths(f32_rate, int32_rate, device_name):
     """Phases 5 and 6: pursuit's gridless rect path at map 64, B=16 and on
     one world at map 500; returns the rect kernels' rows, the map-500
-    banded gather calls and the map-500 loop's host syncs per step."""
+    banded gather calls, the map-500 loop's host syncs per step and the
+    map-64 ``window_gather4`` forms."""
     from magent_tpu_torch import random as rnd
 
     venv = pursuit_env(P_MAP, P_ENVS, P_SEED)
@@ -1069,6 +1132,8 @@ def run_pursuit_paths(f32_rate, int32_rate, device_name):
     extra = off_path_forms(calls)
     rows = {name: kernel_row(name, calls[name], f32_rate, int32_rate,
                              extra[name]) for name in RECT_KERNELS}
+    # window_gather4's map-64 forms, for phase 9's bf16 store
+    g4_forms = calls["window_gather4"] + extra["window_gather4"]
     del calls, extra
     counts, state, key, ms_per_step, _ = run_lockstep(
         "pursuit lockstep, map %d" % P_MAP, venv, *carry, PURSUIT_PER_STEP,
@@ -1099,7 +1164,7 @@ def run_pursuit_paths(f32_rate, int32_rate, device_name):
     profile_lockstep("pursuit one world", big, state, key, ms_per_step)
     del big, state, carry
     torch.cuda.empty_cache()
-    return rows, banded, syncs
+    return rows, banded, syncs, g4_forms
 
 
 def valued_seg_forms(calls):
@@ -1154,7 +1219,8 @@ def seg_overflow_forms(name, forms):
 
 def run_seg_path(f32_rate, int32_rate, device_name, banded_500, syncs_500):
     """Phase 7: pursuit on one world at map 1000 through the segmented
-    sweeps and the banded gather; returns the four kernels' rows."""
+    sweeps and the banded gather; returns the four kernels' rows and the
+    step's banded gather calls."""
     from magent_tpu_torch import random as rnd
     from magent_tpu_torch.ops import attack_prefix as ap
 
@@ -1172,6 +1238,7 @@ def run_seg_path(f32_rate, int32_rate, device_name, banded_500, syncs_500):
     extra["window_gather_banded"] = banded_500
     rows = {name: kernel_row(name, calls[name], f32_rate, int32_rate,
                              extra[name]) for name in SEG_PER_STEP}
+    banded_1000 = calls["window_gather_banded"]
     del calls, extra
     torch.cuda.empty_cache()
 
@@ -1217,7 +1284,7 @@ def run_seg_path(f32_rate, int32_rate, device_name, banded_500, syncs_500):
                      ms_per_step)
     del big, state, carry
     torch.cuda.empty_cache()
-    return rows
+    return rows, banded_1000
 
 
 def ladder_bounds(inp, f32_rate):
@@ -1338,6 +1405,315 @@ def run_window_ladder(f32_rate):
     return rows
 
 
+def trusty_nets(spec, device, dtype=torch.float32):
+    """One ``DQNNet`` per group from the trusty battle checkpoints (read
+    with numpy: flax is not needed), on ``device``."""
+    from magent_tpu_torch.builtin.torch_model import DQNNet, params_from_flax
+
+    nets = []
+    for g, path in enumerate(TRUSTY):
+        net = DQNNet(spec.view_space(g), spec.feature_size(g),
+                     spec.groups[g].type.n_action, dtype=dtype)
+        net.load_state_dict(params_from_flax(dict(np.load(path))))
+        nets.append(net.to(device))
+    return tuple(nets)
+
+
+def check_bf16_views(label, venv, state):
+    """Every group's bf16 views (``make_observe(..., obs_dtype=bf16)``) are
+    its f32 views rounded, and its features equal; where a view differs,
+    the count is printed and the bf16 views are held to the plain versions
+    (the same observation of the state moved to the CPU) instead."""
+    from magent_tpu_torch.core import observe
+    from magent_tpu_torch.core.state import FIELDS, State
+
+    bf16 = torch.bfloat16
+    grids = venv._grids(state)
+    n_diff = n_all = 0
+    for g in range(venv.spec.n_groups):
+        v32, f32 = observe.make_observe(venv.spec, g)(state, grids)
+        obs16 = observe.make_observe(venv.spec, g, obs_dtype=bf16)
+        v16, f16 = obs16(state, grids)
+        if v16.dtype != bf16 or not torch.equal(f16, f32):
+            raise AssertionError("%s group %d: bf16 views %s, features "
+                                 "changed" % (label, g, v16.dtype))
+        diff = int((v16 != v32.to(bf16)).sum())
+        n_diff += diff
+        n_all += v16.numel()
+        if diff:
+            cpu = State(**{f: getattr(state, f).cpu() for f in FIELDS})
+            if not torch.equal(v16.cpu(), obs16(cpu)[0]):
+                raise AssertionError("%s group %d: bf16 views differ from "
+                                     "the plain versions" % (label, g))
+    print("bf16 views, %s: %d of %d values differ from the f32 views rounded "
+          "(%s); features equal" % (
+              label, n_diff, n_all, "held to the plain versions instead"
+              if n_diff else "all equal"), flush=True)
+
+
+def train_split_ms(step, nets, tnets, opts, state, key, n=3):
+    """Median ms of the rollout and of the learner of ``n`` more train
+    steps (synchronized host clock around each half)."""
+    from magent_tpu_torch import random as rnd
+
+    roll, learn = [], []
+    for i in range(n):
+        rkey, lkey = rnd.split(rnd.fold_in(key, i)).unbind(-2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, traj = step.rollout(nets, state, rkey, TRAIN_EPS)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        opts, _ = step.learn(nets, tnets, opts, traj, lkey)
+        torch.cuda.synchronize()
+        roll.append((t1 - t0) * 1e3)
+        learn.append((time.perf_counter() - t1) * 1e3)
+        del traj
+    return statistics.median(roll), statistics.median(learn), opts, state
+
+
+def run_trainers(f32_rate, int32_rate, device_name, g4_forms, banded_1000):
+    """Phase 9: the fused DQN trainers at scripts/bench_train.py's geometry
+    with bf16 views and trunk; returns the bf16 window kernels' rows."""
+    from magent_tpu_torch import ops
+    from magent_tpu_torch import random as rnd
+    from magent_tpu_torch.builtin.config import battle
+    from magent_tpu_torch.builtin.torch_model import params_to_flax
+    from magent_tpu_torch.ops import window_gather as wg
+    from magent_tpu_torch.parallel import (ClipAdam, VecGridWorld,
+                                           make_dqn_remat_train_loop,
+                                           make_dqn_train_loop)
+
+    bf16 = torch.bfloat16
+    venv = VecGridWorld(battle.get_config(MAP_SIZE),
+                        [N_PER_GROUP, N_PER_GROUP], N_ENVS, obs_dtype=bf16)
+    dev = venv.device
+    state = venv.reset(rnd.PRNGKey(1, dev))
+
+    # the bf16 stores against their plain versions: window_gather on the
+    # trainer's operands, window_gather4 at pursuit map 64, the banded
+    # gather on the map-1000 band table
+    rec = record_operands(lambda: venv.observe_all(state),
+                          [(wg, "window_gather")])
+    if [k.get("out_dtype") for _, k in rec["window_gather"]] != [bf16] * 2:
+        raise AssertionError("the bf16 observation made the window calls %s"
+                             % [k.get("out_dtype") for _, k in
+                                rec["window_gather"]])
+    rows = {"window_gather_bf16": kernel_row(
+        "window_gather_bf16",
+        [(a, k, "battle 2x1000, B=16, group %d" % g)
+         for g, (a, k) in enumerate(rec["window_gather"])],
+        f32_rate, int32_rate)}
+    del rec
+
+    def as_bf16(forms):
+        return [(a, dict(k, out_dtype=bf16), form + ", bf16")
+                for a, k, form, *_ in forms]
+
+    rows["window_gather4_bf16"] = kernel_row(
+        "window_gather4_bf16", as_bf16(g4_forms[:2]), f32_rate, int32_rate,
+        as_bf16(g4_forms[2:]))
+    rows["window_gather_banded_bf16"] = kernel_row(
+        "window_gather_banded_bf16", as_bf16(banded_1000), f32_rate,
+        int32_rate)
+    torch.cuda.empty_cache()
+
+    check_bf16_views("battle 2x1000, B=16", venv, state)
+    p64 = pursuit_env(P_MAP, P_ENVS, P_SEED)
+    check_bf16_views("pursuit map 64, B=16", p64, p64.reset(rnd.PRNGKey(0)))
+    del p64
+
+    flats = [dict(np.load(path)) for path in TRUSTY]
+    tx = ClipAdam(TRAIN_LR, 5.0)
+    n_env = TRAIN_ROLLOUT * TRAIN_SPC * TRAIN_CALLS
+    n_train = TRAIN_SPC * TRAIN_CALLS
+    launches = collections.Counter()
+    for alg in ("dqn", "dqn_remat"):
+        if alg == "dqn":
+            loop = make_dqn_train_loop(
+                venv, tx, steps_per_call=TRAIN_SPC,
+                target_update=TRAIN_TARGET_UPDATE, rollout_len=TRAIN_ROLLOUT,
+                train_minibatch=TRAIN_MINIBATCH)
+            learner_views = 0
+        else:
+            loop = make_dqn_remat_train_loop(
+                venv, tx, steps_per_call=TRAIN_SPC,
+                target_update=TRAIN_TARGET_UPDATE, rollout_len=TRAIN_ROLLOUT,
+                sample_steps=TRAIN_SAMPLE_STEPS)
+            # each sampled step re-renders t and t + 1 for both groups
+            learner_views = 4 * TRAIN_SAMPLE_STEPS
+        nets = trusty_nets(venv.spec, dev, bf16)
+        carry = [nets, trusty_nets(venv.spec, dev, bf16),
+                 tuple(tx.init(n) for n in nets),
+                 venv.reset(rnd.PRNGKey(1, dev))]
+        lk = rnd.PRNGKey(2, dev)
+
+        def call(c):
+            out = loop(*carry, rnd.fold_in(lk, c), TRAIN_EPS, c * TRAIN_SPC)
+            carry[:] = out[:4]
+            return out[4]
+
+        float(call(0)["loss"].sum())  # the warm call
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        metrics = [call(c) for c in range(1, TRAIN_CALLS + 1)]
+        loss = torch.stack([m["loss"] for m in metrics]).cpu()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        agent_steps = 2 * N_PER_GROUP * N_ENVS * n_env
+        ms_step = dt / n_train * 1e3
+        print("trainer %s: battle 2x%d, map %d, B=%d, rollout %d, %d steps "
+              "per call, bf16 views and trunk: %d timed calls in %.4f s: "
+              "%.1f trained agent-steps/s, %.3f ms per train step on %s; "
+              "losses %s; peak device memory %.3f GB" % (
+                  alg, N_PER_GROUP, MAP_SIZE, N_ENVS, TRAIN_ROLLOUT,
+                  TRAIN_SPC, TRAIN_CALLS, dt, agent_steps / dt, ms_step,
+                  device_name, loss[-1].tolist(), peak / 1e9), flush=True)
+        expected = {name: 0 for name in ops.KERNELS}
+        expected.update(window_gather_bf16=2 * n_env + learner_views * n_train,
+                        occupant=n_env, rank_prefix=n_env, move_resolve=n_env)
+        if counts != expected:
+            raise AssertionError("trainer %s: launch counts %s, expected %s"
+                                 % (alg, counts, expected))
+        launches.update(counts)
+        if not bool(torch.isfinite(loss).all()):
+            raise AssertionError("trainer %s: losses not finite" % alg)
+        nets, tnets, opts, state = carry
+        for g, flat in enumerate(flats):
+            now = params_to_flax(nets[g])
+            if all(np.array_equal(now[k], flat[k]) for k in flat):
+                raise AssertionError("trainer %s: group %d's params did not "
+                                     "change" % (alg, g))
+
+        step = loop.train_step
+        roll_ms, learn_ms, opts, state = train_split_ms(
+            step, nets, tnets, opts, state, rnd.PRNGKey(3, dev))
+        print("trainer %s: a train step is %.3f ms of rollout (%d env steps) "
+              "and %.3f ms of learner (median of 3 synchronized steps)" % (
+                  alg, roll_ms, TRAIN_ROLLOUT, learn_ms), flush=True)
+        key = rnd.PRNGKey(4, dev)
+        syncs, sites = count_host_syncs(
+            lambda: step(nets, tnets, opts, state, key, TRAIN_EPS), 1)
+        print("trainer %s: %.1f host syncs per train step (torch.cuda sync "
+              "debug mode); by call site: %s" % (
+                  alg, syncs, json.dumps(dict(sites.most_common()))),
+              flush=True)
+        profile_steps("trainer %s, per train step" % alg,
+                      lambda: step(nets, tnets, opts, state, key, TRAIN_EPS),
+                      1, ms_step)
+        del loop, step, nets, tnets, opts, state, carry, metrics
+        torch.cuda.empty_cache()
+
+    for name, row in rows.items():
+        row["launches"] = launches[name]
+    rows["window_gather_bf16"]["path"] = (
+        "the fused trainers dqn and dqn_remat, %d timed calls each" %
+        TRAIN_CALLS)
+    for name in ("window_gather4_bf16", "window_gather_banded_bf16"):
+        rows[name]["path"] = "on no trainer path (pursuit trains in f32)"
+    del venv
+    torch.cuda.empty_cache()
+    return rows
+
+
+def small_train_step(alg, device):
+    """One step of trainer ``alg`` at the GPU-vs-CPU size, f32, eps 1.0
+    (the actions do not read the Q values), from the trusty weights ->
+    (rollout, end state, metrics, per group (params, mu, nu) as flat flax
+    dicts)."""
+    from magent_tpu_torch import random as rnd
+    from magent_tpu_torch.builtin.config import battle
+    from magent_tpu_torch.builtin.torch_model import params_to_flax
+    from magent_tpu_torch.builtin.torch_model.dqn import tensors_to_flax
+    from magent_tpu_torch.parallel import (ClipAdam, VecGridWorld,
+                                           make_dqn_train_step,
+                                           make_dqn_train_step_remat)
+
+    venv = VecGridWorld(battle.get_config(TRAIN_SMALL_MAP), TRAIN_SMALL_CAPS,
+                        TRAIN_SMALL_ENVS, device=device)
+    dev = venv.device
+    tx = ClipAdam(TRAIN_LR, 5.0)
+    step = (make_dqn_train_step(venv, tx, rollout_len=TRAIN_SMALL_T,
+                                train_minibatch=32)
+            if alg == "dqn" else make_dqn_train_step_remat(
+                venv, tx, rollout_len=TRAIN_SMALL_T,
+                sample_steps=TRAIN_SAMPLE_STEPS))
+    nets = trusty_nets(venv.spec, dev)
+    state = venv.reset(rnd.PRNGKey(0, dev))
+    _, traj = step.rollout(nets, state, rnd.PRNGKey(1, dev), 1.0)
+    nets, opts, state, m = step(nets, trusty_nets(venv.spec, dev),
+                                tuple(tx.init(n) for n in nets), state,
+                                rnd.PRNGKey(2, dev), 1.0)
+    flat = []
+    for net, st in zip(nets, opts):
+        names = [n for n, _ in net.named_parameters()]
+        flat.append((params_to_flax(net),
+                     tensors_to_flax(dict(zip(names, st.mu))),
+                     tensors_to_flax(dict(zip(names, st.nu)))))
+    return traj, state, m, flat
+
+
+def train_step_errors(got, want):
+    """(loss relative error, Adam moments' largest error as a share of
+    each tensor's largest magnitude, parameters' largest error where the
+    gradient's sign is settled, parameters' largest error) between two
+    :func:`small_train_step` results."""
+    _, _, gm, gf = got
+    _, _, cm, cf = want
+    rel = float(((gm["loss"].cpu() - cm["loss"]).abs()
+                 / cm["loss"].abs()).max())
+    moment_err = param_err = param_any = 0.0
+    for (gp, gmu, gnu), (cp, cmu, cnu) in zip(gf, cf):
+        for k in cp:
+            for a, b in ((gmu[k], cmu[k]), (gnu[k], cnu[k])):
+                moment_err = max(moment_err, float(
+                    np.abs(a - b).max() / np.abs(b).max()))
+            diff = np.abs(gp[k] - cp[k])
+            settled = np.abs(cmu[k]) > TRAIN_MOMENT_RTOL * np.abs(
+                cmu[k]).max()
+            param_err = max(param_err, float(diff[settled].max(initial=0.0)))
+            param_any = max(param_any, float(diff.max()))
+    return rel, moment_err, param_err, param_any
+
+
+def check_trainers_gpu_match_cpu():
+    """Phase 9, last: one step of each fused trainer on the GPU (TF32 off)
+    and on the CPU at a small size (:func:`small_train_step`): the rollouts
+    and end states equal, losses within TRAIN_LOSS_RTOL, Adam moments and
+    parameters as the constants above say."""
+    for alg in ("dqn", "dqn_remat"):
+        want = small_train_step(alg, "cpu")
+        got = small_train_step(alg, "cuda")
+        (gt, gs, _, _), (ct, cs, _, _) = got, want
+        for name in ("actions", "rewards", "alive", "alive_in", "done"):
+            if not torch.equal(gt[name].cpu(), ct[name]):
+                raise AssertionError("trainer %s: rollout %s differs between "
+                                     "GPU and CPU" % (alg, name))
+        assert_state_equal(gs, cs, "trainer %s" % alg)
+        rel, moment_err, param_err, param_any = train_step_errors(got, want)
+        if not (rel <= TRAIN_LOSS_RTOL and moment_err <= TRAIN_MOMENT_RTOL
+                and param_err <= TRAIN_PARAM_ATOL
+                and param_any <= 2 * TRAIN_LR + TRAIN_PARAM_ATOL):
+            raise AssertionError(
+                "trainer %s: GPU vs CPU loss rel error %g (tol %g), moments "
+                "%g (tol %g), settled params %g (tol %g), params %g (tol %g)"
+                % (alg, rel, TRAIN_LOSS_RTOL, moment_err, TRAIN_MOMENT_RTOL,
+                   param_err, TRAIN_PARAM_ATOL, param_any,
+                   2 * TRAIN_LR + TRAIN_PARAM_ATOL))
+        print("GPU vs CPU: trainer %s, battle map %d, %s, B=%d, rollout %d, "
+              "f32, eps 1.0: rollouts and end states equal, losses within "
+              "%.3g relative, Adam moments within %.3g of each tensor's "
+              "largest, parameters with a settled gradient sign within %.3g "
+              "(all within %.3g)" % (alg, TRAIN_SMALL_MAP, TRAIN_SMALL_CAPS,
+                                     TRAIN_SMALL_ENVS, TRAIN_SMALL_T, rel,
+                                     moment_err, param_err, param_any),
+              flush=True)
+
+
 def seg_world_env(device):
     """The smallest pursuit map whose one world takes the segmented sweeps
     (and the banded gather), for the GPU-vs-CPU run."""
@@ -1402,12 +1778,19 @@ def main() -> int:
     for name, row in gw_rows.items():
         row["launches"] = gw_counts[name]
     rows.update(gw_rows)
-    rect_rows, banded_500, syncs_500 = run_pursuit_paths(
+    rect_rows, banded_500, syncs_500, g4_forms = run_pursuit_paths(
         f32_rate, int32_rate, device_name)
     rows.update(rect_rows)
-    rows.update(run_seg_path(f32_rate, int32_rate, device_name, banded_500,
-                             syncs_500))
+    seg_rows, banded_1000 = run_seg_path(f32_rate, int32_rate, device_name,
+                                         banded_500, syncs_500)
+    rows.update(seg_rows)
+    del banded_500
     rows.update(run_window_ladder(f32_rate))
+    rows.update(run_trainers(f32_rate, int32_rate, device_name, g4_forms,
+                             banded_1000))
+    del g4_forms, banded_1000
+    torch.cuda.empty_cache()
+    check_trainers_gpu_match_cpu()
 
     check_gpu_matches_cpu(
         "battle map %d" % SMALL_MAP,

@@ -189,7 +189,8 @@ def window_layout(spec: speclib.GameSpec, group: int, geometry, device):
 def _epilogue(view, act, mm=None, self_cell=None, mm_maskc=None):
     """``((view + mm) + self mark * mm_maskc) * act`` over [B, n, vh, vw, C]
     windows, in the JAX package's order (observe.py:394-400); without
-    ``mm``, the liveness factor alone."""
+    ``mm``, the liveness factor alone.  bf16 windows promote to f32 where
+    an f32 operand joins them, as in the JAX package."""
     if mm is not None:
         vh, vw = view.shape[2:4]
         self_mark = (self_cell[..., None] == torch.arange(
@@ -199,10 +200,19 @@ def _epilogue(view, act, mm=None, self_cell=None, mm_maskc=None):
     return view * act[:, :, None, None, None]
 
 
-def make_observe(spec: speclib.GameSpec, group: int):
+def make_observe(spec: speclib.GameSpec, group: int,
+                 obs_dtype=torch.float32):
     """Build ``observe(state, grids=None) -> (view [B, cap, vh, vw, C],
     feature [B, cap, F])`` for one group; ``grids`` lets callers share the
     packed grid (``observe.grids_fn(state)``) across groups.
+
+    ``obs_dtype`` is the views' dtype, ``torch.float32`` or
+    ``torch.bfloat16`` (the JAX package's ``obs_dtype``); features stay f32.
+    bf16 views round where the JAX package's kernel route rounds
+    (observe.py:346-401): ``window_gather4`` once, after its fused
+    epilogue; ``window_gather`` and ``window_gather_banded`` at the kernel's
+    store, then the epilogue runs in f32 (bf16 + f32 promotes) and the
+    result is rounded again.
 
     Three window routes mirror the JAX package's kernel per path, so that
     each path runs the kernel the reference runs there; the image budget
@@ -221,8 +231,13 @@ def make_observe(spec: speclib.GameSpec, group: int):
     self_cell`` into int32, so it serves only images of at most 2**21
     cells; larger images take ``window_gather``.  The JAX package's
     fourfold replica budget (``4 * image_bytes <= VMEM_IMAGE_BUDGET``) is
-    not a condition of the port."""
+    not a condition of the port: where only that condition parts the two
+    packages' routes and the config has a minimap, the port's bf16 views
+    round once (``window_gather4``'s fused store) where the JAX package's
+    round twice (no built-in config: battle's window is too wide, pursuit
+    and forest have no minimap)."""
     _check_ported(spec, group)
+    wg._check_out_dtype("make_observe", obs_dtype)
     t = spec.groups[group].type
     gs = spec.groups[group]
     vr = t.view_range
@@ -337,13 +352,15 @@ def make_observe(spec: speclib.GameSpec, group: int):
             view = wg.window_gather4(
                 img, pos.to(torch.int32).contiguous(), layout["mask"],
                 act=act.to(torch.int32).contiguous(), vh=vh, vw=vw, C=C,
-                Wp=Wp, **mm_ops).reshape(B, gs.cap, vh, vw, C)
+                Wp=Wp, out_dtype=obs_dtype, **mm_ops).reshape(
+                B, gs.cap, vh, vw, C)
         elif banded:
             # the epilogue runs in band order, its per-agent operands
             # scattered there; one row gather restores slot order
             out, inv = wg.window_gather_banded(
                 img, pos, layout["mask"], vh=vh, vw=vw, C=C, Wp=Wp,
-                chunk=band_chunk, band_rows=_BAND_ROWS, unsort=False)
+                chunk=band_chunk, band_rows=_BAND_ROWS, unsort=False,
+                out_dtype=obs_dtype)
             n_pad = out.shape[1]
             inv = inv.long()
 
@@ -354,14 +371,16 @@ def make_observe(spec: speclib.GameSpec, group: int):
             if epi:
                 epi["self_cell"] = to_band(self_cell)
             out = _epilogue(out.reshape(B, n_pad, vh, vw, C),
-                            to_band(act.to(torch.float32)), **epi)
+                            to_band(act.to(torch.float32)), **epi).to(
+                obs_dtype)
             view = torch.gather(out.reshape(B, n_pad, -1), 1, inv[
                 ..., None].expand(B, gs.cap, vh * vw * C)).reshape(
                 B, gs.cap, vh, vw, C)
         else:
             view = wg.window_gather(img, pos, layout["mask"], vh=vh, vw=vw,
-                                    C=C, Wp=Wp).reshape(B, gs.cap, vh, vw, C)
-            view = _epilogue(view, act, **epi)
+                                    C=C, Wp=Wp, out_dtype=obs_dtype).reshape(
+                B, gs.cap, vh, vw, C)
+            view = _epilogue(view, act, **epi).to(obs_dtype)
 
         # feature vector (GridWorld.cc:386-396)
         feats = []

@@ -15,6 +15,13 @@ self-mark and liveness epilogue and takes packed positions.
 :func:`window_gather_banded` (plain version
 :func:`window_gather_banded_ref`) gathers the windows in band order, for
 images past the JAX package's VMEM budget.
+
+Every entry point takes ``out_dtype`` (``torch.float32``, the default, or
+``torch.bfloat16``), the JAX kernels' ``out_dtype``: the windows are computed
+in f32 and rounded to ``out_dtype`` (to nearest even) at the store, and the
+plain versions compute in f32 and call ``.to(out_dtype)`` last.  Each kernel
+and dtype has a launch counter of its own (``window_gather`` and
+``window_gather_bf16``, ...).
 """
 
 from __future__ import annotations
@@ -34,8 +41,23 @@ PACKED_CELLS = 1 << 21
 _MAX_BAND_CHUNK = 128
 
 
+# the windows' dtypes: the kernels compute in f32 and store in either
+OUT_DTYPES = (torch.float32, torch.bfloat16)
+
+
 def _ceil_to(x: int, m: int) -> int:
     return (x + m - 1) // m * m
+
+
+def _check_out_dtype(name: str, out_dtype) -> None:
+    if out_dtype not in OUT_DTYPES:
+        raise ValueError("%s: out_dtype must be torch.float32 or "
+                         "torch.bfloat16, got %s" % (name, out_dtype))
+
+
+def _launcher(name: str, out_dtype) -> str:
+    """The C launcher of kernel ``name`` that stores ``out_dtype``."""
+    return "magent_" + name + ("_bf16" if out_dtype == torch.bfloat16 else "")
 
 
 def padded_geometry(H: int, W: int, C: int, vh: int, vw: int):
@@ -59,9 +81,12 @@ def padded_geometry(H: int, W: int, C: int, vh: int, vw: int):
     return Hp, Wp, lanes, pad_y, pad_x
 
 
-def window_gather_ref(gfull, pos, mask, *, vh, vw, C, Wp):
+def window_gather_ref(gfull, pos, mask, *, vh, vw, C, Wp,
+                      out_dtype=torch.float32):
     """Plain version: ``gfull`` [B, Hp, lanes], ``pos`` [B, N] unpacked
-    top-left cells, ``mask`` [vh, vw*C] -> [B, N, vh, vw*C]."""
+    top-left cells, ``mask`` [vh, vw*C] -> [B, N, vh, vw*C] in
+    ``out_dtype``."""
+    _check_out_dtype("window_gather_ref", out_dtype)
     B = gfull.shape[0]
     y0 = pos.long() // Wp
     x0 = pos.long() % Wp
@@ -70,12 +95,14 @@ def window_gather_ref(gfull, pos, mask, *, vh, vw, C, Wp):
     gy = y0[:, :, None, None] + oy[None, None, :, None]
     gl = x0[:, :, None, None] * C + ox[None, None, None, :]
     bidx = torch.arange(B, device=gfull.device)[:, None, None, None]
-    return gfull[bidx, gy, gl] * mask
+    return (gfull[bidx, gy, gl] * mask).to(out_dtype)
 
 
-def window_gather(gfull, pos, mask, *, vh, vw, C, Wp):
+def window_gather(gfull, pos, mask, *, vh, vw, C, Wp,
+                  out_dtype=torch.float32):
     """Window gather: ``gfull`` [B, Hp, lanes] f32, ``pos`` [B, N] int32,
-    ``mask`` [vh, vw*C] f32 -> [B, N, vh, vw*C] f32.
+    ``mask`` [vh, vw*C] f32 -> [B, N, vh, vw*C] in ``out_dtype`` (f32 or
+    bf16, rounded at the store).
 
     Replaces ``magent_tpu/ops/window_gather.py:79`` ``window_gather`` (the
     Pallas roll kernel, ``pallas_call`` at ``:167``).  Bound on the card:
@@ -84,8 +111,10 @@ def window_gather(gfull, pos, mask, *, vh, vw, C, Wp):
     per (32-agent chunk, env), one warp per window row, coalesced row copies
     multiplied by the mask held in shared memory; a pure copy, so the result
     equals the plain version exactly."""
+    _check_out_dtype("window_gather", out_dtype)
     if _build.route(gfull, pos, mask) == "cpu":
-        return window_gather_ref(gfull, pos, mask, vh=vh, vw=vw, C=C, Wp=Wp)
+        return window_gather_ref(gfull, pos, mask, vh=vh, vw=vw, C=C, Wp=Wp,
+                                 out_dtype=out_dtype)
     B, Hp, lanes = gfull.shape
     N = pos.shape[1]
     vwc = vw * C
@@ -99,9 +128,10 @@ def window_gather(gfull, pos, mask, *, vh, vw, C, Wp):
                          % (vh, vwc))
     if B > 65535:
         raise ValueError("window_gather: at most 65535 envs per launch")
-    out = torch.empty((B, N, vh, vwc), dtype=torch.float32, device=device)
+    out = torch.empty((B, N, vh, vwc), dtype=out_dtype, device=device)
     if N:
-        _build.launch("magent_window_gather", device, gfull.data_ptr(),
+        _build.launch(_launcher("window_gather", out_dtype), device,
+                      gfull.data_ptr(),
                       pos.data_ptr(), mask.data_ptr(), B, N, Hp, lanes, Wp, C,
                       vh, vwc, out.data_ptr())
     return out
@@ -109,10 +139,12 @@ def window_gather(gfull, pos, mask, *, vh, vw, C, Wp):
 
 
 def window_gather4_ref(gfull, pos, mask, mm_img=None, mm_mask=None, act=None,
-                       *, vh, vw, C, Wp):
+                       *, vh, vw, C, Wp, out_dtype=torch.float32):
     """Plain version: :func:`window_gather_ref` on the packed positions
     ``pos = tl * 1024 + self_cell``, then the epilogue in the kernel's order:
-    ``((view + mm_img) + [cell_id == self_cell] * mm_mask) * act``."""
+    ``((view + mm_img) + [cell_id == self_cell] * mm_mask) * act``, in f32,
+    rounded to ``out_dtype`` once at the end."""
+    _check_out_dtype("window_gather4_ref", out_dtype)
     view = window_gather_ref(gfull, pos >> 10, mask, vh=vh, vw=vw, C=C, Wp=Wp)
     if mm_img is not None:
         # the minimap cell of every window lane: r * vw + c // C
@@ -122,11 +154,11 @@ def window_gather4_ref(gfull, pos, mask, mm_img=None, mm_mask=None, act=None,
         view = view + mm_img[:, None] + self_mark * mm_mask
     if act is not None:
         view = view * act.to(view.dtype)[..., None, None]
-    return view
+    return view.to(out_dtype)
 
 
 def window_gather4(gfull, pos, mask, mm_img=None, mm_mask=None, act=None, *,
-                   vh, vw, C, Wp):
+                   vh, vw, C, Wp, out_dtype=torch.float32):
     """Window gather with a fused epilogue: ``gfull`` [B, Hp, lanes] f32,
     ``pos`` [B, N] int32 packed ``tl * 1024 + self_cell`` (``tl = tl_y * Wp +
     tl_x``, ``self_cell`` the agent's pooled minimap cell, < 1024; the
@@ -134,14 +166,15 @@ def window_gather4(gfull, pos, mask, mm_img=None, mm_mask=None, act=None, *,
     [vh, vw*C] f32; optional ``act`` [B, N] int32 0/1 liveness, and with
     it optional ``mm_img`` [B, vh, vw*C] f32 pooled minimaps and
     ``mm_mask`` [vh, vw*C] f32 (the minimap channels, which also get the
-    +1 self mark) -> [B, N, vh, vw*C] f32.  The minimap comes only with
+    +1 self mark) -> [B, N, vh, vw*C] in ``out_dtype`` (f32 or bf16,
+    rounded once, after the epilogue).  The minimap comes only with
     ``act``, as the observation's one caller passes it.
 
     Replaces ``magent_tpu/ops/window_gather.py:187`` ``window_gather4`` (the
     Pallas replica kernel, ``pallas_call`` at ``:334`` with the epilogue and
     ``:370`` without).  Its four shifted image replicas and SMEM sub-batch
-    splits work around the TPU's aligned loads and do not carry over; nor
-    does its ``out_dtype``.  Unlike the TPU kernel, which applies ``act``
+    splits work around the TPU's aligned loads and do not carry over.
+    Unlike the TPU kernel, which applies ``act``
     only together with the minimap, the liveness factor stands alone here.
     Bound on the card: bytes, as :func:`window_gather`.  Design:
     ``csrc/window_gather.cu`` ``window_gather4_kernel`` — the warp-per-row
@@ -149,6 +182,7 @@ def window_gather4(gfull, pos, mask, mm_img=None, mm_mask=None, act=None, *,
     ``mm_img[b]`` and ``mm_mask`` beside the mask in shared memory, each
     operation rounded on its own, so the result equals the plain version
     exactly."""
+    _check_out_dtype("window_gather4", out_dtype)
     if (mm_img is None) != (mm_mask is None):
         raise ValueError("window_gather4: mm_img and mm_mask come together")
     if mm_img is not None and act is None:
@@ -163,7 +197,8 @@ def window_gather4(gfull, pos, mask, mm_img=None, mm_mask=None, act=None, *,
     optional = tuple(t for t in (mm_img, mm_mask, act) if t is not None)
     if _build.route(gfull, pos, mask, *optional) == "cpu":
         return window_gather4_ref(gfull, pos, mask, mm_img, mm_mask, act,
-                                  vh=vh, vw=vw, C=C, Wp=Wp)
+                                  vh=vh, vw=vw, C=C, Wp=Wp,
+                                  out_dtype=out_dtype)
     B, Hp, lanes = gfull.shape
     N = pos.shape[1]
     vwc = vw * C
@@ -184,10 +219,11 @@ def window_gather4(gfull, pos, mask, mm_img=None, mm_mask=None, act=None, *,
                          "memory" % (vh, vwc))
     if B > 65535:
         raise ValueError("window_gather4: at most 65535 envs per launch")
-    out = torch.empty((B, N, vh, vwc), dtype=torch.float32, device=device)
+    out = torch.empty((B, N, vh, vwc), dtype=out_dtype, device=device)
     if N:
         ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-        _build.launch("magent_window_gather4", device, gfull.data_ptr(),
+        _build.launch(_launcher("window_gather4", out_dtype), device,
+                      gfull.data_ptr(),
                       pos.data_ptr(), mask.data_ptr(), ptr(mm_img),
                       ptr(mm_mask), ptr(act), B, N, Hp, lanes, Wp, C, vh, vw,
                       out.data_ptr())
@@ -252,25 +288,29 @@ def _unsort(out, inv):
 
 
 def window_gather_banded_ref(gfull, pos, mask, *, vh, vw, C, Wp, chunk=40,
-                             band_rows=32, unsort=True):
+                             band_rows=32, unsort=True,
+                             out_dtype=torch.float32):
     """Plain version: :func:`banded_tables`, then :func:`window_gather_ref`
     over the band-ordered table on the image padded with zero rows below,
     as the JAX kernel reads its bands; ``unsort`` undoes the band order."""
+    _check_out_dtype("window_gather_banded_ref", out_dtype)
     B, Hp, lanes = gfull.shape
     n_bands, rows = _band_geometry(Hp, vh, band_rows)
     pos_pad, _, inv = banded_tables(pos, Wp=Wp, band_rows=band_rows,
                                     n_bands=n_bands, chunk=chunk)
     gpad = torch.nn.functional.pad(
         gfull, (0, 0, 0, n_bands * band_rows + rows - Hp))
-    out = window_gather_ref(gpad, pos_pad, mask, vh=vh, vw=vw, C=C, Wp=Wp)
+    out = window_gather_ref(gpad, pos_pad, mask, vh=vh, vw=vw, C=C, Wp=Wp,
+                            out_dtype=out_dtype)
     return _unsort(out, inv) if unsort else (out, inv)
 
 
 def window_gather_banded(gfull, pos, mask, *, vh, vw, C, Wp, chunk=40,
-                         band_rows=32, unsort=True):
+                         band_rows=32, unsort=True, out_dtype=torch.float32):
     """Window gather in band order: ``gfull`` [B, Hp, lanes] f32, ``pos``
     [B, N] int32 unpacked top-left cells, ``mask`` [vh, vw*C] f32 ->
-    [B, N, vh, vw*C] windows in slot order; with ``unsort=False`` the
+    [B, N, vh, vw*C] windows in slot order, in ``out_dtype`` (f32 or bf16,
+    rounded at the store); with ``unsort=False`` the
     windows in band order [B, n_pad, vh, vw*C] and ``inv`` [B, N] int32
     (slot n's window is row ``inv[b, n]``; dummy rows hold the window at
     their band's first row, cut to zero past the image), as the JAX
@@ -288,10 +328,12 @@ def window_gather_banded(gfull, pos, mask, *, vh, vw, C, Wp, chunk=40,
     coalesced row copies times the mask in shared memory; consecutive
     blocks read one band, which stays in L2.  The table (:func:`banded_tables`)
     is plain PyTorch.  A pure copy: equal to the plain version exactly."""
+    _check_out_dtype("window_gather_banded", out_dtype)
     if _build.route(gfull, pos, mask) == "cpu":
         return window_gather_banded_ref(gfull, pos, mask, vh=vh, vw=vw, C=C,
                                         Wp=Wp, chunk=chunk,
-                                        band_rows=band_rows, unsort=unsort)
+                                        band_rows=band_rows, unsort=unsort,
+                                        out_dtype=out_dtype)
     B, Hp, lanes = gfull.shape
     N = pos.shape[1]
     vwc = vw * C
@@ -313,20 +355,22 @@ def window_gather_banded(gfull, pos, mask, *, vh, vw, C, Wp, chunk=40,
     pos_pad, _, inv = banded_tables(pos, Wp=Wp, band_rows=band_rows,
                                     n_bands=n_bands, chunk=chunk)
     out = _banded_launch(gfull, pos_pad, mask, vh=vh, vw=vw, C=C, Wp=Wp,
-                         chunk=chunk)
+                         chunk=chunk, out_dtype=out_dtype)
     return _unsort(out, inv) if unsort else (out, inv)
 
 
-def _banded_launch(gfull, pos_pad, mask, *, vh, vw, C, Wp, chunk):
+def _banded_launch(gfull, pos_pad, mask, *, vh, vw, C, Wp, chunk,
+                   out_dtype=torch.float32):
     """The banded kernel alone, on checked operands and the band-ordered
     table ``pos_pad`` [B, n_pad] of :func:`banded_tables` -> windows in
-    band order [B, n_pad, vh, vw*C]."""
+    band order [B, n_pad, vh, vw*C] in ``out_dtype``."""
+    _check_out_dtype("window_gather_banded", out_dtype)
     B, Hp, lanes = gfull.shape
     n_pad = pos_pad.shape[1]
     vwc = vw * C
-    out = torch.empty((B, n_pad, vh, vwc), dtype=torch.float32,
+    out = torch.empty((B, n_pad, vh, vwc), dtype=out_dtype,
                       device=gfull.device)
-    _build.launch("magent_window_gather_banded", gfull.device,
+    _build.launch(_launcher("window_gather_banded", out_dtype), gfull.device,
                   gfull.data_ptr(), pos_pad.data_ptr(), mask.data_ptr(), B,
                   n_pad, chunk, Hp, lanes, Wp, C, vh, vwc, out.data_ptr())
     return out

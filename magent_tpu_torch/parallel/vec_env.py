@@ -62,18 +62,23 @@ class VecGridWorld:
     ``placements``: per group, ``[n_g, 2 or 3]`` (x, y[, dir]) rows that
     fill the group's capacity exactly (required for multi-cell bodies);
     otherwise agents are placed uniformly at random on free cells.
+    ``obs_dtype``: the views' dtype, ``torch.bfloat16`` or ``None`` for
+    f32 (``make_observe``'s ``obs_dtype``; the JAX package's bf16 views for
+    its trainers, ``scripts/bench_train.py``).
     ``walls``: interior (x, y) wall cells shared by every env, added to
-    the border (reference: test_1m.py's n/10 random walls)."""
+    the border (reference: test_1m.py's n/10 random walls).  The positional
+    order is the JAX package's (``vec_env.py:177-178``)."""
 
     def __init__(self, config: Config, caps, n_envs: int, placements=None,
-                 walls=None, device=None):
+                 obs_dtype=None, walls=None, device=None):
         self.device = resolve_device(device)
         self.spec = spec = speclib.compile_spec(config, caps)
         self.n_envs = n_envs
         wall = _wall_map(spec, walls)
         self._step = engine.make_step(spec, maintain_grid=False,
                                       n_envs=n_envs, walls=wall)
-        self._observe = [observe.make_observe(spec, g)
+        obs_dtype = torch.float32 if obs_dtype is None else obs_dtype
+        self._observe = [observe.make_observe(spec, g, obs_dtype)
                          for g in range(spec.n_groups)]
         self._grids = self._observe[0].grids_fn
 
@@ -262,6 +267,9 @@ class VecGridWorld:
         return (u * self._n_action).to(torch.int32)
 
     # ------------------------------------------------------------------ info
+    def action_spaces(self):
+        return [self.spec.action_space(g) for g in range(self.spec.n_groups)]
+
     def view_spaces(self):
         return [self.spec.view_space(g) for g in range(self.spec.n_groups)]
 

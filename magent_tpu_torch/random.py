@@ -19,7 +19,12 @@ Semantics (jax/_src/prng.py, partitionable mode):
 - ``bits(key, shape)`` at flat index n = ``w0 ^ w1`` of
   ``threefry(key, (n >> 32, n & 0xFFFFFFFF))``;
 - ``uniform`` puts the top 23 bits of ``bits`` in a float's mantissa in
-  [1, 2) and subtracts 1.
+  [1, 2) and subtracts 1;
+- ``randint`` (int32) draws ``hi`` and ``lo`` words from the two halves of
+  ``split(key)`` and returns ``minval + ((hi % span) * m + lo % span) %
+  span`` with ``m = (2**16 % span)**2 % span``, every product and sum
+  (the square in ``m`` too) wrapping mod 2**32 (jax/_src/random.py
+  ``_randint``).
 """
 
 from __future__ import annotations
@@ -102,6 +107,27 @@ def uniform(key: torch.Tensor, shape) -> torch.Tensor:
     b = bits(key, shape)
     f = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
     return f - 1.0
+
+
+def randint(key: torch.Tensor, shape, minval: int, maxval: int) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` with the default
+    int32 dtype, bit for bit: ``[..., 2]`` -> int32 ``[..., *shape]`` in
+    ``[minval, maxval)`` (``minval`` alone when ``maxval <= minval``).  The
+    uint32 arithmetic wraps: each product and sum is masked to 32 bits, as
+    exact int64 arithmetic would give other numbers."""
+    minval, maxval = int(minval), int(maxval)
+    for v in (minval, maxval):
+        if not -2**31 <= v < 2**31:
+            raise ValueError("randint bounds must fit int32, got %d" % v)
+    span = (maxval - minval) & MASK32 if maxval > minval else 1
+    # wraps too: for spans above 2**16 the square is 2**32, which is 0
+    multiplier = ((2**16 % span) ** 2 & MASK32) % span
+    keys = split(key)
+    hi = bits(keys[..., 0, :], shape)
+    lo = bits(keys[..., 1, :], shape)
+    offset = ((hi % span) * multiplier) & MASK32
+    offset = ((offset + lo % span) & MASK32) % span
+    return (offset + minval).to(torch.int32)
 
 
 def mul32(a, c: int):

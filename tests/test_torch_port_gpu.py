@@ -2,10 +2,12 @@
 rect kernels and window_gather4 on the operands of a pursuit map-64, B=16
 step; the segmented sweeps and the banded gather on a pursuit map-250 step;
 the segmented sweeps on the random operands of tests/_torch_seg_operands.py;
-the window-gather cost ladder on tools/profile_window.py's inputs),
-and short GPU-vs-CPU runs of the lockstep loop (battle; pursuit with and
-without interior walls; pursuit's one world on the segmented route) and of
-the stateful GridWorld.
+the window-gather cost ladder on tools/profile_window.py's inputs; the
+bf16 forms of the three window kernels), and short GPU-vs-CPU runs of the
+lockstep loop (battle; pursuit with and without interior walls; pursuit's
+one world on the segmented route), of the stateful GridWorld and of the
+fused DQN trainers (one step of each, f32, TF32 off, from the trusty battle
+weights read with numpy).
 Marked ``gpu``: each test decides at run time whether a card exists and
 skips without one.  On a machine with an H100:
 python -m pytest tests/test_torch_port_gpu.py -q"""
@@ -17,14 +19,20 @@ import torch
 from magent_tpu_torch import GridWorld, ops
 from magent_tpu_torch import random as trandom
 from magent_tpu_torch.builtin.config import battle
+from magent_tpu_torch.builtin.torch_model import (DQNNet, params_from_flax,
+                                                  params_to_flax)
+from magent_tpu_torch.core import observe as tobserve
 from magent_tpu_torch.core.state import FIELDS
 from magent_tpu_torch.ops import attack_prefix as tap
 from magent_tpu_torch.ops import window_gather as twg
 from magent_tpu_torch.ops import window_ladder as twl
-from magent_tpu_torch.parallel import VecGridWorld
+from magent_tpu_torch.parallel import (ClipAdam, VecGridWorld,
+                                       make_dqn_train_step,
+                                       make_dqn_train_step_remat)
 from magent_tpu_torch.tools import profile_window as tpw
 
 from _torch_seg_operands import CASES, seg_calls
+from _torch_train_checks import assert_adam_steps_close, step_flat
 
 pytestmark = pytest.mark.gpu
 
@@ -453,3 +461,131 @@ def test_window_ladder_matches_plain_on_card(cuda):
     after = ops.launch_counts()
     assert after["window_ladder"] == before["window_ladder"] + 18
     assert after["window_shared_tile"] == before["window_shared_tile"] + 3
+
+
+BF16 = torch.bfloat16
+
+
+def test_bf16_window_kernels_match_plain_on_card(cuda):
+    """The bf16 store of each window kernel equals its plain version (f32
+    math, ``.to(bf16)`` last) exactly, and counts under its own name:
+    window_gather on battle's 13x91 windows, window_gather4 in its three
+    forms at pursuit map 64, window_gather_banded on a map-90 image."""
+    spec = VecGridWorld(battle.get_config(40), [30, 30], 1, device="cpu").spec
+    C = spec.n_channel
+    vr = spec.groups[0].type.view_range
+    Hp, Wp, lanes, pad_y, pad_x = twg.padded_geometry(40, 40, C, vr.height,
+                                                      vr.width)
+    g = torch.Generator(device="cpu").manual_seed(1)
+    img = torch.rand((3, Hp, lanes), generator=g).to(cuda)
+    xs = torch.randint(0, 40, (3, 70), generator=g) + vr.x1 + pad_x
+    ys = torch.randint(0, 40, (3, 70), generator=g) + vr.y1 + pad_y
+    pos = (ys * Wp + xs).to(torch.int32).to(cuda)
+    mask = torch.as_tensor(np.repeat(vr.mask.astype(np.float32), C, axis=1),
+                           device=cuda)
+    kw = dict(vh=vr.height, vw=vr.width, C=C, Wp=Wp, out_dtype=BF16)
+    before = ops.launch_counts()
+    got = twg.window_gather(img, pos, mask, **kw)
+    assert got.dtype == BF16
+    assert torch.equal(got, twg.window_gather_ref(img, pos, mask, **kw))
+    band = dict(kw, chunk=40, band_rows=32)
+    got = twg.window_gather_banded(img, pos, mask, **band, unsort=False)
+    want = twg.window_gather_banded_ref(img, pos, mask, **band, unsort=False)
+    assert got[0].dtype == BF16
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(twg.window_gather_banded(img, pos, mask, **band),
+                       twg.window_gather_banded_ref(img, pos, mask, **band))
+    for (img4, pos4, mask4), k in _pursuit_operands(cuda, False)[
+            "window_gather4"]:
+        geo = {n: k[n] for n in ("vh", "vw", "C", "Wp")}
+        vh, vw, C4 = geo["vh"], geo["vw"], geo["C"]
+        ch = torch.zeros(C4)
+        ch[[2, C4 - 1]] = 1.0
+        mm_mask = ch.repeat(vh, vw)
+        mm = dict(mm_img=(torch.rand((16, vh, vw * C4), generator=g)
+                          * mm_mask).to(cuda), mm_mask=mm_mask.to(cuda))
+        for extra in ({}, {"act": k["act"]}, dict(mm, act=k["act"])):
+            got = twg.window_gather4(img4, pos4, mask4, **extra, **geo,
+                                     out_dtype=BF16)
+            assert torch.equal(got, twg.window_gather4_ref(
+                img4, pos4, mask4, **extra, **geo, out_dtype=BF16))
+    after = ops.launch_counts()
+    assert [after[n] - before[n] for n in (
+        "window_gather_bf16", "window_gather_banded_bf16",
+        "window_gather4_bf16", "window_gather", "window_gather4")] == [
+        1, 2, 6, 0, 0]
+
+
+@pytest.mark.parametrize("case", ["battle", "pursuit"])
+def test_bf16_views_are_f32_views_rounded_on_card(cuda, case):
+    """``make_observe(..., obs_dtype=bf16)`` on the card: the f32 views
+    rounded, features unchanged (battle: the roll route, pursuit map 64:
+    window_gather4)."""
+    if case == "battle":
+        venv = VecGridWorld(battle.get_config(40), [60, 60], 2, device=cuda)
+    else:
+        from magent_tpu_torch.builtin.config import pursuit
+
+        placements, _ = pursuit.layout(64)
+        venv = VecGridWorld(pursuit.get_config(64), [51, 102], 4,
+                            placements=placements, device=cuda)
+    state = venv.reset(trandom.PRNGKey(5))
+    grids = venv._grids(state)
+    for grp in range(venv.spec.n_groups):
+        v32, f32 = venv.observe(state, grp, grids)
+        v16, f16 = tobserve.make_observe(venv.spec, grp, obs_dtype=BF16)(
+            state, grids)
+        assert v16.dtype == BF16 and torch.equal(v16, v32.to(BF16))
+        assert torch.equal(f16, f32)
+
+
+TRUSTY = ["data/models/trusty-battle-game-%s/tfdqn_0.npz" % s for s in "lr"]
+
+
+def _trusty_nets(spec, device):
+    nets = []
+    for g, path in enumerate(TRUSTY):
+        net = DQNNet(spec.view_space(g), spec.feature_size(g),
+                     spec.groups[g].type.n_action)
+        net.load_state_dict(params_from_flax(dict(np.load(path))))
+        nets.append(net.to(device))
+    return tuple(nets)
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_train_step_gpu_matches_cpu(cuda, remat):
+    """One fused DQN step (minibatch 32, or remat with two sampled steps)
+    at battle map 20, [6, 6], B=4, rollout 3, eps 1.0, f32 with cuDNN's
+    TF32 off: the rollouts and end states equal; losses within rtol 1e-5,
+    the Adam moments and parameters by ``assert_adam_steps_close``'s rule:
+    moments within 1e-2 of each tensor's largest (a ReLU whose input lies
+    within rounding of 0 opens on one device and not the other and passes
+    a sample's whole gradient: conv1's moments lie 3e-3 of their largest
+    apart at this size), parameters within 2e-5 where the gradient's sign
+    is settled."""
+    out = {}
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        for d in (cuda, torch.device("cpu")):
+            venv = VecGridWorld(battle.get_config(20), [6, 6], 4, device=d)
+            tx = ClipAdam(1e-4, 5.0)
+            step = (make_dqn_train_step_remat(venv, tx, rollout_len=3,
+                                              sample_steps=2) if remat else
+                    make_dqn_train_step(venv, tx, rollout_len=3,
+                                        train_minibatch=32))
+            nets = _trusty_nets(venv.spec, d)
+            state = venv.reset(trandom.PRNGKey(0).to(d))
+            _, traj = step.rollout(nets, state, trandom.PRNGKey(1).to(d), 1.0)
+            nets, opts, state, m = step(nets, _trusty_nets(venv.spec, d),
+                                        tuple(tx.init(n) for n in nets),
+                                        state, trandom.PRNGKey(2).to(d), 1.0)
+            out[d.type] = (traj, state, m, step_flat(nets, opts))
+    (gt, gs, gm, gf), (ct, cs, cm, cf) = out["cuda"], out["cpu"]
+    for name in ("actions", "rewards", "alive", "alive_in", "done"):
+        assert torch.equal(gt[name].cpu(), ct[name]), name
+    for name in FIELDS:
+        assert torch.equal(getattr(gs, name).cpu(), getattr(cs, name)), name
+    torch.testing.assert_close(gm["loss"].cpu(), cm["loss"], rtol=1e-5,
+                               atol=0)
+    for g, ((gp, gmom), (cp, cmom)) in enumerate(zip(gf, cf)):
+        assert_adam_steps_close(gp, cp, gmom, cmom, lr=1e-4, moment_rtol=1e-2,
+                                param_atol=2e-5, tag="group %d" % g)
