@@ -28,15 +28,21 @@ Run from the repository root:  python3 chip_smoke.py
    n_envs=16)`` with its placements (seed 11): holds ``occupant_rect``
    (with and without ``exclude_self``), ``rect_first_overlap`` (both gates)
    and ``window_gather4`` (no epilogue, liveness, minimap + self mark +
-   liveness) against their plain versions on one step's operands, times the
-   loop (launches per step: occupant_rect 1, rect_first_overlap 2,
-   rank_prefix 1, window_gather4 2), counts host syncs and profiles it;
-6. runs the same path on one world at ``scripts/bench_pursuit.py``'s
-   density, map 500 (A = 9375): the rect kernels' checks at those shapes
-   and ``window_gather4`` by a direct call on the map-500 image, then 20
-   timed steps, whose 6.41 MB images take ``window_gather_banded`` (launches
+   liveness) against their plain versions on one step's operands, prints
+   each rect form's ms, bound, share of bound, launch split (cluster and
+   warps, ``rect_split``) and launches per step, times the loop (launches
    per step: occupant_rect 1, rect_first_overlap 2, rank_prefix 1,
-   window_gather_banded 2);
+   window_gather4 2), counts host syncs and profiles it;
+6. runs the same path on one world at ``scripts/bench_pursuit.py``'s
+   density, map 500 (A = 9375): the rect kernels' checks and per-form lines
+   at those shapes and ``window_gather4`` by a direct call on the map-500
+   image; then 20 timed steps, whose 6.41 MB images take
+   ``window_gather_banded`` (launches per step: occupant_rect 1,
+   rect_first_overlap 2, rank_prefix 1, window_gather_banded 2); and, once
+   phase 7's loop has reported its peak device memory (their plain
+   versions hold up to ~13 GB), both rect kernels in both forms against
+   their plain versions on ``tools/profile_rect.py``'s ragged random and
+   adversarial operands (A from 1 to 16,384);
 7. runs pursuit at its reference scale, one world at map 1000 (A = 37,500,
    seed 5), which takes the y-segmented sweeps and the banded gather: holds
    ``occupant_rect_seg``, ``rect_first_overlap_seg`` (both gates),
@@ -183,17 +189,21 @@ VIEW_ATOL = 1e-6
 # rank_prefix_hp is rank_prefix's sweep; its hp_t is one load per query,
 # charged as bytes (hp read, hp_t written).
 #   occupant_rect       four edge compares; best = i (i = i0 + k)  | hsum += hp
-#                       (+1 compare with exclude_self)
-#   rect_first_overlap  two max, two min edges; two compares AND the gate;
-#                       k = (ox - qx) * MB + (oy - qy) (two subtracts, one
-#                       multiply-add); key = k * stride + i; min
-#                       (lower_only: only the pairs i < j)
+#                       (exclude_self: its compare only on the pairs of a
+#                       query tile's own slots, A per call)
+#   rect_first_overlap  four edge compares that AND into one predicate (an
+#                       empty rect's edge moved out of reach when staged);
+#                       key = max(X - qX, 0) + max(Y - qY, i) from per-body
+#                       and per-query terms formed once (X = x * MB *
+#                       stride, Y = y * stride + i): two add-max, one add;
+#                       a predicated min (lower_only: only the pairs i < j;
+#                       the gate compare, as above, on the tile's own slots)
 # The segmented forms need the same per pair (occupant_rect_seg keeps the
 # max slot id: one predicated max) over the pairs of each segment's window.
 PAIR_OPS = {"occupant": (3, 1), "rank_prefix": (2, 1), "move_resolve": (9, 0),
             "rank_prefix_hp": (2, 1), "move_claims": (5, 0),
-            "occupant_rect": (5, 1), "rect_first_overlap": (12, 0),
-            "occupant_rect_seg": (5, 1), "rect_first_overlap_seg": (12, 0),
+            "occupant_rect": (5, 1), "rect_first_overlap": (8, 0),
+            "occupant_rect_seg": (5, 1), "rect_first_overlap_seg": (8, 0),
             "rank_prefix_seg": (2, 1)}
 SEG_SWEEPS = ("occupant_rect_seg", "rect_first_overlap_seg",
               "rank_prefix_seg")
@@ -463,8 +473,6 @@ def pair_work(name, args, kwargs):
         return seg_pairs(name, args, kwargs), n_int, n_f32
     B, A = args[0].shape
     pairs = B * A * A
-    if name == "occupant_rect" and kwargs.get("exclude_self"):
-        n_int += 1
     if kwargs.get("gate") == "lower_only":
         pairs = B * A * (A - 1) // 2
     return pairs, n_int, n_f32
@@ -1117,6 +1125,76 @@ def window_gather4_calls(banded_calls):
     return out
 
 
+def print_rect_forms(calls, stats):
+    """One line per form of the rect sweeps: ``calls`` {name: [(args,
+    kwargs, form)]} of a step's calls (each launched once per step) and
+    the forms off the path, ``stats`` {name: [call_stats dicts]} in the
+    same order; device ms, bound, share of bound, the launch split, and
+    launches per step."""
+    from magent_tpu_torch.ops import attack_prefix as ap
+
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for name in ("occupant_rect", "rect_first_overlap"):
+        for (args, _, on_path), st in zip(calls[name], stats[name]):
+            B, A = args[0].shape
+            cluster, warps = ap.rect_split(B, A, n_sms)
+            print("rect form %s, %-36s %.4f ms, bound %.6f ms (%s), share "
+                  "of bound %.3f; cluster of %d CTA(s) x %d warps (%d body "
+                  "ranges per query tile); %d launch(es) per step" % (
+                      name, st["form"], st["ms"], st["bound_ms"],
+                      st["bound_by"], st["bound_ms"] / st["ms"], cluster,
+                      warps, cluster * warps, on_path), flush=True)
+
+
+def check_rect_ragged():
+    """Both forms of occupant_rect and rect_first_overlap against their
+    plain versions, exactly, at the ragged sizes of
+    ``tools/profile_rect.py`` (B=16 up to A=1000, else B=1; at A=16384
+    ``lower_only``'s plain version holds ~2 GB of int64 keys), on random
+    bodies and on the two adversarial inputs: every query identical (keys
+    tie, the slot decides), and the one body at the last slot of the last
+    range."""
+    from magent_tpu_torch.ops import attack_prefix as ap
+    from magent_tpu_torch.tools import profile_rect as pr
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    n = 0
+
+    def check(name, args, **kw):
+        nonlocal n
+        args = [a.to(dev) for a in args]
+        fn, ref = ((ap.occupant_rect, ap.occupant_rect_ref)
+                   if name == "occupant_rect" else
+                   (ap.rect_first_overlap, ap.rect_first_overlap_ref))
+        got, want = fn(*args, **kw), ref(*args, **kw)
+        for g, w in zip(*(x if isinstance(x, tuple) else (x,)
+                          for x in (got, want))):
+            if not torch.equal(g, w):
+                raise AssertionError("%s %s at A=%d, B=%d: differs from the "
+                                     "plain version" % (name, kw,
+                                                        *args[0].shape[::-1]))
+        n += 1
+
+    for A in pr.RAGGED_A:
+        B = 16 if A <= 1000 else 1
+        occ, excl, low = pr.ragged_operands(A, B, A)
+        for es in (False, True):
+            check("occupant_rect", occ, exclude_self=es)
+        check("rect_first_overlap", excl, max_body=2, gate="exclude_self")
+        check("rect_first_overlap", low, max_body=2, gate="lower_only")
+        for case in ("ties", "last"):
+            for lower in (False, True):
+                if case == "last" and A < 2 and lower:
+                    continue
+                occ, rect = pr.adversarial_operands(A, B, case, lower)
+                check("occupant_rect", occ, exclude_self=lower)
+                check("rect_first_overlap", rect, max_body=2,
+                      gate="lower_only" if lower else "exclude_self")
+        torch.cuda.empty_cache()
+    print("rect sweeps on ragged operands: %d calls at A in %s, each equal "
+          "to its plain version" % (n, list(pr.RAGGED_A)), flush=True)
+
+
 def run_pursuit_paths(f32_rate, int32_rate, device_name):
     """Phases 5 and 6: pursuit's gridless rect path at map 64, B=16 and on
     one world at map 500; returns the rect kernels' rows, the map-500
@@ -1132,6 +1210,10 @@ def run_pursuit_paths(f32_rate, int32_rate, device_name):
     extra = off_path_forms(calls)
     rows = {name: kernel_row(name, calls[name], f32_rate, int32_rate,
                              extra[name]) for name in RECT_KERNELS}
+    print_rect_forms(
+        {name: [(a, k, 1) for a, k, _ in calls[name]] +
+         [(a, k, 0) for a, k, _ in extra[name]] for name in calls},
+        {name: rows[name]["per_call"] for name in calls})
     # window_gather4's map-64 forms, for phase 9's bf16 store
     g4_forms = calls["window_gather4"] + extra["window_gather4"]
     del calls, extra
@@ -1152,10 +1234,16 @@ def run_pursuit_paths(f32_rate, int32_rate, device_name):
     banded = calls.pop("window_gather_banded")
     calls["window_gather4"] = window_gather4_calls(banded)
     extra = off_path_forms(calls)
+    big_stats = {name: [call_stats(name, a, k, f32_rate, int32_rate, form)
+                        for a, k, form in calls[name] + extra[name]]
+                 for name in RECT_KERNELS}
     for name in RECT_KERNELS:
-        rows[name]["per_call"] = rows[name].get("per_call", []) + [
-            call_stats(name, a, k, f32_rate, int32_rate, form)
-            for a, k, form in calls[name] + extra[name]]
+        rows[name]["per_call"] = rows[name].get("per_call", []) + \
+            big_stats[name]
+    print_rect_forms(
+        {name: [(a, k, 1) for a, k, _ in calls[name]] +
+         [(a, k, 0) for a, k, _ in extra[name]] for name in calls},
+        big_stats)
     del calls, extra
     torch.cuda.empty_cache()
     _, state, key, ms_per_step, syncs = run_lockstep(
@@ -1785,6 +1873,9 @@ def main() -> int:
                                          banded_500, syncs_500)
     rows.update(seg_rows)
     del banded_500
+    # phase 6's ragged checks, after the pursuit loops have reported their
+    # peak device memory: the plain versions hold up to ~13 GB
+    check_rect_ragged()
     rows.update(run_window_ladder(f32_rate))
     rows.update(run_trainers(f32_rate, int32_rate, device_name, g4_forms,
                              banded_1000))

@@ -27,15 +27,19 @@
 //
 // What bounds them here: integer compares and selects, ~4-12 per pair, over
 // B * A^2 pairs (64M at battle's B=16, A=2000; 88M at pursuit's map-500
-// single world, A=9375); the operands are a few tens of KB and stay in L2.  Design: one thread per query j, blockIdx.y = env;
-// the block stages a tile of kTile i-side operands in shared memory (every
+// single world, A=9375); the operands are a few tens of KB and stay in L2.
+// Design (the rect sweeps have their own, below): one thread per query j,
+// blockIdx.y = env; the block stages a tile of kTile i-side operands in shared memory (every
 // thread then reads the same word: a broadcast, no bank conflicts) and the
 // threads sweep i in ascending order, so float sums are taken in slot order
 // and are deterministic.  The ragged tail of both axes is masked here; no
 // sentinel padding is needed.  The caller's sentinels (queries 2^30, dead
 // cells 2^29) pass through as ordinary values.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -184,113 +188,365 @@ __global__ void move_claims_kernel(const int* __restrict__ tcell, int A,
   }
 }
 
+// ------------------------------------------------------------- rect sweeps
 // Multi-cell bodies: rects [x, x+bw) x [y, y+bh); an empty rect (bw = 0 or
 // bh = 0) contains no cell and overlaps nothing, not even another empty
 // rect at the same coordinates.  Query pads (-2^20 with tbw = tbh = 0) keep
 // every edge far from int32 overflow.
 //
 // occupant_rect: the largest slot whose rect contains query cell (qx, qy)
-// and the matches' summed hp.  Slots ascend, so the last match is the max;
-// bodies are disjoint, so at most one slot matches and the sum equals the
-// plain version's bit for bit.  kExcl skips the query's own slot.
-template <bool kExcl>
-__global__ void occupant_rect_kernel(const int* __restrict__ qx,
-                                     const int* __restrict__ qy,
-                                     const int* __restrict__ x,
-                                     const int* __restrict__ y,
-                                     const int* __restrict__ bw,
-                                     const int* __restrict__ bh,
-                                     const float* __restrict__ hp, int A,
-                                     int* __restrict__ tgt,
-                                     float* __restrict__ hpt) {
-  __shared__ int s_x0[kTile], s_x1[kTile], s_y0[kTile], s_y1[kTile];
-  __shared__ float s_hp[kTile];
-  const size_t row = (size_t)blockIdx.y * A;
-  const int j = blockIdx.x * kTile + threadIdx.x;
-  const int px = j < A ? qx[row + j] : 0;
-  const int py = j < A ? qy[row + j] : 0;
-  int best = -1;
-  float hsum = 0.f;
-  for (int i0 = 0; i0 < A; i0 += kTile) {
-    const int i = i0 + threadIdx.x;
-    if (i < A) {
-      const int xi = x[row + i], yi = y[row + i];
-      s_x0[threadIdx.x] = xi;
-      s_x1[threadIdx.x] = xi + bw[row + i];
-      s_y0[threadIdx.x] = yi;
-      s_y1[threadIdx.x] = yi + bh[row + i];
-      s_hp[threadIdx.x] = hp[row + i];
-    }
-    __syncthreads();
-    const int n = min(kTile, A - i0);
-#pragma unroll 8
-    for (int k = 0; k < n; ++k) {
-      const int ii = i0 + k;
-      const bool m = (px >= s_x0[k]) & (px < s_x1[k]) & (py >= s_y0[k]) &
-                     (py < s_y1[k]) & (!kExcl | (ii != j));
-      best = m ? ii : best;
-      hsum += m ? s_hp[k] : 0.f;
-    }
-    __syncthreads();
-  }
-  if (j < A) {
-    tgt[row + j] = best;
-    hpt[row + j] = hsum;
-  }
-}
-
+// and the matches' summed hp; kExcl skips the query's own slot.
 // rect_first_overlap: per query rect [qx, qx+tbw) x [qy, qy+tbh), the min
 // over gated bodies i of key = k * stride + i, where k indexes the first
 // overlapped cell in the (i outer, j inner) scan order:
 // k = (max(qx, x) - qx) * MB + (max(qy, y) - qy) < MB^2, so the key stays
-// below 2^30 + A <= 2^31 - 1.  The key is formed in unsigned arithmetic:
-// for a non-overlapping pair it may wrap, and the select discards it.
-// kLower gates bodies to i < j (claims), else i != j (blocking); under
-// kLower a block stops its sweep at its largest query slot.
-template <bool kLower>
-__global__ void rect_first_overlap_kernel(
-    const int* __restrict__ qx, const int* __restrict__ qy,
-    const int* __restrict__ tbw, const int* __restrict__ tbh,
-    const int* __restrict__ x, const int* __restrict__ y,
-    const int* __restrict__ bw, const int* __restrict__ bh, int A,
-    int stride, int MB, int* __restrict__ out) {
-  constexpr unsigned kNoneKey = 0x7fffffffu;
-  __shared__ int s_x0[kTile], s_x1[kTile], s_y0[kTile], s_y1[kTile];
-  const size_t row = (size_t)blockIdx.y * A;
-  const int j = blockIdx.x * kTile + threadIdx.x;
-  const int px = j < A ? qx[row + j] : 0;
-  const int py = j < A ? qy[row + j] : 0;
-  const int px1 = j < A ? px + tbw[row + j] : 0;
-  const int py1 = j < A ? py + tbh[row + j] : 0;
-  const int i_end = kLower ? min(A, ((int)blockIdx.x + 1) * kTile) : A;
-  unsigned best = kNoneKey;
-  for (int i0 = 0; i0 < i_end; i0 += kTile) {
-    const int i = i0 + threadIdx.x;
-    if (i < A) {
-      const int xi = x[row + i], yi = y[row + i];
-      s_x0[threadIdx.x] = xi;
-      s_x1[threadIdx.x] = xi + bw[row + i];
-      s_y0[threadIdx.x] = yi;
-      s_y1[threadIdx.x] = yi + bh[row + i];
-    }
-    __syncthreads();
-    const int n = min(kTile, i_end - i0);
-#pragma unroll 8
-    for (int k = 0; k < n; ++k) {
-      const int ii = i0 + k;
-      const int ox = max(px, s_x0[k]);
-      const int oy = max(py, s_y0[k]);
-      const bool ov = (ox < min(px1, s_x1[k])) & (oy < min(py1, s_y1[k])) &
-                      (kLower ? ii < j : ii != j);
-      const unsigned key =
-          ((unsigned)(ox - px) * (unsigned)MB + (unsigned)(oy - py)) *
-              (unsigned)stride + (unsigned)ii;
-      best = min(best, ov ? key : kNoneKey);
-    }
-    __syncthreads();
+// below 2^30 + A <= 2^31 - 1; kLower gates bodies to i < j (claims), else
+// i != j (blocking).
+//
+// What bounds them: 5 and 8 integer instructions per pair over B * A^2
+// pairs (88M at pursuit's map-500 world, A = 9375, B = 1).  One query per
+// thread in blocks of 128 would leave 74 blocks for 132 SMs there, load 4-5
+// scalar shared words per pair, and under kLower give the last block twice
+// the mean sweep.  Design:
+// - query tiles of kRectTile = 32 * kQ slots: each lane holds kQ queries
+//   (slots lane, lane + 32, ...) in registers, so a staged body costs one
+//   128-bit broadcast load of its edges and one of its extras, and feeds kQ
+//   independent accumulator chains;
+// - the tile's body axis is cut into n = cluster * warps contiguous ranges
+//   of equal slots (rect_range): warp w of the CTA of rank r in a
+//   thread-block cluster sweeps range r * warps + w in ascending slot
+//   order, staging 32 bodies at a time in its own shared-memory slots (no
+//   block barrier).  Every warp holds all of its tile's queries, so a body
+//   costs the same whether its pairs pass the gate or not: equal slots,
+//   not equal pairs, balance the warps.  Under kLower a tile's bodies end
+//   below its last slot, and the heaviest tiles launch first;
+// - each CTA folds its warps' partials in range order, and the cluster's
+//   rank-0 CTA folds the CTAs' in rank order through distributed shared
+//   memory: one launch, no atomics, no scratch in device memory, a
+//   deterministic result;
+// - the gate compare runs only on the bodies of the tile's own slots
+//   [t0, t1): every other body passes it (i != j; i < j below t0, and a
+//   kLower range ends below t1).
+// The grid is (n_tiles * cluster, B) with clusters of (cluster, 1, 1); the
+// host picks cluster and warps (ops/attack_prefix.py rect_split), and the
+// CPU tests hold rect_range's Python twin (rect_bounds) to cover every
+// gated pair once.
+
+constexpr int kQ = 4;                 // queries per thread
+constexpr int kRectTile = 32 * kQ;    // queries per tile
+constexpr int kRectMaxWarps = 8;      // warps (body ranges) per CTA
+constexpr int kRectMaxCluster = 8;    // CTAs per cluster (the portable size)
+constexpr int kFar = 1 << 30;         // an edge past every real coordinate
+
+// This warp's view of its tile: the tile's query slots [t0, t1) and the
+// warp's body range [lo, hi), range s of n of [0, end) with end = A, or
+// t1 - 1 under lower (no body at or above it has a pair i < j of the
+// tile).  32-bit: the host checks A <= 2^24, and n <= 64.
+struct RectRange {
+  int t0, t1, lo, hi;
+};
+
+__device__ __forceinline__ RectRange rect_range(int A, int cluster,
+                                                unsigned rank, bool lower) {
+  const int n_tiles = (A + kRectTile - 1) / kRectTile;
+  const int tile = (int)blockIdx.x / cluster;
+  const int t = lower ? n_tiles - 1 - tile : tile;
+  const unsigned n = cluster * (blockDim.x >> 5);
+  const unsigned s = rank * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  RectRange r;
+  r.t0 = t * kRectTile;
+  r.t1 = min(A, r.t0 + kRectTile);
+  const unsigned end = lower ? r.t1 - 1 : A;
+  r.lo = (int)(s * end / n);
+  r.hi = (int)((s + 1) * end / n);
+  return r;
+}
+
+// Sweep bodies [lo, hi) in ascending slot order, 32 at a time through the
+// warp's staging slots, the next 32 bodies' loads in flight while the
+// current ones are tested; kGate: bodies of the tile's own slots.
+template <bool kGate, class Sweep>
+__device__ __forceinline__ void rect_sweep_range(Sweep& sw, int lo, int hi) {
+  const int lane = threadIdx.x & 31;
+  typename Sweep::Body body;
+  if (lo + lane < hi) body = sw.load(lo + lane);
+  for (int base = lo; base < hi; base += 32) {
+    if (base + lane < hi) sw.stage(lane, body, base + lane);
+    __syncwarp();
+    if (base + 32 + lane < hi) body = sw.load(base + 32 + lane);
+    const int n = min(32, hi - base);
+#pragma unroll 4
+    for (int k = 0; k < n; ++k) sw.template test<kGate>(k, base + k);
+    __syncwarp();
   }
-  if (j < A)
-    out[row + j] = best == kNoneKey ? (1 << 30) : (int)(best % (unsigned)stride);
+}
+
+template <class Sweep>
+__device__ __forceinline__ void rect_sweep(Sweep& sw, const RectRange& r) {
+  rect_sweep_range<false>(sw, r.lo, min(r.hi, r.t0));
+  rect_sweep_range<true>(sw, max(r.lo, r.t0), min(r.hi, r.t1));
+  rect_sweep_range<false>(sw, max(r.lo, r.t1), r.hi);
+}
+
+// Fold the warps' partials of the tile's nq queries in range order, then,
+// in a cluster of several CTAs, the CTAs' in rank order through
+// distributed shared memory (the rank-0 CTA reads every rank's fold; the
+// others keep their shared memory until it is read); store(c, v) writes
+// query c's result.
+template <class P, class Store>
+__device__ __forceinline__ void rect_combine(P (&part)[kRectMaxWarps][kRectTile],
+                                             P (&cta)[kRectTile], int nq,
+                                             int cluster, Store store) {
+  const int warps = blockDim.x >> 5;
+  __syncthreads();
+  for (int c = threadIdx.x; c < nq; c += blockDim.x) {
+    P v = part[0][c];
+    for (int w = 1; w < warps; ++w) v = P::fold(v, part[w][c]);
+    if (cluster == 1)
+      store(c, v);
+    else
+      cta[c] = v;
+  }
+  if (cluster == 1) return;
+  cg::cluster_group cl = cg::this_cluster();
+  cl.sync();
+  if (cl.block_rank() == 0) {
+    for (int c = threadIdx.x; c < nq; c += blockDim.x) {
+      P got[kRectMaxCluster];
+#pragma unroll
+      for (int r = 0; r < kRectMaxCluster; ++r)
+        if (r < cluster) got[r] = *cl.map_shared_rank(&cta[c], r);
+      P v = got[0];
+#pragma unroll
+      for (int r = 1; r < kRectMaxCluster; ++r)
+        if (r < cluster) v = P::fold(v, got[r]);
+      store(c, v);
+    }
+  }
+  cl.sync();
+}
+
+// A range's partial of one occupant_rect query: slots ascend within a
+// range, so its last match is its max; bodies are disjoint, so at most one
+// slot matches a query and the hp summed in range order (adding zeros is
+// exact) equals the plain version's bit for bit.
+struct OccupantPart {
+  int best;
+  float sum;
+  __device__ static OccupantPart fold(OccupantPart a, OccupantPart b) {
+    return {max(a.best, b.best), a.sum + b.sum};
+  }
+};
+
+template <bool kExcl>
+struct OccupantRectSweep {
+  struct Body {
+    int x, y, w, h;
+    float hp;
+  };
+
+  const int *x, *y, *bw, *bh;
+  const float* hp;
+  int4* s_edge;  // the warp's 32 staging slots
+  float* s_hp;
+  int px[kQ], py[kQ], j[kQ], best[kQ];
+  float hsum[kQ];
+
+  __device__ __forceinline__ Body load(int i) const {
+    return {x[i], y[i], bw[i], bh[i], hp[i]};
+  }
+
+  __device__ __forceinline__ void stage(int lane, const Body& b, int) {
+    s_edge[lane] = make_int4(b.x, b.x + b.w, b.y, b.y + b.h);
+    s_hp[lane] = b.hp;
+  }
+
+  template <bool kGate>
+  __device__ __forceinline__ void test(int k, int i) {
+    const int4 e = s_edge[k];
+    const float h = s_hp[k];
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) {
+      bool m = (e.x <= px[q]) & (px[q] < e.y) & (e.z <= py[q]) & (py[q] < e.w);
+      if (kGate && kExcl) m &= i != j[q];
+      best[q] = m ? i : best[q];
+      hsum[q] += m ? h : 0.f;
+    }
+  }
+};
+
+template <bool kExcl>
+__global__ void __launch_bounds__(32 * kRectMaxWarps)
+occupant_rect_kernel(const int* __restrict__ qx, const int* __restrict__ qy,
+                     const int* __restrict__ x, const int* __restrict__ y,
+                     const int* __restrict__ bw, const int* __restrict__ bh,
+                     const float* __restrict__ hp, int A, int cluster,
+                     int* __restrict__ tgt, float* __restrict__ hpt) {
+  __shared__ int4 s_edge[kRectMaxWarps][32];
+  __shared__ float s_hp[kRectMaxWarps][32];
+  __shared__ OccupantPart s_part[kRectMaxWarps][kRectTile];
+  __shared__ OccupantPart s_cta[kRectTile];
+  const RectRange r =
+      rect_range(A, cluster, cg::this_cluster().block_rank(), false);
+  const size_t row = (size_t)blockIdx.y * A;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  OccupantRectSweep<kExcl> sw;
+  sw.x = x + row, sw.y = y + row, sw.bw = bw + row, sw.bh = bh + row;
+  sw.hp = hp + row, sw.s_edge = s_edge[warp], sw.s_hp = s_hp[warp];
+#pragma unroll
+  for (int q = 0; q < kQ; ++q) {
+    const int j = r.t0 + lane + 32 * q;
+    sw.j[q] = j;
+    sw.px[q] = j < A ? qx[row + j] : 0;
+    sw.py[q] = j < A ? qy[row + j] : 0;
+    sw.best[q] = -1;
+    sw.hsum[q] = 0.f;
+  }
+  rect_sweep(sw, r);
+#pragma unroll
+  for (int q = 0; q < kQ; ++q)
+    s_part[warp][lane + 32 * q] = {sw.best[q], sw.hsum[q]};
+  rect_combine(s_part, s_cta, r.t1 - r.t0, cluster,
+               [&](int c, const OccupantPart& v) {
+                 tgt[row + r.t0 + c] = v.best;
+                 hpt[row + r.t0 + c] = v.sum;
+               });
+}
+
+// A range's partial of one rect_first_overlap query: the min key.
+struct OverlapPart {
+  unsigned key;
+  __device__ static OverlapPart fold(OverlapPart a, OverlapPart b) {
+    return {min(a.key, b.key)};
+  }
+};
+
+// The key is formed from per-body terms staged once: with X = x * MB *
+// stride and Y = y * stride + i (mod 2^32), a pair's key is
+// max(X - qx * MB * stride, 0) + max(Y - qy * stride, i); for an
+// overlapping pair |x - qx| and |y - qy| are below MB, so both differences
+// are exact in int32.  A non-overlapping pair's terms may wrap, and the
+// select discards them.  An empty body's left edge and an empty query's
+// right edge are set past every coordinate, so four compares decide the
+// overlap of two rects.
+template <bool kLower>
+struct RectOverlapSweep {
+  struct Body {
+    int x, y, w, h;
+  };
+
+  const int *x, *y, *bw, *bh;
+  int4* s_edge;  // the warp's 32 staging slots
+  int2* s_key;
+  unsigned xs, ys;  // MB * stride, stride
+  int px[kQ], py[kQ], px1[kQ], py1[kQ], j[kQ];
+  unsigned pxs[kQ], pys[kQ], best[kQ];
+
+  __device__ __forceinline__ Body load(int i) const {
+    return {x[i], y[i], bw[i], bh[i]};
+  }
+
+  __device__ __forceinline__ void stage(int lane, const Body& b, int i) {
+    const int x1 = b.x + b.w, y1 = b.y + b.h;
+    s_edge[lane] =
+        make_int4((x1 <= b.x) | (y1 <= b.y) ? kFar : b.x, x1, b.y, y1);
+    s_key[lane] = make_int2((int)((unsigned)b.x * xs),
+                            (int)((unsigned)b.y * ys + (unsigned)i));
+  }
+
+  template <bool kGate>
+  __device__ __forceinline__ void test(int k, int i) {
+    const int4 e = s_edge[k];
+    const int2 c = s_key[k];
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) {
+      bool ov = (e.x < px1[q]) & (px[q] < e.y) & (e.z < py1[q]) & (py[q] < e.w);
+      if (kGate) ov &= kLower ? i < j[q] : i != j[q];
+      const int dx = (int)((unsigned)c.x - pxs[q]);
+      const int dy = (int)((unsigned)c.y - pys[q]);
+      const unsigned key = (unsigned)max(dx, 0) + (unsigned)max(dy, i);
+      best[q] = ov ? min(best[q], key) : best[q];
+    }
+  }
+};
+
+template <bool kLower>
+__global__ void __launch_bounds__(32 * kRectMaxWarps)
+rect_first_overlap_kernel(const int* __restrict__ qx,
+                          const int* __restrict__ qy,
+                          const int* __restrict__ tbw,
+                          const int* __restrict__ tbh,
+                          const int* __restrict__ x, const int* __restrict__ y,
+                          const int* __restrict__ bw,
+                          const int* __restrict__ bh, int A, int stride,
+                          int MB, int cluster, int* __restrict__ out) {
+  constexpr unsigned kNoneKey = 0x7fffffffu;
+  __shared__ int4 s_edge[kRectMaxWarps][32];
+  __shared__ int2 s_key[kRectMaxWarps][32];
+  __shared__ OverlapPart s_part[kRectMaxWarps][kRectTile];
+  __shared__ OverlapPart s_cta[kRectTile];
+  const RectRange r =
+      rect_range(A, cluster, cg::this_cluster().block_rank(), kLower);
+  const size_t row = (size_t)blockIdx.y * A;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  RectOverlapSweep<kLower> sw;
+  sw.x = x + row, sw.y = y + row, sw.bw = bw + row, sw.bh = bh + row;
+  sw.s_edge = s_edge[warp], sw.s_key = s_key[warp];
+  sw.xs = (unsigned)MB * (unsigned)stride, sw.ys = (unsigned)stride;
+#pragma unroll
+  for (int q = 0; q < kQ; ++q) {
+    const int j = r.t0 + lane + 32 * q;
+    const int px = j < A ? qx[row + j] : 0, py = j < A ? qy[row + j] : 0;
+    const int w = j < A ? tbw[row + j] : 0, h = j < A ? tbh[row + j] : 0;
+    sw.j[q] = j;
+    sw.px[q] = px;
+    sw.py[q] = py;
+    sw.px1[q] = (w <= 0) | (h <= 0) ? -kFar : px + w;
+    sw.py1[q] = py + h;
+    sw.pxs[q] = (unsigned)px * sw.xs;
+    sw.pys[q] = (unsigned)py * sw.ys;
+    sw.best[q] = kNoneKey;
+  }
+  rect_sweep(sw, r);
+#pragma unroll
+  for (int q = 0; q < kQ; ++q) s_part[warp][lane + 32 * q] = {sw.best[q]};
+  rect_combine(s_part, s_cta, r.t1 - r.t0, cluster,
+               [&](int c, const OverlapPart& v) {
+                 out[row + r.t0 + c] =
+                     v.key == kNoneKey ? (1 << 30)
+                                       : (int)(v.key % (unsigned)stride);
+               });
+}
+
+// Launch a rect sweep on (n_tiles * cluster, B) blocks of 32 * warps
+// threads, in clusters of (cluster, 1, 1) when cluster > 1 (a cluster
+// launch costs ~1 us more on the H100 at pursuit's map 64); a refused
+// launch returns its error.
+template <class... KArgs, class... Args>
+int launch_rect(void (*kernel)(KArgs...), int B, int A, int cluster,
+                int warps, cudaStream_t stream, Args... args) {
+  if (cluster < 1 || cluster > kRectMaxCluster || warps < 1 ||
+      warps > kRectMaxWarps)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((A + kRectTile - 1) / kRectTile * cluster, B);
+  if (cluster == 1) {
+    kernel<<<grid, 32 * warps, 0, stream>>>(args...);
+    return (int)cudaGetLastError();
+  }
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(32 * warps);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 dim3 pair_grid(int B, int A) { return dim3((A + kTile - 1) / kTile, B); }
@@ -342,19 +598,15 @@ extern "C" int magent_move_claims(const int* tcell, int B, int A, int* cnt,
 extern "C" int magent_occupant_rect(const int* qx, const int* qy, const int* x,
                                     const int* y, const int* bw, const int* bh,
                                     const float* hp, int B, int A,
-                                    int exclude_self, int* tgt, float* hpt,
-                                    int device, void* stream) {
+                                    int exclude_self, int cluster, int warps,
+                                    int* tgt, float* hpt, int device,
+                                    void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
-  if (exclude_self)
-    occupant_rect_kernel<true>
-        <<<pair_grid(B, A), kTile, 0, (cudaStream_t)stream>>>(
-            qx, qy, x, y, bw, bh, hp, A, tgt, hpt);
-  else
-    occupant_rect_kernel<false>
-        <<<pair_grid(B, A), kTile, 0, (cudaStream_t)stream>>>(
-            qx, qy, x, y, bw, bh, hp, A, tgt, hpt);
-  return (int)cudaGetLastError();
+  return launch_rect(exclude_self ? occupant_rect_kernel<true>
+                                  : occupant_rect_kernel<false>,
+                     B, A, cluster, warps, (cudaStream_t)stream, qx, qy, x, y,
+                     bw, bh, hp, A, cluster, tgt, hpt);
 }
 
 extern "C" int magent_rect_first_overlap(const int* qx, const int* qy,
@@ -362,19 +614,15 @@ extern "C" int magent_rect_first_overlap(const int* qx, const int* qy,
                                          const int* x, const int* y,
                                          const int* bw, const int* bh, int B,
                                          int A, int stride, int max_body,
-                                         int lower_only, int* out, int device,
+                                         int lower_only, int cluster,
+                                         int warps, int* out, int device,
                                          void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
-  if (lower_only)
-    rect_first_overlap_kernel<true>
-        <<<pair_grid(B, A), kTile, 0, (cudaStream_t)stream>>>(
-            qx, qy, tbw, tbh, x, y, bw, bh, A, stride, max_body, out);
-  else
-    rect_first_overlap_kernel<false>
-        <<<pair_grid(B, A), kTile, 0, (cudaStream_t)stream>>>(
-            qx, qy, tbw, tbh, x, y, bw, bh, A, stride, max_body, out);
-  return (int)cudaGetLastError();
+  return launch_rect(lower_only ? rect_first_overlap_kernel<true>
+                                : rect_first_overlap_kernel<false>,
+                     B, A, cluster, warps, (cudaStream_t)stream, qx, qy, tbw,
+                     tbh, x, y, bw, bh, A, stride, max_body, cluster, out);
 }
 
 extern "C" int magent_move_resolve(const int* tcell, const int* cell, int B,

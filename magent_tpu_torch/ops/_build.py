@@ -44,8 +44,8 @@ _SIGNATURES = {
     "magent_move_claims": (_P, _I, _I, _P, _P),
     "magent_window_gather": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "magent_window_gather_bf16": (_P, _P, _P) + (_I,) * 8 + (_P,),
-    "magent_occupant_rect": (_P,) * 7 + (_I, _I, _I, _P, _P),
-    "magent_rect_first_overlap": (_P,) * 8 + (_I,) * 5 + (_P,),
+    "magent_occupant_rect": (_P,) * 7 + (_I,) * 5 + (_P, _P),
+    "magent_rect_first_overlap": (_P,) * 8 + (_I,) * 7 + (_P,),
     "magent_window_gather4": (_P,) * 6 + (_I,) * 8 + (_P,),
     "magent_window_gather4_bf16": (_P,) * 6 + (_I,) * 8 + (_P,),
     "magent_occupant_rect_seg": (_P,) * 10 + (_I, _I, _P, _P),

@@ -31,6 +31,8 @@ window of nearby rows only (kernels in ``csrc/seg_kernels.cu``).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import _build
@@ -246,6 +248,65 @@ def move_claims(tcell):
     return cnt, head
 
 
+# -------------------------------------------------------- rect sweep splits
+# Launch geometry of the rect sweeps (occupant_rect, rect_first_overlap in
+# csrc/pair_kernels.cu): query tiles of RECT_TILE slots (32 lanes holding 4
+# queries each); a tile's body axis is cut into cluster * warps contiguous
+# ranges of equal slots, one per warp of each CTA of a thread-block
+# cluster, folded in range order.
+RECT_TILE = 128
+RECT_WARPS = 8
+RECT_MAX_CLUSTER = 8
+# the kernels' range arithmetic is 32-bit: 64 ranges * A < 2^31
+RECT_MAX_SLOTS = 2**24
+# the cluster grows until the grid holds this many CTAs per SM (a fine
+# enough grain that the SMs' shares of the work even out) or until a warp's
+# range would drop below this many bodies (its fixed costs would dominate)
+_RECT_CTAS_PER_SM = 4
+_RECT_MIN_RANGE = 16
+
+
+def rect_split(B: int, A: int, n_sms: int):
+    """(cluster, warps) of a rect sweep over ``B`` envs of ``A`` slots on a
+    card of ``n_sms`` SMs: warps per CTA ``RECT_WARPS``; CTAs per cluster
+    the smallest power of two up to ``RECT_MAX_CLUSTER`` that puts
+    ``_RECT_CTAS_PER_SM`` CTAs on every SM, while each warp's range keeps
+    ``_RECT_MIN_RANGE`` bodies."""
+    if A > RECT_MAX_SLOTS:
+        raise ValueError("the rect sweeps take at most %d slots, got %d"
+                         % (RECT_MAX_SLOTS, A))
+    n_tiles = -(-A // RECT_TILE)
+    cluster = 1
+    while (cluster < RECT_MAX_CLUSTER
+           and B * n_tiles * cluster < _RECT_CTAS_PER_SM * n_sms
+           and A >= 2 * cluster * RECT_WARPS * _RECT_MIN_RANGE):
+        cluster *= 2
+    return cluster, RECT_WARPS
+
+
+def rect_bounds(t: int, n: int, A: int, lower_only: bool):
+    """The body ranges of query tile ``t`` (slots ``[t0, t1)``) cut ``n``
+    ways: ``n + 1`` ascending bounds, range s = ``[b[s], b[s+1])`` (the
+    Python twin of ``rect_range`` in csrc/pair_kernels.cu): equal slots of
+    ``[0, A)``, or with ``lower_only`` of ``[0, t1 - 1)`` (no body at or
+    above ``t1 - 1`` has a pair i < j with the tile).  Every warp holds all
+    the tile's queries, so a body costs the same whether its pairs pass
+    the gate or not: equal slots balance the warps."""
+    end = min(A, (t + 1) * RECT_TILE) - 1 if lower_only else A
+    return [s * end // n for s in range(n + 1)]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _rect_split_on(device, B: int, A: int):
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    return rect_split(B, A, _sm_count(index))
+
+
 # ------------------------------------------------------------ occupant rect
 def _occupant_rect_pairs(qx, qy, x, y, bw, bh, hp, bslot, qslot=None):
     """Queries [..., R] against body rects [..., P] carrying slot ids
@@ -280,24 +341,35 @@ def occupant_rect(qx, qy, x, y, bw, bh, hp, *, exclude_self=False):
 
     Replaces ``magent_tpu/ops/attack_prefix.py:430`` ``occupant_rect_tpu``
     (without its ``bslot`` operand, which only the segmented path passes).
-    Bound on the card: 6 integer instructions per pair (four compares that
-    AND into one predicate, a predicated slot move, the ``exclude_self``
-    compare) and one f32 add, over B*A^2 pairs; the operands are KBs.
-    Design: ``csrc/pair_kernels.cu``, as :func:`occupant` — one thread per
-    query, body rects staged in shared memory as their four edges, ascending
-    slots, so the last match is the max.  Bodies are disjoint, so at most
-    one slot matches and ``hp_t`` equals the plain version bit for bit."""
+    Bound on the card: 5 integer instructions per pair (four compares that
+    AND into one predicate, a predicated slot move; the ``exclude_self``
+    compare on the tile's own slots) and one f32 add, over B*A^2 pairs; the
+    operands are KBs.  Design: ``csrc/pair_kernels.cu`` — 4 queries per
+    thread against body edges staged in shared memory as one int4, the body
+    axis split over the warps of a thread-block cluster (:func:`rect_split`)
+    and combined in range order through distributed shared memory; slots
+    ascend within a range, so a range's last match is its max.  Bodies are
+    disjoint, so at most one slot matches and ``hp_t`` equals the plain
+    version bit for bit."""
     ints = (qx, qy, x, y, bw, bh)
     if _build.route(*ints, hp) == "cpu":
         return occupant_rect_ref(qx, qy, x, y, bw, bh, hp,
                                  exclude_self=exclude_self)
     B, A, device = _pair_operands("occupant_rect", ints, (hp,))
-    tgt = torch.empty((B, A), dtype=torch.int32, device=device)
-    hp_t = torch.empty((B, A), dtype=torch.float32, device=device)
+    return _occupant_rect_launch(ints, hp, exclude_self,
+                                 _rect_split_on(device, B, A))
+
+
+def _occupant_rect_launch(ints, hp, exclude_self, split):
+    """Launch the occupant_rect kernel with ``split = (cluster, warps)``."""
+    B, A = hp.shape
+    tgt = torch.empty((B, A), dtype=torch.int32, device=hp.device)
+    hp_t = torch.empty((B, A), dtype=torch.float32, device=hp.device)
     if A:
-        _build.launch("magent_occupant_rect", device,
+        _build.launch("magent_occupant_rect", hp.device,
                       *(t.data_ptr() for t in ints), hp.data_ptr(), B, A,
-                      int(exclude_self), tgt.data_ptr(), hp_t.data_ptr())
+                      int(exclude_self), *split, tgt.data_ptr(),
+                      hp_t.data_ptr())
     return tgt, hp_t
 
 
@@ -317,11 +389,11 @@ def _rect_stride(A: int, max_body: int, gate: str) -> int:
     return stride
 
 
-def _rect_overlap_pairs(q, b, max_body, gate, stride):
+def _rect_overlap_keys(q, b, max_body, gate, stride):
     """Query rects ``q = (qx, qy, tbw, tbh, qslot)`` [..., R] against body
     rects ``b = (x, y, bw, bh, bslot)`` [..., P], both carrying slot ids:
-    per query, the min over gated bodies of ``k * stride + bslot``, decoded
-    to the slot, or ``RECT_NONE``.  The gates compare the ids, never
+    per query, the min over gated bodies of the int64 key ``k * stride +
+    bslot``, or ``_NONE_KEY``.  The gates compare the ids, never
     positions."""
     qx, qy, tbw, tbh, qslot = q
     x, y, bw, bh, bslot = b
@@ -334,7 +406,12 @@ def _rect_overlap_pairs(q, b, max_body, gate, stride):
                                   else bs < qs)
     k = (ox - qx[..., None, :]) * max_body + (oy - qy[..., None, :])
     key = torch.where(ov, k, 0).to(torch.int64) * stride + bs
-    best = torch.where(ov, key, _NONE_KEY).amin(-2)
+    return torch.where(ov, key, _NONE_KEY).amin(-2)
+
+
+def _rect_overlap_pairs(q, b, max_body, gate, stride):
+    """:func:`_rect_overlap_keys` decoded to the slot, or ``RECT_NONE``."""
+    best = _rect_overlap_keys(q, b, max_body, gate, stride)
     return torch.where(best == _NONE_KEY, RECT_NONE, best % stride).to(
         torch.int32)
 
@@ -362,25 +439,37 @@ def rect_first_overlap(qx, qy, tbw, tbh, x, y, bw, bh, *, max_body, gate):
 
     Replaces ``magent_tpu/ops/attack_prefix.py:586`` ``rect_first_overlap_tpu``
     (without its ``qslot``/``bslot`` operands, which only the segmented path
-    passes).  Bound on the card: 12 integer instructions per pair (four
-    min/max edges, two overlap compares and the gate, the cell index k, the
-    key, the min) over B*A^2 pairs for ``exclude_self`` and the B*A*(A-1)/2
-    pairs i < j for ``lower_only``.  Design: ``csrc/pair_kernels.cu``, as
-    :func:`occupant` — the query rect in registers, body edges staged in
-    shared memory, one int32 min per pair; under ``lower_only`` a block
-    stops its sweep at its largest query slot (the TPU kernel's triangular
-    block skip).  Ints: equal to the plain version exactly."""
+    passes).  Bound on the card: 8 integer instructions per pair (four
+    edge compares that AND into one predicate, two add-max and an add for
+    the key, a predicated min; the gate compare only on the tile's own
+    slots) over B*A^2 pairs for ``exclude_self`` and the B*A*(A-1)/2 pairs
+    i < j for ``lower_only``.  Design: ``csrc/pair_kernels.cu`` — 4
+    query rects per thread; a body staged once as its edges (an empty rect
+    moved out of reach, so four compares decide an overlap) and its two
+    scaled key terms, so a pair's key is two add-max and an add; the body
+    axis split over the warps of a thread-block cluster (:func:`rect_split`,
+    :func:`rect_bounds`), the partial keys' min taken in range order
+    through distributed shared memory.  Ints: equal to the plain version
+    exactly."""
     A = qx.shape[-1]
     stride = _rect_stride(A, max_body, gate)
     ints = (qx, qy, tbw, tbh, x, y, bw, bh)
     if _build.route(*ints) == "cpu":
         return rect_first_overlap_ref(*ints, max_body=max_body, gate=gate)
     B, A, device = _pair_operands("rect_first_overlap", ints)
-    out = torch.empty((B, A), dtype=torch.int32, device=device)
+    return _rect_first_overlap_launch(ints, max_body, gate, stride,
+                                      _rect_split_on(device, B, A))
+
+
+def _rect_first_overlap_launch(ints, max_body, gate, stride, split):
+    """Launch the rect_first_overlap kernel with ``split = (cluster,
+    warps)``."""
+    B, A = ints[0].shape
+    out = torch.empty((B, A), dtype=torch.int32, device=ints[0].device)
     if A:
-        _build.launch("magent_rect_first_overlap", device,
+        _build.launch("magent_rect_first_overlap", ints[0].device,
                       *(t.data_ptr() for t in ints), B, A, stride,
-                      int(max_body), int(gate == "lower_only"),
+                      int(max_body), int(gate == "lower_only"), *split,
                       out.data_ptr())
     return out
 

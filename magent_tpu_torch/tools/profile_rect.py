@@ -1,0 +1,279 @@
+"""The rect sweeps' launch splits on the card: ``occupant_rect`` and
+``rect_first_overlap`` (``csrc/pair_kernels.cu``) at the shapes of
+pursuit's gridless rect path, each form timed with the split the wrapper
+picks (``ops/attack_prefix.py`` ``rect_split``) and with every other
+(cluster, warps) split, each held exactly against its plain version.
+
+Also the seeded operands that the card's checks of the two kernels share
+(``chip_smoke.py`` phases 5-6, ``tests/test_torch_port_gpu.py``): random
+bodies at ragged sizes (:func:`ragged_operands`) and two adversarial cases
+(:func:`adversarial_operands`).
+
+Usage:  python -m magent_tpu_torch.tools.profile_rect [--maps 64 500]
+First prints the instruction mix per pair of each kernel's unrolled inner
+loop (4 bodies x 4 queries), read with ``cuobjdump -sass`` from the built
+library.  The operands are one recorded step of ``VecGridWorld(pursuit(
+map))`` with the scripts' placements: map 64 at B=16 (seed 11), larger
+maps one world (seed 5).  Times are device time per launch (CUDA events
+around 50 calls queued behind a spin kernel, median of 3).
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+from ..ops import _build
+from ..ops import attack_prefix as ap
+from .timing import device_ms
+
+# ragged slot counts: around the 128-slot query tile, pursuit's map-64
+# capacity (153), its map-500 world (9375) and the single-world pair
+# sweeps' largest (QUAD_MAX_SINGLE)
+RAGGED_A = (1, 2, 127, 128, 129, 153, 1000, 9375, 16384)
+# body sizes by max_body: 2 is pursuit's (2x2 predators, 1x1 prey)
+SIZES = {2: ((2, 2), (1, 1)), 3: ((2, 2), (1, 3), (1, 1))}
+SPLITS = [(c, w) for c in (1, 2, 4, 8) for w in (1, 2, 4, 8)]
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=a.dtype))
+
+
+def ragged_operands(A, B, seed, max_body=2):
+    """Seeded operands of both sweeps over ``B`` envs of ``A`` slots ->
+    (occupant_rect args, rect_first_overlap exclude_self args,
+    rect_first_overlap lower_only args), CPU tensors.  Bodies are disjoint:
+    one per site of a shuffled lattice of pitch ``max_body + 1`` (a third
+    of the sites empty), sizes from ``SIZES``, a sixth dead (empty rect at
+    its coordinates).  Query cells: uniform over the map, a quarter inside
+    their own body, a fifth ``RECT_PAD``; hp uniform in [0.1, 1).  Query
+    rects: each body moved by [-2, 2]^2 (blocking against the bodies;
+    claims against one another), a fifth non-queries (``RECT_PAD``, empty
+    rect)."""
+    rng = np.random.RandomState(seed)
+    pitch = max_body + 1
+    side = int(np.ceil(np.sqrt(1.5 * A)))
+    sites = np.stack([rng.permutation(side * side)[:A] for _ in range(B)])
+    x = ((sites % side) * pitch + 1).astype(np.int32)
+    y = ((sites // side) * pitch + 1).astype(np.int32)
+    sizes = np.array(SIZES[max_body], np.int32)
+    pick = rng.randint(len(sizes), size=(B, A))
+    dead = rng.uniform(size=(B, A)) < 1 / 6
+    bw = np.where(dead, 0, sizes[pick, 0]).astype(np.int32)
+    bh = np.where(dead, 0, sizes[pick, 1]).astype(np.int32)
+    S = side * pitch + 2
+    qx = rng.randint(0, S, size=(B, A))
+    qy = rng.randint(0, S, size=(B, A))
+    own = rng.uniform(size=(B, A)) < 0.25
+    qx = np.where(own, x + rng.randint(0, 2, (B, A)) * (bw > 1), qx)
+    qy = np.where(own, y, qy)
+    pad = rng.uniform(size=(B, A)) < 0.2
+    qx = np.where(pad, ap.RECT_PAD, qx).astype(np.int32)
+    qy = np.where(pad, ap.RECT_PAD, qy).astype(np.int32)
+    hp = rng.uniform(0.1, 1.0, size=(B, A)).astype(np.float32)
+    q = rng.uniform(size=(B, A)) < 0.8
+    rx = np.where(q, x + rng.randint(-2, 3, (B, A)), ap.RECT_PAD)
+    ry = np.where(q, y + rng.randint(-2, 3, (B, A)), ap.RECT_PAD)
+    tbw = np.where(q, np.maximum(sizes[pick, 0], 1), 0)
+    tbh = np.where(q, np.maximum(sizes[pick, 1], 1), 0)
+    rects = [a.astype(np.int32) for a in (rx, ry, tbw, tbh)]
+    occ = [_t(a) for a in (qx, qy, x, y, bw, bh, hp)]
+    return (occ, [_t(a) for a in rects + [x, y, bw, bh]],
+            [_t(a) for a in rects * 2])
+
+
+def adversarial_operands(A, B, case, lower_only=False):
+    """Two adversarial inputs -> (occupant_rect args, rect_first_overlap
+    args), CPU tensors.  ``"ties"``: every query identical — one query
+    cell, inside one of the disjoint lattice bodies, and one 2x2 query rect
+    over a pile of bodies at random offsets in [0, 3)^2 (they overlap one
+    another), so keys tie and the slot decides.  ``"last"``: the one
+    non-empty body at the last slot of the last range of the last tile (A -
+    1, or A - 2 under ``lower_only``, whose last pair is (A - 2, A - 1)),
+    every query cell and rect on it."""
+    qx, qy, x, y, bw, bh, hp = ragged_operands(A, B, 3 * A + 1)[0]
+    if case == "ties":
+        i = A // 2
+        qx = x[:, i:i + 1].expand(B, A).contiguous()
+        qy = y[:, i:i + 1].expand(B, A).contiguous()
+        rng = np.random.RandomState(A)
+        px = _t(rng.randint(0, 3, (B, A)).astype(np.int32))
+        py = _t(rng.randint(0, 3, (B, A)).astype(np.int32))
+        pw = _t(rng.randint(1, 3, (B, A)).astype(np.int32))
+        ph = _t(rng.randint(1, 3, (B, A)).astype(np.int32))
+        one = torch.ones((B, A), dtype=torch.int32)
+        rect = [one, one, 2 * one, 2 * one]
+        bodies = [px, py, pw, ph]
+    elif case == "last":
+        last = A - 2 if lower_only else A - 1
+        if last < 0:
+            raise ValueError("no pair reaches the last slot at A=%d" % A)
+        bw = torch.zeros_like(bw)
+        bh = torch.zeros_like(bh)
+        bw[:, last] = 2
+        bh[:, last] = 2
+        qx = x[:, last:last + 1].expand(B, A).contiguous()
+        qy = (y[:, last:last + 1] + 1).expand(B, A).contiguous()
+        rect = [qx - 1, qy - 1, 2 * torch.ones_like(qx),
+                2 * torch.ones_like(qx)]
+        bodies = [x, y, bw, bh]
+    else:
+        raise ValueError("case must be 'ties' or 'last', got %r" % case)
+    return [qx, qy, x, y, bw, bh, hp], rect + (rect if lower_only
+                                               else bodies)
+
+
+def launch(name, args, kwargs, split):
+    """One launch of kernel ``name`` on CUDA operands with ``split``."""
+    if name == "occupant_rect":
+        return ap._occupant_rect_launch(args[:6], args[6],
+                                        kwargs["exclude_self"], split)
+    A = args[0].shape[-1]
+    stride = ap._rect_stride(A, kwargs["max_body"], kwargs["gate"])
+    return ap._rect_first_overlap_launch(args, kwargs["max_body"],
+                                         kwargs["gate"], stride, split)
+
+
+def form_name(name, kwargs):
+    if name == "occupant_rect":
+        return "occupant_rect%s" % (", exclude_self" if kwargs["exclude_self"]
+                                    else "")
+    return "rect_first_overlap, %s" % kwargs["gate"]
+
+
+def split_table(name, args, kwargs, splits=SPLITS, reps=50):
+    """Device ms per launch of each ``(cluster, warps)`` split in
+    ``splits`` on these CUDA operands, each held exactly against the plain
+    version first -> {split: ms}."""
+    plain = (ap.occupant_rect_ref if name == "occupant_rect"
+             else ap.rect_first_overlap_ref)
+    want = plain(*args, **kwargs)
+    want = want if isinstance(want, tuple) else (want,)
+    out = {}
+    for split in splits:
+        got = launch(name, args, kwargs, split)
+        got = got if isinstance(got, tuple) else (got,)
+        for g, w in zip(got, want):
+            if not torch.equal(g, w):
+                raise AssertionError("%s split %s differs from the plain "
+                                     "version" % (form_name(name, kwargs),
+                                                  split))
+        out[split] = device_ms(lambda s=split: launch(name, args, kwargs, s),
+                               reps)
+    return out
+
+
+def pursuit_calls(map_size, device):
+    """(name, args, kwargs) of every rect-sweep call of one pursuit step,
+    plus occupant_rect with exclude_self on the same operands."""
+    from .. import random as rnd
+    from ..builtin.config import pursuit
+    from ..parallel import VecGridWorld
+
+    n_envs, seed = (16, 11) if map_size == 64 else (1, 5)
+    placements, _ = pursuit.layout(map_size, seed)
+    venv = VecGridWorld(pursuit.get_config(map_size),
+                        [len(p) for p in placements], n_envs,
+                        placements=placements, device=device)
+    calls = []
+    originals = {n: getattr(ap, n) for n in ("occupant_rect",
+                                             "rect_first_overlap")}
+
+    def recorder(name):
+        def rec(*args, **kwargs):
+            kw = dict(exclude_self=False) if name == "occupant_rect" else {}
+            calls.append((name, [a.clone() for a in args], dict(kw, **kwargs)))
+            return originals[name](*args, **kwargs)
+        return rec
+
+    for name in originals:
+        setattr(ap, name, recorder(name))
+    try:
+        state = venv.reset(rnd.PRNGKey(2))
+        venv.observe_all(state)
+        venv.transition(state, venv.random_actions(rnd.PRNGKey(3)))
+    finally:
+        for name, fn in originals.items():
+            setattr(ap, name, fn)
+    occ = [c for c in calls if c[0] == "occupant_rect"][0]
+    calls.append((occ[0], occ[1], dict(occ[2], exclude_self=True)))
+    return calls
+
+
+def sass_mix():
+    """{kernel: [(instructions per pair, {opcode: count})]} of the rect
+    kernels' innermost loops that test 4 staged bodies (4 LDS.128 or more,
+    no branch but the back edge) against 4 queries each, from the built
+    library's SASS; a kernel has one such loop per sweep segment."""
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(_build.LIB_PATH)],
+                          check=True, capture_output=True, text=True).stdout
+    out = {}
+    for func in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = re.search(r"(occupant_rect|rect_first_overlap)_kernelILb(\d)",
+                         func.split("\n", 1)[0])
+        if not name:
+            continue
+        ins = [(int(a, 16), op.strip()) for a, op in re.findall(
+            r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", func)]
+        at = {a: k for k, (a, _) in enumerate(ins)}
+        loops = []
+        for k, (a, op) in enumerate(ins):
+            m = re.search(r"BRA (0x[0-9a-f]+)", op)
+            top = int(m.group(1), 16) if m else None
+            if top is None or top >= a or top not in at:
+                continue
+            body = ins[at[top]:k + 1]
+            if (sum("LDS.128" in o for _, o in body) >= 4
+                    and not any("BRA" in o for _, o in body[:-1])):
+                mix = collections.Counter(
+                    re.sub(r"^@!?U?P\w+ ", "", o).split()[0].split(".")[0]
+                    for _, o in body)
+                loops.append((len(body) / 16, dict(mix.most_common())))
+        key = "%s<%s>" % (name.group(1), "true" if name.group(2) == "1"
+                          else "false")
+        out[key] = sorted(loops, key=lambda loop: loop[0])
+    return out
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(
+        prog="python -m magent_tpu_torch.tools.profile_rect",
+        description=__doc__.split("\n\n")[0])
+    parser.add_argument("--maps", type=int, nargs="+", default=[64, 500])
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        parser.error("no CUDA device")
+    device = torch.device("cuda", torch.cuda.current_device())
+    n_sms = torch.cuda.get_device_properties(device).multi_processor_count
+    print("%s, %d SMs" % (torch.cuda.get_device_name(device), n_sms))
+    _build.lib()
+    for kernel, loops in sass_mix().items():
+        for per_pair, mix in loops:
+            print("sass %-26s %.2f instructions per pair: %s" % (
+                kernel, per_pair, mix), flush=True)
+    for map_size in args.maps:
+        for name, a, kw in pursuit_calls(map_size, device):
+            B, A = a[0].shape
+            picked = ap.rect_split(B, A, n_sms)
+            ms = split_table(name, a, kw)
+            best = min(ms, key=ms.get)
+            print("map %d, B=%d, A=%d, %-34s picked %s: %.4f ms; best %s: "
+                  "%.4f ms; all %s" % (
+                      map_size, B, A, form_name(name, kw), picked,
+                      ms[picked], best, ms[best],
+                      " ".join("%d/%d:%.4f" % (c, w, t)
+                               for (c, w), t in ms.items())), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain versions on the card (the
 rect kernels and window_gather4 on the operands of a pursuit map-64, B=16
-step; the segmented sweeps and the banded gather on a pursuit map-250 step;
+step; the rect kernels also on random and adversarial operands at ragged
+sizes, in every launch split; the segmented sweeps and the banded gather
+on a pursuit map-250 step;
 the segmented sweeps on the random operands of tests/_torch_seg_operands.py;
 the window-gather cost ladder on tools/profile_window.py's inputs; the
 bf16 forms of the three window kernels), and short GPU-vs-CPU runs of the
@@ -29,6 +31,7 @@ from magent_tpu_torch.ops import window_ladder as twl
 from magent_tpu_torch.parallel import (ClipAdam, VecGridWorld,
                                        make_dqn_train_step,
                                        make_dqn_train_step_remat)
+from magent_tpu_torch.tools import profile_rect as tpr
 from magent_tpu_torch.tools import profile_window as tpw
 
 from _torch_seg_operands import CASES, seg_calls
@@ -228,6 +231,77 @@ def test_rect_kernels_match_plain_on_card(cuda, walls):
     after = ops.launch_counts()
     assert after["occupant_rect"] == before["occupant_rect"] + 2
     assert after["rect_first_overlap"] == before["rect_first_overlap"] + 2
+
+
+def _rect_calls(A, B, seed):
+    """Both forms of each rect sweep on tools/profile_rect.py's ragged
+    random operands: (wrapper, plain version, operands, keywords)."""
+    occ, excl, low = tpr.ragged_operands(A, B, seed)
+    return ([(tap.occupant_rect, tap.occupant_rect_ref, occ,
+              dict(exclude_self=es)) for es in (False, True)]
+            + [(tap.rect_first_overlap, tap.rect_first_overlap_ref, args,
+                dict(max_body=2, gate=gate))
+               for gate, args in (("exclude_self", excl),
+                                  ("lower_only", low))])
+
+
+def _assert_rect_equal(fn, ref, args, kw, cuda):
+    args = [a.to(cuda) for a in args]
+    got, want = fn(*args, **kw), ref(*args, **kw)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w), kw
+
+
+@pytest.mark.parametrize("A", tpr.RAGGED_A)
+def test_rect_kernels_match_plain_on_ragged_operands(cuda, A):
+    """occupant_rect (both exclude_self values) and rect_first_overlap
+    (both gates) on random bodies at ragged sizes, B=16 up to A=1000, else
+    one world: ints and hp exact, one launch per call.  At A=16384 the
+    lower_only plain version materializes ~2 GB of int64 keys, which fits
+    in the H100's 80 GB."""
+    B = 16 if A <= 1000 else 1
+    before = ops.launch_counts()
+    for fn, ref, args, kw in _rect_calls(A, B, A):
+        _assert_rect_equal(fn, ref, args, kw, cuda)
+    after = ops.launch_counts()
+    assert after["occupant_rect"] == before["occupant_rect"] + 2
+    assert after["rect_first_overlap"] == before["rect_first_overlap"] + 2
+
+
+@pytest.mark.parametrize("case", ["ties", "last"])
+@pytest.mark.parametrize("A", tpr.RAGGED_A)
+def test_rect_kernels_match_plain_on_adversarial_operands(cuda, case, A):
+    """Every query identical (keys tie and the slot decides), and the one
+    body at the last slot of the last range of the last tile: both forms
+    of each kernel exact."""
+    B = 16 if A <= 1000 else 1
+    for lower in (False, True):
+        if case == "last" and lower and A < 2:
+            continue
+        occ, rect = tpr.adversarial_operands(A, B, case, lower)
+        _assert_rect_equal(tap.occupant_rect, tap.occupant_rect_ref, occ,
+                           dict(exclude_self=lower), cuda)
+        _assert_rect_equal(tap.rect_first_overlap, tap.rect_first_overlap_ref,
+                           rect, dict(max_body=2, gate="lower_only" if lower
+                                      else "exclude_self"), cuda)
+
+
+@pytest.mark.parametrize("A,B", [(153, 16), (1000, 2), (9375, 1)])
+def test_rect_kernels_match_plain_in_every_split(cuda, A, B):
+    """Every launch split (cluster of 1-8 CTAs, 1-8 warps each), not only
+    the one rect_split picks, equals the plain version."""
+    for fn, ref, args, kw in _rect_calls(A, B, 7 * A):
+        args = [a.to(cuda) for a in args]
+        name = fn.__name__
+        want = ref(*args, **kw)
+        want = want if isinstance(want, tuple) else (want,)
+        for split in tpr.SPLITS:
+            got = tpr.launch(name, args, kw, split)
+            got = got if isinstance(got, tuple) else (got,)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (kw, split)
 
 
 def test_window_gather4_matches_plain_on_card(cuda):
