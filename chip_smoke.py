@@ -8,7 +8,8 @@ Run from the repository root:  python3 chip_smoke.py
 2. runs one battle 2x1000, B=16 step with the kernel wrappers recording
    their operands, then holds each kernel against its plain PyTorch version
    on those operands (ints exact, floats within the stated atol) and times
-   both with CUDA events;
+   both with CUDA events; prints ``rank_prefix``'s ``rank form`` line (ms,
+   bound, share of bound, launch split, launches per step);
 3. runs the lockstep path — ``VecGridWorld(battle(200), [1000, 1000],
    n_envs=16)``: reset, warm-up, then timed ``observe_all -> random_actions
    -> transition`` steps — and checks from the launch counters that every
@@ -21,22 +22,26 @@ Run from the repository root:  python3 chip_smoke.py
    clear_dead`` steps; checks from the launch counters that every step
    went through its kernels (``rank_prefix_hp``, ``move_claims`` once,
    ``window_gather`` twice), counts the host syncs per step and profiles a
-   few steps; then holds the grid path's two kernels against their plain
-   versions on the operands of one more step, and times them;
+   few steps; then holds the grid path's kernels against their plain
+   versions on the operands of one more step (``window_gather`` at B=1,
+   f32), times them and prints ``rank_prefix_hp``'s ``rank form`` line;
 5. runs pursuit's gridless rect path, the lockstep loop of
    ``scripts/train_evidence.py`` — ``VecGridWorld(pursuit(64), [51, 102],
    n_envs=16)`` with its placements (seed 11): holds ``occupant_rect``
    (with and without ``exclude_self``), ``rect_first_overlap`` (both gates)
-   and ``window_gather4`` (no epilogue, liveness, minimap + self mark +
-   liveness) against their plain versions on one step's operands, prints
-   each rect form's ms, bound, share of bound, launch split (cluster and
-   warps, ``rect_split``) and launches per step, times the loop (launches
+   ``window_gather4`` (no epilogue, liveness, minimap + self mark +
+   liveness) and ``rank_prefix`` against their plain versions on one
+   step's operands, prints each rect and rank form's ms, bound, share of
+   bound, launch split (cluster and warps, ``rect_split``) and launches
+   per step, times the loop (launches
    per step: occupant_rect 1, rect_first_overlap 2, rank_prefix 1,
    window_gather4 2), counts host syncs and profiles it;
 6. runs the same path on one world at ``scripts/bench_pursuit.py``'s
-   density, map 500 (A = 9375): the rect kernels' checks and per-form lines
-   at those shapes and ``window_gather4`` by a direct call on the map-500
-   image; then 20 timed steps, whose 6.41 MB images take
+   density, map 500 (A = 9375): the rect kernels' and ``rank_prefix``'s
+   checks and per-form lines at those shapes (``rank_prefix`` also with
+   runs of slots sharing a target and random damage, since pursuit deals
+   none) and ``window_gather4`` by a direct call on the map-500 image;
+   then 20 timed steps, whose 6.41 MB images take
    ``window_gather_banded`` (launches per step: occupant_rect 1,
    rect_first_overlap 2, rank_prefix 1, window_gather_banded 2); and, once
    phase 7's loop has reported its peak device memory (their plain
@@ -70,7 +75,8 @@ Run from the repository root:  python3 chip_smoke.py
    0.3, both groups from the trusty battle checkpoints
    (``params_from_flax``): holds the bf16 forms of the three window kernels
    against their plain versions (``window_gather`` on the trainer's
-   operands, ``window_gather4`` on phase 5's map-64 operands,
+   operands, B=16, and on their first env, B=1; ``window_gather4`` on
+   phase 5's map-64 operands,
    ``window_gather_banded`` on phase 7's map-1000 band table), checks that
    bf16 views are the f32 views rounded (battle 2x1000, pursuit map 64),
    then runs ``dqn`` (``train_minibatch=16384``) and ``dqn_remat``
@@ -111,7 +117,8 @@ import warnings
 import numpy as np
 import torch
 
-from magent_tpu_torch.tools.timing import device_ms
+from magent_tpu_torch.tools.profile_gather import window_bytes
+from magent_tpu_torch.tools.timing import HBM_BYTES_PER_S, device_ms
 
 # battle's full width: the BASELINE.json headline workload (bench.py)
 MAP_SIZE, N_PER_GROUP, N_ENVS = 200, 1000, 16
@@ -162,7 +169,6 @@ TRAIN_SMALL_MAP, TRAIN_SMALL_CAPS, TRAIN_SMALL_ENVS, TRAIN_SMALL_T = (
 TRAIN_LOSS_RTOL, TRAIN_MOMENT_RTOL = 1e-5, 1e-2
 TRAIN_PARAM_ATOL = 0.2 * TRAIN_LR
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 # The data sheet's 67 TFLOP/s float32 counts an FMA as two operations; the
 # kernels here do no FMA and mostly int32 work, so their peaks are taken per
 # instruction, from the CUDA C++ Programming Guide's throughput table for
@@ -349,29 +355,6 @@ def peak_rates():
     return F32_PER_SM_CLK * sm_clk, INT32_PER_SM_CLK * sm_clk, mhz
 
 
-def window_gather_bytes(name, args, kwargs, out) -> int:
-    """Bytes a window gather must move: every output written once, pos,
-    mask and the epilogue operands read once, and each image element that
-    some window reads under a non-zero mask entry read once.  The rest of
-    the padded image (alignment slack, unused padding, cells no agent sees)
-    is never needed."""
-    gfull, pos, mask = args
-    C, Wp = kwargs["C"], kwargs["Wp"]
-    tl = pos.long() >> 10 if name.startswith("window_gather4") else \
-        pos.long()
-    oy, ox = torch.nonzero(mask != 0, as_tuple=True)
-    touched = torch.zeros(gfull.shape[1:], dtype=torch.bool,
-                          device=gfull.device)
-    n_read = 0
-    for b in range(gfull.shape[0]):
-        touched.zero_()
-        touched[(tl[b] // Wp)[:, None] + oy, (tl[b] % Wp)[:, None] * C + ox] = True
-        n_read += int(touched.sum())
-    epilogue = [v for v in kwargs.values() if isinstance(v, torch.Tensor)]
-    return (n_read * gfull.element_size() + nbytes([pos, mask] + epilogue)
-            + nbytes(out))
-
-
 def record_operands(step_fn, wrappers):
     """Run ``step_fn`` with each ``(module, name)`` wrapper recording a copy
     of its operands; returns ``{name: [(args, kwargs) per call]}``."""
@@ -540,7 +523,7 @@ def call_stats(name, args, kwargs, f32_rate, int32_rate, form,
     plain_ms = (cuda_ms if name in SEG_SWEEPS else device_ms)(
         lambda: plain(*args, **kwargs), 5)
     if name in WINDOW_KERNELS:
-        io_bytes = window_gather_bytes(name, args, kwargs, got)
+        io_bytes = window_bytes(name, args, kwargs, got)
         # f32 operations per output element: the mask multiply, the two
         # minimap adds, the liveness multiply
         n_f32 = 1 + (2 if kwargs.get("mm_img") is not None else 0) + (
@@ -583,15 +566,14 @@ def kernel_row(name, calls, f32_rate, int32_rate, extra=()):
         ms=statistics.mean(st["ms"] for st in path),
         plain_ms=statistics.mean(st["plain_ms"] for st in path),
         bound_ms=statistics.mean(st["bound_ms"] for st in path),
-        bound_by=top["bound_by"], library_ms=None)
-    if len(path) > 1 or more:
-        row["per_call"] = path + more
+        bound_by=top["bound_by"], library_ms=None, per_call=path + more)
     return row
 
 
 def check_kernels(venv, state, key, f32_rate, int32_rate):
     """Phase 2: each lockstep-path kernel against its plain version on the
     operands the main path gave it."""
+    from magent_tpu_torch import ops
     from magent_tpu_torch.ops import attack_prefix as ap
     from magent_tpu_torch.ops import window_gather as wg
 
@@ -599,15 +581,20 @@ def check_kernels(venv, state, key, f32_rate, int32_rate):
         venv.observe_all(state)
         venv.transition(state, venv.random_actions(key))
 
-    ops = record_operands(one_step, [
+    before = ops.launch_counts()["rank_prefix"]
+    rec = record_operands(one_step, [
         (wg, "window_gather"), (ap, "occupant"), (ap, "rank_prefix"),
         (ap, "move_resolve")])
+    per_step = ops.launch_counts()["rank_prefix"] - before
     rows = {}
     for name in ("window_gather", "occupant", "rank_prefix", "move_resolve"):
-        args, kwargs = ops[name][0]
+        args, kwargs = rec[name][0]
         rows[name] = kernel_row(name, [(args, kwargs, "battle 2x1000, B=16")],
                                 f32_rate, int32_rate)
-    del ops
+    print_split_forms(
+        {"rank_prefix": [(rec["rank_prefix"][0][0], {}, per_step)]},
+        {"rank_prefix": rows["rank_prefix"]["per_call"]})
+    del rec
     torch.cuda.empty_cache()
     return rows
 
@@ -893,6 +880,7 @@ def run_gridworld_path(f32_rate, int32_rate, device_name):
     the launch counts of the timed run and the grid path's kernel rows."""
     from magent_tpu_torch import GridWorld, ops
     from magent_tpu_torch.ops import attack_prefix as ap
+    from magent_tpu_torch.ops import window_gather as wg
 
     env = GridWorld("battle", map_size=GW_MAP)
     handles = env.get_handles()
@@ -949,8 +937,11 @@ def run_gridworld_path(f32_rate, int32_rate, device_name):
     # sweeps see shared targets and contested cells
     env.reset()
     place_interleaved(env, handles)
+    before = ops.launch_counts()["rank_prefix_hp"]
     rec = record_operands(lambda: gridworld_step(env, handles, rng),
-                          [(ap, "rank_prefix"), (ap, "move_claims")])
+                          [(ap, "rank_prefix"), (ap, "move_claims"),
+                           (wg, "window_gather")])
+    per_step = ops.launch_counts()["rank_prefix_hp"] - before
     (rp_args, rp_kw), = rec["rank_prefix"]
     (mc_args, mc_kw), = rec["move_claims"]
     tgt, tcell = rp_args[0], mc_args[0]
@@ -964,9 +955,15 @@ def run_gridworld_path(f32_rate, int32_rate, device_name):
                                          int32_rate),
             "move_claims": kernel_row("move_claims", [(mc_args, mc_kw, form)],
                                       f32_rate, int32_rate)}
+    print_split_forms({"rank_prefix_hp": [(rp_args, rp_kw, per_step)]},
+                      {"rank_prefix_hp": rows["rank_prefix_hp"]["per_call"]})
+    # the GridWorld's window calls (B=1): forms of phase 2's row
+    gw_views = [call_stats("window_gather", a, k, f32_rate, int32_rate,
+                           "%s, group %d" % (form, g))
+                for g, (a, k) in enumerate(rec["window_gather"])]
     del rec, env
     torch.cuda.empty_cache()
-    return counts, rows
+    return counts, rows, gw_views
 
 
 def check_gridworld_gpu_matches_cpu():
@@ -1125,23 +1122,30 @@ def window_gather4_calls(banded_calls):
     return out
 
 
-def print_rect_forms(calls, stats):
-    """One line per form of the rect sweeps: ``calls`` {name: [(args,
-    kwargs, form)]} of a step's calls (each launched once per step) and
-    the forms off the path, ``stats`` {name: [call_stats dicts]} in the
-    same order; device ms, bound, share of bound, the launch split, and
-    launches per step."""
+# the kernels on the split template (ops/attack_prefix.py rect_split)
+SPLIT_KERNELS = ("occupant_rect", "rect_first_overlap", "rank_prefix",
+                 "rank_prefix_hp")
+
+
+def print_split_forms(calls, stats):
+    """One line per form of the split template's kernels (``rect form``,
+    ``rank form``): ``calls`` {name: [(args, kwargs, launches per step)]}
+    of a step's calls and the forms off the path (0 per step), ``stats``
+    {name: [call_stats dicts]} in the same order; device ms, bound, share of
+    bound, the launch split, and launches per step."""
     from magent_tpu_torch.ops import attack_prefix as ap
 
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for name in ("occupant_rect", "rect_first_overlap"):
-        for (args, _, on_path), st in zip(calls[name], stats[name]):
+    for name in SPLIT_KERNELS:
+        for (args, _, on_path), st in zip(calls.get(name, ()),
+                                          stats.get(name, ())):
             B, A = args[0].shape
             cluster, warps = ap.rect_split(B, A, n_sms)
-            print("rect form %s, %-36s %.4f ms, bound %.6f ms (%s), share "
-                  "of bound %.3f; cluster of %d CTA(s) x %d warps (%d body "
-                  "ranges per query tile); %d launch(es) per step" % (
-                      name, st["form"], st["ms"], st["bound_ms"],
+            print("%s form %s, %-36s %.4f ms, bound %.6f ms (%s), share "
+                  "of bound %.3f; cluster of %d CTA(s) x %d warps (%d "
+                  "partner ranges per query tile); %d launch(es) per step" % (
+                      "rank" if name.startswith("rank") else "rect", name,
+                      st["form"], st["ms"], st["bound_ms"],
                       st["bound_by"], st["bound_ms"] / st["ms"], cluster,
                       warps, cluster * warps, on_path), flush=True)
 
@@ -1195,25 +1199,57 @@ def check_rect_ragged():
           "to its plain version" % (n, list(pr.RAGGED_A)), flush=True)
 
 
-def run_pursuit_paths(f32_rate, int32_rate, device_name):
+def shared_target_form(calls):
+    """``rank_prefix``'s form with values that can show a wrong sum, on the
+    step's ranks: each run of SEG_SHARE slots shares a target, and every
+    slot deals seeded random damage (pursuit deals none, and its attackers
+    rarely share a target).  Marked: its sums must not all be zero."""
+    (a, k, form), = calls["rank_prefix"]
+    tgt, rank, _ = a
+    B, A = tgt.shape
+    gen = torch.Generator(device="cpu").manual_seed(P_BIG_SEED)
+    shared = (torch.arange(A) // SEG_SHARE).to(torch.int32).expand(B, A)
+    dmg = 0.1 + 0.9 * torch.rand((B, A), generator=gen)
+    return ([shared.contiguous().to(tgt.device), rank, dmg.to(tgt.device)],
+            k, form.replace("attack", "runs of %d slots share a target, "
+                            "random damage" % SEG_SHARE), True)
+
+
+def run_rank_forms(calls, rank_row, f32_rate, int32_rate):
+    """``rank_prefix`` on a pursuit step's operands and on
+    :func:`shared_target_form`, against its plain version; the forms join
+    ``rank_row``'s ``per_call`` and print their ``rank form`` lines."""
+    forms = calls["rank_prefix"] + [shared_target_form(calls)]
+    stats = [call_stats("rank_prefix", a, k, f32_rate, int32_rate, *form)
+             for a, k, *form in forms]
+    rank_row["per_call"] += stats
+    print_split_forms({"rank_prefix": [(forms[0][0], {}, 1),
+                                       (forms[1][0], {}, 0)]},
+                      {"rank_prefix": stats})
+
+
+def run_pursuit_paths(f32_rate, int32_rate, device_name, rank_row):
     """Phases 5 and 6: pursuit's gridless rect path at map 64, B=16 and on
     one world at map 500; returns the rect kernels' rows, the map-500
     banded gather calls, the map-500 loop's host syncs per step and the
-    map-64 ``window_gather4`` forms."""
+    map-64 ``window_gather4`` forms; ``rank_prefix``'s forms join
+    ``rank_row``."""
     from magent_tpu_torch import random as rnd
 
     venv = pursuit_env(P_MAP, P_ENVS, P_SEED)
     calls, carry = record_step(venv, venv.reset(rnd.PRNGKey(0)),
                                rnd.PRNGKey(1), {"occupant_rect": 1,
                                                 "rect_first_overlap": 2,
+                                                "rank_prefix": 1,
                                                 "window_gather4": 2})
     extra = off_path_forms(calls)
     rows = {name: kernel_row(name, calls[name], f32_rate, int32_rate,
                              extra[name]) for name in RECT_KERNELS}
-    print_rect_forms(
+    print_split_forms(
         {name: [(a, k, 1) for a, k, _ in calls[name]] +
-         [(a, k, 0) for a, k, _ in extra[name]] for name in calls},
-        {name: rows[name]["per_call"] for name in calls})
+         [(a, k, 0) for a, k, _ in extra[name]] for name in RECT_KERNELS},
+        {name: rows[name]["per_call"] for name in RECT_KERNELS})
+    run_rank_forms(calls, rank_row, f32_rate, int32_rate)
     # window_gather4's map-64 forms, for phase 9's bf16 store
     g4_forms = calls["window_gather4"] + extra["window_gather4"]
     del calls, extra
@@ -1230,6 +1266,7 @@ def run_pursuit_paths(f32_rate, int32_rate, device_name):
     calls, carry = record_step(big, big.reset(rnd.PRNGKey(2)),
                                rnd.PRNGKey(3), {"occupant_rect": 1,
                                                 "rect_first_overlap": 2,
+                                                "rank_prefix": 1,
                                                 "window_gather_banded": 2})
     banded = calls.pop("window_gather_banded")
     calls["window_gather4"] = window_gather4_calls(banded)
@@ -1240,10 +1277,11 @@ def run_pursuit_paths(f32_rate, int32_rate, device_name):
     for name in RECT_KERNELS:
         rows[name]["per_call"] = rows[name].get("per_call", []) + \
             big_stats[name]
-    print_rect_forms(
+    print_split_forms(
         {name: [(a, k, 1) for a, k, _ in calls[name]] +
-         [(a, k, 0) for a, k, _ in extra[name]] for name in calls},
+         [(a, k, 0) for a, k, _ in extra[name]] for name in RECT_KERNELS},
         big_stats)
+    run_rank_forms(calls, rank_row, f32_rate, int32_rate)
     del calls, extra
     torch.cuda.empty_cache()
     _, state, key, ms_per_step, syncs = run_lockstep(
@@ -1587,11 +1625,14 @@ def run_trainers(f32_rate, int32_rate, device_name, g4_forms, banded_1000):
         raise AssertionError("the bf16 observation made the window calls %s"
                              % [k.get("out_dtype") for _, k in
                                 rec["window_gather"]])
+    (img, pos, mask), kw = rec["window_gather"][0]
     rows = {"window_gather_bf16": kernel_row(
         "window_gather_bf16",
         [(a, k, "battle 2x1000, B=16, group %d" % g)
          for g, (a, k) in enumerate(rec["window_gather"])],
-        f32_rate, int32_rate)}
+        f32_rate, int32_rate,
+        [([img[:1].contiguous(), pos[:1].contiguous(), mask], kw,
+          "battle 2x1000, B=1 (env 0), group 0")])}
     del rec
 
     def as_bf16(forms):
@@ -1862,12 +1903,14 @@ def main() -> int:
     profile_lockstep("lockstep", venv, state, key, ms_per_step)
     del venv, state
     torch.cuda.empty_cache()
-    gw_counts, gw_rows = run_gridworld_path(f32_rate, int32_rate, device_name)
+    gw_counts, gw_rows, gw_views = run_gridworld_path(f32_rate, int32_rate,
+                                                      device_name)
     for name, row in gw_rows.items():
         row["launches"] = gw_counts[name]
     rows.update(gw_rows)
+    rows["window_gather"]["per_call"] += gw_views
     rect_rows, banded_500, syncs_500, g4_forms = run_pursuit_paths(
-        f32_rate, int32_rate, device_name)
+        f32_rate, int32_rate, device_name, rows["rank_prefix"])
     rows.update(rect_rows)
     seg_rows, banded_1000 = run_seg_path(f32_rate, int32_rate, device_name,
                                          banded_500, syncs_500)

@@ -25,16 +25,17 @@
 // rect_first_overlap_tpu, which sweep (TI, TJ) tiles of the pair matrix on
 // the TPU's vector unit.
 //
-// What bounds them here: integer compares and selects, ~4-12 per pair, over
+// What bounds them here: integer compares and selects, ~2-12 per pair, over
 // B * A^2 pairs (64M at battle's B=16, A=2000; 88M at pursuit's map-500
 // single world, A=9375); the operands are a few tens of KB and stay in L2.
-// Design (the rect sweeps have their own, below): one thread per query j,
-// blockIdx.y = env; the block stages a tile of kTile i-side operands in shared memory (every
-// thread then reads the same word: a broadcast, no bank conflicts) and the
-// threads sweep i in ascending order, so float sums are taken in slot order
-// and are deterministic.  The ragged tail of both axes is masked here; no
-// sentinel padding is needed.  The caller's sentinels (queries 2^30, dead
-// cells 2^29) pass through as ordinary values.
+// Design of occupant, move_resolve and move_claims: one thread per query j,
+// blockIdx.y = env; the block stages a tile of kTile i-side operands in
+// shared memory (every thread then reads the same word: a broadcast, no
+// bank conflicts) and the threads sweep i in ascending order, so float sums
+// are taken in slot order and are deterministic.  The ragged tail of both
+// axes is masked here; no sentinel padding is needed.  The caller's
+// sentinels (queries 2^30, dead cells 2^29) pass through as ordinary
+// values.  rank_prefix and the rect sweeps share the split template below.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -78,45 +79,6 @@ __global__ void occupant_kernel(const int* __restrict__ acell,
     tgt[row + j] = cnt > 0 ? ssum : -1;
     hpt[row + j] = hsum;
   }
-}
-
-// kHp: also write hp_t[j] = hp[tgt_j].  The TPU kernel sums a one-hot
-// [i == tgt_j] * hp_i over the sweep; exactly one slot matches a real target
-// and none matches the sentinel A, so one direct load gives the same value
-// bit for bit (adding zeros is exact) without widening the pair loop.
-template <bool kHp>
-__global__ void rank_prefix_kernel(const int* __restrict__ tgt,
-                                   const int* __restrict__ rank,
-                                   const float* __restrict__ dmg,
-                                   const float* __restrict__ hp, int A,
-                                   float* __restrict__ P,
-                                   float* __restrict__ hpt) {
-  __shared__ int s_tgt[kTile];
-  __shared__ int s_rank[kTile];
-  __shared__ float s_dmg[kTile];
-  const size_t row = (size_t)blockIdx.y * A;
-  const int j = blockIdx.x * kTile + threadIdx.x;
-  const int t = j < A ? tgt[row + j] : 0;
-  const int r = j < A ? rank[row + j] : 0;
-  if (kHp && j < A) hpt[row + j] = (0 <= t && t < A) ? hp[row + t] : 0.f;
-  float p = 0.f;
-  for (int i0 = 0; i0 < A; i0 += kTile) {
-    const int i = i0 + threadIdx.x;
-    if (i < A) {
-      s_tgt[threadIdx.x] = tgt[row + i];
-      s_rank[threadIdx.x] = rank[row + i];
-      s_dmg[threadIdx.x] = dmg[row + i];
-    }
-    __syncthreads();
-    const int n = min(kTile, A - i0);
-#pragma unroll 8
-    for (int k = 0; k < n; ++k) {
-      const bool m = (s_tgt[k] == t) & (s_rank[k] < r);
-      p += m ? s_dmg[k] : 0.f;
-    }
-    __syncthreads();
-  }
-  if (j < A) P[row + j] = p;
 }
 
 __global__ void move_resolve_kernel(const int* __restrict__ tcell,
@@ -203,34 +165,37 @@ __global__ void move_claims_kernel(const int* __restrict__ tcell, int A,
 // below 2^30 + A <= 2^31 - 1; kLower gates bodies to i < j (claims), else
 // i != j (blocking).
 //
-// What bounds them: 5 and 8 integer instructions per pair over B * A^2
-// pairs (88M at pursuit's map-500 world, A = 9375, B = 1).  One query per
-// thread in blocks of 128 would leave 74 blocks for 132 SMs there, load 4-5
-// scalar shared words per pair, and under kLower give the last block twice
-// the mean sweep.  Design:
+// What bounds them: 5 and 8 integer instructions per pair (rank_prefix:
+// 2) over B * A^2 pairs (88M at pursuit's map-500 world, A = 9375, B = 1).
+// One query per thread in blocks of 128 would leave 74 blocks for 132 SMs
+// there, load 3-5 scalar shared words per pair, and under kLower give the
+// last block twice the mean sweep.  Design (the split template, shared by
+// occupant_rect, rect_first_overlap and rank_prefix):
 // - query tiles of kRectTile = 32 * kQ slots: each lane holds kQ queries
-//   (slots lane, lane + 32, ...) in registers, so a staged body costs one
-//   128-bit broadcast load of its edges and one of its extras, and feeds kQ
-//   independent accumulator chains;
-// - the tile's body axis is cut into n = cluster * warps contiguous ranges
-//   of equal slots (rect_range): warp w of the CTA of rank r in a
+//   (slots lane, lane + 32, ...) in registers, so a staged partner costs
+//   one 128-bit broadcast load (rect edges, or rank_prefix's record (tgt,
+//   rank, dmg bits)) and feeds kQ independent accumulator chains;
+// - the tile's partner axis is cut into n = cluster * warps contiguous
+//   ranges of equal slots (rect_range): warp w of the CTA of rank r in a
 //   thread-block cluster sweeps range r * warps + w in ascending slot
-//   order, staging 32 bodies at a time in its own shared-memory slots (no
-//   block barrier).  Every warp holds all of its tile's queries, so a body
-//   costs the same whether its pairs pass the gate or not: equal slots,
-//   not equal pairs, balance the warps.  Under kLower a tile's bodies end
-//   below its last slot, and the heaviest tiles launch first;
+//   order, staging 32 partners at a time in its own shared-memory slots
+//   (no block barrier).  Every warp holds all of its tile's queries, so a
+//   partner costs the same whether its pairs pass the gate or not: equal
+//   slots, not equal pairs, balance the warps.  Under kLower a tile's
+//   bodies end below its last slot, and the heaviest tiles launch first;
 // - each CTA folds its warps' partials in range order, and the cluster's
 //   rank-0 CTA folds the CTAs' in rank order through distributed shared
 //   memory: one launch, no atomics, no scratch in device memory, a
-//   deterministic result;
+//   deterministic result for a given split (rank_prefix's f32 sums are
+//   taken in slot order within a range, then range by range);
 // - the gate compare runs only on the bodies of the tile's own slots
 //   [t0, t1): every other body passes it (i != j; i < j below t0, and a
-//   kLower range ends below t1).
+//   kLower range ends below t1).  rank_prefix has no gate: its rank
+//   compare depends on the data.
 // The grid is (n_tiles * cluster, B) with clusters of (cluster, 1, 1); the
-// host picks cluster and warps (ops/attack_prefix.py rect_split), and the
-// CPU tests hold rect_range's Python twin (rect_bounds) to cover every
-// gated pair once.
+// host picks cluster and warps (ops/attack_prefix.py rect_split, from the
+// SM count), and the CPU tests hold rect_range's Python twin (rect_bounds)
+// to cover every gated pair once.
 
 constexpr int kQ = 4;                 // queries per thread
 constexpr int kRectTile = 32 * kQ;    // queries per tile
@@ -518,6 +483,91 @@ rect_first_overlap_kernel(const int* __restrict__ qx,
                });
 }
 
+// A range's partial of one rank_prefix query: its damage summed in slot
+// order.
+struct RankPart {
+  float p;
+  __device__ static RankPart fold(RankPart a, RankPart b) {
+    return {a.p + b.p};
+  }
+};
+
+// P_j = sum_i [tgt_i == tgt_j and rank_i < rank_j] * dmg_i: a partner is
+// staged as one int4 (tgt, rank, dmg bits, 0); two compares and a
+// predicated add per pair.  Non-attackers' sentinel tgt = A matches other
+// sentinels, as in the plain version.
+struct RankPrefixSweep {
+  struct Body {
+    int t, r;
+    float d;
+  };
+
+  const int *tgt, *rank;
+  const float* dmg;
+  int4* s_rec;  // the warp's 32 staging slots
+  int t[kQ], r[kQ];
+  float p[kQ];
+
+  __device__ __forceinline__ Body load(int i) const {
+    return {tgt[i], rank[i], dmg[i]};
+  }
+
+  __device__ __forceinline__ void stage(int lane, const Body& b, int) {
+    s_rec[lane] = make_int4(b.t, b.r, __float_as_int(b.d), 0);
+  }
+
+  template <bool kGate>
+  __device__ __forceinline__ void test(int k, int) {
+    const int4 e = s_rec[k];
+    const float d = __int_as_float(e.z);
+#pragma unroll
+    for (int q = 0; q < kQ; ++q)
+      if ((e.x == t[q]) & (e.y < r[q])) p[q] += d;
+  }
+};
+
+// kHp: also write hp_t[j] = hp[tgt_j].  The TPU kernel sums a one-hot
+// [i == tgt_j] * hp_i over the sweep; exactly one slot matches a real target
+// and none matches the sentinel A, so one direct load per query gives the
+// same value bit for bit (adding zeros is exact) without widening the pair
+// loop.
+template <bool kHp>
+__global__ void __launch_bounds__(32 * kRectMaxWarps)
+rank_prefix_kernel(const int* __restrict__ tgt, const int* __restrict__ rank,
+                   const float* __restrict__ dmg,
+                   const float* __restrict__ hp, int A, int cluster,
+                   float* __restrict__ P, float* __restrict__ hpt) {
+  __shared__ int4 s_rec[kRectMaxWarps][32];
+  __shared__ RankPart s_part[kRectMaxWarps][kRectTile];
+  __shared__ RankPart s_cta[kRectTile];
+  const RectRange r =
+      rect_range(A, cluster, cg::this_cluster().block_rank(), false);
+  const size_t row = (size_t)blockIdx.y * A;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  RankPrefixSweep sw;
+  sw.tgt = tgt + row, sw.rank = rank + row, sw.dmg = dmg + row;
+  sw.s_rec = s_rec[warp];
+#pragma unroll
+  for (int q = 0; q < kQ; ++q) {
+    const int j = r.t0 + lane + 32 * q;
+    sw.t[q] = j < A ? tgt[row + j] : 0;
+    sw.r[q] = j < A ? rank[row + j] : 0;
+    sw.p[q] = 0.f;
+  }
+  rect_sweep_range<false>(sw, r.lo, r.hi);
+#pragma unroll
+  for (int q = 0; q < kQ; ++q) s_part[warp][lane + 32 * q] = {sw.p[q]};
+  rect_combine(s_part, s_cta, r.t1 - r.t0, cluster,
+               [&](int c, const RankPart& v) {
+                 const size_t j = row + r.t0 + c;
+                 P[j] = v.p;
+                 if (kHp) {
+                   const int t = tgt[j];
+                   hpt[j] = (0 <= t && t < A) ? hp[row + t] : 0.f;
+                 }
+               });
+}
+
 // Launch a rect sweep on (n_tiles * cluster, B) blocks of 32 * warps
 // threads, in clusters of (cluster, 1, 1) when cluster > 1 (a cluster
 // launch costs ~1 us more on the H100 at pursuit's map 64); a refused
@@ -564,26 +614,25 @@ extern "C" int magent_occupant(const int* acell, const int* cell,
 }
 
 extern "C" int magent_rank_prefix(const int* tgt, const int* rank,
-                                  const float* dmg, int B, int A, float* P,
-                                  int device, void* stream) {
+                                  const float* dmg, int B, int A, int cluster,
+                                  int warps, float* P, int device,
+                                  void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
-  rank_prefix_kernel<false>
-      <<<pair_grid(B, A), kTile, 0, (cudaStream_t)stream>>>(
-          tgt, rank, dmg, nullptr, A, P, nullptr);
-  return (int)cudaGetLastError();
+  return launch_rect(rank_prefix_kernel<false>, B, A, cluster, warps,
+                     (cudaStream_t)stream, tgt, rank, dmg,
+                     (const float*)nullptr, A, cluster, P, (float*)nullptr);
 }
 
 extern "C" int magent_rank_prefix_hp(const int* tgt, const int* rank,
                                      const float* dmg, const float* hp, int B,
-                                     int A, float* P, float* hpt, int device,
-                                     void* stream) {
+                                     int A, int cluster, int warps, float* P,
+                                     float* hpt, int device, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
-  rank_prefix_kernel<true>
-      <<<pair_grid(B, A), kTile, 0, (cudaStream_t)stream>>>(
-          tgt, rank, dmg, hp, A, P, hpt);
-  return (int)cudaGetLastError();
+  return launch_rect(rank_prefix_kernel<true>, B, A, cluster, warps,
+                     (cudaStream_t)stream, tgt, rank, dmg, hp, A, cluster, P,
+                     hpt);
 }
 
 extern "C" int magent_move_claims(const int* tcell, int B, int A, int* cnt,

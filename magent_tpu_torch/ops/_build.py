@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -38,12 +39,12 @@ _I = ctypes.c_int
 # stream) pair; all return a cudaError_t
 _SIGNATURES = {
     "magent_occupant": (_P, _P, _P, _I, _I, _P, _P),
-    "magent_rank_prefix": (_P, _P, _P, _I, _I, _P),
-    "magent_rank_prefix_hp": (_P, _P, _P, _P, _I, _I, _P, _P),
+    "magent_rank_prefix": (_P, _P, _P) + (_I,) * 4 + (_P,),
+    "magent_rank_prefix_hp": (_P,) * 4 + (_I,) * 4 + (_P, _P),
     "magent_move_resolve": (_P, _P, _I, _I, _P, _P, _P),
     "magent_move_claims": (_P, _I, _I, _P, _P),
-    "magent_window_gather": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    "magent_window_gather_bf16": (_P, _P, _P) + (_I,) * 8 + (_P,),
+    "magent_window_gather": (_P, _P, _P) + (_I,) * 9 + (_P,),
+    "magent_window_gather_bf16": (_P, _P, _P) + (_I,) * 9 + (_P,),
     "magent_occupant_rect": (_P,) * 7 + (_I,) * 5 + (_P, _P),
     "magent_rect_first_overlap": (_P,) * 8 + (_I,) * 7 + (_P,),
     "magent_window_gather4": (_P,) * 6 + (_I,) * 8 + (_P,),
@@ -147,13 +148,29 @@ def launch(name: str, device: torch.device, *args) -> None:
     (the library sets its own current device: it carries its own CUDA
     runtime); raise if the launch was refused, else count the launch."""
     handle = lib()
-    index = device.index if device.index is not None else torch.cuda.current_device()
+    index = device_index(device)
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = getattr(handle, name)(*args, index, stream)
     if rc != 0:
         msg = handle.magent_cuda_error_string(rc).decode()
         raise RuntimeError("%s: CUDA error %d (%s)" % (name, rc, msg))
     LAUNCHES[name.removeprefix("magent_")] += 1
+
+
+def device_index(device: torch.device) -> int:
+    return device.index if device.index is not None else \
+        torch.cuda.current_device()
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """The SM count of CUDA ``device`` (the kernels' launch splits depend
+    on it)."""
+    return _sm_count(device_index(device))
 
 
 def check(t: torch.Tensor, name: str, dtype, shape, device) -> None:

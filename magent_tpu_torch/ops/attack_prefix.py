@@ -31,8 +31,6 @@ window of nearby rows only (kernels in ``csrc/seg_kernels.cu``).
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from . import _build
@@ -150,28 +148,46 @@ def rank_prefix(tgt, rank, dmg, hp=None):
 
     Replaces ``magent_tpu/ops/attack_prefix.py:128`` ``rank_prefix_tpu``:
     the no-hp form (``:184-199``, the gridless path) and the hp form
-    (``:152-182``, the grid path).  Bound on the card: 5 ops per pair (two
-    compares, and, select, add) over B*A^2 pairs; the hp form adds one load
-    per query.  Design: as :func:`occupant`; the f32 sum runs in
-    ascending slot order, so it is deterministic (it may differ from the
-    plain version's reduction order in the last bits for general damages;
-    sums of battle's damage 2.0 are exact).  ``hp_t`` is one direct load
-    per query in the kernel, equal to the one-hot sum bit for bit."""
+    (``:152-182``, the grid path).  Bound on the card: 2 int32 instructions
+    per pair (the target compare, and the rank compare ANDed into its
+    predicate) and 1 f32 (a predicated add) over B*A^2 pairs, so the
+    int32 pipe bounds it; the hp form adds one load per query.  Design:
+    ``csrc/pair_kernels.cu`` on the rect sweeps' split template — 4
+    queries per thread against partner records (tgt, rank, dmg) staged as
+    one int4, the partner axis cut over the warps of a thread-block
+    cluster (:func:`rect_split`, :func:`rect_bounds` without the gate) and
+    the partials folded in range order through distributed shared memory.
+    The f32 sum runs in slot order within a range, then range by range: it
+    is deterministic for a given ``(B, A)`` and card (the split depends on
+    the SM count), and may differ from the plain version's reduction order
+    in the last bits for general damages; integer-valued damages (battle's
+    2, pursuit's) sum exactly.  ``hp_t`` is one direct load per query,
+    equal to the one-hot sum bit for bit.  Sentinel rows (tgt = A) match
+    one another, as in the plain version."""
     operands = (tgt, rank, dmg) + (() if hp is None else (hp,))
     if _build.route(*operands) == "cpu":
         return rank_prefix_ref(tgt, rank, dmg, hp)
     B, A, device = _pair_operands("rank_prefix", (tgt, rank), operands[2:])
-    P = torch.empty((B, A), dtype=torch.float32, device=device)
+    return _rank_prefix_launch(tgt, rank, dmg, hp,
+                               _rect_split_on(device, B, A))
+
+
+def _rank_prefix_launch(tgt, rank, dmg, hp, split):
+    """Launch the rank_prefix kernel (the hp form with ``hp``) with ``split
+    = (cluster, warps)``."""
+    B, A = tgt.shape
+    P = torch.empty((B, A), dtype=torch.float32, device=tgt.device)
     if hp is None:
         if A:
-            _build.launch("magent_rank_prefix", device, tgt.data_ptr(),
-                          rank.data_ptr(), dmg.data_ptr(), B, A, P.data_ptr())
+            _build.launch("magent_rank_prefix", tgt.device, tgt.data_ptr(),
+                          rank.data_ptr(), dmg.data_ptr(), B, A, *split,
+                          P.data_ptr())
         return P
-    hp_t = torch.empty((B, A), dtype=torch.float32, device=device)
+    hp_t = torch.empty((B, A), dtype=torch.float32, device=tgt.device)
     if A:
-        _build.launch("magent_rank_prefix_hp", device, tgt.data_ptr(),
+        _build.launch("magent_rank_prefix_hp", tgt.device, tgt.data_ptr(),
                       rank.data_ptr(), dmg.data_ptr(), hp.data_ptr(), B, A,
-                      P.data_ptr(), hp_t.data_ptr())
+                      *split, P.data_ptr(), hp_t.data_ptr())
     return P, hp_t
 
 
@@ -249,35 +265,38 @@ def move_claims(tcell):
 
 
 # -------------------------------------------------------- rect sweep splits
-# Launch geometry of the rect sweeps (occupant_rect, rect_first_overlap in
-# csrc/pair_kernels.cu): query tiles of RECT_TILE slots (32 lanes holding 4
-# queries each); a tile's body axis is cut into cluster * warps contiguous
-# ranges of equal slots, one per warp of each CTA of a thread-block
-# cluster, folded in range order.
+# Launch geometry of the split template (occupant_rect, rect_first_overlap
+# and rank_prefix in csrc/pair_kernels.cu): query tiles of RECT_TILE slots
+# (32 lanes holding 4 queries each); a tile's partner axis is cut into
+# cluster * warps contiguous ranges of equal slots, one per warp of each
+# CTA of a thread-block cluster, folded in range order.
 RECT_TILE = 128
 RECT_WARPS = 8
 RECT_MAX_CLUSTER = 8
 # the kernels' range arithmetic is 32-bit: 64 ranges * A < 2^31
 RECT_MAX_SLOTS = 2**24
-# the cluster grows until the grid holds this many CTAs per SM (a fine
-# enough grain that the SMs' shares of the work even out) or until a warp's
-# range would drop below this many bodies (its fixed costs would dominate)
+# where lone CTAs leave SMs idle, the cluster grows until the grid holds
+# this many CTAs per SM (a fine enough grain that the SMs' shares of the
+# work even out) or until a warp's range would drop below this many
+# partners (its fixed costs would dominate)
 _RECT_CTAS_PER_SM = 4
 _RECT_MIN_RANGE = 16
 
 
 def rect_split(B: int, A: int, n_sms: int):
-    """(cluster, warps) of a rect sweep over ``B`` envs of ``A`` slots on a
-    card of ``n_sms`` SMs: warps per CTA ``RECT_WARPS``; CTAs per cluster
-    the smallest power of two up to ``RECT_MAX_CLUSTER`` that puts
-    ``_RECT_CTAS_PER_SM`` CTAs on every SM, while each warp's range keeps
-    ``_RECT_MIN_RANGE`` bodies."""
+    """(cluster, warps) of a split-template sweep over ``B`` envs of ``A``
+    slots on a card of ``n_sms`` SMs: warps per CTA ``RECT_WARPS``; lone
+    CTAs where they already put one on every SM (battle's ``rank_prefix``,
+    B=16: a cluster's syncs and shorter ranges only add there), else CTAs
+    per cluster the smallest power of two up to ``RECT_MAX_CLUSTER`` that
+    puts ``_RECT_CTAS_PER_SM`` CTAs on every SM, while each warp's range
+    keeps ``_RECT_MIN_RANGE`` partners."""
     if A > RECT_MAX_SLOTS:
         raise ValueError("the rect sweeps take at most %d slots, got %d"
                          % (RECT_MAX_SLOTS, A))
     n_tiles = -(-A // RECT_TILE)
     cluster = 1
-    while (cluster < RECT_MAX_CLUSTER
+    while (cluster < RECT_MAX_CLUSTER and B * n_tiles < n_sms
            and B * n_tiles * cluster < _RECT_CTAS_PER_SM * n_sms
            and A >= 2 * cluster * RECT_WARPS * _RECT_MIN_RANGE):
         cluster *= 2
@@ -296,15 +315,8 @@ def rect_bounds(t: int, n: int, A: int, lower_only: bool):
     return [s * end // n for s in range(n + 1)]
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _rect_split_on(device, B: int, A: int):
-    index = device.index if device.index is not None else \
-        torch.cuda.current_device()
-    return rect_split(B, A, _sm_count(index))
+    return rect_split(B, A, _build.sm_count(device))
 
 
 # ------------------------------------------------------------ occupant rect

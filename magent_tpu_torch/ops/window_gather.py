@@ -44,6 +44,19 @@ _MAX_BAND_CHUNK = 128
 # the windows' dtypes: the kernels compute in f32 and store in either
 OUT_DTYPES = (torch.float32, torch.bfloat16)
 
+# window_gather's launch split (csrc/window_gather.cu window_gather_kernel):
+# the call's B*N*vh*vwc output values in 16-byte vectors, cut into spans of
+# ``per`` vectors (whole warp tiles of GATHER_TILE), one block of 256
+# threads per span.  ``per`` gives every SM GATHER_SPANS_PER_SM spans,
+# within [GATHER_MIN_VECS, GATHER_MAX_VECS] (the fastest splits of
+# tools/profile_gather.py's table on the H100, battle at B=16 and B=1)
+GATHER_TILE = 32
+GATHER_SPANS_PER_SM = 4
+GATHER_MIN_VECS = 256
+GATHER_MAX_VECS = 1024
+# window_gather's image offsets are int32
+_MAX_IMAGE = 2**31 - 1
+
 
 def _ceil_to(x: int, m: int) -> int:
     return (x + m - 1) // m * m
@@ -81,6 +94,30 @@ def padded_geometry(H: int, W: int, C: int, vh: int, vw: int):
     return Hp, Wp, lanes, pad_y, pad_x
 
 
+def vec_width(out_dtype) -> int:
+    """Values per 16-byte vector of ``out_dtype``: 4 f32 or 8 bf16."""
+    return 16 // out_dtype.itemsize
+
+
+def gather_split(B: int, N: int, E: int, out_dtype, n_sms: int):
+    """The 16-byte vectors per span of a window_gather launch over ``B``
+    envs of ``N`` windows of ``E = vh * vw * C`` values on a card of
+    ``n_sms`` SMs: a multiple of GATHER_TILE (see GATHER_SPANS_PER_SM)."""
+    n_vec = -(-B * N * E // vec_width(out_dtype))
+    per = n_vec // (GATHER_SPANS_PER_SM * n_sms) // GATHER_TILE * GATHER_TILE
+    return min(max(per, GATHER_MIN_VECS), GATHER_MAX_VECS)
+
+
+def gather_spans(B: int, N: int, E: int, out_dtype, per: int):
+    """The value offsets ``[start, end)`` of each span of window_gather's
+    flat output, one per block (the Python twin of the kernel's ``e0`` and
+    ``n_el``): block g writes vectors ``[g * per, (g + 1) * per)``, cut at
+    the call's end."""
+    total = B * N * E
+    step = per * vec_width(out_dtype)
+    return [(s, min(s + step, total)) for s in range(0, total, step)]
+
+
 def window_gather_ref(gfull, pos, mask, *, vh, vw, C, Wp,
                       out_dtype=torch.float32):
     """Plain version: ``gfull`` [B, Hp, lanes], ``pos`` [B, N] unpacked
@@ -102,19 +139,37 @@ def window_gather(gfull, pos, mask, *, vh, vw, C, Wp,
                   out_dtype=torch.float32):
     """Window gather: ``gfull`` [B, Hp, lanes] f32, ``pos`` [B, N] int32,
     ``mask`` [vh, vw*C] f32 -> [B, N, vh, vw*C] in ``out_dtype`` (f32 or
-    bf16, rounded at the store).
+    bf16, rounded at the store).  A window that would leave the image
+    (``pos`` negative, or too near the bottom or right edge) is written as
+    zeros; the plain version indexes past the image there.
 
     Replaces ``magent_tpu/ops/window_gather.py:79`` ``window_gather`` (the
     Pallas roll kernel, ``pallas_call`` at ``:167``).  Bound on the card:
-    bytes — the windows written (75.7 MB per battle group at B=16) plus the
-    image read once (31.5 MB).  Design: ``csrc/window_gather.cu`` — one block
-    per (32-agent chunk, env), one warp per window row, coalesced row copies
-    multiplied by the mask held in shared memory; a pure copy, so the result
-    equals the plain version exactly."""
+    bytes — the windows written (75.7 MB of f32 per battle group at B=16,
+    37.9 MB of bf16) plus each image value a window reads under a non-zero
+    mask entry, once.  Design: ``csrc/window_gather.cu`` — the output as
+    one flat run cut into 16-byte vectors, and those into spans, one block
+    per span (:func:`gather_split`, :func:`gather_spans`); a warp loads
+    tiles of 32 vectors' values lane by lane (coalesced), from shared
+    tables of window offsets (with the mask) and agent offsets, and stores
+    them through shared memory as one 16-byte vector per lane; every load
+    kept, masked or not, so the result equals the plain version bit for
+    bit, sign of zero included."""
     _check_out_dtype("window_gather", out_dtype)
     if _build.route(gfull, pos, mask) == "cpu":
         return window_gather_ref(gfull, pos, mask, vh=vh, vw=vw, C=C, Wp=Wp,
                                  out_dtype=out_dtype)
+    B, Hp, lanes = gfull.shape
+    N = pos.shape[1]
+    device = gfull.device
+    per = gather_split(B, N, vh * vw * C, out_dtype, _build.sm_count(device))
+    return _gather_launch(gfull, pos, mask, vh=vh, vw=vw, C=C, Wp=Wp,
+                          out_dtype=out_dtype, per=per)
+
+
+def _gather_launch(gfull, pos, mask, *, vh, vw, C, Wp, out_dtype, per):
+    """The window_gather kernel on CUDA operands in spans of ``per``
+    vectors (:func:`gather_split`; a multiple of GATHER_TILE)."""
     B, Hp, lanes = gfull.shape
     N = pos.shape[1]
     vwc = vw * C
@@ -126,16 +181,15 @@ def window_gather(gfull, pos, mask, *, vh, vw, C, Wp,
     if vh * vwc * 4 > _MAX_MASK_BYTES:
         raise ValueError("window %dx%d too large for the kernel's mask"
                          % (vh, vwc))
-    if B > 65535:
-        raise ValueError("window_gather: at most 65535 envs per launch")
+    if B * Hp * lanes > _MAX_IMAGE:
+        raise ValueError("window_gather: an image of %d values has offsets "
+                         "past int32" % (B * Hp * lanes))
     out = torch.empty((B, N, vh, vwc), dtype=out_dtype, device=device)
     if N:
         _build.launch(_launcher("window_gather", out_dtype), device,
-                      gfull.data_ptr(),
-                      pos.data_ptr(), mask.data_ptr(), B, N, Hp, lanes, Wp, C,
-                      vh, vwc, out.data_ptr())
+                      gfull.data_ptr(), pos.data_ptr(), mask.data_ptr(), B, N,
+                      Hp, lanes, Wp, C, vh, vwc, per, out.data_ptr())
     return out
-
 
 
 def window_gather4_ref(gfull, pos, mask, mm_img=None, mm_mask=None, act=None,

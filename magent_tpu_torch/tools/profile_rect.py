@@ -1,20 +1,24 @@
-"""The rect sweeps' launch splits on the card: ``occupant_rect`` and
-``rect_first_overlap`` (``csrc/pair_kernels.cu``) at the shapes of
-pursuit's gridless rect path, each form timed with the split the wrapper
+"""The split template's launch splits on the card: ``occupant_rect``,
+``rect_first_overlap`` and ``rank_prefix`` (``csrc/pair_kernels.cu``) at
+the shapes of pursuit's gridless rect path, and ``rank_prefix`` also at
+battle's lockstep shapes (B=16, A=2000) and in its hp form at the
+GridWorld's (B=1, A=2048), each form timed with the split the wrapper
 picks (``ops/attack_prefix.py`` ``rect_split``) and with every other
 (cluster, warps) split, each held exactly against its plain version.
 
-Also the seeded operands that the card's checks of the two kernels share
-(``chip_smoke.py`` phases 5-6, ``tests/test_torch_port_gpu.py``): random
-bodies at ragged sizes (:func:`ragged_operands`) and two adversarial cases
-(:func:`adversarial_operands`).
+Also the seeded operands that the card's checks share (``chip_smoke.py``
+phases 2 and 5-6, ``tests/test_torch_port_gpu.py``): random bodies at
+ragged sizes (:func:`ragged_operands`), two adversarial cases
+(:func:`adversarial_operands`) and rank_prefix's operands
+(:func:`rank_operands`).
 
 Usage:  python -m magent_tpu_torch.tools.profile_rect [--maps 64 500]
 First prints the instruction mix per pair of each kernel's unrolled inner
 loop (4 bodies x 4 queries), read with ``cuobjdump -sass`` from the built
 library.  The operands are one recorded step of ``VecGridWorld(pursuit(
 map))`` with the scripts' placements: map 64 at B=16 (seed 11), larger
-maps one world (seed 5).  Times are device time per launch (CUDA events
+maps one world (seed 5); battle's and the GridWorld's rank_prefix forms
+take :func:`rank_operands` with battle's damage 2.0.  Times are device time per launch (CUDA events
 around 50 calls queued behind a spin kernel, median of 3).
 """
 
@@ -90,6 +94,24 @@ def ragged_operands(A, B, seed, max_body=2):
             [_t(a) for a in rects * 2])
 
 
+def rank_operands(A, B, seed, integer):
+    """Seeded rank_prefix operands over ``B`` envs of ``A`` slots -> (tgt,
+    rank, dmg, hp), CPU tensors: a third of the slots non-attackers (the
+    sentinel tgt = A, damage 0, as the engine gives them), the others'
+    targets drawn from a tenth of the slots so that attackers share them;
+    ranks from random bits (``pack_rank``); damages 2.0 (``integer``,
+    battle's) or uniform in [0, 1); hp uniform in [0.1, 10)."""
+    rng = np.random.RandomState(seed)
+    tgt = rng.randint(0, max(1, A // 10), size=(B, A))
+    tgt = np.where(rng.uniform(size=(B, A)) < 1 / 3, A, tgt).astype(np.int32)
+    bits = rng.randint(0, 2**32, size=(B, A), dtype=np.uint64).astype(
+        np.int64)
+    dmg = np.full((B, A), 2.0) if integer else rng.uniform(size=(B, A))
+    dmg = np.where(tgt == A, 0.0, dmg).astype(np.float32)
+    hp = rng.uniform(0.1, 10.0, size=(B, A)).astype(np.float32)
+    return (_t(tgt), ap.pack_rank(_t(bits), A), _t(dmg), _t(hp))
+
+
 def adversarial_operands(A, B, case, lower_only=False):
     """Two adversarial inputs -> (occupant_rect args, rect_first_overlap
     args), CPU tensors.  ``"ties"``: every query identical — one query
@@ -133,6 +155,9 @@ def adversarial_operands(A, B, case, lower_only=False):
 
 def launch(name, args, kwargs, split):
     """One launch of kernel ``name`` on CUDA operands with ``split``."""
+    if name == "rank_prefix":
+        return ap._rank_prefix_launch(*args[:3], args[3] if len(args) > 3
+                                      else None, split)
     if name == "occupant_rect":
         return ap._occupant_rect_launch(args[:6], args[6],
                                         kwargs["exclude_self"], split)
@@ -143,6 +168,8 @@ def launch(name, args, kwargs, split):
 
 
 def form_name(name, kwargs):
+    if name == "rank_prefix":
+        return "rank_prefix%s" % (", hp" if kwargs.get("hp") else "")
     if name == "occupant_rect":
         return "occupant_rect%s" % (", exclude_self" if kwargs["exclude_self"]
                                     else "")
@@ -153,9 +180,10 @@ def split_table(name, args, kwargs, splits=SPLITS, reps=50):
     """Device ms per launch of each ``(cluster, warps)`` split in
     ``splits`` on these CUDA operands, each held exactly against the plain
     version first -> {split: ms}."""
-    plain = (ap.occupant_rect_ref if name == "occupant_rect"
-             else ap.rect_first_overlap_ref)
-    want = plain(*args, **kwargs)
+    plain = {"occupant_rect": ap.occupant_rect_ref,
+             "rect_first_overlap": ap.rect_first_overlap_ref,
+             "rank_prefix": ap.rank_prefix_ref}[name]
+    want = plain(*args) if name == "rank_prefix" else plain(*args, **kwargs)
     want = want if isinstance(want, tuple) else (want,)
     out = {}
     for split in splits:
@@ -172,8 +200,9 @@ def split_table(name, args, kwargs, splits=SPLITS, reps=50):
 
 
 def pursuit_calls(map_size, device):
-    """(name, args, kwargs) of every rect-sweep call of one pursuit step,
-    plus occupant_rect with exclude_self on the same operands."""
+    """(name, args, kwargs) of every split-template call of one pursuit
+    step (occupant_rect, rect_first_overlap twice, rank_prefix), plus
+    occupant_rect with exclude_self on the same operands."""
     from .. import random as rnd
     from ..builtin.config import pursuit
     from ..parallel import VecGridWorld
@@ -185,7 +214,8 @@ def pursuit_calls(map_size, device):
                         placements=placements, device=device)
     calls = []
     originals = {n: getattr(ap, n) for n in ("occupant_rect",
-                                             "rect_first_overlap")}
+                                             "rect_first_overlap",
+                                             "rank_prefix")}
 
     def recorder(name):
         def rec(*args, **kwargs):
@@ -209,16 +239,17 @@ def pursuit_calls(map_size, device):
 
 
 def sass_mix():
-    """{kernel: [(instructions per pair, {opcode: count})]} of the rect
-    kernels' innermost loops that test 4 staged bodies (4 LDS.128 or more,
-    no branch but the back edge) against 4 queries each, from the built
-    library's SASS; a kernel has one such loop per sweep segment."""
+    """{kernel: [(instructions per pair, {opcode: count})]} of the split
+    template's innermost loops that test 4 staged partners (4 LDS.128 or
+    more, no branch but the back edge) against 4 queries each, from the
+    built library's SASS; a kernel has one such loop per sweep segment."""
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(_build.LIB_PATH)],
                           check=True, capture_output=True, text=True).stdout
     out = {}
     for func in re.split(r"\n\s*Function : ", sass)[1:]:
-        name = re.search(r"(occupant_rect|rect_first_overlap)_kernelILb(\d)",
+        name = re.search(r"(occupant_rect|rect_first_overlap|rank_prefix)"
+                         r"_kernelILb(\d)",
                          func.split("\n", 1)[0])
         if not name:
             continue
@@ -260,18 +291,24 @@ def main(argv=None) -> int:
         for per_pair, mix in loops:
             print("sass %-26s %.2f instructions per pair: %s" % (
                 kernel, per_pair, mix), flush=True)
-    for map_size in args.maps:
-        for name, a, kw in pursuit_calls(map_size, device):
-            B, A = a[0].shape
-            picked = ap.rect_split(B, A, n_sms)
-            ms = split_table(name, a, kw)
-            best = min(ms, key=ms.get)
-            print("map %d, B=%d, A=%d, %-34s picked %s: %.4f ms; best %s: "
-                  "%.4f ms; all %s" % (
-                      map_size, B, A, form_name(name, kw), picked,
-                      ms[picked], best, ms[best],
-                      " ".join("%d/%d:%.4f" % (c, w, t)
-                               for (c, w), t in ms.items())), flush=True)
+    forms = [("map %d" % m, name, a, kw) for m in args.maps
+             for name, a, kw in pursuit_calls(m, device)]
+    for label, (B, A), hp in (("battle", (16, 2000), False),
+                              ("GridWorld", (1, 2048), True)):
+        tgt, rank, dmg, hps = (t.to(device) for t in rank_operands(
+            A, B, A, integer=True))
+        forms.append((label, "rank_prefix", [tgt, rank, dmg] + (
+            [hps] if hp else []), {"hp": hp}))
+    for label, name, a, kw in forms:
+        B, A = a[0].shape
+        picked = ap.rect_split(B, A, n_sms)
+        ms = split_table(name, a, kw)
+        best = min(ms, key=ms.get)
+        print("%s, B=%d, A=%d, %-34s picked %s: %.4f ms; best %s: %.4f ms; "
+              "all %s" % (label, B, A, form_name(name, kw), picked,
+                          ms[picked], best, ms[best],
+                          " ".join("%d/%d:%.4f" % (c, w, t)
+                                   for (c, w), t in ms.items())), flush=True)
     return 0
 
 

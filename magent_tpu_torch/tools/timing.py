@@ -7,6 +7,8 @@ import time
 
 import torch
 
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+
 
 def device_ms(fn, reps: int) -> float:
     """Device time per call of ``fn`` in ms, without the host's launch work

@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain versions on the card (the
 rect kernels and window_gather4 on the operands of a pursuit map-64, B=16
-step; the rect kernels also on random and adversarial operands at ragged
-sizes, in every launch split; the segmented sweeps and the banded gather
+step; the rect kernels and rank_prefix (both forms) also on random and
+adversarial operands at ragged sizes, in every launch split;
+window_gather in f32 and bf16 at ragged sizes, edge and outside positions,
+bit for bit in several launch splits; the segmented sweeps and the banded gather
 on a pursuit map-250 step;
 the segmented sweeps on the random operands of tests/_torch_seg_operands.py;
 the window-gather cost ladder on tools/profile_window.py's inputs; the
@@ -157,6 +159,101 @@ def test_window_gather_matches_plain_on_card(cuda):
     kw = dict(vh=vr.height, vw=vr.width, C=C, Wp=Wp)
     got = twg.window_gather(img, pos, mask, **kw)
     assert torch.equal(got, twg.window_gather_ref(img, pos, mask, **kw))
+
+
+# rank_prefix's ragged sizes (tests/test_torch_port_rect_split.py RANK_A)
+RANK_A = (1, 2, 127, 128, 129, 153, 2000, 2048, 9375, 16384)
+
+
+def _rank_plain(tgt, rank, dmg, hp):
+    """rank_prefix_ref env by env (its pair mask is [A, A]: 1 GB of f32
+    products per env at A=16,384)."""
+    outs = [tap.rank_prefix_ref(tgt[b:b + 1], rank[b:b + 1], dmg[b:b + 1],
+                                hp[b:b + 1]) for b in range(tgt.shape[0])]
+    return tuple(torch.cat(o) for o in zip(*outs))
+
+
+@pytest.mark.parametrize("A", RANK_A)
+@pytest.mark.parametrize("B", [1, 16])
+def test_rank_prefix_matches_plain_in_every_split(cuda, A, B):
+    """rank_prefix in both forms, in every launch split (cluster of 1-8
+    CTAs, 1-8 warps each: every split rect_split can pick and more):
+    integer damages (battle's 2.0) exact, random damages within PAIR_ATOL
+    (the kernel sums range by range), hp_t exact, sentinel rows included;
+    the entry point launches its kernel once per call."""
+    for integer in (True, False):
+        tgt, rank, dmg, hp = (t.to(cuda) for t in tpr.rank_operands(
+            A, B, 3 * A + B + integer, integer))
+        want, want_hp = _rank_plain(tgt, rank, dmg, hp)
+        assert int((want != 0).sum()) > 0 or A < 20
+        for split in tpr.SPLITS:
+            P = tap._rank_prefix_launch(tgt, rank, dmg, None, split)
+            P_hp, hp_t = tap._rank_prefix_launch(tgt, rank, dmg, hp, split)
+            if integer:
+                assert torch.equal(P, want), split
+            else:
+                torch.testing.assert_close(P, want, atol=PAIR_ATOL, rtol=0)
+            assert torch.equal(P_hp, P), split
+            assert torch.equal(hp_t, want_hp), split
+        before = ops.launch_counts()
+        assert torch.equal(tap.rank_prefix(tgt, rank, dmg), tap.rank_prefix(
+            tgt, rank, dmg, hp)[0])
+        after = ops.launch_counts()
+        assert after["rank_prefix"] == before["rank_prefix"] + 1
+        assert after["rank_prefix_hp"] == before["rank_prefix_hp"] + 1
+
+
+def _bits(t):
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int16)
+
+
+@pytest.mark.parametrize("N", [1, 7, 8, 31, 32, 33, 1000])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("vh,vw", [(13, 13), (13, 12), (3, 3)])
+def test_window_gather_ragged_bit_exact_on_card(cuda, N, dtype, vh, vw):
+    """window_gather at ragged agent counts, with odd (13 x 91) and even
+    (13 x 84) windows and a 3 x 21 one, narrower than a lane's stride
+    through a warp tile (the kernel's stepping path), over a signed image
+    (masked-off values are -0.0 where it is negative), a mask with zeros,
+    positions on the image's edges and outside it: inside windows equal
+    the plain version bit for bit, sign bits included; outside windows
+    are +0.0.  In the split gather_split picks and in three others (blocks
+    of 1, 5 and 37 warp tiles, which end inside windows)."""
+    out_dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    C, B = 7, 3
+    Hp, Wp, lanes, _, _ = twg.padded_geometry(40, 40, C, vh, vw)
+    vwc = vw * C
+    g = torch.Generator(device="cpu").manual_seed(N * vw + vh)
+    img = torch.randn((B, Hp, lanes), generator=g).to(cuda)
+    ys = torch.randint(0, Hp - vh + 1, (B, N), generator=g)
+    xs = torch.randint(0, (lanes - vwc) // C + 1, (B, N), generator=g)
+    ys[:, 0], xs[:, 0] = Hp - vh, (lanes - vwc) // C  # the far edges
+    if N > 1:
+        ys[:, 1], xs[:, 1] = 0, 0
+    pos = ys * Wp + xs
+    out = torch.zeros((B, N), dtype=torch.bool)
+    if N > 2:  # below the image, right of it, negative
+        pos[0, 2] = (Hp - vh + 1) * Wp
+        pos[1, 2] = 5 * Wp + (lanes - vwc) // C + 1
+        pos[2, 2] = -1
+        out[:, 2] = True
+    mask = (torch.rand((vh, vwc), generator=g) < 0.7).float().to(cuda)
+    kw = dict(vh=vh, vw=vw, C=C, Wp=Wp, out_dtype=out_dtype)
+    inside = torch.where(out, 0, pos).to(torch.int32).to(cuda)
+    pos = pos.to(torch.int32).to(cuda)
+    out = out.to(cuda)
+    picked = twg.gather_split(B, N, vh * vwc, out_dtype, torch.cuda.
+                              get_device_properties(cuda).multi_processor_count)
+    want = _bits(twg.window_gather_ref(img, inside, mask, **kw))
+    assert bool((want == torch.iinfo(want.dtype).min).any())  # -0.0 values
+    for per in (picked, 32, 160, 1184):
+        got = _bits(twg._gather_launch(img, pos, mask, **kw, per=per))
+        assert torch.equal(got[~out], want[~out]), per
+        assert bool((got[out] == 0).all()), per
+    before = ops.launch_counts()
+    twg.window_gather(img, pos, mask, **kw)
+    name = "window_gather" + ("_bf16" if dtype == "bf16" else "")
+    assert ops.launch_counts()[name] == before[name] + 1
 
 
 def test_lockstep_loop_gpu_matches_cpu(cuda):

@@ -19,11 +19,17 @@ import torch
 from magent_tpu.ops import attack_prefix as jap
 
 from magent_tpu_torch.ops import attack_prefix as tap
-from magent_tpu_torch.tools.profile_rect import RAGGED_A
+from magent_tpu_torch.tools.profile_rect import RAGGED_A, rank_operands
 
 from test_torch_port_rect_kernels import B, CASES, _bodies, _moved_rects, _t
 
 H100_SMS = 132
+# rank_prefix's sizes: around the 128-slot query tile, pursuit's map-64
+# capacity, battle's 2000 slots, GridWorld's 2048, the map-500 world and
+# the single-world pair sweeps' largest
+RANK_A = (1, 2, 127, 128, 129, 153, 2000, 2048, 9375, 16384)
+# f32 pair sums in another order than the Pallas kernel's
+PAIR_ATOL = 1e-5
 # splits beside the one rect_split picks: one range per tile, the most
 # ranges a launch takes, and a cluster that is not a power of two
 SPLITS = [None, (1, 1), (8, 8), (3, 5)]
@@ -77,11 +83,13 @@ def test_ranges_cover_every_gated_pair_once(A, n_envs, gate):
 
 
 @pytest.mark.parametrize("A,n_envs,want", [
-    (153, 16, 1), (9375, 1, 8), (16384, 1, 8), (1000, 16, 4), (1, 1, 1)])
+    (153, 16, 1), (9375, 1, 8), (16384, 1, 8), (1000, 16, 4), (1, 1, 1),
+    (2000, 16, 1), (2048, 1, 8)])
 def test_rect_split_fills_the_card(A, n_envs, want):
     """pursuit map 64 (A=153, B=16): lone CTAs (a cluster launch costs ~1
     us there); the map-500 world and the largest single world: clusters of
-    8 (4.5 CTAs per SM)."""
+    8 (4.5 CTAs per SM); battle's rank_prefix (A=2000, B=16): lone CTAs,
+    whose 256 already fill the card; the GridWorld's (A=2048, B=1): 8."""
     cluster, _ = tap.rect_split(n_envs, A, H100_SMS)
     assert cluster == want
 
@@ -162,3 +170,59 @@ def test_combined_overlap_partials_match_jax(A, MB, gate, split):
             interpret=True)
         np.testing.assert_array_equal(got[b].numpy(), np.asarray(want))
     assert (got < tap.RECT_NONE).sum() > A // 16
+
+
+@pytest.mark.parametrize("A", RANK_A)
+@pytest.mark.parametrize("n_envs", [1, 16])
+def test_rank_prefix_ranges_cover_every_pair_once(A, n_envs):
+    """rank_prefix's ranges (no gate): in every tile they cut [0, A) into
+    cluster * warps contiguous ranges of equal slots (to one), so every
+    pair (i, j) is swept once."""
+    cluster, warps = tap.rect_split(n_envs, A, H100_SMS)
+    n = cluster * warps
+    for t in range(-(-A // tap.RECT_TILE)):
+        ranges = _ranges(t, n, A, False)
+        assert len(ranges) == n
+        held = np.zeros(A, np.int64)
+        for lo, hi in ranges:
+            held[lo:hi] += 1
+        assert (held == 1).all()
+        assert ranges[0][0] == 0 and ranges[-1][1] == A
+        assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+        assert max(hi - lo for lo, hi in ranges) - min(
+            hi - lo for lo, hi in ranges) <= 1
+
+
+@pytest.mark.parametrize("A", [97, 300])
+@pytest.mark.parametrize("damage", ["integer", "random"])
+@pytest.mark.parametrize("split", SPLITS)
+def test_combined_rank_prefix_partials_match_jax(A, damage, split):
+    """The plain partials of rank_prefix over each tile's ranges, summed
+    in range order, against rank_prefix_tpu in interpret mode (both
+    forms): exact with integer damages, within PAIR_ATOL with random ones;
+    hp_t, one direct load per query, exact."""
+    tq, rq, dq, hq = rank_operands(A, B, A + len(damage),
+                                   damage == "integer")
+    tgt, rank, dmg, hp = (t.numpy() for t in (tq, rq, dq, hq))
+    cluster, warps = _split(A, split)
+    got = torch.full((B, A), float("nan"))
+    for t in range(-(-A // tap.RECT_TILE)):
+        q = slice(t * tap.RECT_TILE, min(A, (t + 1) * tap.RECT_TILE))
+        p = torch.zeros((B, q.stop - q.start))
+        for lo, hi in _ranges(t, cluster * warps, A, False):
+            b = slice(lo, hi)
+            p = p + tap._rank_pairs(tq[:, q], rq[:, q], tq[:, b], rq[:, b],
+                                    dq[:, b])
+        got[:, q] = p
+    hp_t = torch.where((tq >= 0) & (tq < A), torch.gather(
+        hq, 1, tq.clamp(0, A - 1).long()), 0.0)
+    atol = 0.0 if damage == "integer" else PAIR_ATOL
+    for b in range(B):
+        args = [jnp.asarray(a[b]) for a in (tgt, rank, dmg)]
+        want = np.asarray(jap.rank_prefix_tpu(*args, interpret=True))
+        np.testing.assert_allclose(got[b].numpy(), want, atol=atol, rtol=0)
+        want_p, want_hp = jap.rank_prefix_tpu(*args, jnp.asarray(hp[b]),
+                                              interpret=True)
+        np.testing.assert_array_equal(np.asarray(want_p), want)
+        np.testing.assert_array_equal(hp_t[b].numpy(), np.asarray(want_hp))
+    assert (got[:, :] > 0).sum() > A // 4
