@@ -33,7 +33,8 @@ Run from the repository root:  python3 chip_smoke.py
    liveness) and ``rank_prefix`` against their plain versions on one
    step's operands, prints each rect and rank form's ms, bound, share of
    bound, launch split (cluster and warps, ``rect_split``) and launches
-   per step, times the loop (launches
+   per step, and each ``window form`` line (ms, bound, share, the span
+   split, launches per step from the counters), times the loop (launches
    per step: occupant_rect 1, rect_first_overlap 2, rank_prefix 1,
    window_gather4 2), counts host syncs and profiles it;
 6. runs the same path on one world at ``scripts/bench_pursuit.py``'s
@@ -41,7 +42,10 @@ Run from the repository root:  python3 chip_smoke.py
    checks and per-form lines at those shapes (``rank_prefix`` also with
    runs of slots sharing a target and random damage, since pursuit deals
    none) and ``window_gather4`` by a direct call on the map-500 image;
-   then 20 timed steps, whose 6.41 MB images take
+   records the step's ``window_gather_banded`` calls (slot order with the
+   observation's liveness epilogue) and its forms off the path (no
+   epilogue; a seeded minimap, self cells and liveness; band order), held
+   in phase 7; then 20 timed steps, whose 6.41 MB images take
    ``window_gather_banded`` (launches per step: occupant_rect 1,
    rect_first_overlap 2, rank_prefix 1, window_gather_banded 2); and, once
    phase 7's loop has reported its peak device memory (their plain
@@ -52,7 +56,9 @@ Run from the repository root:  python3 chip_smoke.py
    seed 5), which takes the y-segmented sweeps and the banded gather: holds
    ``occupant_rect_seg``, ``rect_first_overlap_seg`` (both gates),
    ``rank_prefix_seg`` and ``window_gather_banded`` against their plain
-   versions on one step's operands (the occupant with random hp, the rank
+   versions on one step's operands (the banded gather in its path's form
+   and the three off the path, here and at map 500, with a ``window
+   form`` line each; the occupant with random hp, the rank
    sweep with random damage, and also with runs of sorted rows sharing a
    target, since pursuit's hp and damage are constant), and the three
    sweeps' overflow branch on the first 3000 sorted rows of those forms
@@ -76,8 +82,8 @@ Run from the repository root:  python3 chip_smoke.py
    (``params_from_flax``): holds the bf16 forms of the three window kernels
    against their plain versions (``window_gather`` on the trainer's
    operands, B=16, and on their first env, B=1; ``window_gather4`` on
-   phase 5's map-64 operands,
-   ``window_gather_banded`` on phase 7's map-1000 band table), checks that
+   phase 5's map-64 forms, ``window_gather_banded`` on phase 7's map-1000
+   forms, each with its ``window form`` line), checks that
    bf16 views are the f32 views rounded (battle 2x1000, pursuit map 64),
    then runs ``dqn`` (``train_minibatch=16384``) and ``dqn_remat``
    (``sample_steps=2``): one warm call and 3 timed calls each, with
@@ -89,10 +95,11 @@ Run from the repository root:  python3 chip_smoke.py
    the CPU at a small size (f32, eps 1.0, TF32 off);
 10. runs 4 steps at battle map 64, 2x200, B=4, 6 GridWorld steps at battle
     map 40, 2x64, 4 steps of pursuit map 64, B=16 without and with 3%
-    interior walls, and 4 steps of pursuit's one world at map 662 (A =
-    16,434: the segmented sweeps and the banded gather), on the GPU and on
-    the CPU from the same keys and actions, and asserts equal states, views
-    and features;
+    interior walls, 4 steps of pursuit's one world at map 662 (A =
+    16,434: the segmented sweeps and the banded gather), and 4 steps of
+    battle map 64, 2x200, B=4 with bf16 views forced onto the banded route
+    (its minimap epilogue), on the GPU and on the CPU from the same keys
+    and actions, and asserts equal states, views and features;
 11. prints the ``kernels`` JSON line, then ``{"ok": true, "device": ...}``
     as the last line.
 
@@ -255,21 +262,21 @@ REPLACES = {
 }
 # the kernels' device symbols, as the profiler names them
 SYMBOLS = {
-    "window_gather": "window_gather_kernel<float>",
-    "window_gather_bf16": "window_gather_kernel<__nv_bfloat16>",
+    "window_gather": "window_gather_kernel<float, 0, 0>",
+    "window_gather_bf16": "window_gather_kernel<__nv_bfloat16, 0, 0>",
     "occupant": "occupant_kernel",
     "rank_prefix": "rank_prefix_kernel<false>",
     "rank_prefix_hp": "rank_prefix_kernel<true>",
     "move_resolve": "move_resolve_kernel", "move_claims": "move_claims_kernel",
     "occupant_rect": "occupant_rect_kernel",
     "rect_first_overlap": "rect_first_overlap_kernel",
-    "window_gather4": "window_gather4_kernel<float",
-    "window_gather4_bf16": "window_gather4_kernel<__nv_bfloat16",
+    "window_gather4": "window_gather_kernel<float, 1,",
+    "window_gather4_bf16": "window_gather_kernel<__nv_bfloat16, 1,",
     "occupant_rect_seg": "occupant_rect_seg_kernel",
     "rect_first_overlap_seg": "rect_first_overlap_seg_kernel",
     "rank_prefix_seg": "rank_prefix_seg_kernel",
-    "window_gather_banded": "window_gather_banded_kernel<float>",
-    "window_gather_banded_bf16": "window_gather_banded_kernel<__nv_bfloat16>",
+    "window_gather_banded": "window_gather_kernel<float, 2,",
+    "window_gather_banded_bf16": "window_gather_kernel<__nv_bfloat16, 2,",
     "window_ladder": "window_ladder_kernel",
     "window_shared_tile": "window_shared_tile_kernel",
 }
@@ -323,20 +330,39 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(per_call)
 
 
-def banded_kernel_call(args, kwargs):
-    """A call of the banded gather's kernel alone on the band table that
-    ``window_gather_banded(*args, **kwargs)`` makes."""
+def band_order_kernel_call(args, kwargs):
+    """A call of the banded kernel alone on the band table that
+    ``window_gather_banded(*args, **kwargs, unsort=False)`` makes."""
     from magent_tpu_torch.ops import window_gather as wg
 
     gfull, pos, mask = args
-    geo = {n: kwargs[n] for n in ("vh", "vw", "C", "Wp", "chunk")}
+    geo = {n: kwargs[n] for n in ("vh", "vw", "C", "Wp")}
     geo["out_dtype"] = kwargs.get("out_dtype", torch.float32)
     n_bands, _ = wg._band_geometry(gfull.shape[1], geo["vh"],
                                    kwargs["band_rows"])
     pos_pad, _, _ = wg.banded_tables(pos, Wp=geo["Wp"],
                                      band_rows=kwargs["band_rows"],
-                                     n_bands=n_bands, chunk=geo["chunk"])
+                                     n_bands=n_bands, chunk=kwargs["chunk"])
     return lambda: wg._banded_launch(gfull, pos_pad, mask, **geo)
+
+
+def window_split(name, args, kwargs):
+    """(vectors per span, spans) of the window kernel's launch for one call
+    of entry point ``name`` (``gather_split``; the band-order form over its
+    band table)."""
+    from magent_tpu_torch.ops import window_gather as wg
+
+    gfull, pos, _ = args
+    B, N = pos.shape
+    vh, E = kwargs["vh"], kwargs["vh"] * kwargs["vw"] * kwargs["C"]
+    if not kwargs.get("unsort", True):
+        n_bands, _ = wg._band_geometry(gfull.shape[1], vh,
+                                       kwargs["band_rows"])
+        N = wg._ceil_to(N, kwargs["chunk"]) + n_bands * kwargs["chunk"]
+    out_dtype = kwargs.get("out_dtype", torch.float32)
+    per = wg.gather_split(B, N, E, out_dtype, torch.cuda.get_device_properties(
+        gfull.device).multi_processor_count)
+    return per, len(wg.gather_spans(B, N, E, out_dtype, per))
 
 
 def nbytes(tensors) -> int:
@@ -498,6 +524,12 @@ def call_stats(name, args, kwargs, f32_rate, int32_rate, form,
             if not e <= tol:
                 raise AssertionError("%s (%s): max |kernel - plain| = %g > %g"
                                      % (name, form, e, tol))
+            bits = torch.int32 if g.dtype == torch.float32 else torch.int16
+            if name in WINDOW_KERNELS and not torch.equal(g.view(bits),
+                                                          w.view(bits)):
+                raise AssertionError("%s (%s): the windows' bits differ from "
+                                     "the plain version's (sign of zero)"
+                                     % (name, form))
             err = max(err, e)
         elif not torch.equal(g, w):
             raise AssertionError("%s (%s): integer outputs differ from the "
@@ -507,11 +539,13 @@ def call_stats(name, args, kwargs, f32_rate, int32_rate, form,
     if ops.launch_counts()[name] != before + 1:
         raise AssertionError("%s: a call did not launch its kernel once"
                              % name)
-    if name.startswith("window_gather_banded"):
-        # the kernel alone on the call's band table; the entry point's ~53
-        # launches per call (the band tables) would overrun the device's
-        # queue of pending launches behind device_ms's spin at 50 calls
-        ms = device_ms(banded_kernel_call(args, kwargs), 50)
+    if name.startswith("window_gather_banded") and not kwargs.get("unsort",
+                                                                  True):
+        # the band-order form: the kernel alone on the call's band table;
+        # the entry point's ~53 launches per call (the band tables) would
+        # overrun the device's queue of pending launches behind
+        # device_ms's spin at 50 calls
+        ms = device_ms(band_order_kernel_call(args, kwargs), 50)
         call_ms = device_ms(lambda: kernel(*args, **kwargs), 10)
         call_what = "the entry point's device ops"
     else:
@@ -526,7 +560,8 @@ def call_stats(name, args, kwargs, f32_rate, int32_rate, form,
         io_bytes = window_bytes(name, args, kwargs, got)
         # f32 operations per output element: the mask multiply, the two
         # minimap adds, the liveness multiply
-        n_f32 = 1 + (2 if kwargs.get("mm_img") is not None else 0) + (
+        minimap = any(kwargs.get(n) is not None for n in ("mm_img", "mm"))
+        n_f32 = 1 + (2 if minimap else 0) + (
             1 if kwargs.get("act") is not None else 0)
         ops_ms = got[0].numel() * n_f32 / f32_rate * 1e3
     else:
@@ -537,7 +572,9 @@ def call_stats(name, args, kwargs, f32_rate, int32_rate, form,
     stats = dict(form=form, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                  bound_ms=max(bytes_ms, ops_ms),
                  bound_by="bytes" if bytes_ms >= ops_ms else "operations")
-    stats["call_ms"] = call_ms
+    stats["call_ms"], stats["call_what"] = call_ms, call_what
+    if name in WINDOW_KERNELS:
+        stats["per"], stats["spans"] = window_split(name, args, kwargs)
     print("kernel %-18s %-34s max_abs_err=%g (%d non-zero floats)  kernel "
           "%.4f ms device (%.4f ms %s)  plain %.4f ms device  bound %.6f ms "
           "(%s; %.4f MB -> %.6f ms, ops -> %.6f ms)  shapes %s" % (
@@ -1052,13 +1089,16 @@ def record_step(venv, state, key, per_call):
     """One lockstep step with the wrappers named in ``per_call`` recording
     their operands; checks that the step calls each as often as
     ``per_call`` says -> ({name: [(args, kwargs, form)]}, carry [state,
-    key])."""
+    key], the step's launches by kernel from the launch counters)."""
+    from magent_tpu_torch import ops
     from magent_tpu_torch.ops import attack_prefix as ap
     from magent_tpu_torch.ops import window_gather as wg
 
     carry = [state, key]
+    before = ops.launch_counts()
     rec = record_operands(lambda: lockstep_step(venv, carry), [
         (wg if name.startswith("window") else ap, name) for name in per_call])
+    launched = {n: c - before[n] for n, c in ops.launch_counts().items()}
     shape = "map %d, A=%d, B=%d" % (venv.spec.width, venv.spec.n_agents_cap,
                                     venv.n_envs)
 
@@ -1074,10 +1114,10 @@ def record_step(venv, state, key, per_call):
                      for i, (a, k) in enumerate(rec[name])]
              for name in per_call}
     got = {name: len(c) for name, c in calls.items()}
-    if got != per_call:
-        raise AssertionError("a pursuit step made the calls %s, expected %s"
-                             % (got, per_call))
-    return calls, carry
+    if got != per_call or any(launched[n] != c for n, c in per_call.items()):
+        raise AssertionError("a pursuit step made the calls %s and launches "
+                             "%s, expected %s" % (got, launched, per_call))
+    return calls, carry, launched
 
 
 def off_path_forms(calls):
@@ -1109,6 +1149,41 @@ def off_path_forms(calls):
     return extra
 
 
+# the banded gather's forms off the path, as tools/profile_gather.py names
+# them, with their labels here
+BANDED_OFF_PATH = {"no epilogue": "no epilogue",
+                   "minimap": "minimap + self mark + liveness",
+                   "band order": "band order (unsort=False)"}
+
+
+def banded_off_path(calls):
+    """The banded gather's forms the step does not launch, on its operands
+    (``tools/profile_gather.py`` ``banded_forms``): slot order without an
+    epilogue and with a seeded pooled minimap, self cells and liveness,
+    and band order."""
+    from magent_tpu_torch.tools import profile_gather as pg
+
+    forms = pg.banded_forms([(a, k) for a, k, *_ in calls])
+    return [(list(a), k, call[2].replace("liveness", label))
+            for name, label in BANDED_OFF_PATH.items()
+            for (a, k), call in zip(forms[name], calls)]
+
+
+def print_window_forms(name, per_step, stats):
+    """One ``window form`` line per form of window kernel ``name``:
+    ``stats`` its call_stats dicts, ``per_step`` the entry point's
+    launches per step on the path each form's operands come from (0 for
+    a form off the path); device ms, the call's time, bound, share of
+    bound and the launch split."""
+    for n, st in zip(per_step, stats):
+        print("window form %s, %-58s %.4f ms (%.4f ms %s), bound %.6f ms "
+              "(%s), share of bound %.3f; spans of %d vectors (%d spans); "
+              "%d launch(es) per step" % (
+                  name, st["form"], st["ms"], st["call_ms"], st["call_what"],
+                  st["bound_ms"], st["bound_by"], st["bound_ms"] / st["ms"],
+                  st["per"], st["spans"], n), flush=True)
+
+
 def window_gather4_calls(banded_calls):
     """``window_gather4`` on the images and positions of the banded
     gather's calls (a direct call: the path observes these images with the
@@ -1118,7 +1193,7 @@ def window_gather4_calls(banded_calls):
         geo = {n: k[n] for n in ("vh", "vw", "C", "Wp")}
         out.append(([img, pos * 1024, mask],
                     dict(geo, act=torch.ones_like(pos)),
-                    form + ", liveness, direct call"))
+                    form + ", direct call"))  # the banded form's liveness
     return out
 
 
@@ -1231,13 +1306,14 @@ def run_rank_forms(calls, rank_row, f32_rate, int32_rate):
 def run_pursuit_paths(f32_rate, int32_rate, device_name, rank_row):
     """Phases 5 and 6: pursuit's gridless rect path at map 64, B=16 and on
     one world at map 500; returns the rect kernels' rows, the map-500
-    banded gather calls, the map-500 loop's host syncs per step and the
-    map-64 ``window_gather4`` forms; ``rank_prefix``'s forms join
+    banded gather's forms (the step's calls, then the forms off the path)
+    with their launches per step, the map-500 loop's host syncs per step
+    and the map-64 ``window_gather4`` forms; ``rank_prefix``'s forms join
     ``rank_row``."""
     from magent_tpu_torch import random as rnd
 
     venv = pursuit_env(P_MAP, P_ENVS, P_SEED)
-    calls, carry = record_step(venv, venv.reset(rnd.PRNGKey(0)),
+    calls, carry, launched = record_step(venv, venv.reset(rnd.PRNGKey(0)),
                                rnd.PRNGKey(1), {"occupant_rect": 1,
                                                 "rect_first_overlap": 2,
                                                 "rank_prefix": 1,
@@ -1249,6 +1325,10 @@ def run_pursuit_paths(f32_rate, int32_rate, device_name, rank_row):
         {name: [(a, k, 1) for a, k, _ in calls[name]] +
          [(a, k, 0) for a, k, _ in extra[name]] for name in RECT_KERNELS},
         {name: rows[name]["per_call"] for name in RECT_KERNELS})
+    print_window_forms(
+        "window_gather4", [launched["window_gather4"]] * len(
+            calls["window_gather4"]) + [0] * len(extra["window_gather4"]),
+        rows["window_gather4"]["per_call"])
     run_rank_forms(calls, rank_row, f32_rate, int32_rate)
     # window_gather4's map-64 forms, for phase 9's bf16 store
     g4_forms = calls["window_gather4"] + extra["window_gather4"]
@@ -1263,12 +1343,15 @@ def run_pursuit_paths(f32_rate, int32_rate, device_name, rank_row):
     torch.cuda.empty_cache()
 
     big = pursuit_env(P_BIG_MAP, 1, P_BIG_SEED)
-    calls, carry = record_step(big, big.reset(rnd.PRNGKey(2)),
+    calls, carry, launched = record_step(big, big.reset(rnd.PRNGKey(2)),
                                rnd.PRNGKey(3), {"occupant_rect": 1,
                                                 "rect_first_overlap": 2,
                                                 "rank_prefix": 1,
                                                 "window_gather_banded": 2})
     banded = calls.pop("window_gather_banded")
+    off = banded_off_path(banded)
+    banded_500 = (banded + off, [launched["window_gather_banded"]] * len(
+        banded) + [0] * len(off))
     calls["window_gather4"] = window_gather4_calls(banded)
     extra = off_path_forms(calls)
     big_stats = {name: [call_stats(name, a, k, f32_rate, int32_rate, form)
@@ -1281,8 +1364,11 @@ def run_pursuit_paths(f32_rate, int32_rate, device_name, rank_row):
         {name: [(a, k, 1) for a, k, _ in calls[name]] +
          [(a, k, 0) for a, k, _ in extra[name]] for name in RECT_KERNELS},
         big_stats)
+    print_window_forms("window_gather4",
+                       [0] * len(big_stats["window_gather4"]),
+                       big_stats["window_gather4"])
     run_rank_forms(calls, rank_row, f32_rate, int32_rate)
-    del calls, extra
+    del calls, extra, banded, off
     torch.cuda.empty_cache()
     _, state, key, ms_per_step, syncs = run_lockstep(
         "pursuit one world, map %d" % P_BIG_MAP, big, *carry,
@@ -1290,7 +1376,7 @@ def run_pursuit_paths(f32_rate, int32_rate, device_name, rank_row):
     profile_lockstep("pursuit one world", big, state, key, ms_per_step)
     del big, state, carry
     torch.cuda.empty_cache()
-    return rows, banded, syncs, g4_forms
+    return rows, banded_500, syncs, g4_forms
 
 
 def valued_seg_forms(calls):
@@ -1345,8 +1431,10 @@ def seg_overflow_forms(name, forms):
 
 def run_seg_path(f32_rate, int32_rate, device_name, banded_500, syncs_500):
     """Phase 7: pursuit on one world at map 1000 through the segmented
-    sweeps and the banded gather; returns the four kernels' rows and the
-    step's banded gather calls."""
+    sweeps and the banded gather; ``banded_500`` are phase 6's banded
+    forms and their launches per step; returns the four kernels' rows and
+    the banded gather's map-1000 forms: the step's calls and the forms off
+    the path."""
     from magent_tpu_torch import random as rnd
     from magent_tpu_torch.ops import attack_prefix as ap
 
@@ -1355,17 +1443,23 @@ def run_seg_path(f32_rate, int32_rate, device_name, banded_500, syncs_500):
             "window_gather_banded"] * 2:
         raise AssertionError("map %d: route %s, observation routes %s" % (
             P_SEG_MAP, big._step.route, [o.route for o in big._observe]))
-    calls, carry = record_step(big, big.reset(rnd.PRNGKey(4)),
-                               rnd.PRNGKey(5), SEG_PER_STEP)
+    calls, carry, launched = record_step(big, big.reset(rnd.PRNGKey(4)),
+                                         rnd.PRNGKey(5), SEG_PER_STEP)
     extra = valued_seg_forms(calls)
     for name in SEG_SWEEPS:
         forms = extra.get(name, [])
         extra[name] = forms + seg_overflow_forms(name, calls[name] + forms)
-    extra["window_gather_banded"] = banded_500
+    banded = calls["window_gather_banded"]
+    off = banded_off_path(banded)
+    extra["window_gather_banded"] = off + banded_500[0]
     rows = {name: kernel_row(name, calls[name], f32_rate, int32_rate,
                              extra[name]) for name in SEG_PER_STEP}
-    banded_1000 = calls["window_gather_banded"]
-    del calls, extra
+    print_window_forms(
+        "window_gather_banded", [launched["window_gather_banded"]] * len(
+            banded) + [0] * len(off) + banded_500[1],
+        rows["window_gather_banded"]["per_call"])
+    banded_1000 = (banded, off)
+    del calls, extra, banded, off
     torch.cuda.empty_cache()
 
     # every plan of the timed steps, its overflow flag kept on the device
@@ -1600,7 +1694,9 @@ def train_split_ms(step, nets, tnets, opts, state, key, n=3):
 
 def run_trainers(f32_rate, int32_rate, device_name, g4_forms, banded_1000):
     """Phase 9: the fused DQN trainers at scripts/bench_train.py's geometry
-    with bf16 views and trunk; returns the bf16 window kernels' rows."""
+    with bf16 views and trunk; returns the bf16 window kernels' rows
+    (``window_gather4`` on phase 5's forms, ``window_gather_banded`` on
+    phase 7's: the step's calls, the forms off the path)."""
     from magent_tpu_torch import ops
     from magent_tpu_torch import random as rnd
     from magent_tpu_torch.builtin.config import battle
@@ -1643,8 +1739,12 @@ def run_trainers(f32_rate, int32_rate, device_name, g4_forms, banded_1000):
         "window_gather4_bf16", as_bf16(g4_forms[:2]), f32_rate, int32_rate,
         as_bf16(g4_forms[2:]))
     rows["window_gather_banded_bf16"] = kernel_row(
-        "window_gather_banded_bf16", as_bf16(banded_1000), f32_rate,
-        int32_rate)
+        "window_gather_banded_bf16", as_bf16(banded_1000[0]), f32_rate,
+        int32_rate, as_bf16(banded_1000[1]))
+    # bf16 views are on no path of pursuit, which trains in f32
+    for name in ("window_gather4_bf16", "window_gather_banded_bf16"):
+        print_window_forms(name, [0] * len(rows[name]["per_call"]),
+                           rows[name]["per_call"])
     torch.cuda.empty_cache()
 
     check_bf16_views("battle 2x1000, B=16", venv, state)
@@ -1843,6 +1943,30 @@ def check_trainers_gpu_match_cpu():
               flush=True)
 
 
+def banded_battle_env(device):
+    """Battle at the GPU-vs-CPU size (map SMALL_MAP, 2 x SMALL_N, B =
+    SMALL_ENVS) with bf16 views, forced onto the banded route (an image
+    budget of 1 byte), minimap on: the banded kernel's minimap epilogue and
+    double rounding."""
+    from magent_tpu_torch.builtin.config import battle
+    from magent_tpu_torch.core import observe
+    from magent_tpu_torch.parallel import VecGridWorld
+
+    budget = observe.VMEM_IMAGE_BUDGET
+    observe.VMEM_IMAGE_BUDGET = 1
+    try:
+        venv = VecGridWorld(battle.get_config(SMALL_MAP), [SMALL_N, SMALL_N],
+                            SMALL_ENVS, obs_dtype=torch.bfloat16,
+                            device=device)
+    finally:
+        observe.VMEM_IMAGE_BUDGET = budget
+    if not venv.spec.minimap_mode or [o.route for o in venv._observe] != [
+            "window_gather_banded"] * 2:
+        raise AssertionError("battle map %d did not take the banded route "
+                             "with its minimap" % SMALL_MAP)
+    return venv
+
+
 def seg_world_env(device):
     """The smallest pursuit map whose one world takes the segmented sweeps
     (and the banded gather), for the GPU-vs-CPU run."""
@@ -1940,6 +2064,9 @@ def main() -> int:
     check_gpu_matches_cpu(
         "pursuit one world, map %d (segmented sweeps, banded gather)"
         % P_SEG_SMALL_MAP, seg_world_env, P_SMALL_STEPS, 0.0)
+    check_gpu_matches_cpu(
+        "battle map %d forced onto the banded route, bf16 views, minimap"
+        % SMALL_MAP, banded_battle_env, SMALL_STEPS, 0.0)
 
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {

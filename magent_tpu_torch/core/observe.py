@@ -17,13 +17,12 @@ GridWorld::get_observation, GridWorld.cc:292-401) with render-then-slice:
    vector (GridWorld.cc:327-400) and zero dead slots.
 
 Images above ``VMEM_IMAGE_BUDGET`` (pursuit from map 500) take
-``window_gather_banded`` and step 4 in band order; below it, windows up to
-13 rows and 65 lanes (forest's and pursuit's) take ``window_gather4``,
-which fuses step 4's minimap adds, self mark and liveness factor into the
-copy, and larger ones (battle's 13 x 91) take ``window_gather`` and a
-separate epilogue.  Multi-cell bodies render every
-body cell, and their minimap pools by a scatter.  Not ported: turn mode and
-``can_absorb`` observers.
+``window_gather_banded``; below it, windows up to 13 rows and 65 lanes
+(forest's and pursuit's) take ``window_gather4``.  Both fuse step 4's
+minimap adds, self mark and liveness factor into the copy; larger windows
+(battle's 13 x 91) take ``window_gather`` and a separate epilogue.
+Multi-cell bodies render every body cell, and their minimap pools by a
+scatter.  Not ported: turn mode and ``can_absorb`` observers.
 """
 
 from __future__ import annotations
@@ -186,20 +185,6 @@ def window_layout(spec: speclib.GameSpec, group: int, geometry, device):
     return dict(mask=mask, pos_fn=pos_fn)
 
 
-def _epilogue(view, act, mm=None, self_cell=None, mm_maskc=None):
-    """``((view + mm) + self mark * mm_maskc) * act`` over [B, n, vh, vw, C]
-    windows, in the JAX package's order (observe.py:394-400); without
-    ``mm``, the liveness factor alone.  bf16 windows promote to f32 where
-    an f32 operand joins them, as in the JAX package."""
-    if mm is not None:
-        vh, vw = view.shape[2:4]
-        self_mark = (self_cell[..., None] == torch.arange(
-            vh * vw, device=view.device)).to(torch.float32)
-        view = (view + mm[:, None]
-                + self_mark.reshape(view.shape[:-1])[..., None] * mm_maskc)
-    return view * act[:, :, None, None, None]
-
-
 def make_observe(spec: speclib.GameSpec, group: int,
                  obs_dtype=torch.float32):
     """Build ``observe(state, grids=None) -> (view [B, cap, vh, vw, C],
@@ -218,9 +203,10 @@ def make_observe(spec: speclib.GameSpec, group: int,
     each path runs the kernel the reference runs there; the image budget
     and the window shape limit are the TPU's, not limits of the card.  An
     image of more than ``VMEM_IMAGE_BUDGET`` bytes per env whose band
-    fits takes ``window_gather_banded`` with the epilogue (minimap, self
-    mark, liveness) applied in band order and one row gather back to slot
-    order (observe.py:244-258, :370-404): pursuit at map 500 and 1000.
+    fits takes ``window_gather_banded``, which writes each window to its
+    slot with the epilogue (minimap, self mark, liveness) applied per
+    value, where the JAX package applies it in band order and gathers the
+    rows back (observe.py:244-258, :370-404): pursuit at map 500 and 1000.
     Below the budget, windows with ``vh <= 13`` and ``vw * C <= 65`` take
     ``window_gather4`` with the liveness factor, and with the minimap and
     self mark when ``minimap_mode`` is on (the replica route,
@@ -355,32 +341,21 @@ def make_observe(spec: speclib.GameSpec, group: int,
                 Wp=Wp, out_dtype=obs_dtype, **mm_ops).reshape(
                 B, gs.cap, vh, vw, C)
         elif banded:
-            # the epilogue runs in band order, its per-agent operands
-            # scattered there; one row gather restores slot order
-            out, inv = wg.window_gather_banded(
+            # the windows in slot order with the epilogue applied per value
+            # (rounded at the kernel's store and again after the epilogue,
+            # as the JAX route rounds)
+            band_epi = dict(epi, self_cell=self_cell.contiguous(),
+                            mm=mm.contiguous()) if epi else {}
+            view = wg.window_gather_banded(
                 img, pos, layout["mask"], vh=vh, vw=vw, C=C, Wp=Wp,
-                chunk=band_chunk, band_rows=_BAND_ROWS, unsort=False,
-                out_dtype=obs_dtype)
-            n_pad = out.shape[1]
-            inv = inv.long()
-
-            def to_band(t):
-                return torch.zeros((B, n_pad), dtype=t.dtype,
-                                   device=device).scatter_(1, inv, t)
-
-            if epi:
-                epi["self_cell"] = to_band(self_cell)
-            out = _epilogue(out.reshape(B, n_pad, vh, vw, C),
-                            to_band(act.to(torch.float32)), **epi).to(
-                obs_dtype)
-            view = torch.gather(out.reshape(B, n_pad, -1), 1, inv[
-                ..., None].expand(B, gs.cap, vh * vw * C)).reshape(
+                chunk=band_chunk, band_rows=_BAND_ROWS, out_dtype=obs_dtype,
+                act=act.to(torch.int32).contiguous(), **band_epi).reshape(
                 B, gs.cap, vh, vw, C)
         else:
             view = wg.window_gather(img, pos, layout["mask"], vh=vh, vw=vw,
                                     C=C, Wp=Wp, out_dtype=obs_dtype).reshape(
                 B, gs.cap, vh, vw, C)
-            view = _epilogue(view, act, **epi).to(obs_dtype)
+            view = wg.window_epilogue(view, act, **epi).to(obs_dtype)
 
         # feature vector (GridWorld.cc:386-396)
         feats = []

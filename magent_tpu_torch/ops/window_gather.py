@@ -13,14 +13,17 @@ unpacked positions ``pos = tl_y * Wp + tl_x``.  :func:`window_gather4` (and
 its plain version :func:`window_gather4_ref`) adds the fused minimap,
 self-mark and liveness epilogue and takes packed positions.
 :func:`window_gather_banded` (plain version
-:func:`window_gather_banded_ref`) gathers the windows in band order, for
-images past the JAX package's VMEM budget.
+:func:`window_gather_banded_ref`) serves images past the JAX package's VMEM
+budget: window rows past the image read as zeros, the observation's
+epilogue may come along, and its ``unsort=False`` form returns the windows
+in the JAX package's band order.  One CUDA kernel template serves all three
+(:func:`gather_split`).
 
 Every entry point takes ``out_dtype`` (``torch.float32``, the default, or
 ``torch.bfloat16``), the JAX kernels' ``out_dtype``: the windows are computed
 in f32 and rounded to ``out_dtype`` (to nearest even) at the store, and the
-plain versions compute in f32 and call ``.to(out_dtype)`` last.  Each kernel
-and dtype has a launch counter of its own (``window_gather`` and
+plain versions compute in f32 and call ``.to(out_dtype)`` last.  Each entry
+point and dtype has a launch counter of its own (``window_gather`` and
 ``window_gather_bf16``, ...).
 """
 
@@ -30,21 +33,23 @@ import torch
 
 from . import _build
 
-# the kernels keep the mask (and window_gather4's minimap operands) in
-# default (static-limit) shared memory
+# the window kernel's per-value table (offset, mask and, with the minimap,
+# mm_mask and minimap cell: up to 16 bytes per value) of a window of at
+# most this many f32 bytes stays within a block's shared memory
 _MAX_MASK_BYTES = 48 * 1024
 # window_gather4's packed positions tl * 1024 + self_cell fit int32 for
 # every top-left cell tl of an image of at most this many cells
 PACKED_CELLS = 1 << 21
-# agents per block of window_gather_banded's kernel (its position table
-# sits in static shared memory)
+# the band table's chunk: each band's run is padded to whole chunks, so a
+# table holds up to n_bands * chunk dummy rows
 _MAX_BAND_CHUNK = 128
 
 
 # the windows' dtypes: the kernels compute in f32 and store in either
 OUT_DTYPES = (torch.float32, torch.bfloat16)
 
-# window_gather's launch split (csrc/window_gather.cu window_gather_kernel):
+# the window kernels' launch split (csrc/window_gather.cu
+# window_gather_kernel, every form):
 # the call's B*N*vh*vwc output values in 16-byte vectors, cut into spans of
 # ``per`` vectors (whole warp tiles of GATHER_TILE), one block of 256
 # threads per span.  ``per`` gives every SM GATHER_SPANS_PER_SM spans,
@@ -54,7 +59,7 @@ GATHER_TILE = 32
 GATHER_SPANS_PER_SM = 4
 GATHER_MIN_VECS = 256
 GATHER_MAX_VECS = 1024
-# window_gather's image offsets are int32
+# the window kernels' image offsets are int32
 _MAX_IMAGE = 2**31 - 1
 
 
@@ -174,16 +179,8 @@ def _gather_launch(gfull, pos, mask, *, vh, vw, C, Wp, out_dtype, per):
     N = pos.shape[1]
     vwc = vw * C
     device = gfull.device
-    _build.check(gfull, "window_gather image", torch.float32, (B, Hp, lanes),
-                 device)
+    _check_window("window_gather", gfull, mask, vh, vwc)
     _build.check(pos, "window_gather pos", torch.int32, (B, N), device)
-    _build.check(mask, "window_gather mask", torch.float32, (vh, vwc), device)
-    if vh * vwc * 4 > _MAX_MASK_BYTES:
-        raise ValueError("window %dx%d too large for the kernel's mask"
-                         % (vh, vwc))
-    if B * Hp * lanes > _MAX_IMAGE:
-        raise ValueError("window_gather: an image of %d values has offsets "
-                         "past int32" % (B * Hp * lanes))
     out = torch.empty((B, N, vh, vwc), dtype=out_dtype, device=device)
     if N:
         _build.launch(_launcher("window_gather", out_dtype), device,
@@ -222,7 +219,8 @@ def window_gather4(gfull, pos, mask, mm_img=None, mm_mask=None, act=None, *,
     ``mm_mask`` [vh, vw*C] f32 (the minimap channels, which also get the
     +1 self mark) -> [B, N, vh, vw*C] in ``out_dtype`` (f32 or bf16,
     rounded once, after the epilogue).  The minimap comes only with
-    ``act``, as the observation's one caller passes it.
+    ``act``, as the observation's one caller passes it.  A window that
+    would leave the image is zeros before the epilogue.
 
     Replaces ``magent_tpu/ops/window_gather.py:187`` ``window_gather4`` (the
     Pallas replica kernel, ``pallas_call`` at ``:334`` with the epilogue and
@@ -231,11 +229,13 @@ def window_gather4(gfull, pos, mask, mm_img=None, mm_mask=None, act=None, *,
     Unlike the TPU kernel, which applies ``act``
     only together with the minimap, the liveness factor stands alone here.
     Bound on the card: bytes, as :func:`window_gather`.  Design:
-    ``csrc/window_gather.cu`` ``window_gather4_kernel`` — the warp-per-row
-    copy of :func:`window_gather` with the epilogue as template flags,
-    ``mm_img[b]`` and ``mm_mask`` beside the mask in shared memory, each
+    ``csrc/window_gather.cu`` ``window_gather_kernel`` in its packed form —
+    :func:`window_gather`'s flat spans (:func:`gather_split`), with each
+    agent's self cell, liveness and env minimap offset in shared tables
+    beside its image offset (a span may cross envs), ``mm_mask`` and the
+    minimap cell beside the mask, and the epilogue applied per value, each
     operation rounded on its own, so the result equals the plain version
-    exactly."""
+    bit for bit."""
     _check_out_dtype("window_gather4", out_dtype)
     if (mm_img is None) != (mm_mask is None):
         raise ValueError("window_gather4: mm_img and mm_mask come together")
@@ -253,14 +253,40 @@ def window_gather4(gfull, pos, mask, mm_img=None, mm_mask=None, act=None, *,
         return window_gather4_ref(gfull, pos, mask, mm_img, mm_mask, act,
                                   vh=vh, vw=vw, C=C, Wp=Wp,
                                   out_dtype=out_dtype)
+    B, N = pos.shape
+    per = gather_split(B, N, vh * vw * C, out_dtype,
+                       _build.sm_count(gfull.device))
+    return _gather4_launch(gfull, pos, mask, mm_img, mm_mask, act, vh=vh,
+                           vw=vw, C=C, Wp=Wp, out_dtype=out_dtype, per=per)
+
+
+def _check_window(name, gfull, mask, vh, vwc, extra_rows=0):
+    """The checks every window kernel shares: the image f32 [B, Hp,
+    lanes] with int32 offsets (``extra_rows`` more rows of them), the mask
+    [vh, vwc] f32 within the kernel's table."""
+    B, Hp, lanes = gfull.shape
+    device = gfull.device
+    _build.check(gfull, name + " image", torch.float32, (B, Hp, lanes),
+                 device)
+    _build.check(mask, name + " mask", torch.float32, (vh, vwc), device)
+    if vh * vwc * 4 > _MAX_MASK_BYTES:
+        raise ValueError("window %dx%d too large for the kernel's tables"
+                         % (vh, vwc))
+    if (B * Hp + extra_rows) * lanes > _MAX_IMAGE:
+        raise ValueError("%s: an image of %d values has offsets past int32"
+                         % (name, B * Hp * lanes))
+
+
+def _gather4_launch(gfull, pos, mask, mm_img, mm_mask, act, *, vh, vw, C, Wp,
+                    out_dtype, per):
+    """The packed form of the window kernel on CUDA operands in spans of
+    ``per`` vectors (:func:`gather_split`; a multiple of GATHER_TILE)."""
     B, Hp, lanes = gfull.shape
     N = pos.shape[1]
     vwc = vw * C
     device = gfull.device
-    _build.check(gfull, "window_gather4 image", torch.float32,
-                 (B, Hp, lanes), device)
+    _check_window("window_gather4", gfull, mask, vh, vwc)
     _build.check(pos, "window_gather4 pos", torch.int32, (B, N), device)
-    _build.check(mask, "window_gather4 mask", torch.float32, (vh, vwc), device)
     if mm_img is not None:
         _build.check(mm_img, "window_gather4 mm_img", torch.float32,
                      (B, vh, vwc), device)
@@ -268,20 +294,35 @@ def window_gather4(gfull, pos, mask, mm_img=None, mm_mask=None, act=None, *,
                      (vh, vwc), device)
     if act is not None:
         _build.check(act, "window_gather4 act", torch.int32, (B, N), device)
-    if (3 if mm_img is not None else 1) * vh * vwc * 4 > _MAX_MASK_BYTES:
-        raise ValueError("window %dx%d too large for the kernel's shared "
-                         "memory" % (vh, vwc))
-    if B > 65535:
-        raise ValueError("window_gather4: at most 65535 envs per launch")
     out = torch.empty((B, N, vh, vwc), dtype=out_dtype, device=device)
     if N:
-        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
         _build.launch(_launcher("window_gather4", out_dtype), device,
-                      gfull.data_ptr(),
-                      pos.data_ptr(), mask.data_ptr(), ptr(mm_img),
-                      ptr(mm_mask), ptr(act), B, N, Hp, lanes, Wp, C, vh, vw,
-                      out.data_ptr())
+                      gfull.data_ptr(), pos.data_ptr(), mask.data_ptr(),
+                      _ptr(mm_img), _ptr(mm_mask), _ptr(act), B, N, Hp,
+                      lanes, Wp, C, vh, vw, per, out.data_ptr())
     return out
+
+
+def _ptr(t):
+    """A kernel's optional operand: its data pointer, or NULL."""
+    return None if t is None else t.data_ptr()
+
+
+def window_epilogue(view, act, mm=None, self_cell=None, mm_maskc=None):
+    """The observation's epilogue: ``((view + mm) + self mark * mm_maskc) *
+    act`` over [B, n, vh, vw, C] windows, in the JAX package's order
+    (magent_tpu/core/observe.py:394-400); without ``mm``, the liveness
+    factor alone.  ``mm`` [B, vh, vw, C] pooled minimaps, ``self_cell``
+    [B, n] each agent's minimap cell, ``mm_maskc`` [C] the minimap
+    channels.  bf16 windows promote to f32 where an f32 operand joins them,
+    as in the JAX package."""
+    if mm is not None:
+        vh, vw = view.shape[2:4]
+        self_mark = (self_cell[..., None] == torch.arange(
+            vh * vw, device=view.device)).to(torch.float32)
+        view = (view + mm[:, None]
+                + self_mark.reshape(view.shape[:-1])[..., None] * mm_maskc)
+    return view * act[:, :, None, None, None]
 
 
 # ---------------------------------------------------------------- banded
@@ -341,13 +382,35 @@ def _unsort(out, inv):
         B, N, vh * vwc)).reshape(B, N, vh, vwc)
 
 
+def _check_banded(chunk, unsort, act, mm, self_cell, mm_maskc):
+    if not 0 < chunk <= _MAX_BAND_CHUNK:
+        raise ValueError("window_gather_banded: chunk must be in 1..%d, got "
+                         "%d" % (_MAX_BAND_CHUNK, chunk))
+    minimap = [t is not None for t in (mm, self_cell, mm_maskc)]
+    if any(minimap) and not all(minimap):
+        raise ValueError("window_gather_banded: mm, self_cell and mm_maskc "
+                         "come together")
+    if mm is not None and act is None:
+        raise ValueError("window_gather_banded: the minimap epilogue comes "
+                         "with act")
+    if act is not None and not unsort:
+        raise ValueError("window_gather_banded: the epilogue applies to the "
+                         "windows in slot order (unsort=True)")
+
+
 def window_gather_banded_ref(gfull, pos, mask, *, vh, vw, C, Wp, chunk=40,
                              band_rows=32, unsort=True,
-                             out_dtype=torch.float32):
+                             out_dtype=torch.float32, act=None, mm=None,
+                             self_cell=None, mm_maskc=None):
     """Plain version: :func:`banded_tables`, then :func:`window_gather_ref`
     over the band-ordered table on the image padded with zero rows below,
-    as the JAX kernel reads its bands; ``unsort`` undoes the band order."""
+    as the JAX kernel reads its bands, rounded to ``out_dtype``;
+    ``unsort`` undoes the band order; with ``act``, then
+    :func:`window_epilogue` in f32 (liveness as f32) and a second rounding
+    to ``out_dtype``, as the JAX package's observation does after its
+    kernel (magent_tpu/core/observe.py:378-401)."""
     _check_out_dtype("window_gather_banded_ref", out_dtype)
+    _check_banded(chunk, unsort, act, mm, self_cell, mm_maskc)
     B, Hp, lanes = gfull.shape
     n_bands, rows = _band_geometry(Hp, vh, band_rows)
     pos_pad, _, inv = banded_tables(pos, Wp=Wp, band_rows=band_rows,
@@ -356,75 +419,106 @@ def window_gather_banded_ref(gfull, pos, mask, *, vh, vw, C, Wp, chunk=40,
         gfull, (0, 0, 0, n_bands * band_rows + rows - Hp))
     out = window_gather_ref(gpad, pos_pad, mask, vh=vh, vw=vw, C=C, Wp=Wp,
                             out_dtype=out_dtype)
-    return _unsort(out, inv) if unsort else (out, inv)
+    if not unsort:
+        return out, inv
+    view = _unsort(out, inv)
+    if act is None:
+        return view
+    N = pos.shape[1]
+    return window_epilogue(view.reshape(B, N, vh, vw, C),
+                           act.to(torch.float32), mm, self_cell,
+                           mm_maskc).to(out_dtype).reshape(B, N, vh, vw * C)
 
 
 def window_gather_banded(gfull, pos, mask, *, vh, vw, C, Wp, chunk=40,
-                         band_rows=32, unsort=True, out_dtype=torch.float32):
-    """Window gather in band order: ``gfull`` [B, Hp, lanes] f32, ``pos``
-    [B, N] int32 unpacked top-left cells, ``mask`` [vh, vw*C] f32 ->
-    [B, N, vh, vw*C] windows in slot order, in ``out_dtype`` (f32 or bf16,
-    rounded at the store); with ``unsort=False`` the
-    windows in band order [B, n_pad, vh, vw*C] and ``inv`` [B, N] int32
-    (slot n's window is row ``inv[b, n]``; dummy rows hold the window at
-    their band's first row, cut to zero past the image), as the JAX
-    package's function returns them.
+                         band_rows=32, unsort=True, out_dtype=torch.float32,
+                         act=None, mm=None, self_cell=None, mm_maskc=None):
+    """Window gather of the banded route: ``gfull`` [B, Hp, lanes] f32,
+    ``pos`` [B, N] int32 unpacked top-left cells, ``mask`` [vh, vw*C] f32
+    -> [B, N, vh, vw*C] windows in slot order, in ``out_dtype`` (f32 or
+    bf16, rounded at the store); window rows past the image read as zeros,
+    and a window at a negative position or leaving the image on the right
+    is zeros.  With ``unsort=False`` the windows in band order [B, n_pad,
+    vh, vw*C] and ``inv`` [B, N] int32 (slot n's window is row ``inv[b,
+    n]``; dummy rows hold the window at their band's first row), as the
+    JAX package's function returns them.
+
+    With ``unsort=True`` the observation's epilogue may come along:
+    ``act`` [B, N] int32 0/1 liveness, and with it ``mm`` [B, vh, vw, C]
+    f32 pooled minimaps, ``self_cell`` [B, N] int32 minimap cells and
+    ``mm_maskc`` [C] f32 minimap channels.  The windows are rounded to
+    ``out_dtype``, :func:`window_epilogue` runs on them in f32, and the
+    result is rounded again: what the JAX package's observation computes
+    after its banded kernel (magent_tpu/core/observe.py:378-401).
 
     Replaces ``magent_tpu/ops/window_gather.py:477`` ``window_gather_banded``
     (``pallas_call`` at ``:543``), which the JAX package runs for images
-    above its VMEM budget (pursuit from map 500).  Its ``banded_pack`` slab
-    copy and SMEM split of the launch keep a band in VMEM and do not carry
-    over: the kernel reads ``gfull`` in place.  Bound on the card: bytes —
-    the windows written and the image read once (pursuit at map 1000: 33.5
-    and 42.6 MB of windows from a 22.6 MB image).  Design:
-    ``csrc/window_gather.cu`` ``window_gather_banded_kernel`` — one block
-    per (env, chunk of the band-ordered table), one warp per window row,
-    coalesced row copies times the mask in shared memory; consecutive
-    blocks read one band, which stays in L2.  The table (:func:`banded_tables`)
-    is plain PyTorch.  A pure copy: equal to the plain version exactly."""
+    above its VMEM budget (pursuit from map 500).  Its band sort, its
+    ``banded_pack`` slab copy and SMEM split of the launch keep a band in
+    VMEM and do not carry over: the image (22.6 MB at pursuit map 1000)
+    stays in the H100's L2, and the kernel writes each window straight to
+    its slot.  Bound on the card: bytes — the windows written and the
+    image read once (pursuit at map 1000: 30.3 and 40.5 MB of f32 windows
+    from a 22.6 MB image).  Design: ``csrc/window_gather.cu``
+    ``window_gather_kernel`` in its banded form — :func:`window_gather`'s
+    flat spans with the env image's end beside each agent's offset (one
+    compare per value zeroes rows past the image) and the epilogue's
+    operands as in :func:`window_gather4`; exact against the plain
+    version.  The band-ordered form builds :func:`banded_tables` in
+    PyTorch and runs the same kernel over ``pos_pad``."""
     _check_out_dtype("window_gather_banded", out_dtype)
-    if _build.route(gfull, pos, mask) == "cpu":
+    _check_banded(chunk, unsort, act, mm, self_cell, mm_maskc)
+    epi = dict(act=act, mm=mm, self_cell=self_cell, mm_maskc=mm_maskc)
+    optional = tuple(t for t in epi.values() if t is not None)
+    if _build.route(gfull, pos, mask, *optional) == "cpu":
         return window_gather_banded_ref(gfull, pos, mask, vh=vh, vw=vw, C=C,
                                         Wp=Wp, chunk=chunk,
                                         band_rows=band_rows, unsort=unsort,
-                                        out_dtype=out_dtype)
+                                        out_dtype=out_dtype, **epi)
+    B, Hp, lanes = gfull.shape
+    n_bands, _ = _band_geometry(Hp, vh, band_rows)
+    geo = dict(vh=vh, vw=vw, C=C, Wp=Wp, out_dtype=out_dtype)
+    if unsort:
+        return _banded_launch(gfull, pos, mask, **geo, **epi)
+    _build.check(pos, "window_gather_banded pos", torch.int32,
+                 (B, pos.shape[1]), gfull.device)
+    pos_pad, _, inv = banded_tables(pos, Wp=Wp, band_rows=band_rows,
+                                    n_bands=n_bands, chunk=chunk)
+    return _banded_launch(gfull, pos_pad, mask, **geo), inv
+
+
+def _banded_launch(gfull, pos, mask, *, vh, vw, C, Wp,
+                   out_dtype=torch.float32, per=None, act=None, mm=None,
+                   self_cell=None, mm_maskc=None):
+    """The banded form of the window kernel on CUDA operands: ``pos`` [B,
+    N] the slot-order positions (or a band table's ``pos_pad``) -> windows
+    [B, N, vh, vw*C] in ``out_dtype``, with the epilogue of the operands
+    given; in spans of ``per`` vectors (default: :func:`gather_split`)."""
+    _check_out_dtype("window_gather_banded", out_dtype)
     B, Hp, lanes = gfull.shape
     N = pos.shape[1]
     vwc = vw * C
     device = gfull.device
-    _build.check(gfull, "window_gather_banded image", torch.float32,
-                 (B, Hp, lanes), device)
+    # a window's rows reach vh rows past its env's image before the
+    # kernel's row test zeroes them
+    _check_window("window_gather_banded", gfull, mask, vh, vwc, vh)
     _build.check(pos, "window_gather_banded pos", torch.int32, (B, N), device)
-    _build.check(mask, "window_gather_banded mask", torch.float32, (vh, vwc),
-                 device)
-    if vh * vwc * 4 > _MAX_MASK_BYTES:
-        raise ValueError("window %dx%d too large for the kernel's mask"
-                         % (vh, vwc))
-    if not 0 < chunk <= _MAX_BAND_CHUNK:
-        raise ValueError("window_gather_banded: chunk must be in 1..%d, got "
-                         "%d" % (_MAX_BAND_CHUNK, chunk))
-    if B > 65535:
-        raise ValueError("window_gather_banded: at most 65535 envs per launch")
-    n_bands, _ = _band_geometry(Hp, vh, band_rows)
-    pos_pad, _, inv = banded_tables(pos, Wp=Wp, band_rows=band_rows,
-                                    n_bands=n_bands, chunk=chunk)
-    out = _banded_launch(gfull, pos_pad, mask, vh=vh, vw=vw, C=C, Wp=Wp,
-                         chunk=chunk, out_dtype=out_dtype)
-    return _unsort(out, inv) if unsort else (out, inv)
-
-
-def _banded_launch(gfull, pos_pad, mask, *, vh, vw, C, Wp, chunk,
-                   out_dtype=torch.float32):
-    """The banded kernel alone, on checked operands and the band-ordered
-    table ``pos_pad`` [B, n_pad] of :func:`banded_tables` -> windows in
-    band order [B, n_pad, vh, vw*C] in ``out_dtype``."""
-    _check_out_dtype("window_gather_banded", out_dtype)
-    B, Hp, lanes = gfull.shape
-    n_pad = pos_pad.shape[1]
-    vwc = vw * C
-    out = torch.empty((B, n_pad, vh, vwc), dtype=out_dtype,
-                      device=gfull.device)
-    _build.launch(_launcher("window_gather_banded", out_dtype), gfull.device,
-                  gfull.data_ptr(), pos_pad.data_ptr(), mask.data_ptr(), B,
-                  n_pad, chunk, Hp, lanes, Wp, C, vh, vwc, out.data_ptr())
+    if act is not None:
+        _build.check(act, "window_gather_banded act", torch.int32, (B, N),
+                     device)
+    if mm is not None:
+        _build.check(mm, "window_gather_banded mm", torch.float32,
+                     (B, vh, vw, C), device)
+        _build.check(self_cell, "window_gather_banded self_cell", torch.int32,
+                     (B, N), device)
+        _build.check(mm_maskc, "window_gather_banded mm_maskc", torch.float32,
+                     (C,), device)
+    if per is None:
+        per = gather_split(B, N, vh * vwc, out_dtype, _build.sm_count(device))
+    out = torch.empty((B, N, vh, vwc), dtype=out_dtype, device=device)
+    if N:
+        _build.launch(_launcher("window_gather_banded", out_dtype), device,
+                      gfull.data_ptr(), pos.data_ptr(), mask.data_ptr(),
+                      _ptr(mm), _ptr(mm_maskc), _ptr(act), _ptr(self_cell),
+                      B, N, Hp, lanes, Wp, C, vh, vw, per, out.data_ptr())
     return out

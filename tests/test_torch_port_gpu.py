@@ -2,14 +2,17 @@
 rect kernels and window_gather4 on the operands of a pursuit map-64, B=16
 step; the rect kernels and rank_prefix (both forms) also on random and
 adversarial operands at ragged sizes, in every launch split;
-window_gather in f32 and bf16 at ragged sizes, edge and outside positions,
-bit for bit in several launch splits; the segmented sweeps and the banded gather
+window_gather, window_gather4 (three epilogue forms) and
+window_gather_banded (three slot-order forms and band order) in f32 and
+bf16 at ragged sizes, edge and outside positions, bit for bit in several
+launch splits; the segmented sweeps and the banded gather
 on a pursuit map-250 step;
 the segmented sweeps on the random operands of tests/_torch_seg_operands.py;
 the window-gather cost ladder on tools/profile_window.py's inputs; the
 bf16 forms of the three window kernels), and short GPU-vs-CPU runs of the
 lockstep loop (battle; pursuit with and without interior walls; pursuit's
-one world on the segmented route), of the stateful GridWorld and of the
+one world on the segmented route; battle forced onto the banded route with
+bf16 views), of the stateful GridWorld and of the
 fused DQN trainers (one step of each, f32, TF32 off, from the trusty battle
 weights read with numpy).
 Marked ``gpu``: each test decides at run time whether a card exists and
@@ -760,3 +763,200 @@ def test_train_step_gpu_matches_cpu(cuda, remat):
     for g, ((gp, gmom), (cp, cmom)) in enumerate(zip(gf, cf)):
         assert_adam_steps_close(gp, cp, gmom, cmom, lr=1e-4, moment_rtol=1e-2,
                                 param_atol=2e-5, tag="group %d" % g)
+
+
+# ------------------------------------------- the window kernel's other forms
+WINDOW_DTYPES = {"f32": torch.float32, "bf16": BF16}
+# an 11 x 55 window and pursuit's prey window, 9 x 45 (C = 5, the wide
+# branch in either dtype), and a 3 x 15 one (E = 45: the stepping branch in
+# f32 and bf16)
+EPI_WINDOWS = [(11, 11), (9, 9), (3, 3)]
+EPI_FORMS = ("none", "liveness", "minimap")
+
+
+def _epi_case(cuda, B, N, vh, vw, packed, seed):
+    """A signed image over pursuit's padded geometry at map 40 (C = 5),
+    positions at random, on the far edges and (N > 2) outside the image
+    (below it, right of it, negative), a mask with zeros, seeded liveness,
+    pooled minimaps, minimap channels and self cells -> (img, pos, inside,
+    outside, mask, epilogue operands, geometry)."""
+    C = 5
+    Hp, Wp, lanes, _, _ = twg.padded_geometry(40, 40, C, vh, vw)
+    vwc = vw * C
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    img = torch.randn((B, Hp, lanes), generator=g)
+    ys = torch.randint(0, Hp - vh + 1, (B, N), generator=g)
+    xs = torch.randint(0, (lanes - vwc) // C + 1, (B, N), generator=g)
+    ys[:, 0], xs[:, 0] = Hp - vh, (lanes - vwc) // C
+    pos = ys * Wp + xs
+    out = torch.zeros((B, N), dtype=torch.bool)
+    if N > 2:
+        # below: the window's last row (packed), its first row (banded)
+        pos[0, 2] = (Hp - vh + 1) * Wp if packed else Hp * Wp + 3
+        pos[-1, 2] = 5 * Wp + (lanes - vwc) // C + 1
+        pos[B // 2, N - 1] = -1
+        out[0, 2] = out[-1, 2] = out[B // 2, N - 1] = True
+    inside = torch.where(out, 0, pos)
+    mask = (torch.rand((vh, vwc), generator=g) < 0.7).float()
+    ch = torch.zeros(C)
+    ch[[2, C - 1]] = 1.0
+    epi = dict(act=(torch.rand((B, N), generator=g) < 0.8).to(torch.int32),
+               mm=torch.rand((B, vh, vw, C), generator=g) * ch, mm_maskc=ch,
+               self_cell=torch.randint(0, vh * vw, (B, N), generator=g,
+                                       dtype=torch.int32))
+    on = lambda t: t.to(cuda)  # noqa: E731
+    return (on(img), on(pos.to(torch.int32)), on(inside.to(torch.int32)),
+            on(out), on(mask), {k: on(v) for k, v in epi.items()},
+            dict(vh=vh, vw=vw, C=C, Wp=Wp))
+
+
+def _picks(cuda, B, N, E, out_dtype):
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    return (twg.gather_split(B, N, E, out_dtype, sms), 32, 160, 1184)
+
+
+def _where_out(out, got, want_in, want_out):
+    """Slots outside the image take ``want_out``, the others ``want_in``;
+    bitwise against ``got``."""
+    want = torch.where(out[..., None, None], want_out, want_in)
+    return torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("N", [1, 7, 33, 102, 300])
+@pytest.mark.parametrize("dtype", sorted(WINDOW_DTYPES))
+@pytest.mark.parametrize("form", EPI_FORMS)
+@pytest.mark.parametrize("vh,vw", EPI_WINDOWS)
+def test_window_gather4_ragged_bit_exact_on_card(cuda, N, dtype, form, vh,
+                                                 vw):
+    """window_gather4 in its three epilogue forms at ragged N, B in {1, 3,
+    16} (spans cross agents and envs, each env with its own minimap),
+    pursuit's windows and a narrow one, a signed image (-0.0 under zero
+    mask entries), positions on the edges and outside the image: inside
+    windows equal the plain version bit for bit, outside ones the plain
+    epilogue of a zero window; in the split gather_split picks and in
+    spans of 32, 160 and 1184 vectors."""
+    out_dtype = WINDOW_DTYPES[dtype]
+    for B in (1, 3, 16):
+        img, pos, inside, out, mask, epi, geo = _epi_case(
+            cuda, B, N, vh, vw, True, N * 31 + vh + B)
+        C = geo["C"]
+        self_cell = epi["self_cell"]
+        ops4 = {}
+        if form != "none":
+            ops4["act"] = epi["act"]
+        if form == "minimap":
+            ops4.update(mm_img=epi["mm"].reshape(B, vh, vw * C),
+                        mm_mask=epi["mm_maskc"].repeat(vh, vw))
+        packed = lambda p: p * 1024 + self_cell  # noqa: E731
+        kw = dict(geo, out_dtype=out_dtype)
+        want_in = twg.window_gather4_ref(img, packed(inside), mask, **ops4,
+                                         **kw)
+        want_out = twg.window_gather4_ref(torch.zeros_like(img),
+                                          packed(inside), mask, **ops4, **kw)
+        for per in _picks(cuda, B, N, vh * vw * C, out_dtype):
+            got = twg._gather4_launch(
+                img, packed(pos), mask, ops4.get("mm_img"),
+                ops4.get("mm_mask"), ops4.get("act"), **kw, per=per)
+            assert _where_out(out, got, want_in, want_out), (B, per)
+        before = ops.launch_counts()
+        twg.window_gather4(img, packed(pos), mask, **ops4, **kw)
+        name = "window_gather4" + ("_bf16" if dtype == "bf16" else "")
+        assert ops.launch_counts()[name] == before[name] + 1
+
+
+@pytest.mark.parametrize("N", [1, 7, 33, 102, 300])
+@pytest.mark.parametrize("dtype", sorted(WINDOW_DTYPES))
+@pytest.mark.parametrize("form", EPI_FORMS + ("band order",))
+@pytest.mark.parametrize("vh,vw", EPI_WINDOWS)
+def test_window_gather_banded_ragged_bit_exact_on_card(cuda, N, dtype, form,
+                                                       vh, vw):
+    """window_gather_banded in slot order with each epilogue form (bf16:
+    rounded at the store and again after the epilogue) and in band order
+    (dummy rows included), B in {1, 3, 16}, at ragged N, with windows
+    reaching past the image's last row, and in slot order also windows at
+    a negative position, below the image and leaving it on the right
+    (whole-window zeros before the epilogue): bit for bit against the
+    plain version; in the split gather_split picks and in spans of 32, 160
+    and 1184 vectors."""
+    out_dtype = WINDOW_DTYPES[dtype]
+    band = dict(chunk=8, band_rows=16)
+    for B in (1, 3, 16):
+        img, pos, inside, out, mask, epi, geo = _epi_case(
+            cuda, B, N, vh, vw, False, N * 37 + vh + B)
+        Hp = img.shape[1]
+        # the last window starts on the image's last rows: rows past Hp
+        inside[:, 0] = (Hp - 2) * geo["Wp"]
+        pos[:, 0] = inside[:, 0]
+        kw = dict(geo, out_dtype=out_dtype)
+        if form == "band order":
+            got = twg.window_gather_banded(img, inside, mask, **kw, **band,
+                                           unsort=False)
+            want = twg.window_gather_banded_ref(img, inside, mask, **kw,
+                                                **band, unsort=False)
+            assert torch.equal(got[1], want[1])
+            assert torch.equal(_bits(got[0]), _bits(want[0]))
+            pos_pad = twg.banded_tables(
+                inside, Wp=geo["Wp"], band_rows=16,
+                n_bands=-(-Hp // 16), chunk=8)[0]
+            for per in _picks(cuda, B, pos_pad.shape[1],
+                              vh * vw * geo["C"], out_dtype):
+                got = twg._banded_launch(img, pos_pad, mask, **kw, per=per)
+                assert torch.equal(_bits(got), _bits(want[0])), (B, per)
+            continue
+        ops_b = {}
+        if form != "none":
+            ops_b["act"] = epi["act"]
+        if form == "minimap":
+            ops_b.update({k: epi[k] for k in ("mm", "self_cell",
+                                              "mm_maskc")})
+        want_in = twg.window_gather_banded_ref(img, inside, mask, **kw,
+                                               **band, **ops_b)
+        want_out = twg.window_gather_banded_ref(
+            torch.zeros_like(img), inside, mask, **kw, **band, **ops_b)
+        if form == "none":  # the rows past Hp
+            assert bool((_bits(want_in)[:, 0, -1] == 0).all())
+        for per in _picks(cuda, B, N, vh * vw * geo["C"], out_dtype):
+            got = twg._banded_launch(img, pos, mask, **kw, per=per, **ops_b)
+            assert _where_out(out, got, want_in, want_out), (B, per)
+        before = ops.launch_counts()
+        got = twg.window_gather_banded(img, pos, mask, **kw, **band, **ops_b)
+        assert _where_out(out, got, want_in, want_out)
+        name = "window_gather_banded" + ("_bf16" if dtype == "bf16" else "")
+        assert ops.launch_counts()[name] == before[name] + 1
+
+
+def test_battle_banded_bf16_gpu_matches_cpu(cuda):
+    """Battle map 40, 2x60, B=2, bf16 views, forced onto the banded route
+    (image budget 1 byte), minimap on: the card's views, features and
+    states equal the CPU's over 3 steps, each step's views through one
+    banded launch per group."""
+    budget = tobserve.VMEM_IMAGE_BUDGET
+    tobserve.VMEM_IMAGE_BUDGET = 1
+    try:
+        envs = [VecGridWorld(battle.get_config(40), [60, 60], 2,
+                             obs_dtype=BF16, device=d) for d in (cuda, "cpu")]
+    finally:
+        tobserve.VMEM_IMAGE_BUDGET = budget
+    assert envs[0].spec.minimap_mode
+    assert [o.route for o in envs[0]._observe] == ["window_gather_banded"] * 2
+    states = [e.reset(trandom.PRNGKey(7).to(d))
+              for e, d in zip(envs, (cuda, "cpu"))]
+    key = trandom.PRNGKey(8)
+    for _ in range(3):
+        keys = trandom.split(key)
+        key, akey = keys[0], keys[1]
+        before = ops.launch_counts()["window_gather_banded_bf16"]
+        obs = [e.observe_all(s) for e, s in zip(envs, states)]
+        assert ops.launch_counts()["window_gather_banded_bf16"] == before + 2
+        for (gv, gf), (cv, cf) in zip(*obs):
+            assert gv.dtype == BF16 and bool((cv != 0).any())
+            assert torch.equal(_bits(gv.cpu()), _bits(cv))
+            assert torch.equal(gf.cpu(), cf)
+        acts = [e.random_actions(akey.to(d))
+                for e, d in zip(envs, (cuda, "cpu"))]
+        assert torch.equal(acts[0].cpu(), acts[1])
+        states = [e.transition(s, a)[0]
+                  for e, s, a in zip(envs, states, acts)]
+        for name in FIELDS:
+            assert torch.equal(getattr(states[0], name).cpu(),
+                               getattr(states[1], name)), name
