@@ -62,7 +62,12 @@ Run from the repository root:  python3 chip_smoke.py
    sweep with random damage, and also with runs of sorted rows sharing a
    target, since pursuit's hp and damage are constant), and the three
    sweeps' overflow branch on the first 3000 sorted rows of those forms
-   with a window of 512 rows; times 20 steps (launches per step:
+   with a window of 512 rows; holds ``occupant_rect_seg`` and
+   ``rank_prefix_seg`` (on the split template) in every
+   (cluster, warps) split of ``tools/profile_rect.py``'s table on each of
+   those forms, and prints a ``seg form`` line per form (ms, bound, share
+   of bound, the split ``seg_split`` picks, launches per step); times 20
+   steps (launches per step:
    occupant_rect_seg 1, rect_first_overlap_seg 2, rank_prefix_seg 1,
    window_gather_banded 2, nothing else; 2 plans), counts the timed steps
    whose plans overflowed (read after the window), checks the host syncs
@@ -211,12 +216,18 @@ VIEW_ATOL = 1e-6
 #                       stride, Y = y * stride + i): two add-max, one add;
 #                       a predicated min (lower_only: only the pairs i < j;
 #                       the gate compare, as above, on the tile's own slots)
-# The segmented forms need the same per pair (occupant_rect_seg keeps the
-# max slot id: one predicated max) over the pairs of each segment's window.
+# rect_first_overlap_seg and rank_prefix_seg need the same per pair over
+# the pairs of each segment's window.
+#   occupant_rect_seg   four edge compares per pair; a matching pair also
+#                       takes a max of the slot id and an f32 add (the
+#                       window is not in slot order; the warp updates its
+#                       queries only where a lane matched), charged once
+#                       per query that found a body (the engine's bodies
+#                       never overlap: one match each)
 PAIR_OPS = {"occupant": (3, 1), "rank_prefix": (2, 1), "move_resolve": (9, 0),
             "rank_prefix_hp": (2, 1), "move_claims": (5, 0),
             "occupant_rect": (5, 1), "rect_first_overlap": (8, 0),
-            "occupant_rect_seg": (5, 1), "rect_first_overlap_seg": (8, 0),
+            "occupant_rect_seg": (4, 0), "rect_first_overlap_seg": (8, 0),
             "rank_prefix_seg": (2, 1)}
 SEG_SWEEPS = ("occupant_rect_seg", "rect_first_overlap_seg",
               "rank_prefix_seg")
@@ -290,9 +301,9 @@ SOURCES = {
     "occupant_rect": "magent_tpu_torch/csrc/pair_kernels.cu",
     "rect_first_overlap": "magent_tpu_torch/csrc/pair_kernels.cu",
     "window_gather4": "magent_tpu_torch/csrc/window_gather.cu",
-    "occupant_rect_seg": "magent_tpu_torch/csrc/seg_kernels.cu",
+    "occupant_rect_seg": "magent_tpu_torch/csrc/pair_kernels.cu",
     "rect_first_overlap_seg": "magent_tpu_torch/csrc/seg_kernels.cu",
-    "rank_prefix_seg": "magent_tpu_torch/csrc/seg_kernels.cu",
+    "rank_prefix_seg": "magent_tpu_torch/csrc/pair_kernels.cu",
     "window_gather_banded": "magent_tpu_torch/csrc/window_gather.cu",
     "window_ladder": "magent_tpu_torch/csrc/window_ladder.cu",
     "window_shared_tile": "magent_tpu_torch/csrc/window_ladder.cu",
@@ -568,6 +579,9 @@ def call_stats(name, args, kwargs, f32_rate, int32_rate, form,
         io_bytes = nbytes(args) + nbytes(got)
         pairs, n_int, n_f32 = pair_work(name, args, kwargs)
         ops_ms = pairs * max(n_int / int32_rate, n_f32 / f32_rate) * 1e3
+        if name == "occupant_rect_seg":  # the matches' max and add
+            ops_ms += int((want[0] >= 0).sum()) * max(
+                1 / int32_rate, 1 / f32_rate) * 1e3
     bytes_ms = io_bytes / HBM_BYTES_PER_S * 1e3
     stats = dict(form=form, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                  bound_ms=max(bytes_ms, ops_ms),
@@ -1197,32 +1211,40 @@ def window_gather4_calls(banded_calls):
     return out
 
 
-# the kernels on the split template (ops/attack_prefix.py rect_split)
+# the kernels on the split template (ops/attack_prefix.py rect_split;
+# the segmented two seg_split)
 SPLIT_KERNELS = ("occupant_rect", "rect_first_overlap", "rank_prefix",
-                 "rank_prefix_hp")
+                 "rank_prefix_hp", "occupant_rect_seg", "rank_prefix_seg")
 
 
 def print_split_forms(calls, stats):
     """One line per form of the split template's kernels (``rect form``,
-    ``rank form``): ``calls`` {name: [(args, kwargs, launches per step)]}
-    of a step's calls and the forms off the path (0 per step), ``stats``
-    {name: [call_stats dicts]} in the same order; device ms, bound, share of
-    bound, the launch split, and launches per step."""
+    ``rank form``, ``seg form``): ``calls`` {name: [(args, kwargs, launches
+    per step)]} of a step's calls and the forms off the path (0 per step),
+    ``stats`` {name: [call_stats dicts]} in the same order; device ms,
+    bound, share of bound, the launch split (for a segmented sweep, the
+    one its call's window gives), and launches per step."""
     from magent_tpu_torch.ops import attack_prefix as ap
 
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     for name in SPLIT_KERNELS:
-        for (args, _, on_path), st in zip(calls.get(name, ()),
-                                          stats.get(name, ())):
-            B, A = args[0].shape
-            cluster, warps = ap.rect_split(B, A, n_sms)
+        for (args, kw, on_path), st in zip(calls.get(name, ()),
+                                           stats.get(name, ())):
+            if name.endswith("_seg"):
+                P = seg_plan(name, args, kw)[1]
+                cluster, warps = ap.seg_split(args[0].shape[0], P, n_sms)
+                kind, window = "seg", "window %d rows, " % P
+            else:
+                B, A = args[0].shape
+                cluster, warps = ap.rect_split(B, A, n_sms)
+                kind = "rank" if name.startswith("rank") else "rect"
+                window = ""
             print("%s form %s, %-36s %.4f ms, bound %.6f ms (%s), share "
-                  "of bound %.3f; cluster of %d CTA(s) x %d warps (%d "
+                  "of bound %.3f; %scluster of %d CTA(s) x %d warps (%d "
                   "partner ranges per query tile); %d launch(es) per step" % (
-                      "rank" if name.startswith("rank") else "rect", name,
-                      st["form"], st["ms"], st["bound_ms"],
-                      st["bound_by"], st["bound_ms"] / st["ms"], cluster,
-                      warps, cluster * warps, on_path), flush=True)
+                      kind, name, st["form"], st["ms"], st["bound_ms"],
+                      st["bound_by"], st["bound_ms"] / st["ms"], window,
+                      cluster, warps, cluster * warps, on_path), flush=True)
 
 
 def check_rect_ragged():
@@ -1429,6 +1451,37 @@ def seg_overflow_forms(name, forms):
     return out
 
 
+def check_seg_splits(forms):
+    """``occupant_rect_seg`` and ``rank_prefix_seg`` on each of their
+    ``forms`` ({name: [(args, kwargs, form, ...)]}) in every split of
+    ``tools/profile_rect.py``'s table against the plain version: ints and
+    the occupant's hp exact (pursuit's bodies never overlap), rank sums
+    within PAIR_ATOL (the kernel sums range by range)."""
+    from magent_tpu_torch.tools import profile_rect as pr
+
+    n, err = 0, 0.0
+    for name in pr.SEG_SPLIT_SWEEPS:
+        plain = kernel_fns()[name][1]
+        for args, kw, form, *_ in forms[name]:
+            want = plain(*args, **kw)
+            want = want if isinstance(want, tuple) else (want,)
+            for split in pr.SPLITS:
+                got = pr.launch(name, args, kw, split)
+                got = got if isinstance(got, tuple) else (got,)
+                for g, w in zip(got, want):
+                    e = float((g - w).abs().max()) if g.numel() else 0.0
+                    exact = name in EXACT or not g.dtype.is_floating_point
+                    if not (torch.equal(g, w) if exact else e <= PAIR_ATOL):
+                        raise AssertionError(
+                            "%s (%s) split %s: differs from the plain "
+                            "version (max abs %g)" % (name, form, split, e))
+                    err = max(err, e)
+                n += 1
+    print("seg sweeps on the split template: %d launches (%d splits per "
+          "form) equal to their plain versions, max abs err %g" % (
+              n, len(pr.SPLITS), err), flush=True)
+
+
 def run_seg_path(f32_rate, int32_rate, device_name, banded_500, syncs_500):
     """Phase 7: pursuit on one world at map 1000 through the segmented
     sweeps and the banded gather; ``banded_500`` are phase 6's banded
@@ -1437,6 +1490,7 @@ def run_seg_path(f32_rate, int32_rate, device_name, banded_500, syncs_500):
     the path."""
     from magent_tpu_torch import random as rnd
     from magent_tpu_torch.ops import attack_prefix as ap
+    from magent_tpu_torch.tools import profile_rect as pr
 
     big = pursuit_env(P_SEG_MAP, 1, P_SEG_SEED)
     if not big._step.route.seg or [o.route for o in big._observe] != [
@@ -1454,6 +1508,12 @@ def run_seg_path(f32_rate, int32_rate, device_name, banded_500, syncs_500):
     extra["window_gather_banded"] = off + banded_500[0]
     rows = {name: kernel_row(name, calls[name], f32_rate, int32_rate,
                              extra[name]) for name in SEG_PER_STEP}
+    split_seg = pr.SEG_SPLIT_SWEEPS
+    check_seg_splits({name: calls[name] + extra[name] for name in split_seg})
+    print_split_forms(
+        {name: [(a, k, SEG_PER_STEP[name]) for a, k, *_ in calls[name]] +
+         [(a, k, 0) for a, k, *_ in extra[name]] for name in split_seg},
+        {name: rows[name]["per_call"] for name in split_seg})
     print_window_forms(
         "window_gather_banded", [launched["window_gather_banded"]] * len(
             banded) + [0] * len(off) + banded_500[1],

@@ -19,11 +19,17 @@
 //                       bodies; max slot, -1 if none), and its hp
 //   rect_first_overlap  the first body, in the grid path's cell scan order,
 //                       that query rect j overlaps (min of a packed key)
+//   occupant_rect_seg, rank_prefix_seg
+//                       occupant_rect and rank_prefix of one big world
+//                       sorted by y, each query against its segment's
+//                       window of rows (see "y-segmented sweeps" below)
 //
 // Replaces magent_tpu/ops/attack_prefix.py occupant_tpu, rank_prefix_tpu
 // (both forms), move_resolve_tpu, move_claims_tpu, occupant_rect_tpu and
 // rect_first_overlap_tpu, which sweep (TI, TJ) tiles of the pair matrix on
-// the TPU's vector unit.
+// the TPU's vector unit, and the segmented cores _occupant_rect_core and
+// _rank_prefix_core (with their overflow branches, occupant_rect_tpu with
+// bslot and rank_prefix_tpu over every row).
 //
 // What bounds them here: integer compares and selects, ~2-12 per pair, over
 // B * A^2 pairs (64M at battle's B=16, A=2000; 88M at pursuit's map-500
@@ -35,7 +41,8 @@
 // are taken in slot order and are deterministic.  The ragged tail of both
 // axes is masked here; no sentinel padding is needed.  The caller's
 // sentinels (queries 2^30, dead cells 2^29) pass through as ordinary
-// values.  rank_prefix and the rect sweeps share the split template below.
+// values.  rank_prefix, the rect sweeps and the two segmented sweeps share
+// the split template below.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -294,7 +301,10 @@ __device__ __forceinline__ void rect_combine(P (&part)[kRectMaxWarps][kRectTile]
 // A range's partial of one occupant_rect query: slots ascend within a
 // range, so its last match is its max; bodies are disjoint, so at most one
 // slot matches a query and the hp summed in range order (adding zeros is
-// exact) equals the plain version's bit for bit.
+// exact) equals the plain version's bit for bit.  occupant_rect_seg keeps
+// the max slot id itself; its hp sums equal the plain version's wherever a
+// query matches at most two bodies (a + b = b + a), which holds for every
+// query of the engine (its bodies never overlap).
 struct OccupantPart {
   int best;
   float sum;
@@ -568,6 +578,171 @@ rank_prefix_kernel(const int* __restrict__ tgt, const int* __restrict__ rank,
                });
 }
 
+// ------------------------------------------------------ y-segmented sweeps
+// One big world (16,384 to 65,536 slots) presents its [A] operands sorted
+// by y.  Sorted row j belongs to segment j / kSegRows; the segment's
+// partners are the sorted rows [start[s], min(A, start[s] + P)), which
+// hold every row within the caller's y-margin of the segment; when the
+// plan's overflow flag is set, every query sweeps [0, A) instead, so the
+// result never depends on the plan.  Rows past A are the plain version's
+// pad sentinels (empty rects, no target): never staged, never written.
+//
+// What bounds them: occupant_rect_seg 4 integer instructions per pair
+// (four edge compares; a matching pair also takes a max of the slot id and
+// an f32 add), rank_prefix_seg 2 and one f32 add, over A * P pairs
+// (pursuit at map 1000: 37 segments x 1024 rows x 2560 or 3584 partners,
+// 97.0 M or 135.8 M pairs).  Design: the split template above.  A 128-query tile
+// lies in one segment (tile / kTilesPerSeg); seg_range cuts the tile's
+// window into n = cluster * warps ranges of equal rows, read on the device
+// from start and *overflow (no host sync, no [S, P] gather).  The window
+// is y-sorted, not slot-sorted, so the occupant keeps the max slot id (a
+// predicated max, not the last match), and OccupantPart's fold (max, then
+// sum in range order) gives the plain version's results; rank_prefix_seg
+// is positional (the rank keys carry the slot tie-break), so the sweep of
+// rank_prefix serves it as it is.  The host picks cluster and warps
+// (ops/attack_prefix.py seg_split), and the CPU tests hold seg_range's
+// Python twin (seg_bounds) to cover every window row once per tile.
+constexpr int kSegRows = 1024;  // SEG_ROWS of ops/attack_prefix.py
+constexpr int kTilesPerSeg = kSegRows / kRectTile;
+
+__device__ __forceinline__ RectRange seg_range(
+    const int* __restrict__ start, const bool* __restrict__ overflow, int A,
+    int P, int cluster, unsigned rank) {
+  const int tile = (int)blockIdx.x / cluster;
+  const unsigned n = cluster * (blockDim.x >> 5);
+  const unsigned s = rank * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  RectRange r;
+  r.t0 = tile * kRectTile;
+  r.t1 = min(A, r.t0 + kRectTile);
+  int begin = 0, end = A;
+  if (!*overflow) {
+    begin = start[tile / kTilesPerSeg];
+    end = min(A, begin + P);
+  }
+  const unsigned len = end > begin ? (unsigned)(end - begin) : 0u;
+  r.lo = begin + (int)(s * len / n);
+  r.hi = begin + (int)((s + 1) * len / n);
+  return r;
+}
+
+// occupant_rect over window rows carrying slot ids: a body is staged as its
+// edges (one int4) and (slot id, hp bits) (one int2).
+struct OccupantRectSegSweep {
+  struct Body {
+    int x, y, w, h, slot;
+    float hp;
+  };
+
+  const int *x, *y, *bw, *bh, *slot;
+  const float* hp;
+  int4* s_edge;  // the warp's 32 staging slots
+  int2* s_id;
+  int px[kQ], py[kQ], best[kQ];
+  float hsum[kQ];
+
+  __device__ __forceinline__ Body load(int i) const {
+    return {x[i], y[i], bw[i], bh[i], slot[i], hp[i]};
+  }
+
+  __device__ __forceinline__ void stage(int lane, const Body& b, int) {
+    s_edge[lane] = make_int4(b.x, b.x + b.w, b.y, b.y + b.h);
+    s_id[lane] = make_int2(b.slot, __float_as_int(b.hp));
+  }
+
+  // A query cell lies in few bodies of its window (in the engine's steps,
+  // one at most), so the warp updates its queries only where one of its
+  // lanes matched: the other pairs cost the four edge compares alone.
+  template <bool kGate>
+  __device__ __forceinline__ void test(int k, int) {
+    const int4 e = s_edge[k];
+    bool m[kQ];
+    bool any = false;
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) {
+      m[q] = (e.x <= px[q]) & (px[q] < e.y) & (e.z <= py[q]) & (py[q] < e.w);
+      any |= m[q];
+    }
+    if (__any_sync(0xffffffffu, any)) {
+      const int2 id = s_id[k];
+      const float h = __int_as_float(id.y);
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) {
+        best[q] = m[q] ? max(best[q], id.x) : best[q];
+        hsum[q] += m[q] ? h : 0.f;
+      }
+    }
+  }
+};
+
+__global__ void __launch_bounds__(32 * kRectMaxWarps)
+occupant_rect_seg_kernel(const int* __restrict__ qx,
+                         const int* __restrict__ qy,
+                         const int* __restrict__ x, const int* __restrict__ y,
+                         const int* __restrict__ bw, const int* __restrict__ bh,
+                         const float* __restrict__ hp,
+                         const int* __restrict__ slot,
+                         const int* __restrict__ start,
+                         const bool* __restrict__ overflow, int A, int P,
+                         int cluster, int* __restrict__ tgt,
+                         float* __restrict__ hpt) {
+  __shared__ int4 s_edge[kRectMaxWarps][32];
+  __shared__ int2 s_id[kRectMaxWarps][32];
+  __shared__ OccupantPart s_part[kRectMaxWarps][kRectTile];
+  __shared__ OccupantPart s_cta[kRectTile];
+  const RectRange r = seg_range(start, overflow, A, P, cluster,
+                                cg::this_cluster().block_rank());
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  OccupantRectSegSweep sw;
+  sw.x = x, sw.y = y, sw.bw = bw, sw.bh = bh, sw.slot = slot, sw.hp = hp;
+  sw.s_edge = s_edge[warp], sw.s_id = s_id[warp];
+#pragma unroll
+  for (int q = 0; q < kQ; ++q) {
+    const int j = r.t0 + lane + 32 * q;
+    sw.px[q] = j < A ? qx[j] : 0;
+    sw.py[q] = j < A ? qy[j] : 0;
+    sw.best[q] = -1;
+    sw.hsum[q] = 0.f;
+  }
+  rect_sweep_range<false>(sw, r.lo, r.hi);
+#pragma unroll
+  for (int q = 0; q < kQ; ++q)
+    s_part[warp][lane + 32 * q] = {sw.best[q], sw.hsum[q]};
+  rect_combine(s_part, s_cta, r.t1 - r.t0, cluster,
+               [&](int c, const OccupantPart& v) {
+                 tgt[r.t0 + c] = v.best;
+                 hpt[r.t0 + c] = v.sum;
+               });
+}
+
+__global__ void __launch_bounds__(32 * kRectMaxWarps)
+rank_prefix_seg_kernel(const int* __restrict__ tgt,
+                       const int* __restrict__ rank,
+                       const float* __restrict__ dmg,
+                       const int* __restrict__ start,
+                       const bool* __restrict__ overflow, int A, int P,
+                       int cluster, float* __restrict__ out) {
+  __shared__ int4 s_rec[kRectMaxWarps][32];
+  __shared__ RankPart s_part[kRectMaxWarps][kRectTile];
+  __shared__ RankPart s_cta[kRectTile];
+  const RectRange r = seg_range(start, overflow, A, P, cluster,
+                                cg::this_cluster().block_rank());
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  RankPrefixSweep sw;
+  sw.tgt = tgt, sw.rank = rank, sw.dmg = dmg, sw.s_rec = s_rec[warp];
+#pragma unroll
+  for (int q = 0; q < kQ; ++q) {
+    const int j = r.t0 + lane + 32 * q;
+    sw.t[q] = j < A ? tgt[j] : 0;
+    sw.r[q] = j < A ? rank[j] : 0;
+    sw.p[q] = 0.f;
+  }
+  rect_sweep_range<false>(sw, r.lo, r.hi);
+#pragma unroll
+  for (int q = 0; q < kQ; ++q) s_part[warp][lane + 32 * q] = {sw.p[q]};
+  rect_combine(s_part, s_cta, r.t1 - r.t0, cluster,
+               [&](int c, const RankPart& v) { out[r.t0 + c] = v.p; });
+}
+
 // Launch a rect sweep on (n_tiles * cluster, B) blocks of 32 * warps
 // threads, in clusters of (cluster, 1, 1) when cluster > 1 (a cluster
 // launch costs ~1 us more on the H100 at pursuit's map 64); a refused
@@ -682,4 +857,31 @@ extern "C" int magent_move_resolve(const int* tcell, const int* cell, int B,
   move_resolve_kernel<<<pair_grid(B, A), kTile, 0, (cudaStream_t)stream>>>(
       tcell, cell, A, cnt, head, occ);
   return (int)cudaGetLastError();
+}
+
+extern "C" int magent_occupant_rect_seg(const int* qx, const int* qy,
+                                        const int* x, const int* y,
+                                        const int* bw, const int* bh,
+                                        const float* hp, const int* slot,
+                                        const int* start, const bool* overflow,
+                                        int A, int P, int cluster, int warps,
+                                        int* tgt, float* hpt, int device,
+                                        void* stream) {
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return (int)set;
+  return launch_rect(occupant_rect_seg_kernel, 1, A, cluster, warps,
+                     (cudaStream_t)stream, qx, qy, x, y, bw, bh, hp, slot,
+                     start, overflow, A, P, cluster, tgt, hpt);
+}
+
+extern "C" int magent_rank_prefix_seg(const int* tgt, const int* rank,
+                                      const float* dmg, const int* start,
+                                      const bool* overflow, int A, int P,
+                                      int cluster, int warps, float* out,
+                                      int device, void* stream) {
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return (int)set;
+  return launch_rect(rank_prefix_seg_kernel, 1, A, cluster, warps,
+                     (cudaStream_t)stream, tgt, rank, dmg, start, overflow, A,
+                     P, cluster, out);
 }

@@ -1,5 +1,6 @@
-// y-segmented pair sweeps of the gridless rect step for sm_90a, behind a
-// plain C interface (loaded with ctypes by magent_tpu_torch/ops/_build.py).
+// The y-segmented first-overlap sweep of the gridless rect step for
+// sm_90a, behind a plain C interface (loaded with ctypes by
+// magent_tpu_torch/ops/_build.py).
 //
 // One big world (16,384 to 65,536 slots) presents its [A] operands sorted
 // by y.  Sorted row j belongs to segment s = j / 1024; the segment's
@@ -8,35 +9,29 @@
 // overflow flag is set (some segment needed more than P rows), every query
 // sweeps all A rows instead, so the result never depends on the plan.
 //
-//   occupant_rect_seg       max slot id whose body rect holds query cell j,
-//                           and the matches' summed hp
 //   rect_first_overlap_seg  the body that query rect j first overlaps in the
 //                           grid path's cell scan order: min over gated
 //                           bodies of k * stride + slot id, k the first
 //                           overlapped cell; gate slot id != or < qslot_j
-//   rank_prefix_seg         P_j = sum_i [tgt_i == tgt_j and rank_i < rank_j]
-//                           * dmg_i (positional: the rank keys carry the
-//                           slot tie-break)
 //
-// Replaces magent_tpu/ops/attack_prefix.py _occupant_rect_core,
-// _rect_overlap_core and _rank_prefix_core (the Pallas sweeps over
-// [S, 1024] queries x [S, P] gathered windows, S a leading grid axis) and
-// their overflow branches occupant_rect_tpu / rect_first_overlap_tpu with
-// explicit slot operands and rank_prefix_tpu.
+// Replaces magent_tpu/ops/attack_prefix.py _rect_overlap_core (the Pallas
+// sweep over [S, 1024] queries x [S, P] gathered windows, S a leading grid
+// axis) and its overflow branch rect_first_overlap_tpu with explicit slot
+// operands.  The other two segmented sweeps, occupant_rect_seg and
+// rank_prefix_seg, run on the split template in pair_kernels.cu.
 //
-// What bounds them here: integer compares and selects, 2-12 per pair, over
-// A * P pairs (pursuit at map 1000: 37 segments x 1024 rows x 2560 or 3584
-// partners, 97.0 M or 135.8 M pairs); the operands are a few hundred KB and
-// stay in L2.  Design: the layout of pair_kernels.cu — one thread per sorted
-// query row, 128 partner rows staged at a time in shared memory (a
-// broadcast read per pair), partners in ascending row order.  blockIdx.x is
-// a 128-row tile of a segment, so a launch has ceil(A / 128) blocks (293 at
-// map 1000, for 132 SMs).  Each block reads start[s] and *overflow on the
-// device and sweeps its window in place: no [S, P] gather, no host sync.
-// Rows past A are the pad sentinels of the plain version (empty rects, no
-// target): never staged, never written.  Slot ids are operands, so the
-// gates compare ids, never positions, and lower_only has no triangular
-// skip.
+// What bounds it here: integer compares and selects, 8 per pair (12 as
+// written here), over A * P pairs (pursuit at map 1000: 37 segments x 1024
+// rows x 2560 partners, 97.0 M pairs per gate); the operands are a few
+// hundred KB and stay in L2.  Design: one thread per sorted query row, 128
+// partner rows staged at a time in shared memory (a broadcast read per
+// pair), partners in ascending row order.  blockIdx.x is a 128-row tile of
+// a segment, so a launch has ceil(A / 128) blocks (293 at map 1000, for
+// 132 SMs).  Each block reads start[s] and *overflow on the device and
+// sweeps its window in place: no [S, P] gather, no host sync.  Rows past A
+// are the pad sentinels of the plain version (empty rects): never staged,
+// never written.  Slot ids are operands, so the gates compare ids, never
+// positions, and lower_only has no triangular skip.
 
 #include <cuda_runtime.h>
 
@@ -58,50 +53,6 @@ __device__ __forceinline__ Window seg_window(const int* __restrict__ start,
   if (*overflow) return {0, A};
   const int b = start[blockIdx.x / kTilesPerSeg];
   return {b, min(A, b + P)};
-}
-
-__global__ void occupant_rect_seg_kernel(
-    const int* __restrict__ qx, const int* __restrict__ qy,
-    const int* __restrict__ x, const int* __restrict__ y,
-    const int* __restrict__ bw, const int* __restrict__ bh,
-    const float* __restrict__ hp, const int* __restrict__ slot,
-    const int* __restrict__ start, const bool* __restrict__ overflow, int A,
-    int P, int* __restrict__ tgt, float* __restrict__ hpt) {
-  __shared__ int s_x0[kTile], s_x1[kTile], s_y0[kTile], s_y1[kTile];
-  __shared__ int s_slot[kTile];
-  __shared__ float s_hp[kTile];
-  const int j = blockIdx.x * kTile + threadIdx.x;
-  const Window w = seg_window(start, overflow, A, P);
-  const int px = j < A ? qx[j] : kRectPad;
-  const int py = j < A ? qy[j] : kRectPad;
-  int best = -1;
-  float hsum = 0.f;
-  for (int i0 = w.begin; i0 < w.end; i0 += kTile) {
-    const int i = i0 + threadIdx.x;
-    if (i < w.end) {
-      const int xi = x[i], yi = y[i];
-      s_x0[threadIdx.x] = xi;
-      s_x1[threadIdx.x] = xi + bw[i];
-      s_y0[threadIdx.x] = yi;
-      s_y1[threadIdx.x] = yi + bh[i];
-      s_slot[threadIdx.x] = slot[i];
-      s_hp[threadIdx.x] = hp[i];
-    }
-    __syncthreads();
-    const int n = min(kTile, w.end - i0);
-#pragma unroll 8
-    for (int k = 0; k < n; ++k) {
-      const bool m = (px >= s_x0[k]) & (px < s_x1[k]) & (py >= s_y0[k]) &
-                     (py < s_y1[k]);
-      best = m ? max(best, s_slot[k]) : best;
-      hsum += m ? s_hp[k] : 0.f;
-    }
-    __syncthreads();
-  }
-  if (j < A) {
-    tgt[j] = best;
-    hpt[j] = hsum;
-  }
 }
 
 // The packed key is formed in unsigned arithmetic: for a pair that does not
@@ -159,57 +110,10 @@ __global__ void rect_first_overlap_seg_kernel(
     out[j] = best == kNoneKey ? (1 << 30) : (int)(best % (unsigned)stride);
 }
 
-__global__ void rank_prefix_seg_kernel(const int* __restrict__ tgt,
-                                       const int* __restrict__ rank,
-                                       const float* __restrict__ dmg,
-                                       const int* __restrict__ start,
-                                       const bool* __restrict__ overflow,
-                                       int A, int P, float* __restrict__ out) {
-  __shared__ int s_tgt[kTile];
-  __shared__ int s_rank[kTile];
-  __shared__ float s_dmg[kTile];
-  const int j = blockIdx.x * kTile + threadIdx.x;
-  const Window w = seg_window(start, overflow, A, P);
-  const int t = j < A ? tgt[j] : (1 << 30);
-  const int r = j < A ? rank[j] : 0;
-  float p = 0.f;
-  for (int i0 = w.begin; i0 < w.end; i0 += kTile) {
-    const int i = i0 + threadIdx.x;
-    if (i < w.end) {
-      s_tgt[threadIdx.x] = tgt[i];
-      s_rank[threadIdx.x] = rank[i];
-      s_dmg[threadIdx.x] = dmg[i];
-    }
-    __syncthreads();
-    const int n = min(kTile, w.end - i0);
-#pragma unroll 8
-    for (int k = 0; k < n; ++k) {
-      const bool m = (s_tgt[k] == t) & (s_rank[k] < r);
-      p += m ? s_dmg[k] : 0.f;
-    }
-    __syncthreads();
-  }
-  if (j < A) out[j] = p;
-}
-
 // the row tiles that hold a real row; each knows its segment
 unsigned seg_blocks(int A) { return (unsigned)((A + kTile - 1) / kTile); }
 
 }  // namespace
-
-extern "C" int magent_occupant_rect_seg(const int* qx, const int* qy,
-                                        const int* x, const int* y,
-                                        const int* bw, const int* bh,
-                                        const float* hp, const int* slot,
-                                        const int* start, const bool* overflow,
-                                        int A, int P, int* tgt, float* hpt,
-                                        int device, void* stream) {
-  const cudaError_t set = cudaSetDevice(device);
-  if (set != cudaSuccess) return (int)set;
-  occupant_rect_seg_kernel<<<seg_blocks(A), kTile, 0, (cudaStream_t)stream>>>(
-      qx, qy, x, y, bw, bh, hp, slot, start, overflow, A, P, tgt, hpt);
-  return (int)cudaGetLastError();
-}
 
 extern "C" int magent_rect_first_overlap_seg(
     const int* qx, const int* qy, const int* tbw, const int* tbh, const int* x,
@@ -228,16 +132,5 @@ extern "C" int magent_rect_first_overlap_seg(
         <<<seg_blocks(A), kTile, 0, (cudaStream_t)stream>>>(
             qx, qy, tbw, tbh, x, y, bw, bh, slot, start, overflow, A, P,
             stride, max_body, out);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int magent_rank_prefix_seg(const int* tgt, const int* rank,
-                                      const float* dmg, const int* start,
-                                      const bool* overflow, int A, int P,
-                                      float* out, int device, void* stream) {
-  const cudaError_t set = cudaSetDevice(device);
-  if (set != cudaSuccess) return (int)set;
-  rank_prefix_seg_kernel<<<seg_blocks(A), kTile, 0, (cudaStream_t)stream>>>(
-      tgt, rank, dmg, start, overflow, A, P, out);
   return (int)cudaGetLastError();
 }

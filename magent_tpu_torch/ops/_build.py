@@ -49,9 +49,9 @@ _SIGNATURES = {
     "magent_rect_first_overlap": (_P,) * 8 + (_I,) * 7 + (_P,),
     "magent_window_gather4": (_P,) * 6 + (_I,) * 9 + (_P,),
     "magent_window_gather4_bf16": (_P,) * 6 + (_I,) * 9 + (_P,),
-    "magent_occupant_rect_seg": (_P,) * 10 + (_I, _I, _P, _P),
+    "magent_occupant_rect_seg": (_P,) * 10 + (_I,) * 4 + (_P, _P),
     "magent_rect_first_overlap_seg": (_P,) * 11 + (_I,) * 5 + (_P,),
-    "magent_rank_prefix_seg": (_P,) * 5 + (_I, _I, _P),
+    "magent_rank_prefix_seg": (_P,) * 5 + (_I,) * 4 + (_P,),
     "magent_window_gather_banded": (_P,) * 7 + (_I,) * 9 + (_P,),
     "magent_window_gather_banded_bf16": (_P,) * 7 + (_I,) * 9 + (_P,),
     "magent_window_ladder": (_P,) * 4 + (_I,) * 7 + (_P,),

@@ -26,7 +26,8 @@ One big world (``QUAD_MAX_SINGLE`` to 65,536 slots) of multi-cell bodies
 takes the y-segmented forms instead: :func:`occupant_rect_seg`,
 :func:`rect_first_overlap_seg` and :func:`rank_prefix_seg` take [A]
 operands sorted by y and sweep each 1024-row segment of queries against a
-window of nearby rows only (kernels in ``csrc/seg_kernels.cu``).
+window of nearby rows only (kernels: the first two on the split template
+of ``csrc/pair_kernels.cu``, the overlap sweep in ``csrc/seg_kernels.cu``).
 """
 
 from __future__ import annotations
@@ -543,6 +544,62 @@ def _seg_plan(sort_y, margin, seg_win=None):
     return S, P, start.to(torch.int32), overflow
 
 
+# Launch split of occupant_rect_seg and rank_prefix_seg on the split
+# template: a tile of RECT_TILE sorted query rows lies in one segment
+# (SEG_TILES tiles each), and its window of P rows is cut into cluster *
+# warps ranges of equal rows (seg_range in csrc/pair_kernels.cu).  One
+# world of 37,500 slots is 293 tiles, 2-3 lone CTAs per SM of the H100.
+# CTAs of SEG_WARPS warps; the cluster grows until the grid holds
+# _SEG_CTAS_PER_SM CTAs per SM (a full SM's 64 warps each: the SMs'
+# shares even out) or until a warp's range would drop below _SEG_MIN_RANGE
+# rows.  Measured on the H100 (tools/profile_rect.py, PERF.md §6):
+# clusters of 8 CTAs of 4 warps were the fastest of the 16 splits for the
+# occupant at maps 662 and 1000 and within 0.0001 ms of the fastest for
+# the rank sweep at map 1000 (6% behind (2, 8) at map 662).
+SEG_TILES = SEG_ROWS // RECT_TILE
+SEG_WARPS = 4
+_SEG_CTAS_PER_SM = 16
+_SEG_MIN_RANGE = 32
+
+
+def seg_split(A: int, P: int, n_sms: int):
+    """(cluster, warps) of a segmented split-template sweep over ``A``
+    sorted rows with windows of ``P`` rows on a card of ``n_sms`` SMs:
+    warps per CTA ``SEG_WARPS``; CTAs per cluster the smallest power of
+    two up to ``RECT_MAX_CLUSTER`` that puts ``_SEG_CTAS_PER_SM`` CTAs on
+    every SM, while each warp's range of the window keeps
+    ``_SEG_MIN_RANGE`` rows.  The overflow form (the plan's flag is read on
+    the device) sweeps ``[0, A)`` with the same split."""
+    if A > RECT_MAX_SLOTS:
+        raise ValueError("the segmented sweeps take at most %d slots, got %d"
+                         % (RECT_MAX_SLOTS, A))
+    n_tiles = -(-A // RECT_TILE)
+    cluster = 1
+    while (cluster < RECT_MAX_CLUSTER
+           and n_tiles * cluster < _SEG_CTAS_PER_SM * n_sms
+           and P >= 2 * cluster * SEG_WARPS * _SEG_MIN_RANGE):
+        cluster *= 2
+    return cluster, SEG_WARPS
+
+
+def seg_bounds(t: int, n: int, A: int, P: int, start, overflow: bool):
+    """The window ranges of sorted query tile ``t`` cut ``n`` ways: ``n +
+    1`` ascending bounds, range s = ``[b[s], b[s+1])`` (the Python twin of
+    ``seg_range`` in csrc/pair_kernels.cu): equal rows of the tile's
+    segment's window ``[start[t // SEG_TILES], min(A, start + P))``, or of
+    ``[0, A)`` when the plan overflows."""
+    begin, end = 0, A
+    if not overflow:
+        begin = int(start[t // SEG_TILES])
+        end = min(A, begin + P)
+    length = max(end - begin, 0)
+    return [begin + s * length // n for s in range(n + 1)]
+
+
+def _seg_split_on(device, A: int, P: int):
+    return seg_split(A, P, _build.sm_count(device))
+
+
 def _seg_gather(ops, start, P):
     """[S, P] partner windows ``rows[start_s : start_s + P]`` of 1-D
     padded operands."""
@@ -666,25 +723,44 @@ def occupant_rect_seg(qx, qy, x, y, bw, bh, hp, sort_y, order, *, margin,
     and its core ``_occupant_rect_core`` (``:864``, ``pallas_call`` at
     ``:901``); the overflow branch, there ``occupant_rect_tpu`` with
     ``bslot``, is the same kernel sweeping every row.  Bound on the card:
-    5 integer instructions (four edge compares, a predicated max of the
-    slot id) and one f32 add per pair over A * P pairs (map 1000: 97.0 M).
-    Design: as :func:`rect_first_overlap_seg`; the window is not in slot
-    order, so the kernel keeps the max slot id, not the last match.  Bodies
-    are disjoint, so at most one term of ``hp_t`` is non-zero and it
-    equals the plain version bit for bit."""
+    4 integer instructions (four edge compares) per pair over A * P pairs
+    (map 1000: 97.0 M), and a max of the slot id and an f32 add per
+    matching pair.  Design: ``csrc/pair_kernels.cu`` on the split template
+    of :func:`occupant_rect` — 4 sorted query rows per thread against
+    window rows staged as their edges (one int4) and (slot id, hp bits)
+    (one int2), a warp updating its queries only where one of its lanes
+    matched; each 128-row tile's window, ``[start_s, start_s + P)`` or
+    every row when the plan overflows (both read on the device: no host
+    sync, no [S, P] gather), cut over the warps of a thread-block cluster
+    (:func:`seg_split`, :func:`seg_bounds`), the partials folded in range
+    order through distributed shared memory.  The window is not in slot
+    order, so the kernel keeps the max slot id, not the last match.  Ints
+    equal the plain version exactly; ``hp_t`` bit for bit wherever a query
+    matches at most two bodies (the engine's bodies never overlap, so at
+    most one), else within rounding (the sum runs in window order)."""
     ints = (qx, qy, x, y, bw, bh, order)
     if _build.route(*ints, hp, sort_y) == "cpu":
         return occupant_rect_seg_ref(qx, qy, x, y, bw, bh, hp, sort_y, order,
                                      margin=margin, seg_win=seg_win, plan=plan)
     A, device, P, start, overflow = _seg_launch_operands(
         "occupant_rect_seg", ints, (hp,), sort_y, margin, seg_win, plan)
-    tgt = torch.empty((A,), dtype=torch.int32, device=device)
-    hp_t = torch.empty((A,), dtype=torch.float32, device=device)
+    return _occupant_rect_seg_launch(ints, hp, P, start, overflow,
+                                     _seg_split_on(device, A, P))
+
+
+def _occupant_rect_seg_launch(ints, hp, P, start, overflow, split):
+    """Launch the occupant_rect_seg kernel on validated operands ``ints =
+    (qx, qy, x, y, bw, bh, order)`` and ``hp`` with the plan's window width
+    ``P``, ``start`` and ``overflow``, and ``split = (cluster, warps)``."""
+    A = hp.shape[0]
+    tgt = torch.empty((A,), dtype=torch.int32, device=hp.device)
+    hp_t = torch.empty((A,), dtype=torch.float32, device=hp.device)
     if A:
-        _build.launch("magent_occupant_rect_seg", device,
+        _build.launch("magent_occupant_rect_seg", hp.device,
                       *(t.data_ptr() for t in ints[:6]), hp.data_ptr(),
-                      order.data_ptr(), start.data_ptr(), overflow.data_ptr(),
-                      A, P, tgt.data_ptr(), hp_t.data_ptr())
+                      ints[6].data_ptr(), start.data_ptr(),
+                      overflow.data_ptr(), A, P, *split, tgt.data_ptr(),
+                      hp_t.data_ptr())
     return tgt, hp_t
 
 
@@ -719,17 +795,29 @@ def rank_prefix_seg(tgt, rank, dmg, sort_y, *, margin, seg_win=None,
     ``:971``); the overflow branch, there ``rank_prefix_tpu``, is the same
     kernel sweeping every row.  Bound on the card: 2 integer instructions
     (two compares) and one f32 add per pair over A * P pairs (map 1000:
-    135.8 M).  Design: as :func:`rect_first_overlap_seg`.  The kernel sums
-    in window order, the plain version in its reduction order: equal when
-    the damages are equal (pursuit's), else within 1e-5."""
+    135.8 M).  Design: ``csrc/pair_kernels.cu``, :func:`rank_prefix`'s
+    sweep on each tile's window as in :func:`occupant_rect_seg`
+    (:func:`seg_split`, :func:`seg_bounds`).  The kernel sums in window
+    order within a range, then range by range (deterministic for a given
+    split), the plain version in its reduction order: equal when the
+    damages are integer-valued (pursuit's), else within 1e-5."""
     if _build.route(tgt, rank, dmg, sort_y) == "cpu":
         return rank_prefix_seg_ref(tgt, rank, dmg, sort_y, margin=margin,
                                    seg_win=seg_win, plan=plan)
     A, device, P, start, overflow = _seg_launch_operands(
         "rank_prefix_seg", (tgt, rank), (dmg,), sort_y, margin, seg_win, plan)
-    out = torch.empty((A,), dtype=torch.float32, device=device)
+    return _rank_prefix_seg_launch(tgt, rank, dmg, P, start, overflow,
+                                   _seg_split_on(device, A, P))
+
+
+def _rank_prefix_seg_launch(tgt, rank, dmg, P, start, overflow, split):
+    """Launch the rank_prefix_seg kernel on validated operands with the
+    plan's window width ``P``, ``start`` and ``overflow``, and ``split =
+    (cluster, warps)``."""
+    A = tgt.shape[0]
+    out = torch.empty((A,), dtype=torch.float32, device=tgt.device)
     if A:
-        _build.launch("magent_rank_prefix_seg", device, tgt.data_ptr(),
+        _build.launch("magent_rank_prefix_seg", tgt.device, tgt.data_ptr(),
                       rank.data_ptr(), dmg.data_ptr(), start.data_ptr(),
-                      overflow.data_ptr(), A, P, out.data_ptr())
+                      overflow.data_ptr(), A, P, *split, out.data_ptr())
     return out

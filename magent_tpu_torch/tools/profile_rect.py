@@ -4,7 +4,10 @@ the shapes of pursuit's gridless rect path, and ``rank_prefix`` also at
 battle's lockstep shapes (B=16, A=2000) and in its hp form at the
 GridWorld's (B=1, A=2048), each form timed with the split the wrapper
 picks (``ops/attack_prefix.py`` ``rect_split``) and with every other
-(cluster, warps) split, each held exactly against its plain version.
+(cluster, warps) split, each held exactly against its plain version; the
+segmented sweeps ``occupant_rect_seg`` and ``rank_prefix_seg`` on the same
+template at pursuit's one world of map 1000 (A = 37,500), with the step's
+plan passed in, against the split ``seg_split`` picks and every other.
 
 Also the seeded operands that the card's checks share (``chip_smoke.py``
 phases 2 and 5-6, ``tests/test_torch_port_gpu.py``): random bodies at
@@ -13,12 +16,15 @@ ragged sizes (:func:`ragged_operands`), two adversarial cases
 (:func:`rank_operands`).
 
 Usage:  python -m magent_tpu_torch.tools.profile_rect [--maps 64 500]
+        [--seg-maps 1000]
 First prints the instruction mix per pair of each kernel's unrolled inner
 loop (4 bodies x 4 queries), read with ``cuobjdump -sass`` from the built
 library.  The operands are one recorded step of ``VecGridWorld(pursuit(
 map))`` with the scripts' placements: map 64 at B=16 (seed 11), larger
 maps one world (seed 5); battle's and the GridWorld's rank_prefix forms
-take :func:`rank_operands` with battle's damage 2.0.  Times are device time per launch (CUDA events
+take :func:`rank_operands` with battle's damage 2.0; the segmented forms
+take the step's operands with values that show a wrong row
+(:func:`seg_calls`).  Times are device time per launch (CUDA events
 around 50 calls queued behind a spin kernel, median of 3).
 """
 
@@ -45,6 +51,8 @@ RAGGED_A = (1, 2, 127, 128, 129, 153, 1000, 9375, 16384)
 # body sizes by max_body: 2 is pursuit's (2x2 predators, 1x1 prey)
 SIZES = {2: ((2, 2), (1, 1)), 3: ((2, 2), (1, 3), (1, 1))}
 SPLITS = [(c, w) for c in (1, 2, 4, 8) for w in (1, 2, 4, 8)]
+# the segmented sweeps on the split template
+SEG_SPLIT_SWEEPS = ("occupant_rect_seg", "rank_prefix_seg")
 
 
 def _t(a):
@@ -153,8 +161,27 @@ def adversarial_operands(A, B, case, lower_only=False):
                                                else bodies)
 
 
+def seg_launch(name, args, kwargs, split):
+    """One launch of segmented sweep ``name`` (``SEG_SPLIT_SWEEPS``) on CUDA
+    operands with ``split``, on the plan its call runs on: ``kwargs``'
+    ``plan``, else one made from its ``margin`` and ``seg_win``."""
+    if name == "occupant_rect_seg":
+        ints, hp, sort_y = list(args[:6]) + [args[8]], args[6], args[7]
+    else:
+        ints, hp, sort_y = list(args[:2]), args[2], args[3]
+    _, _, P, start, overflow = ap._seg_launch_operands(
+        name, ints, (hp,), sort_y, kwargs["margin"], kwargs.get("seg_win"),
+        kwargs.get("plan"))
+    if name == "occupant_rect_seg":
+        return ap._occupant_rect_seg_launch(ints, hp, P, start, overflow,
+                                            split)
+    return ap._rank_prefix_seg_launch(*ints, hp, P, start, overflow, split)
+
+
 def launch(name, args, kwargs, split):
     """One launch of kernel ``name`` on CUDA operands with ``split``."""
+    if name in SEG_SPLIT_SWEEPS:
+        return seg_launch(name, args, kwargs, split)
     if name == "rank_prefix":
         return ap._rank_prefix_launch(*args[:3], args[3] if len(args) > 3
                                       else None, split)
@@ -168,6 +195,8 @@ def launch(name, args, kwargs, split):
 
 
 def form_name(name, kwargs):
+    if name in SEG_SPLIT_SWEEPS:
+        return "%s, window %d" % (name, kwargs["plan"][1])
     if name == "rank_prefix":
         return "rank_prefix%s" % (", hp" if kwargs.get("hp") else "")
     if name == "occupant_rect":
@@ -182,7 +211,9 @@ def split_table(name, args, kwargs, splits=SPLITS, reps=50):
     version first -> {split: ms}."""
     plain = {"occupant_rect": ap.occupant_rect_ref,
              "rect_first_overlap": ap.rect_first_overlap_ref,
-             "rank_prefix": ap.rank_prefix_ref}[name]
+             "rank_prefix": ap.rank_prefix_ref,
+             "occupant_rect_seg": ap.occupant_rect_seg_ref,
+             "rank_prefix_seg": ap.rank_prefix_seg_ref}[name]
     want = plain(*args) if name == "rank_prefix" else plain(*args, **kwargs)
     want = want if isinstance(want, tuple) else (want,)
     out = {}
@@ -238,39 +269,115 @@ def pursuit_calls(map_size, device):
     return calls
 
 
+def seg_calls(map_size, device):
+    """(name, args, kwargs) of the segmented sweeps on the split template
+    from one step of pursuit's one world at ``map_size`` (seed 5), with
+    the step's plan in ``kwargs``; pursuit's hp is 1 everywhere and it
+    deals no damage, so the occupant takes seeded random hp (its bodies
+    are disjoint: its sums stay exact) and the rank sweep a dense form, each
+    run of 4 sorted rows sharing a target, with integer damages 1-3."""
+    from .. import random as rnd
+    from ..builtin.config import pursuit
+    from ..parallel import VecGridWorld
+
+    placements, _ = pursuit.layout(map_size, 5)
+    venv = VecGridWorld(pursuit.get_config(map_size),
+                        [len(p) for p in placements], 1,
+                        placements=placements, device=device)
+    if not venv._step.route.seg:
+        raise ValueError("map %d does not take the segmented route"
+                         % map_size)
+    calls = {}
+    originals = {n: getattr(ap, n) for n in SEG_SPLIT_SWEEPS}
+
+    def recorder(name):
+        def rec(*args, **kwargs):
+            calls[name] = ([a.clone() for a in args], dict(kwargs))
+            return originals[name](*args, **kwargs)
+        return rec
+
+    for name in originals:
+        setattr(ap, name, recorder(name))
+    try:
+        state = venv.reset(rnd.PRNGKey(4))
+        venv.observe_all(state)
+        venv.transition(state, venv.random_actions(rnd.PRNGKey(5)))
+    finally:
+        for name, fn in originals.items():
+            setattr(ap, name, fn)
+    gen = torch.Generator(device="cpu").manual_seed(map_size)
+    occ, occ_kw = calls["occupant_rect_seg"]
+    A = occ[0].shape[0]
+    occ[6] = (0.1 + 0.9 * torch.rand(A, generator=gen)).to(device)
+    (tgt, rank, _, sort_y), rank_kw = calls["rank_prefix_seg"]
+    shared = (torch.arange(A, device=device) // 4).to(torch.int32)
+    dmg = torch.randint(1, 4, (A,), generator=gen).float().to(device)
+    return [("occupant_rect_seg", occ, occ_kw),
+            ("rank_prefix_seg", [shared, rank, dmg, sort_y], rank_kw)]
+
+
+def _bra_target(op):
+    m = re.search(r"BRA (0x[0-9a-f]+)", op)
+    return int(m.group(1), 16) if m else None
+
+
+def _common_path(ins, top, end):
+    """The (address, instruction) pairs a loop body [top, end] runs when
+    every warp-uniform branch skips its block: a branch to a later
+    instruction of the body is taken; a branch back (an inner loop's back
+    edge) or out of the body (an out-of-line block) is not."""
+    at = {a: k for k, (a, _) in enumerate(ins)}
+    path, k = [], at[top]
+    while k <= at[end]:
+        a, op = ins[k]
+        path.append((a, op))
+        target = _bra_target(op)
+        if target is not None and a < target <= end:
+            k = at[target]
+            continue
+        k += 1
+    return path
+
+
 def sass_mix():
     """{kernel: [(instructions per pair, {opcode: count})]} of the split
     template's innermost loops that test 4 staged partners (4 LDS.128 or
-    more, no branch but the back edge) against 4 queries each, from the
-    built library's SASS; a kernel has one such loop per sweep segment."""
+    more) against 4 queries each, from the built library's SASS; a kernel
+    has one such loop per sweep segment.  A loop whose partners skip a
+    warp-uniform block (``occupant_rect_seg``'s update, taken only where a
+    lane matched) is counted on the path that skips it."""
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(_build.LIB_PATH)],
                           check=True, capture_output=True, text=True).stdout
     out = {}
     for func in re.split(r"\n\s*Function : ", sass)[1:]:
-        name = re.search(r"(occupant_rect|rect_first_overlap|rank_prefix)"
-                         r"_kernelILb(\d)",
+        name = re.search(r"(occupant_rect_seg|rank_prefix_seg|occupant_rect|"
+                         r"rect_first_overlap|rank_prefix)_kernel(ILb(\d))?",
                          func.split("\n", 1)[0])
         if not name:
             continue
         ins = [(int(a, 16), op.strip()) for a, op in re.findall(
             r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", func)]
-        at = {a: k for k, (a, _) in enumerate(ins)}
+        addrs = {a for a, _ in ins}
         loops = []
-        for k, (a, op) in enumerate(ins):
-            m = re.search(r"BRA (0x[0-9a-f]+)", op)
-            top = int(m.group(1), 16) if m else None
-            if top is None or top >= a or top not in at:
+        for a, op in ins:
+            top = _bra_target(op)
+            if top is None or top >= a or top not in addrs:
                 continue
-            body = ins[at[top]:k + 1]
-            if (sum("LDS.128" in o for _, o in body) >= 4
-                    and not any("BRA" in o for _, o in body[:-1])):
+            path = _common_path(ins, top, a)
+            body = [o for _, o in path]
+            # an inner loop's back edge: this is an outer loop
+            nested = any(_bra_target(o) is not None and _bra_target(o) <= b
+                         for b, o in path[:-1])
+            inner = [o for o in body[:-1] if "BRA" in o]
+            if (sum("LDS.128" in o for o in body) >= 4 and not nested
+                    and (not inner or any("VOTE" in o for o in body))):
                 mix = collections.Counter(
                     re.sub(r"^@!?U?P\w+ ", "", o).split()[0].split(".")[0]
-                    for _, o in body)
+                    for o in body)
                 loops.append((len(body) / 16, dict(mix.most_common())))
-        key = "%s<%s>" % (name.group(1), "true" if name.group(2) == "1"
-                          else "false")
+        key = name.group(1) if name.group(2) is None else "%s<%s>" % (
+            name.group(1), "true" if name.group(3) == "1" else "false")
         out[key] = sorted(loops, key=lambda loop: loop[0])
     return out
 
@@ -279,7 +386,8 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m magent_tpu_torch.tools.profile_rect",
         description=__doc__.split("\n\n")[0])
-    parser.add_argument("--maps", type=int, nargs="+", default=[64, 500])
+    parser.add_argument("--maps", type=int, nargs="*", default=[64, 500])
+    parser.add_argument("--seg-maps", type=int, nargs="*", default=[1000])
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         parser.error("no CUDA device")
@@ -299,9 +407,15 @@ def main(argv=None) -> int:
             A, B, A, integer=True))
         forms.append((label, "rank_prefix", [tgt, rank, dmg] + (
             [hps] if hp else []), {"hp": hp}))
+    forms += [("map %d" % m, name, a, kw) for m in args.seg_maps
+              for name, a, kw in seg_calls(m, device)]
     for label, name, a, kw in forms:
-        B, A = a[0].shape
-        picked = ap.rect_split(B, A, n_sms)
+        if name in SEG_SPLIT_SWEEPS:
+            B, (A,) = 1, a[0].shape
+            picked = ap.seg_split(A, kw["plan"][1], n_sms)
+        else:
+            B, A = a[0].shape
+            picked = ap.rect_split(B, A, n_sms)
         ms = split_table(name, a, kw)
         best = min(ms, key=ms.get)
         print("%s, B=%d, A=%d, %-34s picked %s: %.4f ms; best %s: %.4f ms; "

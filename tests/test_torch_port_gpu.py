@@ -7,7 +7,8 @@ window_gather_banded (three slot-order forms and band order) in f32 and
 bf16 at ragged sizes, edge and outside positions, bit for bit in several
 launch splits; the segmented sweeps and the banded gather
 on a pursuit map-250 step;
-the segmented sweeps on the random operands of tests/_torch_seg_operands.py;
+the segmented sweeps on the random operands of tests/_torch_seg_operands.py,
+occupant_rect_seg and rank_prefix_seg in every launch split;
 the window-gather cost ladder on tools/profile_window.py's inputs; the
 bf16 forms of the three window kernels), and short GPU-vs-CPU runs of the
 lockstep loop (battle; pursuit with and without interior walls; pursuit's
@@ -543,17 +544,17 @@ def _valued_seg_forms(name, args, kw, gen):
             for k in (kw, dict(narrow, seg_win=512))]
 
 
-def test_seg_kernels_match_plain_on_card(cuda):
-    """The three segmented sweeps and the banded gather on one map-250 step's
-    operands (recorded from the CPU run), as the step calls them and with
-    the window forced below a segment (seg_win=512), which takes the full
-    sweep, the occupant with random hp and the rank sweep with random
-    damage (see :func:`_valued_seg_forms`): ints, windows and occupant hp
-    exact, rank sums within PAIR_ATOL."""
+_SEG_MODS = {name: twg if name == "window_gather_banded" else tap
+             for name in SEG_KERNELS}
+
+
+def _seg_world_calls(cuda):
+    """{name: [(args, kwargs)]} of the segmented sweeps' and the banded
+    gather's calls in one step of :func:`_seg_world` on the CPU, moved to
+    the card."""
     venv = _seg_world("cpu")
     calls = {name: [] for name in SEG_KERNELS}
-    mods = {name: twg if name == "window_gather_banded" else tap
-            for name in SEG_KERNELS}
+    mods = _SEG_MODS
     originals = {name: getattr(mods[name], name) for name in SEG_KERNELS}
     for name, fn in originals.items():
         def rec(*args, _fn=fn, _name=name, **kwargs):
@@ -569,6 +570,18 @@ def test_seg_kernels_match_plain_on_card(cuda):
         for name, fn in originals.items():
             setattr(mods[name], name, fn)
     assert [len(calls[n]) for n in SEG_KERNELS] == [1, 2, 1, 2]
+    return calls
+
+
+def test_seg_kernels_match_plain_on_card(cuda):
+    """The three segmented sweeps and the banded gather on one map-250 step's
+    operands (recorded from the CPU run), as the step calls them and with
+    the window forced below a segment (seg_win=512), which takes the full
+    sweep, the occupant with random hp and the rank sweep with random
+    damage (see :func:`_valued_seg_forms`): ints, windows and occupant hp
+    exact, rank sums within PAIR_ATOL."""
+    calls = _seg_world_calls(cuda)
+    mods = _SEG_MODS
     gen = torch.Generator(device="cpu").manual_seed(0)
     before = ops.launch_counts()
     for name in SEG_KERNELS:
@@ -591,6 +604,109 @@ def test_seg_kernels_match_plain_on_card(cuda):
                         assert bool((w != 0).any()), name
     after = ops.launch_counts()
     assert [after[n] - before[n] for n in SEG_KERNELS] == [2, 4, 4, 2]
+
+
+def _seg_splits(name, args, kw):
+    """Every split of tools/profile_rect.py's table, then the one the
+    wrapper picks for the window of the plan this call runs on (an
+    overflow form sweeps every row with the same split)."""
+    sort_y = args[-1] if name == "rank_prefix_seg" else args[-2]
+    _, P, _, _ = kw.get("plan") or tap._seg_plan(sort_y, kw["margin"],
+                                                 kw.get("seg_win"))
+    return tpr.SPLITS + [tap.seg_split(args[0].shape[0], P,
+                                       tap._build.sm_count(args[0].device))]
+
+
+def _match_counts(args):
+    """Per query of an occupant_rect_seg call: the bodies whose rect holds
+    its cell."""
+    qx, qy, x, y, bw, bh = args[:6]
+    return ((qx[None, :] >= x[:, None]) & (qx[None, :] < (x + bw)[:, None])
+            & (qy[None, :] >= y[:, None])
+            & (qy[None, :] < (y + bh)[:, None])).sum(0)
+
+
+def _assert_seg_split_equal(name, args, kw, integer, nonzero):
+    """``name`` (occupant_rect_seg or rank_prefix_seg) in every split of
+    :func:`_seg_splits` against its plain version: slot ids exact;
+    occupant hp bit for bit on every query with at most two matches (a + b
+    = b + a), within 1e-6 on piles of three or more (the sum runs in
+    window order); rank sums exact on ``integer`` damages, else within
+    PAIR_ATOL; with ``nonzero``, the plain version's floats are not all
+    zero."""
+    if name == "occupant_rect_seg":
+        want = tap.occupant_rect_seg_ref(*args, **kw)
+        few = _match_counts(args) <= 2
+    else:
+        want = tap.rank_prefix_seg_ref(*args, **kw)
+    for split in _seg_splits(name, args, kw):
+        got = tpr.launch(name, args, kw, split)
+        if name == "occupant_rect_seg":
+            assert torch.equal(got[0], want[0]), split
+            assert torch.equal(got[1][few], want[1][few]), split
+            torch.testing.assert_close(got[1], want[1], atol=1e-6, rtol=0)
+        elif integer:
+            assert torch.equal(got, want), split
+        else:
+            torch.testing.assert_close(got, want, atol=PAIR_ATOL, rtol=0)
+    floats = want[1] if name == "occupant_rect_seg" else want
+    assert not nonzero or bool((floats != 0).any()), name
+
+
+def _without_plan(kw, seg_win):
+    return dict({n: v for n, v in kw.items() if n != "plan"}, seg_win=seg_win)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_seg_split_kernels_match_plain_on_random_operands(cuda, case):
+    """occupant_rect_seg and rank_prefix_seg on the random operands of
+    tests/_torch_seg_operands.py (possibly overlapping rects, slot ids
+    shuffled by the sort, random hp and damage; the degenerate case
+    overflows), as planned and with the window forced below a segment
+    (seg_win=512), in every split: see :func:`_assert_seg_split_equal`;
+    the rank sweep also on the same ranks with integer damages, exact;
+    the entry points launch their kernels once per call."""
+    for name, fn, _, args, kw in seg_calls(case):
+        if name not in tpr.SEG_SPLIT_SWEEPS:
+            continue
+        args = [a.to(cuda) for a in args]
+        for k in (kw, _without_plan(kw, 512)):
+            _assert_seg_split_equal(name, args, k, False, True)
+            if name == "rank_prefix_seg":
+                tgt, rank, dmg, sort_y = args
+                whole = torch.where(dmg > 0, torch.ceil(3 * dmg), 0.0)
+                _assert_seg_split_equal(name, [tgt, rank, whole, sort_y], k,
+                                        True, True)
+        before = ops.launch_counts()[name]
+        fn(*args, **kw)
+        assert ops.launch_counts()[name] == before + 1
+
+
+def test_seg_split_kernels_match_plain_on_card(cuda):
+    """occupant_rect_seg and rank_prefix_seg on one map-250 step's operands
+    in every split, as the step planned them and with seg_win=512 (the
+    full sweep): the occupant with random hp (exact: the step's bodies
+    never overlap), the rank sweep with random damage (within PAIR_ATOL),
+    and with each run of 4 sorted rows sharing a target and integer
+    damages 1-3 (exact)."""
+    calls = _seg_world_calls(cuda)
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    for name in tpr.SEG_SPLIT_SWEEPS:
+        (args, kw), = calls[name]
+        forms = [(a, k, False, nz) for a, k, nz in _valued_seg_forms(
+            name, args, kw, gen)]
+        if name == "rank_prefix_seg":
+            tgt, rank, _, sort_y = args
+            A = tgt.shape[0]
+            whole = torch.randint(1, 4, (A,), generator=gen).float()
+            shared = [(torch.arange(A, device=cuda) // 4).to(torch.int32),
+                      rank, whole.to(cuda), sort_y]
+            forms += [(shared, k, True, True)
+                      for k in (kw, _without_plan(kw, 512))]
+        else:
+            assert int(_match_counts(args).max()) <= 1
+        for a, k, integer, nonzero in forms:
+            _assert_seg_split_equal(name, a, k, integer, nonzero)
 
 
 @pytest.mark.parametrize("walls", [False, True])
