@@ -8,8 +8,12 @@ Run from the repository root:  python3 chip_smoke.py
 2. runs one battle 2x1000, B=16 step with the kernel wrappers recording
    their operands, then holds each kernel against its plain PyTorch version
    on those operands (ints exact, floats within the stated atol) and times
-   both with CUDA events; prints ``rank_prefix``'s ``rank form`` line (ms,
-   bound, share of bound, launch split, launches per step);
+   both with CUDA events; prints ``occupant``'s ``pair form`` and
+   ``rank_prefix``'s ``rank form`` lines (ms, bound, share of bound, launch
+   split, launches per step); holds ``occupant`` (on the split template)
+   in every (cluster, warps) split of ``tools/profile_rect.py``'s table on
+   the step's operands and on random ones at ragged A, B = 1 and 16, on
+   unique and on duplicate cells;
 3. runs the lockstep path — ``VecGridWorld(battle(200), [1000, 1000],
    n_envs=16)``: reset, warm-up, then timed ``observe_all -> random_actions
    -> transition`` steps — and checks from the launch counters that every
@@ -24,7 +28,10 @@ Run from the repository root:  python3 chip_smoke.py
    ``window_gather`` twice), counts the host syncs per step and profiles a
    few steps; then holds the grid path's kernels against their plain
    versions on the operands of one more step (``window_gather`` at B=1,
-   f32), times them and prints ``rank_prefix_hp``'s ``rank form`` line;
+   f32), times them and prints ``rank_prefix_hp``'s ``rank form`` line and
+   ``move_claims``' ``pair form`` line; holds ``move_claims`` (on the split
+   template, the pairs i < j alone) in every split on the step's operands
+   and on random ones at ragged A with one shared sentinel;
 5. runs pursuit's gridless rect path, the lockstep loop of
    ``scripts/train_evidence.py`` — ``VecGridWorld(pursuit(64), [51, 102],
    n_envs=16)`` with its placements (seed 11): holds ``occupant_rect``
@@ -199,11 +206,15 @@ VIEW_ATOL = 1e-6
 # per (query, slot) pair: a compare sets a predicate (a second compare ANDs
 # into it), a select-and-add is one predicated add, a select-and-min one
 # predicated min; shared-memory loads are not counted.
-#   occupant      cell == q; cnt += m; ssum += i          | hsum += hp
+#   occupant      cell == q; for a query that found a slot: cnt += 1, ssum
+#                 += i | hsum += hp, charged once per such query (the warp
+#                 updates its queries only where a lane matched; in the
+#                 engine a query matches at most one slot)
 #   rank_prefix   tgt == t; AND rank < r                  | p += dmg
 #   move_resolve  i = i0 + k; same; AND i < j; cnt += ; head = min(head, i);
 #                 cell == t; AND i != j; ocnt += ; osum += i
-#   move_claims   i = i0 + k; same; AND i < j; cnt += ; head = min(head, i)
+#   move_claims   over the pairs i < j alone (head <= j: a slot matches
+#                 itself): same; cnt += ; head = min(head, i)
 # rank_prefix_hp is rank_prefix's sweep; its hp_t is one load per query,
 # charged as bytes (hp read, hp_t written).
 #   occupant_rect       four edge compares; best = i (i = i0 + k)  | hsum += hp
@@ -224,8 +235,8 @@ VIEW_ATOL = 1e-6
 #                       queries only where a lane matched), charged once
 #                       per query that found a body (the engine's bodies
 #                       never overlap: one match each)
-PAIR_OPS = {"occupant": (3, 1), "rank_prefix": (2, 1), "move_resolve": (9, 0),
-            "rank_prefix_hp": (2, 1), "move_claims": (5, 0),
+PAIR_OPS = {"occupant": (1, 0), "rank_prefix": (2, 1), "move_resolve": (9, 0),
+            "rank_prefix_hp": (2, 1), "move_claims": (3, 0),
             "occupant_rect": (5, 1), "rect_first_overlap": (8, 0),
             "occupant_rect_seg": (4, 0), "rect_first_overlap_seg": (8, 0),
             "rank_prefix_seg": (2, 1)}
@@ -486,14 +497,14 @@ def seg_pairs(name, args, kwargs) -> int:
 
 def pair_work(name, args, kwargs):
     """(pairs, int32 and f32 instructions per pair) of a pair-kernel call:
-    the pairs this call's sweep needs (``lower_only``: i < j only; the
-    segmented sweeps: :func:`seg_pairs`)."""
+    the pairs this call's sweep needs (``lower_only`` and ``move_claims``:
+    i < j only; the segmented sweeps: :func:`seg_pairs`)."""
     n_int, n_f32 = PAIR_OPS[name]
     if name in SEG_SWEEPS:
         return seg_pairs(name, args, kwargs), n_int, n_f32
     B, A = args[0].shape
     pairs = B * A * A
-    if kwargs.get("gate") == "lower_only":
+    if kwargs.get("gate") == "lower_only" or name == "move_claims":
         pairs = B * A * (A - 1) // 2
     return pairs, n_int, n_f32
 
@@ -582,6 +593,9 @@ def call_stats(name, args, kwargs, f32_rate, int32_rate, form,
         if name == "occupant_rect_seg":  # the matches' max and add
             ops_ms += int((want[0] >= 0).sum()) * max(
                 1 / int32_rate, 1 / f32_rate) * 1e3
+        if name == "occupant":  # the matches' count, slot and hp adds
+            ops_ms += int((want[0] >= 0).sum()) * max(
+                2 / int32_rate, 1 / f32_rate) * 1e3
     bytes_ms = io_bytes / HBM_BYTES_PER_S * 1e3
     stats = dict(form=form, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                  bound_ms=max(bytes_ms, ops_ms),
@@ -632,19 +646,22 @@ def check_kernels(venv, state, key, f32_rate, int32_rate):
         venv.observe_all(state)
         venv.transition(state, venv.random_actions(key))
 
-    before = ops.launch_counts()["rank_prefix"]
+    split = ("occupant", "rank_prefix")
+    before = ops.launch_counts()
     rec = record_operands(one_step, [
         (wg, "window_gather"), (ap, "occupant"), (ap, "rank_prefix"),
         (ap, "move_resolve")])
-    per_step = ops.launch_counts()["rank_prefix"] - before
+    per_step = {n: ops.launch_counts()[n] - before[n] for n in split}
     rows = {}
+    form = "battle 2x1000, B=16"
     for name in ("window_gather", "occupant", "rank_prefix", "move_resolve"):
         args, kwargs = rec[name][0]
-        rows[name] = kernel_row(name, [(args, kwargs, "battle 2x1000, B=16")],
-                                f32_rate, int32_rate)
+        rows[name] = kernel_row(name, [(args, kwargs, form)], f32_rate,
+                                int32_rate)
     print_split_forms(
-        {"rank_prefix": [(rec["rank_prefix"][0][0], {}, per_step)]},
-        {"rank_prefix": rows["rank_prefix"]["per_call"]})
+        {n: [(rec[n][0][0], {}, per_step[n])] for n in split},
+        {n: rows[n]["per_call"] for n in split})
+    check_cell_splits("occupant", rec["occupant"][0][0], form)
     del rec
     torch.cuda.empty_cache()
     return rows
@@ -988,11 +1005,12 @@ def run_gridworld_path(f32_rate, int32_rate, device_name):
     # sweeps see shared targets and contested cells
     env.reset()
     place_interleaved(env, handles)
-    before = ops.launch_counts()["rank_prefix_hp"]
+    split = ("rank_prefix_hp", "move_claims")
+    before = ops.launch_counts()
     rec = record_operands(lambda: gridworld_step(env, handles, rng),
                           [(ap, "rank_prefix"), (ap, "move_claims"),
                            (wg, "window_gather")])
-    per_step = ops.launch_counts()["rank_prefix_hp"] - before
+    per_step = {n: ops.launch_counts()[n] - before[n] for n in split}
     (rp_args, rp_kw), = rec["rank_prefix"]
     (mc_args, mc_kw), = rec["move_claims"]
     tgt, tcell = rp_args[0], mc_args[0]
@@ -1006,8 +1024,11 @@ def run_gridworld_path(f32_rate, int32_rate, device_name):
                                          int32_rate),
             "move_claims": kernel_row("move_claims", [(mc_args, mc_kw, form)],
                                       f32_rate, int32_rate)}
-    print_split_forms({"rank_prefix_hp": [(rp_args, rp_kw, per_step)]},
-                      {"rank_prefix_hp": rows["rank_prefix_hp"]["per_call"]})
+    print_split_forms(
+        {"rank_prefix_hp": [(rp_args, rp_kw, per_step["rank_prefix_hp"])],
+         "move_claims": [(mc_args, mc_kw, per_step["move_claims"])]},
+        {n: rows[n]["per_call"] for n in split})
+    check_cell_splits("move_claims", mc_args, form)
     # the GridWorld's window calls (B=1): forms of phase 2's row
     gw_views = [call_stats("window_gather", a, k, f32_rate, int32_rate,
                            "%s, group %d" % (form, g))
@@ -1213,15 +1234,17 @@ def window_gather4_calls(banded_calls):
 
 # the kernels on the split template (ops/attack_prefix.py rect_split;
 # the segmented two seg_split)
-SPLIT_KERNELS = ("occupant_rect", "rect_first_overlap", "rank_prefix",
-                 "rank_prefix_hp", "occupant_rect_seg", "rank_prefix_seg")
+SPLIT_KERNELS = ("occupant", "move_claims", "occupant_rect",
+                 "rect_first_overlap", "rank_prefix", "rank_prefix_hp",
+                 "occupant_rect_seg", "rank_prefix_seg")
 
 
 def print_split_forms(calls, stats):
-    """One line per form of the split template's kernels (``rect form``,
-    ``rank form``, ``seg form``): ``calls`` {name: [(args, kwargs, launches
-    per step)]} of a step's calls and the forms off the path (0 per step),
-    ``stats`` {name: [call_stats dicts]} in the same order; device ms,
+    """One line per form of the split template's kernels (``pair form``,
+    ``rect form``, ``rank form``, ``seg form``): ``calls`` {name: [(args,
+    kwargs, launches per step)]} of a step's calls and the forms off the
+    path (0 per step), ``stats`` {name: [call_stats dicts]} in the same
+    order; device ms,
     bound, share of bound, the launch split (for a segmented sweep, the
     one its call's window gives), and launches per step."""
     from magent_tpu_torch.ops import attack_prefix as ap
@@ -1237,7 +1260,8 @@ def print_split_forms(calls, stats):
             else:
                 B, A = args[0].shape
                 cluster, warps = ap.rect_split(B, A, n_sms)
-                kind = "rank" if name.startswith("rank") else "rect"
+                kind = ("rank" if name.startswith("rank") else "pair"
+                        if name in CELL_SWEEPS else "rect")
                 window = ""
             print("%s form %s, %-36s %.4f ms, bound %.6f ms (%s), share "
                   "of bound %.3f; %scluster of %d CTA(s) x %d warps (%d "
@@ -1245,6 +1269,84 @@ def print_split_forms(calls, stats):
                       kind, name, st["form"], st["ms"], st["bound_ms"],
                       st["bound_by"], st["bound_ms"] / st["ms"], window,
                       cluster, warps, cluster * warps, on_path), flush=True)
+
+
+# the one-cell sweeps on the split template, held in every split on the
+# path's operands and on random operands at these sizes (around the
+# 128-slot query tile, battle's 2000 slots, the GridWorld's 2048), B = 1
+# and 16; move_claims' non-movers share the grid path's sentinel H * W
+CELL_SWEEPS = ("occupant", "move_claims")
+CELL_A = (1, 2, 127, 128, 129, 777, 2000, 2048)
+CLAIM_SENTINEL = GW_MAP * GW_MAP
+
+
+def assert_cell_equal(got, want, args, tag):
+    """Ints exact; the occupant's hp bit for bit wherever a query matches
+    at most two slots, else within PAIR_ATOL (the kernel sums range by
+    range).  Returns the max abs error of the floats."""
+    from magent_tpu_torch.tools import profile_rect as pr
+
+    err = 0.0
+    for g, w in zip(got, want):
+        if not g.dtype.is_floating_point:
+            if not torch.equal(g, w):
+                raise AssertionError("%s: integer outputs differ from the "
+                                     "plain version" % tag)
+            continue
+        few = pr.occupant_matches(args[0], args[1]) <= 2
+        e = float((g - w).abs().max()) if g.numel() else 0.0
+        if not (torch.equal(g[few], w[few]) and e <= PAIR_ATOL):
+            raise AssertionError("%s: hp differs from the plain version "
+                                 "(max abs %g)" % (tag, e))
+        err = max(err, e)
+    return err
+
+
+def check_cell_splits(name, path_args, path_form):
+    """``occupant`` or ``move_claims`` in every (cluster, warps) split of
+    ``tools/profile_rect.py``'s table against its plain version: on the
+    main path's operands, then on random operands at CELL_A, B = 1 and 16
+    (the occupant on unique cells, then on duplicate cells; move_claims
+    with a third of the slots at one shared sentinel), the entry point
+    also called once on each (one launch)."""
+    from magent_tpu_torch import ops
+    from magent_tpu_torch.tools import profile_rect as pr
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    kernel, plain = kernel_fns()[name]
+    forms = [(path_args, path_form)]
+    for A in CELL_A:
+        for B in (1, 16):
+            if name == "occupant":
+                forms += [([t.to(dev) for t in pr.cell_operands(
+                    A, B, 11 * A + B + dup, dup)],
+                    "random, A=%d, B=%d, %s cells" % (
+                        A, B, "duplicate" if dup else "unique"))
+                    for dup in (False, True)]
+            else:
+                forms.append(([pr.claim_operands(
+                    A, B, 13 * A + B, CLAIM_SENTINEL).to(dev)],
+                    "random, A=%d, B=%d, shared sentinel" % (A, B)))
+    n, err = 0, 0.0
+    for args, form in forms:
+        want = plain(*args)
+        for split in pr.SPLITS:
+            err = max(err, assert_cell_equal(
+                pr.launch(name, args, {}, split), want, args,
+                "%s (%s) split %s" % (name, form, split)))
+            n += 1
+        before = ops.launch_counts()[name]
+        err = max(err, assert_cell_equal(kernel(*args), want, args,
+                                         "%s (%s)" % (name, form)))
+        if ops.launch_counts()[name] != before + 1:
+            raise AssertionError("%s: a call did not launch its kernel once"
+                                 % name)
+    torch.cuda.empty_cache()
+    print("%s on the split template: %d launches (%d forms, %d splits each: "
+          "the path's operands, random at A in %s, B in (1, 16)) equal to "
+          "the plain version, max abs err %g" % (
+              name, n, len(forms), len(pr.SPLITS), list(CELL_A), err),
+          flush=True)
 
 
 def check_rect_ragged():

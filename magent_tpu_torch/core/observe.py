@@ -17,10 +17,12 @@ GridWorld::get_observation, GridWorld.cc:292-401) with render-then-slice:
    vector (GridWorld.cc:327-400) and zero dead slots.
 
 Images above ``VMEM_IMAGE_BUDGET`` (pursuit from map 500) take
-``window_gather_banded``; below it, windows up to 13 rows and 65 lanes
-(forest's and pursuit's) take ``window_gather4``.  Both fuse step 4's
-minimap adds, self mark and liveness factor into the copy; larger windows
-(battle's 13 x 91) take ``window_gather`` and a separate epilogue.
+``window_gather_banded``; images of at most a quarter of it with windows
+up to 13 rows and 65 lanes (forest's and pursuit's, pursuit to map
+210) take ``window_gather4``.  Both fuse step 4's minimap adds, self
+mark and liveness factor into the copy; larger windows (battle's 13 x 91)
+and images between the two take ``window_gather`` and a separate
+epilogue.
 Multi-cell bodies render every body cell, and their minimap pools by a
 scatter.  Not ported: turn mode and ``can_absorb`` observers.
 """
@@ -207,21 +209,18 @@ def make_observe(spec: speclib.GameSpec, group: int,
     slot with the epilogue (minimap, self mark, liveness) applied per
     value, where the JAX package applies it in band order and gathers the
     rows back (observe.py:244-258, :370-404): pursuit at map 500 and 1000.
-    Below the budget, windows with ``vh <= 13`` and ``vw * C <= 65`` take
-    ``window_gather4`` with the liveness factor, and with the minimap and
-    self mark when ``minimap_mode`` is on (the replica route,
-    observe.py:263-267 and :346-360, which fuses liveness only together
-    with the minimap; views are non-negative and the factor is 0 or 1, so
-    the numbers are the same); others take ``window_gather`` and the
-    epilogue in PyTorch.  ``window_gather4`` packs ``tl * 1024 +
-    self_cell`` into int32, so it serves only images of at most 2**21
-    cells; larger images take ``window_gather``.  The JAX package's
-    fourfold replica budget (``4 * image_bytes <= VMEM_IMAGE_BUDGET``) is
-    not a condition of the port: where only that condition parts the two
-    packages' routes and the config has a minimap, the port's bf16 views
-    round once (``window_gather4``'s fused store) where the JAX package's
-    round twice (no built-in config: battle's window is too wide, pursuit
-    and forest have no minimap)."""
+    Windows with ``vh <= 13`` and ``vw * C <= 65`` whose image, four
+    times over, fits the budget (``4 * image_bytes <= VMEM_IMAGE_BUDGET``:
+    the TPU kernel holds four shifted replicas) take ``window_gather4``
+    with the liveness factor, and with the minimap and self mark when
+    ``minimap_mode`` is on (the replica route, observe.py:263-267 and
+    :346-360, which fuses liveness only together with the minimap; views
+    are non-negative and the factor is 0 or 1, so the numbers are the
+    same); others below the budget take ``window_gather`` and the
+    epilogue in PyTorch, so bf16 views round where the JAX package's do.
+    ``window_gather4`` packs ``tl * 1024 + self_cell`` into int32, so it
+    serves only images of at most 2**21 cells; larger images take
+    ``window_gather``."""
     _check_ported(spec, group)
     wg._check_out_dtype("make_observe", obs_dtype)
     t = spec.groups[group].type
@@ -247,6 +246,7 @@ def make_observe(spec: speclib.GameSpec, group: int,
               and (_BAND_ROWS + rows_margin) * lanes * 4 <= _BAND_BUDGET)
     band_chunk = min(40, -(-gs.cap // 8) * 8)
     replica = (not banded and vh <= 13 and vw * C <= 65
+               and 4 * Hp * lanes * 4 <= VMEM_IMAGE_BUDGET
                and Hp * Wp <= wg.PACKED_CELLS)
     # 1x1 bodies pool the rendered grid with binning matmuls; multi-cell
     # bodies pool their anchors by a scatter (observe.py:299-326)

@@ -31,18 +31,22 @@
 // _rank_prefix_core (with their overflow branches, occupant_rect_tpu with
 // bslot and rank_prefix_tpu over every row).
 //
-// What bounds them here: integer compares and selects, ~2-12 per pair, over
+// What bounds them here: integer compares and selects, ~1-12 per pair, over
 // B * A^2 pairs (64M at battle's B=16, A=2000; 88M at pursuit's map-500
 // single world, A=9375); the operands are a few tens of KB and stay in L2.
-// Design of occupant, move_resolve and move_claims: one thread per query j,
-// blockIdx.y = env; the block stages a tile of kTile i-side operands in
-// shared memory (every thread then reads the same word: a broadcast, no
-// bank conflicts) and the threads sweep i in ascending order, so float sums
-// are taken in slot order and are deterministic.  The ragged tail of both
-// axes is masked here; no sentinel padding is needed.  The caller's
-// sentinels (queries 2^30, dead cells 2^29) pass through as ordinary
-// values.  rank_prefix, the rect sweeps and the two segmented sweeps share
-// the split template below.
+// Two designs:
+// - move_resolve: one thread per query j, blockIdx.y = env; the block
+//   stages a tile of kTile i-side operands in shared memory (every thread
+//   then reads the same word: a broadcast, no bank conflicts) and the
+//   threads sweep i in ascending order.  The ragged tail of both axes is
+//   masked; no sentinel padding is needed.
+// - every other sweep: the split template below ("rect sweeps"), 4
+//   queries per thread, the partner axis cut over the warps of a
+//   thread-block cluster: occupant, move_claims (lower triangle only),
+//   rank_prefix, occupant_rect, rect_first_overlap and the two segmented
+//   sweeps occupant_rect_seg and rank_prefix_seg.
+// The caller's sentinels (queries 2^30, dead cells 2^29) pass through as
+// ordinary values.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -52,41 +56,6 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kTile = 128;  // threads per block == i-operands per staged tile
-
-__global__ void occupant_kernel(const int* __restrict__ acell,
-                                const int* __restrict__ cell,
-                                const float* __restrict__ hp, int A,
-                                int* __restrict__ tgt,
-                                float* __restrict__ hpt) {
-  __shared__ int s_cell[kTile];
-  __shared__ float s_hp[kTile];
-  const size_t row = (size_t)blockIdx.y * A;
-  const int j = blockIdx.x * kTile + threadIdx.x;
-  const int q = j < A ? acell[row + j] : 0;
-  int cnt = 0, ssum = 0;
-  float hsum = 0.f;
-  for (int i0 = 0; i0 < A; i0 += kTile) {
-    const int i = i0 + threadIdx.x;
-    if (i < A) {
-      s_cell[threadIdx.x] = cell[row + i];
-      s_hp[threadIdx.x] = hp[row + i];
-    }
-    __syncthreads();
-    const int n = min(kTile, A - i0);
-#pragma unroll 8
-    for (int k = 0; k < n; ++k) {
-      const bool m = s_cell[k] == q;
-      cnt += m;
-      ssum += m ? i0 + k : 0;
-      hsum += m ? s_hp[k] : 0.f;
-    }
-    __syncthreads();
-  }
-  if (j < A) {
-    tgt[row + j] = cnt > 0 ? ssum : -1;
-    hpt[row + j] = hsum;
-  }
-}
 
 __global__ void move_resolve_kernel(const int* __restrict__ tcell,
                                     const int* __restrict__ cell, int A,
@@ -126,37 +95,6 @@ __global__ void move_resolve_kernel(const int* __restrict__ tcell,
   }
 }
 
-// move_resolve's claim half: the slot itself always matches, so head <= j.
-// Non-movers share one sentinel cell and count one another; the engine
-// masks those rows, the kernel still answers them like the plain version.
-__global__ void move_claims_kernel(const int* __restrict__ tcell, int A,
-                                   int* __restrict__ cnt_out,
-                                   int* __restrict__ head_out) {
-  __shared__ int s_tcell[kTile];
-  const size_t row = (size_t)blockIdx.y * A;
-  const int j = blockIdx.x * kTile + threadIdx.x;
-  const int t = j < A ? tcell[row + j] : 0;
-  int cnt = 0, head = A;
-  for (int i0 = 0; i0 < A; i0 += kTile) {
-    const int i = i0 + threadIdx.x;
-    if (i < A) s_tcell[threadIdx.x] = tcell[row + i];
-    __syncthreads();
-    const int n = min(kTile, A - i0);
-#pragma unroll 8
-    for (int k = 0; k < n; ++k) {
-      const int ii = i0 + k;
-      const bool same = s_tcell[k] == t;
-      cnt += same & (ii < j);
-      head = min(head, same ? ii : A);
-    }
-    __syncthreads();
-  }
-  if (j < A) {
-    cnt_out[row + j] = cnt;
-    head_out[row + j] = head;
-  }
-}
-
 // ------------------------------------------------------------- rect sweeps
 // Multi-cell bodies: rects [x, x+bw) x [y, y+bh); an empty rect (bw = 0 or
 // bh = 0) contains no cell and overlaps nothing, not even another empty
@@ -177,7 +115,8 @@ __global__ void move_claims_kernel(const int* __restrict__ tcell, int A,
 // One query per thread in blocks of 128 would leave 74 blocks for 132 SMs
 // there, load 3-5 scalar shared words per pair, and under kLower give the
 // last block twice the mean sweep.  Design (the split template, shared by
-// occupant_rect, rect_first_overlap and rank_prefix):
+// occupant_rect, rect_first_overlap, rank_prefix, and the one-cell sweeps
+// occupant and move_claims below):
 // - query tiles of kRectTile = 32 * kQ slots: each lane holds kQ queries
 //   (slots lane, lane + 32, ...) in registers, so a staged partner costs
 //   one 128-bit broadcast load (rect edges, or rank_prefix's record (tgt,
@@ -578,6 +517,182 @@ rank_prefix_kernel(const int* __restrict__ tgt, const int* __restrict__ rank,
                });
 }
 
+// ------------------------------------------------------- one-cell sweeps
+// 1x1 bodies: a query matches a slot when their cells are equal.
+//
+// occupant: per query cell q_j, the slots i whose own cell equals it —
+// their count, their slot ids summed and their hp summed (the plain
+// version's sum over matches; the result is the slot sum, or -1 when
+// none matched).  Live cells are unique and the sentinels differ (queries
+// 2^30, dead cells 2^29), so in the engine a query matches at most one
+// slot: the warp votes per partner and updates its queries only where one
+// of its lanes matched, so a pair costs one compare.  The partial (count,
+// slot sum, hp sum) folds by three adds in range order: the ints are
+// exact in any order, the hp sum equals the plain version's bit for bit
+// wherever a query matches at most two slots (a + b = b + a).
+//
+// move_claims: per slot j, cnt_j = #{i < j : t_i == t_j} and head_j = the
+// lowest slot with t_i == t_j, which is j itself or lower, so both need
+// only the pairs i < j: rect_range's lower form (the heaviest tiles first)
+// with the i < j gate compared only on the tile's own slots, head starting
+// at j; a compare, a predicated add and a predicated min per pair.
+// Non-movers share one sentinel cell, so most rows match and a vote would
+// not skip: none is taken.  The partial (cnt, head) folds by an add and a
+// min: exact in every split.
+
+// A range's partial of one occupant query.
+struct CellOccupantPart {
+  int cnt, ssum;
+  float hsum;
+  __device__ static CellOccupantPart fold(CellOccupantPart a,
+                                          CellOccupantPart b) {
+    return {a.cnt + b.cnt, a.ssum + b.ssum, a.hsum + b.hsum};
+  }
+};
+
+// A partner is staged as one int2 (cell, hp bits).
+struct OccupantSweep {
+  struct Body {
+    int cell;
+    float hp;
+  };
+
+  const int* cell;
+  const float* hp;
+  int2* s_rec;  // the warp's 32 staging slots
+  int q[kQ], cnt[kQ], ssum[kQ];
+  float hsum[kQ];
+
+  __device__ __forceinline__ Body load(int i) const {
+    return {cell[i], hp[i]};
+  }
+
+  __device__ __forceinline__ void stage(int lane, const Body& b, int) {
+    s_rec[lane] = make_int2(b.cell, __float_as_int(b.hp));
+  }
+
+  template <bool kGate>
+  __device__ __forceinline__ void test(int k, int i) {
+    const int2 e = s_rec[k];
+    bool m[kQ];
+    bool any = false;
+#pragma unroll
+    for (int c = 0; c < kQ; ++c) {
+      m[c] = e.x == q[c];
+      any |= m[c];
+    }
+    if (__any_sync(0xffffffffu, any)) {
+      const float h = __int_as_float(e.y);
+#pragma unroll
+      for (int c = 0; c < kQ; ++c) {
+        cnt[c] += m[c];
+        ssum[c] += m[c] ? i : 0;
+        hsum[c] += m[c] ? h : 0.f;
+      }
+    }
+  }
+};
+
+__global__ void __launch_bounds__(32 * kRectMaxWarps)
+occupant_kernel(const int* __restrict__ acell, const int* __restrict__ cell,
+                const float* __restrict__ hp, int A, int cluster,
+                int* __restrict__ tgt, float* __restrict__ hpt) {
+  __shared__ int2 s_rec[kRectMaxWarps][32];
+  __shared__ CellOccupantPart s_part[kRectMaxWarps][kRectTile];
+  __shared__ CellOccupantPart s_cta[kRectTile];
+  const RectRange r =
+      rect_range(A, cluster, cg::this_cluster().block_rank(), false);
+  const size_t row = (size_t)blockIdx.y * A;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  OccupantSweep sw;
+  sw.cell = cell + row, sw.hp = hp + row, sw.s_rec = s_rec[warp];
+#pragma unroll
+  for (int c = 0; c < kQ; ++c) {
+    const int j = r.t0 + lane + 32 * c;
+    sw.q[c] = j < A ? acell[row + j] : kFar;  // a pad query: not written
+    sw.cnt[c] = 0;
+    sw.ssum[c] = 0;
+    sw.hsum[c] = 0.f;
+  }
+  rect_sweep_range<false>(sw, r.lo, r.hi);
+#pragma unroll
+  for (int c = 0; c < kQ; ++c)
+    s_part[warp][lane + 32 * c] = {sw.cnt[c], sw.ssum[c], sw.hsum[c]};
+  rect_combine(s_part, s_cta, r.t1 - r.t0, cluster,
+               [&](int c, const CellOccupantPart& v) {
+                 tgt[row + r.t0 + c] = v.cnt > 0 ? v.ssum : -1;
+                 hpt[row + r.t0 + c] = v.hsum;
+               });
+}
+
+// A range's partial of one move_claims query.
+struct ClaimPart {
+  int cnt, head;
+  __device__ static ClaimPart fold(ClaimPart a, ClaimPart b) {
+    return {a.cnt + b.cnt, min(a.head, b.head)};
+  }
+};
+
+// A partner is staged as its target cell.
+struct MoveClaimsSweep {
+  struct Body {
+    int t;
+  };
+
+  const int* tcell;
+  int* s_t;  // the warp's 32 staging slots
+  int t[kQ], j[kQ], cnt[kQ], head[kQ];
+
+  __device__ __forceinline__ Body load(int i) const { return {tcell[i]}; }
+
+  __device__ __forceinline__ void stage(int lane, const Body& b, int) {
+    s_t[lane] = b.t;
+  }
+
+  template <bool kGate>
+  __device__ __forceinline__ void test(int k, int i) {
+    const int e = s_t[k];
+#pragma unroll
+    for (int c = 0; c < kQ; ++c) {
+      bool m = e == t[c];
+      if (kGate) m &= i < j[c];
+      cnt[c] += m;
+      head[c] = m ? min(head[c], i) : head[c];
+    }
+  }
+};
+
+__global__ void __launch_bounds__(32 * kRectMaxWarps)
+move_claims_kernel(const int* __restrict__ tcell, int A, int cluster,
+                   int* __restrict__ cnt_out, int* __restrict__ head_out) {
+  __shared__ int s_t[kRectMaxWarps][32];
+  __shared__ ClaimPart s_part[kRectMaxWarps][kRectTile];
+  __shared__ ClaimPart s_cta[kRectTile];
+  const RectRange r =
+      rect_range(A, cluster, cg::this_cluster().block_rank(), true);
+  const size_t row = (size_t)blockIdx.y * A;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  MoveClaimsSweep sw;
+  sw.tcell = tcell + row, sw.s_t = s_t[warp];
+#pragma unroll
+  for (int c = 0; c < kQ; ++c) {
+    const int j = r.t0 + lane + 32 * c;
+    sw.j[c] = j;
+    sw.t[c] = j < A ? tcell[row + j] : 0;
+    sw.cnt[c] = 0;
+    sw.head[c] = j;  // the slot itself always matches
+  }
+  rect_sweep(sw, r);
+#pragma unroll
+  for (int c = 0; c < kQ; ++c)
+    s_part[warp][lane + 32 * c] = {sw.cnt[c], sw.head[c]};
+  rect_combine(s_part, s_cta, r.t1 - r.t0, cluster,
+               [&](int c, const ClaimPart& v) {
+                 cnt_out[row + r.t0 + c] = v.cnt;
+                 head_out[row + r.t0 + c] = v.head;
+               });
+}
+
 // ------------------------------------------------------ y-segmented sweeps
 // One big world (16,384 to 65,536 slots) presents its [A] operands sorted
 // by y.  Sorted row j belongs to segment j / kSegRows; the segment's
@@ -779,13 +894,14 @@ dim3 pair_grid(int B, int A) { return dim3((A + kTile - 1) / kTile, B); }
 }  // namespace
 
 extern "C" int magent_occupant(const int* acell, const int* cell,
-                               const float* hp, int B, int A, int* tgt,
-                               float* hpt, int device, void* stream) {
+                               const float* hp, int B, int A, int cluster,
+                               int warps, int* tgt, float* hpt, int device,
+                               void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
-  occupant_kernel<<<pair_grid(B, A), kTile, 0, (cudaStream_t)stream>>>(
-      acell, cell, hp, A, tgt, hpt);
-  return (int)cudaGetLastError();
+  return launch_rect(occupant_kernel, B, A, cluster, warps,
+                     (cudaStream_t)stream, acell, cell, hp, A, cluster, tgt,
+                     hpt);
 }
 
 extern "C" int magent_rank_prefix(const int* tgt, const int* rank,
@@ -810,13 +926,13 @@ extern "C" int magent_rank_prefix_hp(const int* tgt, const int* rank,
                      hpt);
 }
 
-extern "C" int magent_move_claims(const int* tcell, int B, int A, int* cnt,
-                                  int* head, int device, void* stream) {
+extern "C" int magent_move_claims(const int* tcell, int B, int A, int cluster,
+                                  int warps, int* cnt, int* head, int device,
+                                  void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
-  move_claims_kernel<<<pair_grid(B, A), kTile, 0, (cudaStream_t)stream>>>(
-      tcell, A, cnt, head);
-  return (int)cudaGetLastError();
+  return launch_rect(move_claims_kernel, B, A, cluster, warps,
+                     (cudaStream_t)stream, tcell, A, cluster, cnt, head);
 }
 
 extern "C" int magent_occupant_rect(const int* qx, const int* qy, const int* x,

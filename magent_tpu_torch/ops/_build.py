@@ -38,11 +38,11 @@ _I = ctypes.c_int
 # argtypes of every exported launcher, before the trailing (device index,
 # stream) pair; all return a cudaError_t
 _SIGNATURES = {
-    "magent_occupant": (_P, _P, _P, _I, _I, _P, _P),
+    "magent_occupant": (_P, _P, _P) + (_I,) * 4 + (_P, _P),
     "magent_rank_prefix": (_P, _P, _P) + (_I,) * 4 + (_P,),
     "magent_rank_prefix_hp": (_P,) * 4 + (_I,) * 4 + (_P, _P),
     "magent_move_resolve": (_P, _P, _I, _I, _P, _P, _P),
-    "magent_move_claims": (_P, _I, _I, _P, _P),
+    "magent_move_claims": (_P,) + (_I,) * 4 + (_P, _P),
     "magent_window_gather": (_P, _P, _P) + (_I,) * 9 + (_P,),
     "magent_window_gather_bf16": (_P, _P, _P) + (_I,) * 9 + (_P,),
     "magent_occupant_rect": (_P,) * 7 + (_I,) * 5 + (_P, _P),

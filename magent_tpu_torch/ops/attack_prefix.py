@@ -104,20 +104,35 @@ def occupant(acell, cell, hp):
     dead), ``hp`` [B, A] f32 -> (tgt [B, A] int32, hp_t [B, A] f32).
 
     Replaces ``magent_tpu/ops/attack_prefix.py:285`` ``occupant_tpu``.
-    Bound on the card: 6 ops per pair (compare, count, two selects, two
-    adds) over B*A^2 pairs; the operands are KBs.  Design: ``csrc/pair_kernels.cu`` — one thread per
-    query, i-operands staged in shared memory tiles, ascending i, one launch
-    for the env batch.  Keeps the xla sum-over-matches semantics (the TPU
-    kernel's per-chunk overwrite agrees only when cells are unique)."""
+    Bound on the card: one int32 compare per pair over B*A^2 pairs, and a
+    count, a slot add and an hp add per query that found a slot; the
+    operands are KBs.  Design: ``csrc/pair_kernels.cu`` on the split
+    template of :func:`rank_prefix` — 4 queries per thread against
+    partners staged as one int2 (cell, hp bits), the partner axis cut over
+    the warps of a thread-block cluster (:func:`rect_split`,
+    :func:`rect_bounds` without the gate); per partner the warp votes on
+    its 4 x 32 compares and updates its queries only where one matched (in
+    the engine a query matches at most one slot); the partials (count,
+    slot sum, hp sum) folded in range order through distributed shared
+    memory.  Keeps the xla sum-over-matches semantics (the TPU kernel's
+    per-chunk overwrite agrees only when cells are unique): ints exact,
+    ``hp_t`` bit for bit wherever a query matches at most two slots, else
+    within rounding (the sum runs range by range)."""
     if _build.route(acell, cell, hp) == "cpu":
         return occupant_ref(acell, cell, hp)
     B, A, device = _pair_operands("occupant", (acell, cell), (hp,))
-    tgt = torch.empty((B, A), dtype=torch.int32, device=device)
-    hp_t = torch.empty((B, A), dtype=torch.float32, device=device)
+    return _occupant_launch(acell, cell, hp, _rect_split_on(device, B, A))
+
+
+def _occupant_launch(acell, cell, hp, split):
+    """Launch the occupant kernel with ``split = (cluster, warps)``."""
+    B, A = acell.shape
+    tgt = torch.empty((B, A), dtype=torch.int32, device=acell.device)
+    hp_t = torch.empty((B, A), dtype=torch.float32, device=acell.device)
     if A:
-        _build.launch("magent_occupant", device, acell.data_ptr(),
-                      cell.data_ptr(), hp.data_ptr(), B, A, tgt.data_ptr(),
-                      hp_t.data_ptr())
+        _build.launch("magent_occupant", acell.device, acell.data_ptr(),
+                      cell.data_ptr(), hp.data_ptr(), B, A, *split,
+                      tgt.data_ptr(), hp_t.data_ptr())
     return tgt, hp_t
 
 
@@ -217,8 +232,10 @@ def move_resolve(tcell, cell):
 
     Replaces ``magent_tpu/ops/attack_prefix.py:346`` ``move_resolve_tpu``.
     Bound on the card: 12 integer ops per pair (count 4, head 2,
-    occupant 6) over B*A^2 pairs.  Design:
-    as :func:`occupant`, three results from one sweep."""
+    occupant 6) over B*A^2 pairs.  Design: ``csrc/pair_kernels.cu`` —
+    one thread per query, i-operands staged in shared memory tiles,
+    ascending i, one launch for the env batch; three results from one
+    sweep."""
     if _build.route(tcell, cell) == "cpu":
         return move_resolve_ref(tcell, cell)
     B, A, device = _pair_operands("move_resolve", (tcell, cell))
@@ -250,24 +267,39 @@ def move_claims(tcell):
     shared sentinel for non-movers) -> (cnt, head), each [B, A] int32.
 
     Replaces ``magent_tpu/ops/attack_prefix.py:223`` ``move_claims_tpu``.
-    Bound on the card: 5 integer ops per pair (index, compare, and-count,
-    select, min) over B*A^2 pairs.  Design: as :func:`occupant`, the claim
-    half of :func:`move_resolve`'s sweep.  Sentinel rows count one another,
-    as in the plain version; the engine masks them."""
+    A slot always matches itself, so ``head_j = min(j, min{i < j : tcell_i
+    == tcell_j})`` and both results need only the B*A*(A-1)/2 pairs i < j.
+    Bound on the card: 3 int32 instructions per pair (a compare, a
+    predicated add, a predicated min).  Design: ``csrc/pair_kernels.cu``
+    on the split template, as :func:`rect_first_overlap`'s ``lower_only``
+    form sweeps it — 4 queries per thread against partner cells staged as
+    one int, each tile's lower partner range cut over the warps of a
+    thread-block cluster (:func:`rect_split`, :func:`rect_bounds` with
+    ``lower_only``, the heaviest tiles first), the i < j gate compared only
+    on the tile's own slots, the partials (cnt, head) folded by an add and
+    a min: exact in every split.  Sentinel rows count one another, as in
+    the plain version; the engine masks them."""
     if _build.route(tcell) == "cpu":
         return move_claims_ref(tcell)
     B, A, device = _pair_operands("move_claims", (tcell,))
-    cnt = torch.empty((B, A), dtype=torch.int32, device=device)
-    head = torch.empty((B, A), dtype=torch.int32, device=device)
+    return _move_claims_launch(tcell, _rect_split_on(device, B, A))
+
+
+def _move_claims_launch(tcell, split):
+    """Launch the move_claims kernel with ``split = (cluster, warps)``."""
+    B, A = tcell.shape
+    cnt = torch.empty((B, A), dtype=torch.int32, device=tcell.device)
+    head = torch.empty((B, A), dtype=torch.int32, device=tcell.device)
     if A:
-        _build.launch("magent_move_claims", device, tcell.data_ptr(), B, A,
-                      cnt.data_ptr(), head.data_ptr())
+        _build.launch("magent_move_claims", tcell.device, tcell.data_ptr(),
+                      B, A, *split, cnt.data_ptr(), head.data_ptr())
     return cnt, head
 
 
 # -------------------------------------------------------- rect sweep splits
-# Launch geometry of the split template (occupant_rect, rect_first_overlap
-# and rank_prefix in csrc/pair_kernels.cu): query tiles of RECT_TILE slots
+# Launch geometry of the split template (occupant, move_claims, rank_prefix,
+# occupant_rect and rect_first_overlap in csrc/pair_kernels.cu): query
+# tiles of RECT_TILE slots
 # (32 lanes holding 4 queries each); a tile's partner axis is cut into
 # cluster * warps contiguous ranges of equal slots, one per warp of each
 # CTA of a thread-block cluster, folded in range order.

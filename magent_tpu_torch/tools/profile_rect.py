@@ -1,8 +1,9 @@
 """The split template's launch splits on the card: ``occupant_rect``,
 ``rect_first_overlap`` and ``rank_prefix`` (``csrc/pair_kernels.cu``) at
-the shapes of pursuit's gridless rect path, and ``rank_prefix`` also at
+the shapes of pursuit's gridless rect path, ``rank_prefix`` also at
 battle's lockstep shapes (B=16, A=2000) and in its hp form at the
-GridWorld's (B=1, A=2048), each form timed with the split the wrapper
+GridWorld's (B=1, A=2048), ``occupant`` at battle's and ``move_claims``
+at the GridWorld's, each form timed with the split the wrapper
 picks (``ops/attack_prefix.py`` ``rect_split``) and with every other
 (cluster, warps) split, each held exactly against its plain version; the
 segmented sweeps ``occupant_rect_seg`` and ``rank_prefix_seg`` on the same
@@ -10,10 +11,11 @@ template at pursuit's one world of map 1000 (A = 37,500), with the step's
 plan passed in, against the split ``seg_split`` picks and every other.
 
 Also the seeded operands that the card's checks share (``chip_smoke.py``
-phases 2 and 5-6, ``tests/test_torch_port_gpu.py``): random bodies at
+phases 2 and 4-6, ``tests/test_torch_port_gpu.py``): random bodies at
 ragged sizes (:func:`ragged_operands`), two adversarial cases
-(:func:`adversarial_operands`) and rank_prefix's operands
-(:func:`rank_operands`).
+(:func:`adversarial_operands`), rank_prefix's operands
+(:func:`rank_operands`), the occupant's (:func:`cell_operands`) and
+move_claims' (:func:`claim_operands`).
 
 Usage:  python -m magent_tpu_torch.tools.profile_rect [--maps 64 500]
         [--seg-maps 1000]
@@ -22,7 +24,9 @@ loop (4 bodies x 4 queries), read with ``cuobjdump -sass`` from the built
 library.  The operands are one recorded step of ``VecGridWorld(pursuit(
 map))`` with the scripts' placements: map 64 at B=16 (seed 11), larger
 maps one world (seed 5); battle's and the GridWorld's rank_prefix forms
-take :func:`rank_operands` with battle's damage 2.0; the segmented forms
+take :func:`rank_operands` with battle's damage 2.0, the occupant
+:func:`cell_operands` (unique cells), move_claims :func:`claim_operands`
+(a third of the slots at the map-125 sentinel); the segmented forms
 take the step's operands with values that show a wrong row
 (:func:`seg_calls`).  Times are device time per launch (CUDA events
 around 50 calls queued behind a spin kernel, median of 3).
@@ -120,6 +124,48 @@ def rank_operands(A, B, seed, integer):
     return (_t(tgt), ap.pack_rank(_t(bits), A), _t(dmg), _t(hp))
 
 
+def cell_operands(A, B, seed, duplicates=False):
+    """Seeded occupant operands over ``B`` envs of ``A`` slots -> (acell,
+    cell, hp), CPU tensors.  Unique cells: each env's cells a sample of
+    [0, 3A) without repeats, a tenth dead (``CELL_DEAD``, shared by the
+    dead, never queried); ``duplicates``: cells drawn from [0, A // 2 + 1)
+    with repeats, so piles of two and more slots share a cell.  Half the
+    queries aim at a random slot's cell (a dead slot's aims at random),
+    the rest uniform over [0, 3A), a fifth ``QUERY_NONE``; hp uniform in
+    [0.1, 1)."""
+    rng = np.random.RandomState(seed)
+    if duplicates:
+        cell = rng.randint(0, A // 2 + 1, size=(B, A))
+    else:
+        cell = np.stack([rng.permutation(3 * A)[:A] for _ in range(B)])
+        cell = np.where(rng.uniform(size=(B, A)) < 0.1, ap.CELL_DEAD, cell)
+    aim = np.take_along_axis(cell, rng.randint(0, A, size=(B, A)), 1)
+    acell = np.where(rng.uniform(size=(B, A)) < 0.5, aim,
+                     rng.randint(0, 3 * A, size=(B, A)))
+    acell = np.where(acell == ap.CELL_DEAD, rng.randint(0, 3 * A, (B, A)),
+                     acell)
+    acell = np.where(rng.uniform(size=(B, A)) < 0.2, ap.QUERY_NONE, acell)
+    hp = rng.uniform(0.1, 1.0, size=(B, A)).astype(np.float32)
+    return _t(acell.astype(np.int32)), _t(cell.astype(np.int32)), _t(hp)
+
+
+def claim_operands(A, B, seed, sentinel):
+    """Seeded move_claims operands over ``B`` envs of ``A`` slots ->
+    tcell [B, A] int32, a CPU tensor: a third of the slots non-movers at
+    the one shared ``sentinel`` cell (the grid path's H * W), the movers'
+    targets drawn from A // 2 + 1 cells, so that they contend."""
+    rng = np.random.RandomState(seed)
+    tcell = rng.randint(0, A // 2 + 1, size=(B, A))
+    tcell = np.where(rng.uniform(size=(B, A)) < 1 / 3, sentinel, tcell)
+    return _t(tcell.astype(np.int32))
+
+
+def occupant_matches(acell, cell):
+    """[B, A] int: the slots whose cell equals each query's (the occupant's
+    hp sum is exact in any order wherever this is at most two)."""
+    return (cell[..., :, None] == acell[..., None, :]).sum(-2)
+
+
 def adversarial_operands(A, B, case, lower_only=False):
     """Two adversarial inputs -> (occupant_rect args, rect_first_overlap
     args), CPU tensors.  ``"ties"``: every query identical — one query
@@ -182,6 +228,10 @@ def launch(name, args, kwargs, split):
     """One launch of kernel ``name`` on CUDA operands with ``split``."""
     if name in SEG_SPLIT_SWEEPS:
         return seg_launch(name, args, kwargs, split)
+    if name == "occupant":
+        return ap._occupant_launch(*args, split)
+    if name == "move_claims":
+        return ap._move_claims_launch(*args, split)
     if name == "rank_prefix":
         return ap._rank_prefix_launch(*args[:3], args[3] if len(args) > 3
                                       else None, split)
@@ -199,6 +249,8 @@ def form_name(name, kwargs):
         return "%s, window %d" % (name, kwargs["plan"][1])
     if name == "rank_prefix":
         return "rank_prefix%s" % (", hp" if kwargs.get("hp") else "")
+    if name in ("occupant", "move_claims"):
+        return name
     if name == "occupant_rect":
         return "occupant_rect%s" % (", exclude_self" if kwargs["exclude_self"]
                                     else "")
@@ -209,7 +261,9 @@ def split_table(name, args, kwargs, splits=SPLITS, reps=50):
     """Device ms per launch of each ``(cluster, warps)`` split in
     ``splits`` on these CUDA operands, each held exactly against the plain
     version first -> {split: ms}."""
-    plain = {"occupant_rect": ap.occupant_rect_ref,
+    plain = {"occupant": ap.occupant_ref,
+             "move_claims": ap.move_claims_ref,
+             "occupant_rect": ap.occupant_rect_ref,
              "rect_first_overlap": ap.rect_first_overlap_ref,
              "rank_prefix": ap.rank_prefix_ref,
              "occupant_rect_seg": ap.occupant_rect_seg_ref,
@@ -339,20 +393,37 @@ def _common_path(ins, top, end):
     return path
 
 
+# bytes of shared memory a sweep's inner loop loads per staged partner
+# (one int2 for the occupant, one int for move_claims; the others load one
+# 128-bit word or more)
+_PARTNER_BYTES = {"occupant": 8, "move_claims": 4}
+
+
+def _lds_bytes(op):
+    """Bytes loaded by a SASS shared-memory load (0 for other opcodes)."""
+    m = re.match(r"LDS(?:\.U)?(?:\.[SU]?(\d+))?\b", op)
+    if not m:
+        return 0
+    return int(m.group(1)) // 8 if m.group(1) else 4
+
+
 def sass_mix():
     """{kernel: [(instructions per pair, {opcode: count})]} of the split
-    template's innermost loops that test 4 staged partners (4 LDS.128 or
-    more) against 4 queries each, from the built library's SASS; a kernel
-    has one such loop per sweep segment.  A loop whose partners skip a
-    warp-uniform block (``occupant_rect_seg``'s update, taken only where a
-    lane matched) is counted on the path that skips it."""
+    template's innermost loops that test 4 staged partners (shared-memory
+    loads of 4 partners' records or more: 4 LDS.128 for most sweeps, 4
+    LDS.64 for the occupant's, 16 bytes for move_claims') against 4
+    queries each, from the built library's SASS; a kernel has one such
+    loop per sweep segment.  A loop whose partners skip a warp-uniform
+    block (the update of ``occupant_rect_seg`` and ``occupant``, taken only
+    where a lane matched) is counted on the path that skips it."""
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(_build.LIB_PATH)],
                           check=True, capture_output=True, text=True).stdout
     out = {}
     for func in re.split(r"\n\s*Function : ", sass)[1:]:
         name = re.search(r"(occupant_rect_seg|rank_prefix_seg|occupant_rect|"
-                         r"rect_first_overlap|rank_prefix)_kernel(ILb(\d))?",
+                         r"rect_first_overlap|rank_prefix|occupant|"
+                         r"move_claims)_kernel(ILb(\d))?",
                          func.split("\n", 1)[0])
         if not name:
             continue
@@ -370,7 +441,10 @@ def sass_mix():
             nested = any(_bra_target(o) is not None and _bra_target(o) <= b
                          for b, o in path[:-1])
             inner = [o for o in body[:-1] if "BRA" in o]
-            if (sum("LDS.128" in o for o in body) >= 4 and not nested
+            staged = sum(_lds_bytes(re.sub(r"^@!?U?P\w+ ", "", o))
+                         for o in body)
+            if (staged >= 4 * _PARTNER_BYTES.get(name.group(1), 16)
+                    and not nested
                     and (not inner or any("VOTE" in o for o in body))):
                 mix = collections.Counter(
                     re.sub(r"^@!?U?P\w+ ", "", o).split()[0].split(".")[0]
@@ -407,6 +481,10 @@ def main(argv=None) -> int:
             A, B, A, integer=True))
         forms.append((label, "rank_prefix", [tgt, rank, dmg] + (
             [hps] if hp else []), {"hp": hp}))
+    forms.append(("battle", "occupant", [t.to(device) for t in cell_operands(
+        2000, 16, 2000)], {}))
+    forms.append(("GridWorld", "move_claims", [claim_operands(
+        2048, 1, 2048, 125 * 125).to(device)], {}))
     forms += [("map %d" % m, name, a, kw) for m in args.seg_maps
               for name, a, kw in seg_calls(m, device)]
     for label, name, a, kw in forms:

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions on the card (the
 rect kernels and window_gather4 on the operands of a pursuit map-64, B=16
 step; the rect kernels and rank_prefix (both forms) also on random and
-adversarial operands at ragged sizes, in every launch split;
+adversarial operands at ragged sizes, in every launch split; occupant and
+move_claims on random operands at ragged sizes, in every launch split;
 window_gather, window_gather4 (three epilogue forms) and
 window_gather_banded (three slot-order forms and band order) in f32 and
 bf16 at ragged sizes, edge and outside positions, bit for bit in several
@@ -205,6 +206,62 @@ def test_rank_prefix_matches_plain_in_every_split(cuda, A, B):
         after = ops.launch_counts()
         assert after["rank_prefix"] == before["rank_prefix"] + 1
         assert after["rank_prefix_hp"] == before["rank_prefix_hp"] + 1
+
+
+# the one-cell sweeps' ragged sizes (tests/test_torch_port_pair_split.py)
+PAIR_A = (1, 2, 127, 128, 129, 777, 2000, 2048)
+# the grid path's shared non-mover cell: H * W of a map-125 world
+CLAIM_SENTINEL = 125 * 125
+
+
+def _assert_occupant_equal(got, want, matches, tag):
+    """The slot exactly; hp bit for bit wherever a query matches at most
+    two slots, else within PAIR_ATOL (the kernel sums range by range)."""
+    assert torch.equal(got[0], want[0]), tag
+    few = matches <= 2
+    assert torch.equal(got[1][few], want[1][few]), tag
+    torch.testing.assert_close(got[1][~few], want[1][~few], atol=PAIR_ATOL,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("A", PAIR_A)
+@pytest.mark.parametrize("B", [1, 16])
+def test_occupant_matches_plain_in_every_split(cuda, A, B):
+    """occupant on the split template in every launch split, on unique
+    cells and on duplicate cells (piles of two and more slots); the entry
+    point launches its kernel once per call."""
+    for duplicates in (False, True):
+        acell, cell, hp = (t.to(cuda) for t in tpr.cell_operands(
+            A, B, 11 * A + B + duplicates, duplicates))
+        want = tap.occupant_ref(acell, cell, hp)
+        matches = tpr.occupant_matches(acell, cell)
+        assert int((want[0] >= 0).sum()) > 0 or A < 20
+        for split in tpr.SPLITS:
+            _assert_occupant_equal(tap._occupant_launch(acell, cell, hp,
+                                                        split),
+                                   want, matches, split)
+        before = ops.launch_counts()["occupant"]
+        _assert_occupant_equal(tap.occupant(acell, cell, hp), want, matches,
+                               "entry point")
+        assert ops.launch_counts()["occupant"] == before + 1
+
+
+@pytest.mark.parametrize("A", PAIR_A)
+@pytest.mark.parametrize("B", [1, 16])
+def test_move_claims_matches_plain_in_every_split(cuda, A, B):
+    """move_claims on the split template (the pairs i < j alone) in every
+    launch split, exact, with a third of the slots at one shared sentinel
+    cell; the entry point launches its kernel once per call."""
+    tcell = tpr.claim_operands(A, B, 13 * A + B, CLAIM_SENTINEL).to(cuda)
+    want = tap.move_claims_ref(tcell)
+    assert int((want[0] > 0).sum()) > 0 or A < 20
+    for split in tpr.SPLITS:
+        for g, w in zip(tap._move_claims_launch(tcell, split), want):
+            assert torch.equal(g, w), split
+    before = ops.launch_counts()["move_claims"]
+    for g, w in zip(tap.move_claims(tcell), want):
+        assert torch.equal(g, w)
+    assert ops.launch_counts()["move_claims"] == before + 1
 
 
 def _bits(t):

@@ -4,9 +4,12 @@ package, bit for bit.
 The three window kernels' bf16 forms against the Pallas kernels in
 interpret mode with ``out_dtype=jnp.bfloat16`` (env counts and agent counts
 that are not multiples of the chunk); ``make_observe(..., obs_dtype=bf16)``
-on battle (the roll route), pursuit map 64 (``window_gather4``) and a
+on battle (the roll route), pursuit map 64 (``window_gather4``), a
 banded pursuit world (``VMEM_IMAGE_BUDGET`` shrunk to 1 in both packages)
-against ``magent_tpu.core.observe.make_observe(..., interpret=True,
+and a minimap config with 9 x 63 windows whose image fits the budget but
+not four times over (the budget shrunk in both packages: ``window_gather``
+and the epilogue, two roundings, where the replica kernel would round
+once) against ``magent_tpu.core.observe.make_observe(..., interpret=True,
 obs_dtype=jnp.bfloat16)``: off the TPU the JAX package's ``VecGridWorld``
 takes its XLA gather and rounds once, and only the interpret-mode kernel
 route rounds where the TPU does.  Features stay f32 and equal.  Also
@@ -21,10 +24,12 @@ import numpy as np
 import pytest
 import torch
 
+import magent_tpu
 from magent_tpu.core import observe as jobserve
 from magent_tpu.ops import window_gather as jwg
 from magent_tpu.parallel import VecGridWorld as JVec
 
+import magent_tpu_torch
 from magent_tpu_torch.builtin.config import pursuit as tpursuit
 from magent_tpu_torch.core import observe as tobserve
 from magent_tpu_torch.ops import window_gather as twg
@@ -181,25 +186,63 @@ def _observe_both(pair, seed, route):
     return out
 
 
+def _narrow_battle(magent):
+    """Battle with a view range of 4 in package ``magent``: 9 x 9 x 7
+    windows (63 lanes, within the replica kernel's 13 rows and 65 lanes)
+    and the minimap -> ``map_size -> Config``."""
+    def get_config(map_size):
+        gw = magent.gridworld
+        cfg = gw.Config()
+        cfg.set({"map_width": map_size, "map_height": map_size,
+                 "minimap_mode": True, "embedding_size": 10})
+        small = cfg.register_agent_type("small", {
+            "width": 1, "length": 1, "hp": 10, "speed": 2,
+            "view_range": gw.CircleRange(4),
+            "attack_range": gw.CircleRange(1.5), "damage": 2,
+            "step_recover": 0.1})
+        cfg.add_group(small)
+        cfg.add_group(small)
+        return cfg
+    return get_config
+
+
+def _narrow_battle_pair():
+    return Pair((_narrow_battle(magent_tpu_torch), _narrow_battle(magent_tpu)),
+                20, [10, 14], B)
+
+
+def _budget_between(pair):
+    """An image budget that the image fits once but not four times over:
+    both packages take ``window_gather`` and the epilogue (two roundings)
+    where the replica kernel would round once."""
+    Hp, _, lanes = tobserve.make_grids(pair.spec).geometry[:3]
+    return 2 * Hp * lanes * 4
+
+
 ROUTES = {
     # battle: 13 x 91 windows take the roll kernel, then the minimap
     # epilogue in f32 (two roundings)
-    "battle": (lambda: Pair("battle", 20, [10, 14], B), "window_gather"),
+    "battle": (lambda: Pair("battle", 20, [10, 14], B), "window_gather",
+               None),
     # pursuit map 64: the replica kernel, liveness fused (one rounding)
-    "pursuit64": (lambda: _pursuit_pair(64, 2), "window_gather4"),
+    "pursuit64": (lambda: _pursuit_pair(64, 2), "window_gather4", None),
     # a pursuit world past the (shrunk) image budget: the banded kernel
-    "pursuit_banded": (lambda: _pursuit_pair(40, 2),
-                       "window_gather_banded"),
+    "pursuit_banded": (lambda: _pursuit_pair(40, 2), "window_gather_banded",
+                       lambda pair: 1),
+    # a minimap config with replica-sized windows whose image passes a
+    # quarter of the (shrunk) budget: the roll kernel and the epilogue
+    "minimap_replica_budget": (_narrow_battle_pair, "window_gather",
+                               _budget_between),
 }
 
 
 @pytest.mark.parametrize("case", sorted(ROUTES))
 def test_make_observe_bf16_matches_jax(case, monkeypatch):
-    if case == "pursuit_banded":
-        monkeypatch.setattr(tobserve, "VMEM_IMAGE_BUDGET", 1)
-        monkeypatch.setattr(jobserve, "VMEM_IMAGE_BUDGET", 1)
-    make_pair, route = ROUTES[case]
+    make_pair, route, budget = ROUTES[case]
     pair = make_pair()
+    if budget is not None:
+        monkeypatch.setattr(tobserve, "VMEM_IMAGE_BUDGET", budget(pair))
+        monkeypatch.setattr(jobserve, "VMEM_IMAGE_BUDGET", budget(pair))
     for seed in (0, 1):
         for g, ((tv, tf), (jv, jf)) in enumerate(_observe_both(pair, seed,
                                                                route)):

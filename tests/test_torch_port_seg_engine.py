@@ -177,11 +177,15 @@ def test_pursuit_route_by_map(map_size, A, route):
 
 
 def test_observe_routes_by_image_size():
-    """Pursuit takes the banded route from map 500 (6.41 MB images) and
-    window_gather4 below; battle at map 200 (1.97 MB) keeps its route."""
+    """Pursuit takes the banded route from map 500 (6.41 MB images),
+    window_gather between a quarter of the budget and the budget (map 211:
+    1.58 MB; map 400: 4.36 MB; the JAX package's fourfold replica budget)
+    and window_gather4 below (map 210: 1.44 MB); battle at map 200 (1.97
+    MB) keeps its route."""
     from magent_tpu_torch.builtin.config import battle
 
-    for map_size, want in ((64, "window_gather4"), (400, "window_gather4"),
+    for map_size, want in ((64, "window_gather4"), (210, "window_gather4"),
+                           (211, "window_gather"), (400, "window_gather"),
                            (500, "window_gather_banded")):
         spec = _pursuit_spec(map_size)
         assert [tobserve.make_observe(spec, g).route for g in range(2)] == [
