@@ -32,6 +32,27 @@ Run from the repository root:  python3 chip_smoke.py
    ``move_claims``' ``pair form`` line; holds ``move_claims`` (on the split
    template, the pairs i < j alone) in every split on the step's operands
    and on random ones at ragged A with one shared sentinel;
+4b. runs train_tiger's loop — ``GridWorld("double_attack")`` placed as
+   ``examples/train_tiger.py`` places it (walls, deer and tigers on 4%, 5%
+   and 1% of the cells), deer acting at random, each tiger with a deer in
+   its attack range attacking it through the ``view2attack`` table, the
+   rest at random: at map 500 (12,500 + 2,500 agents, A = 20,480 slots:
+   the grid path's sort branches; both groups' 6.31 MB images take
+   ``window_gather_banded``) and at map 400 (A = 10,240: the pair kernels,
+   ``window_gather``): warm-up, 20 timed ``get_observation x2 ->
+   set_action x2 -> step -> get_reward x2 -> clear_dead`` steps, launches
+   per step from the counters (map 500: ``window_gather_banded`` 2, no
+   pair kernel; map 400: ``rank_prefix_hp`` 1, ``move_claims`` 1,
+   ``window_gather`` 2), the ordered tiger pairs the double-attack rule
+   paid (more than 0), host syncs, the profiler and the loop's peak
+   memory; at map 500 the rule built as ``GeneralRule`` (4 blocks of
+   2,048 x 2,048 tiger slots) on a step's state, exactly equal to the
+   compiled ``PairSharedObjectRule``, with its device time and peak
+   memory; then the path's kernels against their plain versions on one
+   more step's operands with their ``window form``, ``rank form`` and
+   ``pair form`` lines, and ``move_claims`` in every split at A =
+   10,240; later phases report their peak memory from the end of this
+   one;
 5. runs pursuit's gridless rect path, the lockstep loop of
    ``scripts/train_evidence.py`` — ``VecGridWorld(pursuit(64), [51, 102],
    n_envs=16)`` with its placements (seed 11): holds ``occupant_rect``
@@ -106,7 +127,10 @@ Run from the repository root:  python3 chip_smoke.py
    sampled step in remat); then one step of each trainer on the GPU and on
    the CPU at a small size (f32, eps 1.0, TF32 off);
 10. runs 4 steps at battle map 64, 2x200, B=4, 6 GridWorld steps at battle
-    map 40, 2x64, 4 steps of pursuit map 64, B=16 without and with 3%
+    map 40, 2x64, 8 double_attack GridWorld steps at map 60 (train_tiger's
+    layout, pair kernels) and at map 20 (the golden layout, sort branches
+    forced) and 3 at map 500 (sort branches; ordered tiger pairs paid in
+    all: more than 0), 4 steps of pursuit map 64, B=16 without and with 3%
     interior walls, 4 steps of pursuit's one world at map 662 (A =
     16,434: the segmented sweeps and the banded gather), and 4 steps of
     battle map 64, 2x200, B=4 with bf16 views forced onto the banded route
@@ -1038,6 +1062,340 @@ def run_gridworld_path(f32_rate, int32_rate, device_name):
     return counts, rows, gw_views
 
 
+# train_tiger (examples/train_tiger.py:20-28): map 500, walls, deer and
+# tigers on 4%, 5% and 1% of the cells; its 12,500 + 2,500 agents grow the
+# caps to 16,384 + 4,096 slots, past QUAD_MAX_SINGLE: the grid path's sort
+# branches.  Map 400 (8,000 + 1,600 agents, 10,240 slots) stays on the
+# pair kernels.  Launches per step of each (the rest 0): at map 500 each
+# group's padded image (536 rows x 2,945 lanes, 6.31 MB) is above the
+# 6 MiB image budget, so both take the banded gather, as in the JAX
+# package
+TIGER_MAPS = {500: {"window_gather_banded": 2},
+              400: {"rank_prefix_hp": 1, "move_claims": 1,
+                    "window_gather": 2}}
+TIGER_WARMUP, TIGER_TIMED, TIGER_SYNC_STEPS = 3, 20, 3
+# the GPU-vs-CPU runs: train_tiger's layout at map 60 (quad route), the
+# golden scenario's (tests/golden/scenarios.py double_attack: map 20, a 3x3
+# deer grid at stride 3, a 4x4 tiger grid at stride 2, 15 random walls) on
+# the sort branches forced, and a few steps at map 500 (sort branches)
+TIGER_SMALL_MAP, TIGER_SMALL_STEPS, TIGER_BIG_STEPS = 60, 8, 3
+
+
+def place_tiger_world(env, handles):
+    """``examples/train_tiger.py:20-23`` ``generate_map``."""
+    cells = env.spec.width * env.spec.height
+    env.add_walls(method="random", n=int(cells * 0.04))
+    env.add_agents(handles[0], method="random", n=int(cells * 0.05))
+    env.add_agents(handles[1], method="random", n=int(cells * 0.01))
+
+
+def place_golden_tigers(env, handles):
+    """The golden double_attack scenario's layout with 15 random walls."""
+    def grid(x0, y0, n, stride):
+        return [[x0 + i * stride, y0 + j * stride, 0] for i in range(n)
+                for j in range(n)]
+
+    env.add_agents(handles[0], method="custom", pos=grid(6, 6, 3, 3))
+    env.add_agents(handles[1], method="custom", pos=grid(5, 5, 4, 2))
+    env.add_walls(method="random", n=15)
+
+
+def tiger_actions(env, tigers, deer, view, rng):
+    """Each tiger with a deer in its attack range attacks the first one
+    (row-major in its view) through the ``view2attack`` table, as trained
+    tigers do; the others act at random."""
+    base, v2a = env.get_view2attack(tigers)
+    sp = env.spec
+    ch = int(sp.channel_perm(tigers.value)[sp.group2channel(deer.value)])
+    flat = ((view[..., ch] > 0.5) & (v2a[None] != -1)).reshape(len(view), -1)
+    acts = rng.randint(0, env.get_action_space(tigers)[0], len(view))
+    found = flat.any(1)
+    acts[found] = base + v2a.reshape(-1)[flat.argmax(1)[found]]
+    return acts.astype(np.int32)
+
+
+def tiger_step(env, handles, rng, place=place_tiger_world):
+    """One step of train_tiger's loop with drawn actions (deer at random,
+    tigers by :func:`tiger_actions`); re-places the world when the episode
+    ends.  -> (live agents stepped, the tigers' rewards, the state after
+    the step, before clear_dead)."""
+    deer, tigers = handles
+    view, _ = env.get_observation(deer)
+    live = len(view)
+    env.set_action(deer, rng.randint(0, env.get_action_space(deer)[0],
+                                     len(view)).astype(np.int32))
+    view, _ = env.get_observation(tigers)
+    live += len(view)
+    env.set_action(tigers, tiger_actions(env, tigers, deer, view, rng))
+    done = env.step()
+    stepped = env.state
+    env.get_reward(deer)
+    paid = env.get_reward(tigers)
+    env.clear_dead()
+    if done:
+        env.reset()
+        place(env, handles)
+    return live, paid, stepped
+
+
+def tiger_pairs(paid):
+    """Ordered tiger pairs the double-attack rule paid: the tigers earn
+    nothing else, and each pair pays each of its two tigers 1."""
+    return int(round(float(paid.sum()))) // 2
+
+
+def tiger_world(map_size, device=None, place=place_tiger_world):
+    from magent_tpu_torch import GridWorld
+
+    env = GridWorld("double_attack", map_size=map_size, device=device)
+    handles = env.get_handles()
+    env.reset()
+    place(env, handles)
+    return env, handles
+
+
+def profiled_device_ms(fn):
+    """(device ms, device ops) of one call of ``fn``, by torch.profiler."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(e.self_device_time_total for e in dev) / 1e3,
+            sum(e.count for e in dev))
+
+
+def check_general_rule_on_card(env, state):
+    """The double-attack rule as ``GeneralRule`` (the join over two 'any'
+    axes of 4,096 tiger slots: 4 blocks of 2,048 x 2,048 under
+    ``MAX_TENSOR``) against the compiled ``PairSharedObjectRule`` on one
+    step's state: exactly equal (both count integer pairs of value 1)."""
+    from magent_tpu_torch.core import rules
+
+    spec = env.spec
+    pair, = spec.compiled_rules()
+    if not isinstance(pair, rules.PairSharedObjectRule):
+        raise AssertionError("double_attack compiled to %s" % type(pair))
+    on, recv, vals, term = spec.reward_rules[0]
+    order = rules._symbol_order(spec.reward_rules)
+    general = rules.GeneralRule(spec, on, recv, vals, term, order.index)
+    n_blocks = len(general.blocks(spec))
+    tiger_cap = spec.groups[1].cap
+    if general.chunk_sizes != [tiger_cap // 2] * 2 or n_blocks != 4:
+        raise AssertionError("GeneralRule blocks %s x %d, expected 4 of "
+                             "%d x %d" % (general.chunk_sizes, n_blocks,
+                                          tiger_cap // 2, tiger_cap // 2))
+    nr = torch.zeros_like(state.next_reward)
+    gr = torch.zeros_like(state.group_reward)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = general.apply(spec, state, nr, gr)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    want = pair.apply(spec, state, nr, gr)
+    for name, g, w in zip(("rewards", "group rewards", "triggered"), got,
+                          want):
+        if not torch.equal(g, w):
+            raise AssertionError("GeneralRule's %s differ from "
+                                 "PairSharedObjectRule's" % name)
+    pairs = tiger_pairs(want[0])
+    if not (bool(want[2].all()) and pairs > 0):
+        raise AssertionError("the checked state triggers no double attack")
+    g_ms, g_ops = profiled_device_ms(
+        lambda: general.apply(spec, state, nr, gr))
+    p_ms, p_ops = profiled_device_ms(lambda: pair.apply(spec, state, nr, gr))
+    print("GeneralRule on the card: double_attack's rule over %d tiger slots "
+          "per axis, %d blocks of %d x %d: rewards, group rewards and "
+          "triggered equal to PairSharedObjectRule's exactly (%d ordered "
+          "pairs); %.4f ms device time in %d device ops per apply, %.4f ms "
+          "a call back to back, peak memory %.4f GB above the %.3f GB held "
+          "(PairSharedObjectRule: %.4f ms device time in %d device ops, "
+          "%.4f ms a call back to back)" % (
+              tiger_cap, n_blocks, *general.chunk_sizes, pairs, g_ms, g_ops,
+              cuda_ms(lambda: general.apply(spec, state, nr, gr), 5),
+              peak / 1e9, held / 1e9, p_ms, p_ops,
+              cuda_ms(lambda: pair.apply(spec, state, nr, gr), 20)),
+          flush=True)
+
+
+def run_tiger_path(map_size, f32_rate, int32_rate, device_name):
+    """Phase 4b at one map: train_tiger's loop, timed; launch counts, host
+    syncs, the profiler and the double-attack triggers; at map 500 the
+    rule's general join on the card; the path's kernels against their
+    plain versions on one step's operands.  -> ({kernel: launches in the
+    timed run}, {kernel: [call_stats of the step's calls]})."""
+    from magent_tpu_torch import ops
+    from magent_tpu_torch.core import engine
+    from magent_tpu_torch.ops import attack_prefix as ap
+    from magent_tpu_torch.ops import window_gather as wg
+
+    per_step = TIGER_MAPS[map_size]
+    env, handles = tiger_world(map_size)
+    spec = env.spec
+    A = spec.n_agents_cap
+    sort = "move_claims" not in per_step
+    route = engine._Route(grid=True, quad=not sort)
+    obs_route, = (n for n in per_step if n.startswith("window"))
+    if env._step_fn.route != route or [
+            f.route for f in env._observe_fns] != [obs_route] * 2:
+        raise AssertionError("double_attack map %d: route %s, observation "
+                             "routes %s" % (map_size, env._step_fn.route,
+                                            [f.route for f in
+                                             env._observe_fns]))
+    label = "double_attack map %d" % map_size
+    n0 = [env.get_num(h) for h in handles]
+    rng = np.random.RandomState(map_size)
+    for _ in range(TIGER_WARMUP):
+        tiger_step(env, handles, rng)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    live = pairs = fired = 0
+    fired_state = None
+    for _ in range(TIGER_TIMED):
+        n, paid, stepped = tiger_step(env, handles, rng)
+        live += n
+        k = tiger_pairs(paid)
+        pairs += k
+        fired += k > 0
+        if k and fired_state is None:
+            fired_state = stepped
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    ms_per_step = dt / TIGER_TIMED * 1e3
+    print("%s: %s agents placed, A=%d slots (caps %s), %s route, "
+          "observation by %s; %d timed steps in %.4f s: %.4f ms/step, %.1f "
+          "agent-steps/s (%d live agent-steps) on %s; double-attack "
+          "triggers: %d ordered tiger pairs paid in %d of %d steps" % (
+              label, n0, A, [g.cap for g in spec.groups],
+              "sort" if sort else "pair-kernel", obs_route, TIGER_TIMED, dt,
+              ms_per_step, live / dt, live, device_name, pairs, fired,
+              TIGER_TIMED), flush=True)
+    expected = {name: per_step.get(name, 0) * TIGER_TIMED
+                for name in ops.KERNELS}
+    if counts != expected:
+        raise AssertionError("%s launch counts %s, expected %s" % (
+            label, counts, expected))
+    if not pairs:
+        raise AssertionError("%s: the double-attack rule never fired" % label)
+    syncs, sites = count_host_syncs(lambda: tiger_step(env, handles, rng),
+                                    TIGER_SYNC_STEPS)
+    print("%s: %.1f host syncs per step (torch.cuda sync debug mode, %d "
+          "steps); per step by call site: %s" % (
+              label, syncs, TIGER_SYNC_STEPS, json.dumps(
+                  {k: v / TIGER_SYNC_STEPS for k, v in sites.most_common()})),
+          flush=True)
+    profile_steps(label, lambda: tiger_step(env, handles, rng),
+                  PROFILE_STEPS, ms_per_step)
+    if sort:
+        check_general_rule_on_card(env, fired_state)
+    del fired_state
+
+    # the path's kernels against their plain versions on one more step
+    wrappers = [(wg, obs_route)] if sort else [
+        (ap, "rank_prefix"), (ap, "move_claims"), (wg, obs_route)]
+    before = ops.launch_counts()
+    rec = record_operands(lambda: tiger_step(env, handles, rng), wrappers)
+    launched = {n: c - before[n] for n, c in ops.launch_counts().items()}
+    if launched != {n: per_step.get(n, 0) for n in ops.KERNELS}:
+        raise AssertionError("%s: the recorded step launched %s" % (
+            label, launched))
+    form = "%s, A=%d, B=1" % (label, A)
+    stats = {}
+    if not sort:
+        (rp_args, rp_kw), = rec["rank_prefix"]
+        (mc_args, mc_kw), = rec["move_claims"]
+        stats["rank_prefix_hp"] = [call_stats(
+            "rank_prefix_hp", rp_args, rp_kw, f32_rate, int32_rate, form)]
+        stats["move_claims"] = [call_stats(
+            "move_claims", mc_args, mc_kw, f32_rate, int32_rate, form)]
+        print_split_forms(
+            {"rank_prefix_hp": [(rp_args, rp_kw, 1)],
+             "move_claims": [(mc_args, mc_kw, 1)]}, stats)
+        check_cell_splits("move_claims", mc_args, form, random_a=())
+    stats[obs_route] = [call_stats(obs_route, a, k, f32_rate, int32_rate,
+                                   "%s, %s" % (form, name))
+                        for (a, k), name in zip(rec[obs_route],
+                                                ("deer", "tigers"))]
+    print_window_forms(obs_route, [per_step[obs_route]] * 2, stats[obs_route])
+    del rec, env
+    torch.cuda.empty_cache()
+    return counts, stats
+
+
+def check_tiger_gpu_matches_cpu(label, map_size, place, n_steps,
+                                sort=False):
+    """The double_attack GridWorld on the GPU and on the CPU, the same
+    placements and actions (the tigers' from the CPU's views, which must
+    equal the GPU's), clear_dead every step: observations, rewards and
+    every state field equal.  ``sort`` builds the step on the sort
+    branches whatever the slot count.  -> ordered pairs paid."""
+    from magent_tpu_torch.core import engine
+    from magent_tpu_torch.core.state import FIELDS
+
+    make_step = engine.make_step
+    if sort:
+        engine.make_step = lambda sp: engine._build_step(
+            sp, engine._Route(grid=True, quad=False))
+    try:
+        envs = {d: tiger_world(map_size, d, place)[0]
+                for d in ("cuda", "cpu")}
+    finally:
+        engine.make_step = make_step
+    quad = envs["cpu"]._step_fn.route.quad
+    if any(e._step_fn.route.quad != quad for e in envs.values()) or (
+            sort and quad):
+        raise AssertionError("%s: routes %s" % (
+            label, [e._step_fn.route for e in envs.values()]))
+    deer, tigers = envs["cpu"].get_handles()
+    rng = np.random.RandomState(map_size)
+    pairs = 0
+    for step in range(n_steps):
+        acts = {}
+        for h in (deer, tigers):
+            (gv, gf), (cv, cf) = (envs[d].get_observation(h)
+                                  for d in ("cuda", "cpu"))
+            if not (np.array_equal(gv, cv) and np.array_equal(gf, cf)):
+                raise AssertionError("%s: observations of group %d differ "
+                                     "at step %d" % (label, h.value, step))
+            acts[h.value] = (tiger_actions(envs["cpu"], tigers, deer, cv, rng)
+                             if h is tigers else rng.randint(
+                                 0, envs["cpu"].get_action_space(h)[0],
+                                 len(cv)).astype(np.int32))
+        out = {}
+        for d, env in envs.items():
+            for h in (deer, tigers):
+                env.set_action(h, acts[h.value])
+            done = env.step()
+            out[d] = (done, [env.get_reward(h) for h in (deer, tigers)])
+        if not (out["cuda"][0] == out["cpu"][0] and all(
+                np.array_equal(a, b) for a, b in zip(out["cuda"][1],
+                                                     out["cpu"][1]))):
+            raise AssertionError("%s: done or rewards differ at step %d"
+                                 % (label, step))
+        pairs += tiger_pairs(out["cpu"][1][1])
+        for env in envs.values():
+            env.clear_dead()
+        for name in FIELDS:
+            x = getattr(envs["cuda"].state, name).cpu()
+            if not torch.equal(x, getattr(envs["cpu"].state, name)):
+                raise AssertionError("%s: state field %s differs at step %d"
+                                     % (label, name, step))
+    spec = envs["cpu"].spec
+    print("GridWorld GPU vs CPU: %s, %s agents, A=%d, %s route, %d steps "
+          "with clear_dead: observations, rewards and states equal; %d "
+          "ordered tiger pairs paid" % (
+              label, [envs["cpu"].get_num(h) for h in (deer, tigers)],
+              spec.n_agents_cap, "pair-kernel" if quad else "sort", n_steps,
+              pairs), flush=True)
+    return pairs
+
+
 def check_gridworld_gpu_matches_cpu():
     """Phase 7 (GridWorld): the stateful API on the GPU and on the CPU, same
     placements and actions, with clear_dead every step."""
@@ -1302,20 +1660,20 @@ def assert_cell_equal(got, want, args, tag):
     return err
 
 
-def check_cell_splits(name, path_args, path_form):
+def check_cell_splits(name, path_args, path_form, random_a=CELL_A):
     """``occupant`` or ``move_claims`` in every (cluster, warps) split of
     ``tools/profile_rect.py``'s table against its plain version: on the
-    main path's operands, then on random operands at CELL_A, B = 1 and 16
-    (the occupant on unique cells, then on duplicate cells; move_claims
-    with a third of the slots at one shared sentinel), the entry point
-    also called once on each (one launch)."""
+    main path's operands, then on random operands at ``random_a``, B = 1
+    and 16 (the occupant on unique cells, then on duplicate cells;
+    move_claims with a third of the slots at one shared sentinel), the
+    entry point also called once on each (one launch)."""
     from magent_tpu_torch import ops
     from magent_tpu_torch.tools import profile_rect as pr
 
     dev = torch.device("cuda", torch.cuda.current_device())
     kernel, plain = kernel_fns()[name]
     forms = [(path_args, path_form)]
-    for A in CELL_A:
+    for A in random_a:
         for B in (1, 16):
             if name == "occupant":
                 forms += [([t.to(dev) for t in pr.cell_operands(
@@ -1343,9 +1701,10 @@ def check_cell_splits(name, path_args, path_form):
                                  % name)
     torch.cuda.empty_cache()
     print("%s on the split template: %d launches (%d forms, %d splits each: "
-          "the path's operands, random at A in %s, B in (1, 16)) equal to "
-          "the plain version, max abs err %g" % (
-              name, n, len(forms), len(pr.SPLITS), list(CELL_A), err),
+          "the path's operands (%s), random at A in %s, B in (1, 16)) "
+          "equal to the plain version, max abs err %g" % (
+              name, n, len(forms), len(pr.SPLITS), path_form,
+              list(random_a), err),
           flush=True)
 
 
@@ -2195,6 +2554,10 @@ def main() -> int:
         row["launches"] = gw_counts[name]
     rows.update(gw_rows)
     rows["window_gather"]["per_call"] += gw_views
+    tiger = {m: run_tiger_path(m, f32_rate, int32_rate, device_name)
+             for m in TIGER_MAPS}
+    # later phases report their peak memory from here
+    torch.cuda.reset_peak_memory_stats()
     rect_rows, banded_500, syncs_500, g4_forms = run_pursuit_paths(
         f32_rate, int32_rate, device_name, rows["rank_prefix"])
     rows.update(rect_rows)
@@ -2218,6 +2581,18 @@ def main() -> int:
                                [SMALL_N, SMALL_N], SMALL_ENVS, device=d),
         SMALL_STEPS, VIEW_ATOL)
     check_gridworld_gpu_matches_cpu()
+    pairs = (check_tiger_gpu_matches_cpu(
+        "double_attack map %d, train_tiger's layout" % TIGER_SMALL_MAP,
+        TIGER_SMALL_MAP, place_tiger_world, TIGER_SMALL_STEPS)
+        + check_tiger_gpu_matches_cpu(
+            "double_attack map 20, the golden layout, sort branches forced",
+            20, place_golden_tigers, TIGER_SMALL_STEPS, sort=True)
+        + check_tiger_gpu_matches_cpu(
+            "double_attack map 500, train_tiger's layout", 500,
+            place_tiger_world, TIGER_BIG_STEPS))
+    if not pairs:
+        raise AssertionError("the double_attack GPU-vs-CPU runs paid no "
+                             "double attack")
     for frac in (0.0, P_WALL_FRAC):
         check_gpu_matches_cpu(
             "pursuit map %d, %g interior walls" % (P_MAP, frac),
@@ -2230,6 +2605,11 @@ def main() -> int:
         "battle map %d forced onto the banded route, bf16 views, minimap"
         % SMALL_MAP, banded_battle_env, SMALL_STEPS, 0.0)
 
+    for m, (counts, stats) in tiger.items():
+        for name, st in stats.items():
+            rows[name]["per_call"] += st
+            rows[name].setdefault("launches_by_path", {})[
+                "double_attack map %d" % m] = counts[name]
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name,

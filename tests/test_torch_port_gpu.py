@@ -16,7 +16,8 @@ lockstep loop (battle; pursuit with and without interior walls; pursuit's
 one world on the segmented route; battle forced onto the banded route with
 bf16 views), of the stateful GridWorld and of the
 fused DQN trainers (one step of each, f32, TF32 off, from the trusty battle
-weights read with numpy).
+weights read with numpy); the reward-rule plans (``GeneralRule`` whole and
+chunked, ``PairSharedObjectRule``) on random states, GPU against CPU.
 Marked ``gpu``: each test decides at run time whether a card exists and
 skips without one.  On a machine with an H100:
 python -m pytest tests/test_torch_port_gpu.py -q"""
@@ -1133,3 +1134,150 @@ def test_battle_banded_bf16_gpu_matches_cpu(cuda):
         for name in FIELDS:
             assert torch.equal(getattr(states[0], name).cpu(),
                                getattr(states[1], name)), name
+
+
+def _rule_config(values):
+    """Rule shapes that reach every branch of the general join (an 'all'
+    subject and its inferred object, a fixed-index subject, an 'any'
+    subject's inferred object paid per slot, align, in_a_line, NOT / OR)
+    and double_attack's pair rule, with receiver values ``values``."""
+    from magent_tpu_torch import gridworld as gw
+
+    cfg = gw.Config()
+    cfg.set({"map_width": 16, "map_height": 16})
+    t = cfg.register_agent_type("t", {"hp": 5, "view_range": gw.CircleRange(2),
+                                      "attack_range": gw.CircleRange(1),
+                                      "damage": 1})
+    g0, g1 = cfg.add_group(t), cfg.add_group(t)
+    a, a2 = gw.AgentSymbol(g0, "any"), gw.AgentSymbol(g0, "any")
+    b, c = gw.AgentSymbol(g1, "any"), gw.AgentSymbol(g1, "any")
+    all0, all1 = gw.AgentSymbol(g0, "all"), gw.AgentSymbol(g1, "all")
+    first = gw.AgentSymbol(g0, 1)
+    v = iter(values)
+    cfg.add_reward_rule(gw.Event(a, "attack", b) & gw.Event(a, "align"),
+                        receiver=[a, b], value=[next(v), next(v)])
+    cfg.add_reward_rule(gw.Event(all0, "attack", c)
+                        | gw.Event(c, "in", ((2, 2), (12, 12))),
+                        receiver=[all0, c], value=[next(v), next(v)])
+    cfg.add_reward_rule(gw.Event(first, "kill", c) & ~gw.Event(c, "die"),
+                        receiver=[first, c], value=[next(v), next(v)])
+    cfg.add_reward_rule(gw.Event(all1, "in_a_line"), receiver=all1,
+                        value=next(v))
+    cfg.add_reward_rule(gw.Event(a, "attack", c) & gw.Event(a2, "attack", c),
+                        receiver=[a, a2, c], value=[next(v), next(v), next(v)])
+    return cfg
+
+
+def _rule_arrays(spec, seed, B, integer):
+    """Random rule states: per-group live prefixes, ops on live slots,
+    positions on a few rows and columns (align, in_a_line); rewards carried
+    in, integer-valued when ``integer``."""
+    from magent_tpu_torch.spec import OP_ATTACK, OP_COLLIDE, OP_KILL, OP_NULL
+
+    rng = np.random.RandomState(seed)
+    A, G, H, W = spec.n_agents_cap, spec.n_groups, spec.height, spec.width
+    active = np.zeros((B, A), bool)
+    for b in range(B):
+        for g in spec.groups:
+            n = rng.randint(g.cap // 2, g.cap + 1)
+            active[b, g.offset:g.offset + n] = True
+    last_op = rng.choice([OP_NULL, OP_ATTACK, OP_KILL, OP_COLLIDE], (B, A))
+    live = [np.flatnonzero(active[b]) for b in range(B)]
+    # a third of the ops on three targets: piles of attackers
+    op_obj = np.stack([np.where(rng.uniform(size=A) < 0.3,
+                                rng.choice(live[b][-3:], A),
+                                rng.choice(live[b], A)) for b in range(B)])
+    reward = rng.normal(size=(B, A)) * 3
+    greward = rng.normal(size=(B, G)) * 3
+    if integer:
+        reward, greward = np.round(reward), np.round(greward)
+    arrays = {
+        "cell_slot": np.full((B, H, W), -1, np.int32),
+        "cell_wall": np.zeros((B, H, W), bool),
+        "cell_food": np.zeros((B, H, W), np.float32),
+        "x": rng.randint(1, 5, (B, A)).astype(np.int32),
+        "y": rng.randint(1, 5, (B, A)).astype(np.int32),
+        "dir": np.zeros((B, A), np.int32),
+        "hp": np.ones((B, A), np.float32),
+        "active": active,
+        "dead": (rng.uniform(size=(B, A)) < 0.1) & active,
+        "absorbed": np.zeros((B, A), bool),
+        "id": np.zeros((B, A), np.int32),
+        "last_action": np.zeros((B, A), np.int32),
+        "next_reward": reward.astype(np.float32),
+        "last_reward": np.zeros((B, A), np.float32),
+        "last_op": np.where(active, last_op, OP_NULL).astype(np.int32),
+        "op_obj": np.where(active & (last_op != OP_NULL), op_obj,
+                           -1).astype(np.int32),
+        "group_reward": greward.astype(np.float32),
+        "n_in_group": np.zeros((B, G), np.int32),
+        "lcg": np.ones(B, np.uint32),
+        "key": np.zeros((B, 2), np.uint32),
+        "done": np.zeros(B, bool),
+        "id_counter": np.full(B, A, np.int32),
+        "step_ct": np.zeros(B, np.int32),
+    }
+    # group 1 stands in one column of contiguous rows in env 0 (in_a_line)
+    g1 = spec.groups[1]
+    arrays["x"][0, g1.offset:g1.offset + g1.cap] = 7
+    arrays["y"][0, g1.offset:g1.offset + g1.cap] = np.arange(g1.cap) % 16
+    return arrays
+
+
+# fractional receiver values: the plans' per-slot scatter-adds take their
+# duplicates in any order on the card (CUDA's scatter_add_ adds by
+# atomics), in index order on the CPU, so sums of rewards of magnitude up
+# to ~50 may differ in their last bits
+RULE_ATOL = 1e-5
+
+
+@pytest.mark.parametrize("max_tensor", [None, 64])
+@pytest.mark.parametrize("integer", [True, False], ids=["int", "frac"])
+def test_rule_plans_gpu_match_cpu(cuda, max_tensor, integer, monkeypatch):
+    """Every plan as compiled, and every rule forced onto GeneralRule
+    (whole, and in blocks of at most 64 per env), on the card and on the
+    CPU: triggers equal; rewards exact with integer receiver values,
+    within RULE_ATOL with fractional ones."""
+    from magent_tpu_torch import spec as tspec
+    from magent_tpu_torch.core import rules as trules
+    from magent_tpu_torch.core.state import state_from_numpy
+
+    if max_tensor is not None:
+        monkeypatch.setattr(trules.GeneralRule, "MAX_TENSOR", max_tensor)
+    values = ([2, -1, 3, 1, -2, 4, 5, 1, 2, -3] if integer else
+              [0.3, -0.7, 1.25, 0.1, -2.5, 0.45, 0.6, 0.05, 1.5, -0.35])
+    spec = tspec.compile_spec(_rule_config(values), [37, 29])
+    compiled = spec.compiled_rules()
+    assert [type(p).__name__ for p in compiled] == [
+        "GeneralRule"] * 4 + ["PairSharedObjectRule"]
+    order = trules._symbol_order(spec.reward_rules)
+    general = [trules.GeneralRule(spec, on, r, v, t, order.index)
+               for on, r, v, t in spec.reward_rules]
+    if max_tensor is not None:
+        assert max(len(p.blocks(spec)) for p in general) > 1
+    atol = 0.0 if integer else RULE_ATOL
+    fired = 0
+    for seed in range(3):
+        arrays = _rule_arrays(spec, seed, 4, integer)
+        out = {}
+        for dev in (cuda, "cpu"):
+            st = state_from_numpy(arrays, dev)
+            nr = torch.as_tensor(arrays["next_reward"], device=dev)
+            gr = torch.as_tensor(arrays["group_reward"], device=dev)
+            res = []
+            for plans in (compiled, general):
+                r_nr, r_gr, trig = nr, gr, []
+                for p in plans:
+                    r_nr, r_gr, t = p.apply(spec, st, r_nr, r_gr)
+                    trig.append(t.cpu())
+                res.append((r_nr.cpu(), r_gr.cpu(), torch.stack(trig)))
+            out[str(dev)] = res
+        for (g_nr, g_gr, g_t), (c_nr, c_gr, c_t) in zip(out[str(cuda)],
+                                                        out["cpu"]):
+            assert torch.equal(g_t, c_t), seed
+            torch.testing.assert_close(g_nr, c_nr, atol=atol, rtol=0)
+            torch.testing.assert_close(g_gr, c_gr, atol=atol, rtol=0)
+        # the pair rule and its general join agree on the CPU as well
+        assert torch.equal(out["cpu"][0][2][-1], out["cpu"][1][2][-1])
+        fired += int(out["cpu"][1][2].sum())
+    assert fired >= 10

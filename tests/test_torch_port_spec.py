@@ -94,19 +94,29 @@ def test_battle_rules_compile_to_single_subject_plans():
 
 
 def test_unported_rule_shapes_raise():
-    spec = tspec.compile_spec(jdouble.get_config(24), [4, 4])
-    with pytest.raises(NotImplementedError, match="PairSharedObjectRule"):
-        spec.compiled_rules()
-    # three symbols in one event: the JAX package's GeneralRule shape
-    gw = tbattle.magent.gridworld
-    cfg = tbattle.get_config(24)
-    cfg.add_group("small")
-    a, b, c = (gw.AgentSymbol(g, index="any") for g in range(3))
-    cfg.add_reward_rule(gw.Event(a, "attack", b) | gw.Event(c, "attack", b),
-                        receiver=c, value=1.0)
-    spec = tspec.compile_spec(cfg, [3, 3, 3])
-    with pytest.raises(NotImplementedError, match="GeneralRule"):
-        spec.compiled_rules()
+    """The two rule shapes that raised until the port had the JAX
+    package's other plans now compile to them, in both packages:
+    double_attack's to PairSharedObjectRule, three symbols in one event to
+    GeneralRule."""
+    from magent_tpu.core import rules as jrules
+    from magent_tpu_torch.builtin.config import double_attack as tdouble
+
+    for spec_mod, cfg, rules in (
+            (tspec, tdouble.get_config(24), trules),
+            (jspec, jdouble.get_config(24), jrules)):
+        plans = spec_mod.compile_spec(cfg, [4, 4]).compiled_rules()
+        assert [type(p) for p in plans] == [rules.PairSharedObjectRule]
+    for spec_mod, battle_mod, rules in ((tspec, tbattle, trules),
+                                        (jspec, jbattle, jrules)):
+        gw = battle_mod.magent.gridworld
+        cfg = battle_mod.get_config(24)
+        cfg.add_group("small")
+        a, b, c = (gw.AgentSymbol(g, index="any") for g in range(3))
+        cfg.add_reward_rule(gw.Event(a, "attack", b)
+                            | gw.Event(c, "attack", b), receiver=c, value=1.0)
+        plans = spec_mod.compile_spec(cfg, [3, 3, 3]).compiled_rules()
+        assert [type(p) for p in plans] == [rules.SingleSubjectRule] * 2 + [
+            rules.GeneralRule]
 
 
 def test_make_step_rejects_unported_specs():
