@@ -1330,69 +1330,22 @@ def run_tiger_path(map_size, f32_rate, int32_rate, device_name):
 
 def check_tiger_gpu_matches_cpu(label, map_size, place, n_steps,
                                 sort=False):
-    """The double_attack GridWorld on the GPU and on the CPU, the same
-    placements and actions (the tigers' from the CPU's views, which must
-    equal the GPU's), clear_dead every step: observations, rewards and
-    every state field equal.  ``sort`` builds the step on the sort
-    branches whatever the slot count.  -> ordered pairs paid."""
-    from magent_tpu_torch.core import engine
-    from magent_tpu_torch.core.state import FIELDS
+    """The double_attack GridWorld on the GPU and on the CPU
+    (:func:`check_grid_world_gpu_matches_cpu`), each tiger with a deer in
+    reach attacking it (from the CPU's views, which must equal the GPU's).
+    ``sort`` builds the step on the sort branches whatever the slot count.
+    -> ordered pairs paid."""
+    def act(env, h, view, rng):
+        deer, tigers = env.get_handles()
+        return (tiger_actions(env, tigers, deer, view, rng)
+                if h.value == tigers.value else None)
 
-    make_step = engine.make_step
-    if sort:
-        engine.make_step = lambda sp: engine._build_step(
-            sp, engine._Route(grid=True, quad=False))
-    try:
-        envs = {d: tiger_world(map_size, d, place)[0]
-                for d in ("cuda", "cpu")}
-    finally:
-        engine.make_step = make_step
-    quad = envs["cpu"]._step_fn.route.quad
-    if any(e._step_fn.route.quad != quad for e in envs.values()) or (
-            sort and quad):
-        raise AssertionError("%s: routes %s" % (
-            label, [e._step_fn.route for e in envs.values()]))
-    deer, tigers = envs["cpu"].get_handles()
-    rng = np.random.RandomState(map_size)
-    pairs = 0
-    for step in range(n_steps):
-        acts = {}
-        for h in (deer, tigers):
-            (gv, gf), (cv, cf) = (envs[d].get_observation(h)
-                                  for d in ("cuda", "cpu"))
-            if not (np.array_equal(gv, cv) and np.array_equal(gf, cf)):
-                raise AssertionError("%s: observations of group %d differ "
-                                     "at step %d" % (label, h.value, step))
-            acts[h.value] = (tiger_actions(envs["cpu"], tigers, deer, cv, rng)
-                             if h is tigers else rng.randint(
-                                 0, envs["cpu"].get_action_space(h)[0],
-                                 len(cv)).astype(np.int32))
-        out = {}
-        for d, env in envs.items():
-            for h in (deer, tigers):
-                env.set_action(h, acts[h.value])
-            done = env.step()
-            out[d] = (done, [env.get_reward(h) for h in (deer, tigers)])
-        if not (out["cuda"][0] == out["cpu"][0] and all(
-                np.array_equal(a, b) for a, b in zip(out["cuda"][1],
-                                                     out["cpu"][1]))):
-            raise AssertionError("%s: done or rewards differ at step %d"
-                                 % (label, step))
-        pairs += tiger_pairs(out["cpu"][1][1])
-        for env in envs.values():
-            env.clear_dead()
-        for name in FIELDS:
-            x = getattr(envs["cuda"].state, name).cpu()
-            if not torch.equal(x, getattr(envs["cpu"].state, name)):
-                raise AssertionError("%s: state field %s differs at step %d"
-                                     % (label, name, step))
-    spec = envs["cpu"].spec
-    print("GridWorld GPU vs CPU: %s, %s agents, A=%d, %s route, %d steps "
-          "with clear_dead: observations, rewards and states equal; %d "
-          "ordered tiger pairs paid" % (
-              label, [envs["cpu"].get_num(h) for h in (deer, tigers)],
-              spec.n_agents_cap, "pair-kernel" if quad else "sort", n_steps,
-              pairs), flush=True)
+    seen = check_grid_world_gpu_matches_cpu(
+        label, lambda d: tiger_world(map_size, d, place), n_steps, sort,
+        act=act, seed=map_size)
+    pairs = sum(tiger_pairs(r[1]) for r in seen["rewards"])
+    print("GridWorld GPU vs CPU: %s: %d ordered tiger pairs paid" % (
+        label, pairs), flush=True)
     return pairs
 
 
@@ -1451,6 +1404,303 @@ def check_gridworld_gpu_matches_cpu():
           "clear_dead: observations, rewards, positions, hp, alive, ids and "
           "done equal" % (GW_SMALL_MAP, [len(p) for p in outs["cpu"][2]],
                           GW_SMALL_STEPS), flush=True)
+
+
+# train_pursuit (examples/train_pursuit.py:16-27): GridWorld("pursuit")
+# with 3% walls, 1.25% 2x2 predators and 2.5% prey.  At map 1000 its
+# 12,500 + 25,000 agents grow the caps to 16,384 + 32,768 slots (A =
+# 49,152, past QUAD_MAX_SINGLE): the grid path's sort branches, no pair
+# kernel.  At map 500 (3,125 + 6,250 agents, 4,096 + 8,192 slots) the step
+# takes rank_prefix_hp; multi-cell claims go through a scatter-min, not
+# move_claims.  Both maps' padded images ([1,1048,5380], 22.6 MB, and
+# [1,544,2945], 6.41 MB) are above the 6 MiB image budget: the banded
+# gather.  Launches per step of each (the rest 0):
+PURSUIT_WORLD_MAPS = {1000: {"window_gather_banded": 2},
+                      500: {"rank_prefix_hp": 1, "window_gather_banded": 2}}
+PW_WARMUP, PW_TIMED, PW_SYNC_STEPS = 3, 20, 3
+# the GPU-vs-CPU runs of the grid path's new mechanics: pursuit GridWorlds
+# at map 64 (pair kernels) and 1000 (sort branches), the golden food,
+# food_crumb and absorb layouts (tests/golden/scenarios.py) and absorb at
+# examples/train_arrange.py's map 100 (its config; goals and seekers on 3%
+# and 2% of the cells, at random)
+PW_SMALL_MAP, PW_SMALL_STEPS, PW_BIG_STEPS, FOOD_STEPS = 64, 6, 3, 10
+ARRANGE_MAP, ARRANGE_STEPS = 100, 10
+
+
+def place_pursuit_world(env, handles):
+    """``examples/train_pursuit.py:16-20`` ``generate_map``."""
+    n = env.spec.width * env.spec.height
+    env.add_walls(method="random", n=n * 0.03)
+    env.add_agents(handles[0], method="random", n=n * 0.0125)
+    env.add_agents(handles[1], method="random", n=n * 0.025)
+
+
+def pursuit_world(map_size, device=None):
+    from magent_tpu_torch import GridWorld
+
+    env = GridWorld("pursuit", map_size=map_size, device=device)
+    handles = env.get_handles()
+    env.reset()
+    place_pursuit_world(env, handles)
+    return env, handles
+
+
+def run_pursuit_world_path(map_size, f32_rate, int32_rate, device_name):
+    """Phase 4c at one map: train_pursuit's loop (gridworld_step with
+    random actions), timed; launch counts, host syncs, the profiler and
+    peak memory; the grid after the timed steps equal to a rebuild from
+    the positions; the path's kernels against their plain versions on one
+    more step's operands.  -> ({kernel: launches in the timed run},
+    {kernel: [call_stats of the step's calls]})."""
+    from magent_tpu_torch import ops
+    from magent_tpu_torch.core import engine
+    from magent_tpu_torch.ops import attack_prefix as ap
+    from magent_tpu_torch.ops import window_gather as wg
+
+    per_step = PURSUIT_WORLD_MAPS[map_size]
+    label = "pursuit GridWorld map %d" % map_size
+    t0 = time.perf_counter()
+    env, handles = pursuit_world(map_size)
+    place_s = time.perf_counter() - t0
+    spec = env.spec
+    A = spec.n_agents_cap
+    quad = "rank_prefix_hp" in per_step
+    if env._step_fn.route != engine._Route(grid=True, quad=quad) or [
+            f.route for f in env._observe_fns] != ["window_gather_banded"] * 2:
+        raise AssertionError("%s: route %s, observation routes %s" % (
+            label, env._step_fn.route, [f.route for f in env._observe_fns]))
+    n0 = [env.get_num(h) for h in handles]
+    rng = np.random.RandomState(map_size)
+    place = place_pursuit_world
+    for _ in range(PW_WARMUP):
+        gridworld_step(env, handles, rng, place)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    live = 0
+    for _ in range(PW_TIMED):
+        n, (view, feat), rewards = gridworld_step(env, handles, rng, place)
+        live += n
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    ms_per_step = dt / PW_TIMED * 1e3
+    print("%s: %s agents placed in %.2f s, A=%d slots (caps %s), %s route, "
+          "observation by window_gather_banded; %d timed steps in %.4f s: "
+          "%.4f ms/step, %.1f agent-steps/s (%d live agent-steps) on %s; "
+          "loop peak device memory %.3f GB" % (
+              label, n0, place_s, A, [g.cap for g in spec.groups],
+              "pair-kernel" if quad else "sort", PW_TIMED, dt, ms_per_step,
+              live / dt, live, device_name,
+              torch.cuda.max_memory_allocated() / 1e9), flush=True)
+    expected = {name: per_step.get(name, 0) * PW_TIMED
+                for name in ops.KERNELS}
+    if counts != expected:
+        raise AssertionError("%s launch counts %s, expected %s" % (
+            label, counts, expected))
+    vs = env.get_view_space(handles[-1])
+    finite = (np.isfinite(view).all() and np.isfinite(feat).all()
+              and all(np.isfinite(r).all() for r in rewards))
+    if view.shape[1:] != vs or not finite:
+        raise AssertionError("%s outputs: view shape %s, want %s, or not "
+                             "finite" % (label, view.shape, vs))
+    grid = env.state.cell_slot
+    if not torch.equal(grid, env._rebuild_grid(env.state)):
+        raise AssertionError("%s: cell_slot differs from a rebuild from the "
+                             "positions after the timed steps" % label)
+    print("%s: cell_slot after the timed steps equals its rebuild from the "
+          "positions (%d occupied cells)" % (label, int((grid >= 0).sum())),
+          flush=True)
+    syncs, sites = count_host_syncs(
+        lambda: gridworld_step(env, handles, rng, place), PW_SYNC_STEPS)
+    print("%s: %.1f host syncs per step (torch.cuda sync debug mode, %d "
+          "steps); per step by call site: %s" % (
+              label, syncs, PW_SYNC_STEPS, json.dumps(
+                  {k: v / PW_SYNC_STEPS for k, v in sites.most_common()})),
+          flush=True)
+    profile_steps(label, lambda: gridworld_step(env, handles, rng, place),
+                  PROFILE_STEPS, ms_per_step)
+
+    # the path's kernels against their plain versions on one more step
+    wrappers = [(wg, "window_gather_banded")] + (
+        [(ap, "rank_prefix")] if quad else [])
+    before = ops.launch_counts()
+    rec = record_operands(lambda: gridworld_step(env, handles, rng, place),
+                          wrappers)
+    launched = {n: c - before[n] for n, c in ops.launch_counts().items()}
+    if launched != {n: per_step.get(n, 0) for n in ops.KERNELS}:
+        raise AssertionError("%s: the recorded step launched %s" % (
+            label, launched))
+    form = "%s, A=%d, B=1" % (label, A)
+    stats = {}
+    if quad:
+        (rp_args, rp_kw), = rec["rank_prefix"]
+        print("recorded step: %d attackers with a target" % int(
+            (rp_args[0] < A).sum()), flush=True)
+        stats["rank_prefix_hp"] = [call_stats(
+            "rank_prefix_hp", rp_args, rp_kw, f32_rate, int32_rate, form)]
+        print_split_forms({"rank_prefix_hp": [(rp_args, rp_kw, 1)]}, stats)
+    stats["window_gather_banded"] = [
+        call_stats("window_gather_banded", a, k, f32_rate, int32_rate,
+                   "%s, %s" % (form, name))
+        for (a, k), name in zip(rec["window_gather_banded"],
+                                ("predators", "prey"))]
+    print_window_forms("window_gather_banded",
+                       [per_step["window_gather_banded"]] * 2,
+                       stats["window_gather_banded"])
+    del rec, env
+    torch.cuda.empty_cache()
+    return counts, stats
+
+
+def golden_world(name, device):
+    """A golden scenario's GridWorld (tests/golden/scenarios.py: its config,
+    map and placements)."""
+    golden = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "tests", "golden")
+    if golden not in sys.path:
+        sys.path.insert(0, golden)
+    from scenarios import SCENARIOS
+    from magent_tpu_torch import GridWorld, gridworld
+
+    sc = SCENARIOS[name]
+    env = GridWorld(sc["cfg"](gridworld, sc["map_size"]), device=device)
+    handles = env.get_handles()
+    env.reset()
+    for h, pos in zip(handles, sc["placements"]):
+        env.add_agents(h, method="custom", pos=pos)
+    return env, handles
+
+
+def arrange_world(device):
+    """examples/train_arrange.py's config (magent_tpu/renderer/server/
+    arrange_server.py:25-49) at its map 100, goals and seekers placed at
+    random on 3% and 2% of the cells."""
+    from magent_tpu_torch import GridWorld, gridworld as gw
+
+    cfg = gw.Config()
+    cfg.set({"map_width": ARRANGE_MAP, "map_height": ARRANGE_MAP,
+             "minimap_mode": True, "embedding_size": 12})
+    goal = cfg.register_agent_type(
+        "goal", {'width': 1, 'length': 1, 'can_absorb': True})
+    agent = cfg.register_agent_type(
+        "agent", {'width': 1, 'length': 1, 'hp': 10, 'speed': 2,
+                  'view_range': gw.CircleRange(6), 'damage': 2,
+                  'step_recover': -10.0 / 400, 'step_reward': 0})
+    g_goal = cfg.add_group(goal)
+    g_agent = cfg.add_group(agent)
+    seeker = gw.AgentSymbol(g_agent, 'any')
+    marker = gw.AgentSymbol(g_goal, 'any')
+    cfg.add_reward_rule(gw.Event(seeker, 'collide', marker), receiver=seeker,
+                        value=10)
+    env = GridWorld(cfg, device=device)
+    handles = env.get_handles()
+    env.reset()
+    n = ARRANGE_MAP * ARRANGE_MAP
+    env.add_agents(handles[0], method="random", n=int(n * 0.03))
+    env.add_agents(handles[1], method="random", n=int(n * 0.02))
+    return env, handles
+
+
+def check_grid_world_gpu_matches_cpu(label, build, n_steps, sort=False,
+                                     act=None, seed=13):
+    """A GridWorld on the GPU and on the CPU: ``build(device) -> (env,
+    handles)``, the same actions (``act(env, handle, view, rng)`` on the
+    CPU's env and view, or uniform random where it is None or gives None),
+    clear_dead every step; views, features, rewards, done and every state
+    field (``cell_slot``, ``cell_food``, ``absorbed`` included) exactly
+    equal.  ``sort`` builds the step on the sort branches.  -> what the
+    run reached: kills, collides, food (cells with food, summed over the
+    steps), absorbed (the most at once) and each step's rewards."""
+    from magent_tpu_torch.core import engine
+    from magent_tpu_torch.core.state import FIELDS
+    from magent_tpu_torch.spec import OP_COLLIDE, OP_KILL
+
+    make_step = engine.make_step
+    if sort:
+        engine.make_step = lambda sp: engine._build_step(
+            sp, engine._Route(grid=True, quad=False))
+    try:
+        worlds = {d: build(d) for d in ("cuda", "cpu")}
+    finally:
+        engine.make_step = make_step
+    routes = {d: env._step_fn.route for d, (env, _) in worlds.items()}
+    if routes["cuda"] != routes["cpu"] or (sort and routes["cpu"].quad):
+        raise AssertionError("%s: routes %s" % (label, routes))
+    env_c, handles = worlds["cpu"]
+    rng = np.random.RandomState(seed)
+    seen = dict(kills=0, collides=0, food=0, absorbed=0, rewards=[])
+    for step in range(n_steps):
+        for h in handles:
+            (gv, gf), (cv, cf) = (worlds[d][0].get_observation(h)
+                                  for d in ("cuda", "cpu"))
+            if not (np.array_equal(gv, cv) and np.array_equal(gf, cf)):
+                raise AssertionError("%s: observations of group %d differ "
+                                     "at step %d" % (label, h.value, step))
+            acts = act(env_c, h, cv, rng) if act else None
+            if acts is None:
+                acts = rng.randint(0, env_c.get_action_space(h)[0],
+                                   len(cv)).astype(np.int32)
+            for env, _ in worlds.values():
+                env.set_action(h, acts)
+        out = {}
+        for d, (env, _) in worlds.items():
+            done = env.step()
+            out[d] = (done, [env.get_reward(h) for h in handles])
+        if not (out["cuda"][0] == out["cpu"][0] and all(
+                np.array_equal(a, b) for a, b in zip(out["cuda"][1],
+                                                     out["cpu"][1]))):
+            raise AssertionError("%s: done or rewards differ at step %d"
+                                 % (label, step))
+        st = env_c.state
+        seen["kills"] += int((st.last_op == OP_KILL).sum())
+        seen["collides"] += int((st.last_op == OP_COLLIDE).sum())
+        seen["food"] += int((st.cell_food >= 0).sum())
+        seen["absorbed"] = max(seen["absorbed"], int(st.absorbed.sum()))
+        seen["rewards"].append(out["cpu"][1])
+        for env, _ in worlds.values():
+            env.clear_dead()
+        for name in FIELDS:
+            x = getattr(worlds["cuda"][0].state, name).cpu()
+            if not torch.equal(x, getattr(env_c.state, name)):
+                raise AssertionError("%s: state field %s differs at step %d"
+                                     % (label, name, step))
+    print("GridWorld GPU vs CPU: %s, %s agents, A=%d, %s route, %d steps "
+          "with clear_dead: observations, rewards and states equal (%d "
+          "kills, %d collisions, %d food cell-steps, %d absorbed)" % (
+              label, [env_c.get_num(h) for h in handles],
+              env_c.spec.n_agents_cap,
+              "pair-kernel" if routes["cpu"].quad else "sort", n_steps,
+              seen["kills"], seen["collides"], seen["food"],
+              seen["absorbed"]), flush=True)
+    return seen
+
+
+def check_new_grid_paths_gpu_match_cpu():
+    """Phase 10's runs of the grid path's multi-cell bodies, food and
+    absorb, each reaching the mechanics it is named for."""
+    for m, steps in ((PW_SMALL_MAP, PW_SMALL_STEPS), (1000, PW_BIG_STEPS)):
+        seen = check_grid_world_gpu_matches_cpu(
+            "pursuit map %d, train_pursuit's layout" % m,
+            functools.partial(pursuit_world, m), steps)
+        if not seen["collides"]:
+            raise AssertionError("pursuit map %d: no collision" % m)
+    for name, sort in (("food", False), ("food_crumb", False),
+                       ("food_crumb", True)):
+        seen = check_grid_world_gpu_matches_cpu(
+            "golden %s layout%s" % (name, ", sort branches forced" * sort),
+            functools.partial(golden_world, name), FOOD_STEPS, sort)
+        if not (seen["kills"] and seen["food"]):
+            raise AssertionError("%s: no kill or no food" % name)
+    for label, build, steps in (
+            ("golden absorb layout", functools.partial(golden_world,
+                                                       "absorb"), FOOD_STEPS),
+            ("absorb, train_arrange's map %d, random placement"
+             % ARRANGE_MAP, arrange_world, ARRANGE_STEPS)):
+        if not check_grid_world_gpu_matches_cpu(label, build,
+                                                steps)["absorbed"]:
+            raise AssertionError("%s: nothing absorbed" % label)
 
 
 # launches per step of pursuit's gridless rect path (the rest 0): at map 64
@@ -2556,6 +2806,9 @@ def main() -> int:
     rows["window_gather"]["per_call"] += gw_views
     tiger = {m: run_tiger_path(m, f32_rate, int32_rate, device_name)
              for m in TIGER_MAPS}
+    pursuit_worlds = {m: run_pursuit_world_path(m, f32_rate, int32_rate,
+                                                device_name)
+                      for m in PURSUIT_WORLD_MAPS}
     # later phases report their peak memory from here
     torch.cuda.reset_peak_memory_stats()
     rect_rows, banded_500, syncs_500, g4_forms = run_pursuit_paths(
@@ -2593,6 +2846,7 @@ def main() -> int:
     if not pairs:
         raise AssertionError("the double_attack GPU-vs-CPU runs paid no "
                              "double attack")
+    check_new_grid_paths_gpu_match_cpu()
     for frac in (0.0, P_WALL_FRAC):
         check_gpu_matches_cpu(
             "pursuit map %d, %g interior walls" % (P_MAP, frac),
@@ -2605,11 +2859,13 @@ def main() -> int:
         "battle map %d forced onto the banded route, bf16 views, minimap"
         % SMALL_MAP, banded_battle_env, SMALL_STEPS, 0.0)
 
-    for m, (counts, stats) in tiger.items():
+    for path, (counts, stats) in [
+            ("double_attack map %d" % m, v) for m, v in tiger.items()] + [
+            ("pursuit GridWorld map %d" % m, v)
+            for m, v in pursuit_worlds.items()]:
         for name, st in stats.items():
             rows[name]["per_call"] += st
-            rows[name].setdefault("launches_by_path", {})[
-                "double_attack map %d" % m] = counts[name]
+            rows[name].setdefault("launches_by_path", {})[path] = counts[name]
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name,

@@ -1,10 +1,10 @@
 """One env step as batched tensor ops (port of ``magent_tpu/core/engine.py``
 ``make_step`` and ``make_clear_dead``).
 
-Configs without food, turn mode or absorb take one of two paths, chosen
-once in :func:`make_step`:
+A step takes one of two paths, chosen once in :func:`make_step`:
 
-- the **gridless** path (``maintain_grid=False``, :class:`VecGridWorld`):
+- the **gridless** path (``maintain_grid=False``, :class:`VecGridWorld`,
+  specs without food, turn mode or absorb, within the pair kernels' cap):
   every occupancy question is answered pairwise by the kernels of
   :mod:`magent_tpu_torch.ops.attack_prefix` — cell equality for 1x1
   bodies, rect containment and first rect overlap for multi-cell bodies
@@ -14,13 +14,16 @@ once in :func:`make_step`:
   ``QUAD_MAX_SINGLE`` to ``SEG_DEFAULT_MAX`` slots sorts its agents by y
   once per step and takes the y-segmented forms of the rect and rank
   sweeps;
-- the **grid** path (``maintain_grid=True``, the stateful ``GridWorld``,
-  1x1 bodies only):
-  attack targets and move blocking are read from ``state.cell_slot`` and
-  ``state.cell_wall`` (any walls), dead bodies are cleared from the grid and
-  the grid is rebuilt after the move.  Damage and move claims go through the
-  pair kernels (``rank_prefix`` hp form, ``move_claims``) up to the quad
-  cap, and through sorts above it.
+- the **grid** path (the stateful ``GridWorld``, every spec past the
+  gridless caps, food and absorb): attack targets and move blocking are
+  read from ``state.cell_slot``, ``state.cell_wall`` (any walls) and
+  ``state.cell_food``; dead bodies are cleared from the grid, and after
+  the move 1x1 grids are rebuilt while multi-cell bodies are cleared and
+  refilled rect by rect.  Damage goes through ``rank_prefix`` (hp form)
+  up to the quad cap and a sort above it; 1x1 move claims through
+  ``move_claims`` or a sort, multi-cell claims through a scatter-min over
+  a claim grid.  Food (corpse drops, eating by attack) and absorb
+  (``can_absorb`` goals) run on this path only.
 
 Phases run in the reference order (reference:
 src/gridworld/GridWorld.cc:456-631)::
@@ -51,7 +54,7 @@ _SLOT_TABLES = (
     "attack_base", "n_action", "att_dx", "att_dy", "width", "length",
     "att_x_offset", "att_y_offset", "attack_in_group", "attack_penalty",
     "damage", "hp_max", "dead_penalty", "step_recover", "turn_base",
-    "move_dx", "move_dy",
+    "move_dx", "move_dy", "eat_ability", "can_absorb",
 )
 
 
@@ -74,11 +77,40 @@ class _Tables:
         self.gof = torch.as_tensor(spec.group_of_slot, device=device)
         self.slots = torch.arange(spec.n_agents_cap, dtype=torch.int32,
                                   device=device)
+        # body-cell offsets (i, j) of the max_body^2 scan, i outer and j
+        # inner (the order of engine.py:773-782), as [MB*MB, 1, 1]
+        offs = np.arange(spec.max_body_w, dtype=np.int32)
+        self.body_i = torch.as_tensor(
+            np.repeat(offs, spec.max_body_w)[:, None, None], device=device)
+        self.body_j = torch.as_tensor(
+            np.tile(offs, spec.max_body_w)[:, None, None], device=device)
+        self.max_eaters = _max_eaters(spec) if spec.food_mode else 0
         self.wall_code = self.wall_bit = None
         if wall_ctx is not None:
             code, bit = wall_ctx
             self.wall_code = torch.as_tensor(code.reshape(-1), device=device)
             self.wall_bit = torch.as_tensor(bit, device=device)
+
+
+def _max_eaters(spec: speclib.GameSpec) -> int:
+    """The most agents that can attack one cell in a step: live bodies are
+    disjoint, so their anchors differ, and an anchor that reaches a cell
+    lies at one of the (type, direction, attack) offsets from it.  Bounds
+    the eaters of one food cell (:func:`_sum_in_order`)."""
+    offsets = set()
+    for g in spec.groups:
+        t = g.type
+        n = t.attack_range.count
+        for d in range(4):
+            dirs = torch.full((n,), d, dtype=torch.int32)
+            zero = torch.zeros_like(dirs)
+            rx, ry = geo.save_to_real(zero, zero, dirs, t.width, t.length)
+            tx, ty = geo.rela_to_abs(
+                rx, ry, dirs,
+                t.att_x_offset + torch.as_tensor(t.attack_range.dx[:n]),
+                t.att_y_offset + torch.as_tensor(t.attack_range.dy[:n]))
+            offsets.update(zip(tx.tolist(), ty.tolist()))
+    return max(1, min(len(offsets), spec.n_agents_cap))
 
 
 def _tables_for(spec: speclib.GameSpec, cache: dict, device,
@@ -147,17 +179,19 @@ def _unpermute(rows, order):
         1, order.expand(rows.shape), rows)[:, None]
 
 
-_RECT_GRID = ("multi-cell bodies on the grid path are not ported yet: "
-              "ROADMAP.md Queue 1 item 7")
-
-
 def _check_ported(spec: speclib.GameSpec) -> None:
-    """Raise unless the spec runs on a ported path (no food, turn mode or
-    absorb)."""
-    if spec.food_mode or spec.turn_mode or bool(spec.g_can_absorb.any()):
+    """Raise for turn mode, the one spec shape not ported yet."""
+    if spec.turn_mode:
         raise NotImplementedError(
-            "food, turn mode and absorb are not ported yet: their grid-path "
-            "branches are ROADMAP.md Queue 1 item 7")
+            "turn mode is not ported yet: its turn phase and rotating "
+            "observation are ROADMAP.md Queue 1 item 11")
+
+
+def _gridless_capable(spec: speclib.GameSpec) -> bool:
+    """Specs whose occupancy questions the pair kernels answer: no food
+    cells, no turn mode, no absorb (``engine.py:199-210``)."""
+    return not (spec.food_mode or spec.turn_mode
+                or bool(spec.g_can_absorb.any()))
 
 
 def _wall_rect_code(spec: speclib.GameSpec, wall):
@@ -226,14 +260,38 @@ def _grid_at(grid, cell):
     return torch.gather(grid.reshape(B, -1), 1, cell.long())
 
 
-def _clear_cells(cell_slot, mask, x, y):
-    """Empty the (1x1) cells of masked slots; the rest write a dump cell
-    past the end (``engine.py:66-75``, ``mode="drop"``)."""
+def _set_bodies(cell_slot, mask, x, y, T, dirs, values):
+    """Write ``values`` (-1, or the slots [A]) into every cell of the masked
+    slots' body rects in one scatter over the max_body^2 offsets; the rest
+    write a dump cell past the end (``engine.py:66-88`` ``_clear_body`` and
+    ``_fill_body``, ``mode="drop"``).  Live bodies are disjoint, so no two
+    masked cells collide."""
     B, H, W = cell_slot.shape
+    if T.body_i.shape[0] == 1:  # 1x1 bodies: the anchor cell alone
+        idx = torch.where(mask, y * W + x, H * W).long()
+    else:
+        bw, bh = geo.size_for_dir(dirs, T.width, T.length)
+        ok = mask & (T.body_i < bw) & (T.body_j < bh)  # [MB*MB, B, A]
+        idx = torch.where(ok, (y + T.body_j) * W + x + T.body_i, H * W)
+        idx = idx.permute(1, 0, 2).reshape(B, -1).long()
     flat = torch.cat([cell_slot.reshape(B, H * W),
                       cell_slot.new_full((B, 1), -1)], 1)
-    idx = torch.where(mask, y * W + x, H * W).long()
-    return flat.scatter(1, idx, -1)[:, :H * W].reshape(B, H, W)
+    if isinstance(values, int):
+        flat = flat.scatter(1, idx, values)
+    else:
+        flat = flat.scatter(1, idx, values.expand(B, -1).repeat(
+            1, T.body_i.shape[0]))
+    return flat[:, :H * W].reshape(B, H, W)
+
+
+def _pad_gather(table, idx, fill):
+    """``table[b, idx[b, a]]`` with -1 (or out of range) -> ``fill``
+    (``engine.py:42-46``)."""
+    n = table.shape[-1]
+    ok = (idx >= 0) & (idx < n)
+    got = torch.gather(table.expand(idx.shape[0], n), 1,
+                       idx.clamp(0, n - 1).long())
+    return torch.where(ok, got, fill)
 
 
 def _segment_starts(sorted_keys):
@@ -241,12 +299,60 @@ def _segment_starts(sorted_keys):
     return torch.cat([first, sorted_keys[:, 1:] != sorted_keys[:, :-1]], 1)
 
 
-def _segment_cumsum(values, seg_start):
+def _segment_cumsum(values, seg_start, cumsum=None):
     """Per-segment inclusive cumulative sum over sorted segments; values
-    >= 0, so segment bases forward-fill with a cummax (engine.py:54-63)."""
-    cum = torch.cumsum(values, -1)
+    >= 0, so segment bases forward-fill with a cummax (engine.py:54-63).
+    ``cumsum``: the running sum along the last axis (``torch.cumsum``'s by
+    default)."""
+    cum = torch.cumsum(values, -1) if cumsum is None else cumsum(values)
     base = torch.where(seg_start, cum - values, float("-inf"))
     return cum - torch.cummax(base, -1).values
+
+
+# the block of XLA's cumulative sum on the CPU: each run of 16 summed in
+# order, the runs' totals summed the same way, recursively, and each run's
+# exclusive prefix added last
+_XLA_SCAN_BLOCK = 16
+
+
+def _cumsum_xla(values):
+    """Inclusive f32 cumulative sum of [B, N] along the last axis, rounded
+    as the JAX package's ``jnp.cumsum`` rounds on the CPU (XLA's blocked
+    scan, above), by elementwise adds alone: the same bits on the CPU and
+    the GPU.  ``torch.cumsum`` accumulates f32 in double on the CPU and by
+    a parallel scan on the GPU, so it rounds differently from both."""
+    B, N = values.shape
+    blk = _XLA_SCAN_BLOCK
+    m = -(-N // blk)
+    rows = torch.nn.functional.pad(values, (0, m * blk - N)).reshape(B, m, blk)
+    cols = [rows[..., 0]]
+    for k in range(1, blk):
+        cols.append(cols[-1] + rows[..., k])
+    inner = torch.stack(cols, -1)
+    if m > 1:
+        pre = _cumsum_xla(inner[..., -1])
+        inner = inner + torch.cat([torch.zeros_like(pre[:, :1]),
+                                   pre[:, :-1]], 1)[..., None]
+    return inner.reshape(B, m * blk)[:, :N]
+
+
+def _sum_in_order(values, seg_start, k_max):
+    """Each segment's total, adding its rows in order from 0 as XLA's
+    scatter-add adds duplicate indices on the CPU, by elementwise adds (the
+    same bits on the GPU, where ``scatter_add_`` adds in any order) -> [B,
+    N], the total on each segment's first row.  No segment may exceed
+    ``k_max`` rows."""
+    B, N = values.shape
+    pos = torch.arange(N, device=values.device)
+    head = torch.cummax(torch.where(seg_start, pos, 0), -1).values
+    mat = torch.zeros((B, N * k_max + 1), dtype=values.dtype,
+                      device=values.device).scatter(
+        1, torch.where(pos - head < k_max, head * k_max + pos - head,
+                       N * k_max), values)[:, :N * k_max].reshape(B, N, k_max)
+    total = mat[..., 0] + 0.0  # 0 + a, as from zeros: -0 becomes +0
+    for k in range(1, k_max):
+        total = total + mat[..., k]
+    return total
 
 
 def _unsort(values, order):
@@ -441,12 +547,70 @@ def _attack_phase(spec, T, state: State, rank, route: _Route, seg_ctx=None):
                      hp)
     # dying targets: reward replaced by dead_penalty (GridWorld.h:203-208)
     next_reward = torch.where(died, T.dead_penalty, next_reward)
-    cell_slot = state.cell_slot
+    cell_slot, cell_food = state.cell_slot, state.cell_food
     if route.grid:
-        cell_slot = _clear_cells(cell_slot, died, state.x, state.y)
+        cell_slot = _set_bodies(cell_slot, died, state.x, state.y, T,
+                                state.dir, -1)
+    if spec.food_mode:
+        # an attack on a cell with no agent but food (presence is >= 0: a
+        # 0-value corpse is still food) eats it (engine.py:296-299)
+        food = _grid_at(state.cell_food, tyc * W + txc)
+        hp, cell_food = _food_effects(
+            T, state, hp, op_new == OP_KILL, g_table(spec.g_food_supply),
+            hit & (tgt < 0) & (food >= 0.0), tyc * W + txc, rank)
     return state.replace(hp=hp, dead=state.dead | died,
                          next_reward=next_reward, last_op=last_op,
-                         op_obj=op_obj, cell_slot=cell_slot)
+                         op_obj=op_obj, cell_slot=cell_slot,
+                         cell_food=cell_food)
+
+
+def _food_effects(T, state: State, hp, killer, supply_t, food_target, acell,
+                  rank):
+    """Food of one attack phase (engine.py:475-516; reference Map.cc:277-303)
+    -> (hp, cell_food).  Each killer drops its target group's food_supply
+    at the attacked cell (one killer per target: the cells are unique).
+    Then the eaters of each food cell, in attack-priority order, each take
+    at most its eat_ability of what the earlier ones left; a later eater
+    facing less than 0.1 gets nothing, every eater's hp is clamped to its
+    maximum, and a cell eaten below 0.1 loses its food.  Each cell's eaten
+    total adds the eats in that order, as the JAX package's scatter-add
+    does on the CPU, so the GPU keeps the CPU's bits."""
+    B, H, W = state.cell_food.shape
+    dump = H * W
+    flat = torch.cat([state.cell_food.reshape(B, dump),
+                      state.cell_food.new_zeros((B, 1))], 1).scatter(
+        1, torch.where(killer, acell, dump).long(),
+        torch.where(killer, supply_t, 0.0))[:, :dump]
+
+    fcell = torch.where(food_target, acell, dump)
+    order = torch.sort((fcell.to(torch.int64) << 32) | rank, dim=-1,
+                       stable=True).indices
+    f_cell = torch.gather(fcell, 1, order)
+    f_ok = torch.gather(food_target, 1, order)
+    f_eat = torch.where(f_ok, torch.gather(T.eat_ability.expand(B, -1), 1,
+                                           order), 0.0)
+    f_start = _segment_starts(f_cell)
+    f_cum = _segment_cumsum(f_eat, f_start, _cumsum_xla)
+    f_avail = torch.where(f_ok, torch.gather(flat, 1, f_cell.clamp(
+        max=dump - 1).long()), 0.0)
+    remain = f_avail - (f_cum - f_eat)  # what the earlier eaters left
+    amount = torch.where((remain < 0.1) & ~f_start, 0.0,
+                         torch.minimum(remain.clamp_min(0.0), f_eat))
+    ate = _unsort(f_ok, order)
+    # add_hp clamps unconditionally (GridWorld.h:185), even for a 0 eat
+    hp = torch.where(ate, torch.minimum(T.hp_max, hp + _unsort(amount, order)),
+                     hp)
+    # per cell: the total on its first eater's row, written once
+    heads = torch.where(f_start & (f_cell < dump), f_cell, dump).long()
+    eaten = torch.zeros((B, dump + 1), dtype=flat.dtype,
+                        device=flat.device).scatter(
+        1, heads, _sum_in_order(amount, f_start, T.max_eaters))[:, :dump]
+    was_eaten = torch.zeros((B, dump + 1), dtype=torch.bool,
+                            device=flat.device).scatter(
+        1, heads, True)[:, :dump]
+    flat = flat - eaten
+    flat = torch.where((flat < 0.1) & was_eaten, -1.0, flat)
+    return hp, flat.reshape(B, H, W)
 
 
 def _starve_phase(spec, T, state: State, route: _Route):
@@ -464,7 +628,8 @@ def _starve_phase(spec, T, state: State, route: _Route):
     next_reward = torch.where(starved, T.dead_penalty, state.next_reward)
     cell_slot = state.cell_slot
     if route.grid:
-        cell_slot = _clear_cells(cell_slot, starved, state.x, state.y)
+        cell_slot = _set_bodies(cell_slot, starved, state.x, state.y, T,
+                                state.dir, -1)
     return state.replace(hp=hp, dead=state.dead | starved,
                          next_reward=next_reward, cell_slot=cell_slot)
 
@@ -606,71 +771,145 @@ def _move_phase(spec, T, state: State, route: _Route, seg_ctx=None):
             op_obj=torch.where(collide, coll_obj, state.op_obj),
         )
 
-    # one gather of the wall-encoded grid answers "blocked?" and "by whom?"
-    # (engine.py:764-782; Map::get_collide Map.cc:486-501)
+    # the wall- and food-encoded grid answers "blocked?" and "by whom?"
+    # (engine.py:764-783; Map::get_collide Map.cc:486-501)
     slots = T.slots
     enc = torch.where(state.cell_wall, -2, state.cell_slot)
-    e = _grid_at(enc, ny.clamp(0, H - 1) * W + nx.clamp(0, W - 1))
-    reach = is_move & in_bounds
-    blank = reach & ((e == -1) | (e == slots))
-    collide_obj = torch.where(reach & (e >= 0) & (e != slots), e, -1)
-
-    # cell claims: the lowest slot wins (reference buffer order)
-    tcell = torch.where(blank, ny * W + nx, H * W).to(torch.int32)
-    if route.quad:
-        cnt, head = ap.move_claims(tcell.contiguous())
-        wins = blank & (cnt == 0)
+    if spec.food_mode:
+        enc = torch.where(state.cell_food >= 0.0, -3, enc)
+    if spec.max_body_w == 1:
+        e = _grid_at(enc, ny.clamp(0, H - 1) * W + nx.clamp(0, W - 1))
+        reach = is_move & in_bounds
+        blank = reach & ((e == -1) | (e == slots))
+        collide_obj = torch.where(reach & (e >= 0) & (e != slots), e, -1)
+        # cell claims: the lowest slot wins (reference buffer order)
+        tcell = torch.where(blank, ny * W + nx, H * W).to(torch.int32)
+        if route.quad:
+            cnt, lose_to = ap.move_claims(tcell.contiguous())
+            wins = blank & (cnt == 0)
+        else:
+            first, lose_to = _claims_sorted(tcell)
+            wins = blank & first
     else:
-        first, head = _claims_sorted(tcell)
-        wins = blank & first
-    coll_obj = torch.where(blank & ~wins, head, collide_obj)
+        blank, collide_obj, wins, lose_to = _rect_moves_on_grid(
+            spec, T, enc, is_move, in_bounds, nx, ny, bw, bh)
+    coll_obj = torch.where(blank & ~wins, lose_to, collide_obj)
     collide = is_move & ~wins & in_bounds & (coll_obj >= 0)
+
+    dead, hp, absorbed = state.dead, state.hp, state.absorbed
+    cell_slot = state.cell_slot
+    set_op = collide
+    if bool(spec.g_can_absorb.any()):
+        # can_absorb (engine.py:840-866; Map.cc:340-353): the lowest slot
+        # colliding with a not yet absorbed absorber is absorbed into it
+        # and dies silently (its body leaves the grid); the absorber's hp
+        # doubles; later colliders of an absorbed absorber record nothing
+        obj_can = collide & _pad_gather(T.can_absorb[None], coll_obj, False)
+        cand = obj_can & ~_pad_gather(absorbed, coll_obj, True)
+        winner = torch.full((B, A + 1), A, dtype=torch.int32,
+                            device=nx.device).scatter_reduce(
+            1, torch.where(cand, coll_obj, A).long(), slots.expand(B, A),
+            "amin")
+        absorb_win = cand & (torch.gather(winner, 1, coll_obj.clamp(
+            0, A - 1).long()) == slots)
+        newly = torch.zeros((B, A + 1), dtype=torch.bool,
+                            device=nx.device).scatter(
+            1, torch.where(absorb_win, coll_obj, A).long(), True)[:, :A]
+        absorbed = absorbed | newly
+        hp = torch.where(newly, hp * 2.0, hp)
+        dead = dead | absorb_win
+        if spec.max_body_w > 1:
+            cell_slot = _set_bodies(cell_slot, absorb_win, state.x, state.y,
+                                    T, state.dir, -1)
+        set_op = collide & (~obj_can | absorb_win)
+
     x = torch.where(wins, nx, state.x)
     y = torch.where(wins, ny, state.y)
-
-    # rebuild the grid from final positions in one scatter (engine.py:874-885);
-    # dead and empty slots write a dump cell past the end
-    cell = torch.where(state.active & ~state.dead, y * W + x, H * W).long()
-    grid = torch.full((B, H * W + 1), -1, dtype=torch.int32,
-                      device=x.device).scatter(1, cell, slots.expand(B, A))
+    if spec.max_body_w == 1:
+        # rebuild the grid from final positions in one scatter
+        # (engine.py:874-885); dead and empty slots write a dump cell
+        cell = torch.where(state.active & ~dead, y * W + x, H * W).long()
+        cell_slot = torch.full((B, H * W + 1), -1, dtype=torch.int32,
+                               device=x.device).scatter(
+            1, cell, slots.expand(B, A))[:, :H * W].reshape(B, H, W)
+    else:
+        # the movers' old rects cleared, then their new rects filled
+        # (engine.py:886-888)
+        cell_slot = _set_bodies(cell_slot, wins, state.x, state.y, T,
+                                state.dir, -1)
+        cell_slot = _set_bodies(cell_slot, wins, nx, ny, T, state.dir, slots)
     return state.replace(
-        x=x, y=y,
-        last_op=torch.where(collide, OP_COLLIDE, state.last_op).to(
+        x=x, y=y, dead=dead, hp=hp, absorbed=absorbed,
+        last_op=torch.where(set_op, OP_COLLIDE, state.last_op).to(
             torch.int32),
-        op_obj=torch.where(collide, coll_obj, state.op_obj),
-        cell_slot=grid[:, :H * W].reshape(B, H, W),
+        op_obj=torch.where(set_op, coll_obj, state.op_obj),
+        cell_slot=cell_slot,
     )
 
 
-def _rect_route(spec: speclib.GameSpec, maintain_grid: bool, n_envs: int):
-    """The route of a multi-cell spec (engine.py:169-196, :1004-1011): the
-    y-segmented sweeps for a single world from ``QUAD_MAX_SINGLE``
-    (inclusive) to ``SEG_DEFAULT_MAX`` slots, the unsegmented pair sweeps
-    below; NotImplementedError for the grid path, which the JAX package
-    takes beyond."""
-    A = spec.n_agents_cap
-    if maintain_grid:
-        raise NotImplementedError(_RECT_GRID)
-    if n_envs == 1 and ap.QUAD_MAX_SINGLE <= A <= SEG_DEFAULT_MAX:
-        return _Route(grid=False, quad=True, seg=True)
-    if A > (SEG_DEFAULT_MAX if n_envs == 1 else ap.QUAD_MAX_AGENTS):
-        raise NotImplementedError(
-            "%d slots past the pair-kernel cap: %s" % (A, _RECT_GRID))
-    return _Route(grid=False, quad=True)
+def _first_along(mask, values, fill):
+    """``values`` at the first True of ``mask`` along axis 0 (the body
+    scan's order), ``fill`` where there is none; [K, B, A] -> [B, A]."""
+    k = mask.to(torch.uint8).argmax(0, keepdim=True)
+    return torch.where(mask.any(0), torch.gather(values, 0, k)[0], fill)
+
+
+def _rect_moves_on_grid(spec, T, enc, is_move, in_bounds, nx, ny, bw, bh):
+    """Blocking and claims of multi-cell movers on the grid (engine.py:764-783,
+    :814-833), all max_body^2 cells of every target rect at once ->
+    (blank, collide_obj, wins, lose_to).  A mover is blank where no cell
+    of its rect holds a wall, food or another agent; its collider is the
+    agent in the first such cell, scanning i (width) outer and j inner.
+    The blank movers' slots go into a (H+1) x (W+1) claim grid by one
+    scatter-min (the corner cell past the map takes the rest); a mover
+    wins where it holds every cell of its rect, and loses to the winner of
+    its first lost cell."""
+    B, A = nx.shape
+    H, W = spec.height, spec.width
+    slots = T.slots
+    body = (T.body_i < bw) & (T.body_j < bh)  # [MB*MB, B, A]
+    K = body.shape[0]
+
+    def per_cell(idx):  # [K, B, A] -> [B, K*A]
+        return idx.permute(1, 0, 2).reshape(B, K * A).long()
+
+    def from_cells(t):  # [B, K*A] -> [K, B, A]
+        return t.reshape(B, K, A).permute(1, 0, 2)
+
+    cell_ok = is_move & body
+    e = from_cells(_grid_at(enc, per_cell(
+        (ny + T.body_j).clamp(0, H - 1) * W
+        + (nx + T.body_i).clamp(0, W - 1))))
+    blank = is_move & in_bounds & ~(cell_ok & (e != -1) & (e != slots)).any(0)
+    collide_obj = _first_along(cell_ok & in_bounds & (e >= 0) & (e != slots),
+                               e, -1)
+
+    ok = blank & body
+    claim = torch.full((B, (H + 1) * (W + 1)), A, dtype=torch.int32,
+                       device=nx.device).scatter_reduce(
+        1, per_cell(torch.where(ok, (ny + T.body_j) * (W + 1) + nx + T.body_i,
+                                H * (W + 1) + W)),
+        slots.expand(B, A).repeat(1, K), "amin")
+    winner = from_cells(torch.gather(claim, 1, per_cell(
+        (ny + T.body_j).clamp(0, H) * (W + 1) + (nx + T.body_i).clamp(0, W))))
+    lost = ok & (winner != slots)
+    return blank, collide_obj, blank & ~lost.any(0), _first_along(
+        lost, winner, -1)
 
 
 def make_step(spec: speclib.GameSpec, *, maintain_grid: bool = True,
               walls=None, n_envs: int = 1):
-    """Build ``step(state, actions=None) -> State`` for a spec without food,
-    turn mode or absorb (others raise NotImplementedError).
+    """Build ``step(state, actions=None) -> State`` (turn mode raises
+    NotImplementedError).
 
     The route is decided here, once (engine.py:993-1020 without its env-var
     overrides): the pair kernels serve up to ``QUAD_MAX_SINGLE`` slots for a
-    single world and ``QUAD_MAX_AGENTS`` for a batch; ``maintain_grid=False``
-    takes the gridless path within that cap, and for 1x1 bodies the grid
-    path with its sort branches above it.  Multi-cell bodies run only on the
-    gridless path, one world of ``QUAD_MAX_SINGLE`` to ``SEG_DEFAULT_MAX``
-    slots on its y-segmented sweeps (see :func:`_rect_route`).
+    single world and ``QUAD_MAX_AGENTS`` for a batch, and one multi-cell
+    world of ``QUAD_MAX_SINGLE`` to ``SEG_DEFAULT_MAX`` slots takes the
+    y-segmented sweeps.  ``maintain_grid=False`` takes the gridless path
+    where the spec has no food, turn mode or absorb and one of those holds;
+    everything else takes the grid path, whose damage and 1x1 claims go
+    through the pair kernels within the cap and through sorts above it.
 
     ``walls``: the static full [H, W] bool wall map of a lockstep layout;
     where it has interior walls, the gridless step answers wall questions
@@ -679,11 +918,13 @@ def make_step(spec: speclib.GameSpec, *, maintain_grid: bool = True,
     ``state.cell_wall`` and ignores it."""
     _check_ported(spec)
     A = spec.n_agents_cap
-    if spec.max_body_w > 1:
-        route = _rect_route(spec, maintain_grid, n_envs)
+    quad = A <= (ap.QUAD_MAX_SINGLE if n_envs == 1 else ap.QUAD_MAX_AGENTS)
+    seg = (spec.max_body_w > 1 and n_envs == 1
+           and ap.QUAD_MAX_SINGLE <= A <= SEG_DEFAULT_MAX)
+    if not maintain_grid and _gridless_capable(spec) and (quad or seg):
+        route = _Route(grid=False, quad=True, seg=seg)
     else:
-        quad = A <= (ap.QUAD_MAX_SINGLE if n_envs == 1 else ap.QUAD_MAX_AGENTS)
-        route = _Route(grid=maintain_grid or not quad, quad=quad)
+        route = _Route(grid=True, quad=quad)
     wall_ctx = None
     if not route.grid and walls is not None:
         walls = np.asarray(walls, bool)
@@ -698,13 +939,17 @@ def make_step(spec: speclib.GameSpec, *, maintain_grid: bool = True,
 def _build_step(spec: speclib.GameSpec, route: _Route, wall_ctx=None):
     """The step on a fixed route (tests pick the sort branches and the
     segmented sweeps here)."""
+    _check_ported(spec)
     if not (route.grid or route.quad):
         raise ValueError("the gridless path has no sort branch")
+    if not (route.grid or _gridless_capable(spec)):
+        raise ValueError("food and absorb run on the grid path only")
     if route.seg and (route.grid or spec.max_body_w == 1):
         raise ValueError("the segmented sweeps serve gridless multi-cell "
                          "specs only")
     rules = spec.compiled_rules()
     A = spec.n_agents_cap
+    absorb = bool(spec.g_can_absorb.any())
     cache: dict = {}
 
     def step(state: State, actions=None) -> State:
@@ -731,8 +976,15 @@ def _build_step(spec: speclib.GameSpec, route: _Route, wall_ctx=None):
         state = state.replace(next_reward=next_reward,
                               group_reward=group_reward)
 
-        # done: any group extinct (GridWorld.cc:618-630)
-        alive = state.active & ~state.dead
+        # done: any group extinct (GridWorld.cc:618-630); absorbed
+        # colliders never count as dead (Map.cc:340-353): a dead agent whose
+        # collide object is absorbed died that way (engine.py:1073-1084)
+        counted_dead = state.dead
+        if absorb:
+            counted_dead = counted_dead & ~(
+                (state.last_op == OP_COLLIDE)
+                & _pad_gather(state.absorbed, state.op_obj, False))
+        alive = state.active & ~counted_dead
         alive_per_group = torch.stack(
             [alive[:, g.offset:g.offset + g.cap].sum(-1) for g in spec.groups],
             dim=-1)

@@ -23,8 +23,9 @@ up to 13 rows and 65 lanes (forest's and pursuit's, pursuit to map
 mark and liveness factor into the copy; larger windows (battle's 13 x 91)
 and images between the two take ``window_gather`` and a separate
 epilogue.
-Multi-cell bodies render every body cell, and their minimap pools by a
-scatter.  Not ported: turn mode and ``can_absorb`` observers.
+Multi-cell bodies render every body cell, food cells render as code 1,
+and the minimap pools by a scatter for multi-cell bodies and for
+``can_absorb`` observers.  Not ported: turn mode.
 """
 
 from __future__ import annotations
@@ -53,14 +54,10 @@ _BAND_ROWS = 32
 _BAND_BUDGET = 8 * 1024 * 1024
 
 
-def _check_ported(spec: speclib.GameSpec, group: int):
+def _check_ported(spec: speclib.GameSpec):
     if spec.turn_mode:
         raise NotImplementedError(
             "turn-mode observations are ROADMAP.md Queue 1 item 11")
-    if spec.groups[group].type.can_absorb:
-        raise NotImplementedError(
-            "can_absorb observers are not ported yet (ROADMAP.md Queue 1 "
-            "item 7)")
 
 
 def _channel_tables(spec: speclib.GameSpec, group: int):
@@ -119,8 +116,13 @@ def make_grids(spec: speclib.GameSpec):
         device = state.x.device
         empty = C << _HP_SHIFT
         base = torch.full((B, Hp, Wp), empty, dtype=torch.int32, device=device)
-        base[:, pad_y:pad_y + H, pad_x:pad_x + W] = torch.where(
-            state.cell_wall, 0, empty).to(torch.int32)
+        inner = torch.where(state.cell_wall, 0, empty)
+        if spec.food_mode:
+            # food cells hold code 1 unless a wall is there
+            # (observe.py:119-122)
+            inner = torch.minimum(inner, torch.where(
+                state.cell_food >= 0.0, 1 << _HP_SHIFT, empty))
+        base[:, pad_y:pad_y + H, pad_x:pad_x + W] = inner.to(torch.int32)
         q = torch.round(state.hp * torch.as_tensor(inv_hp_max, device=device)
                         * _HP_SCALE).to(torch.int32).clamp(0, _HP_MASK)
         vals = (torch.as_tensor(agent_ch, device=device) << _HP_SHIFT) | q
@@ -221,7 +223,7 @@ def make_observe(spec: speclib.GameSpec, group: int,
     ``window_gather4`` packs ``tl * 1024 + self_cell`` into int32, so it
     serves only images of at most 2**21 cells; larger images take
     ``window_gather``."""
-    _check_ported(spec, group)
+    _check_ported(spec)
     wg._check_out_dtype("make_observe", obs_dtype)
     t = spec.groups[group].type
     gs = spec.groups[group]
@@ -249,8 +251,9 @@ def make_observe(spec: speclib.GameSpec, group: int,
                and 4 * Hp * lanes * 4 <= VMEM_IMAGE_BUDGET
                and Hp * Wp <= wg.PACKED_CELLS)
     # 1x1 bodies pool the rendered grid with binning matmuls; multi-cell
-    # bodies pool their anchors by a scatter (observe.py:299-326)
-    binning = spec.max_body_w == 1
+    # bodies, and can_absorb observers, which count only the agents not
+    # absorbed, pool the anchors by a scatter (observe.py:291-326)
+    binning = spec.max_body_w == 1 and not t.can_absorb
     minimap = {}
     if spec.minimap_mode:
         # pooled maps -> their observed channels (G = an all-zero map)
@@ -301,7 +304,11 @@ def make_observe(spec: speclib.GameSpec, group: int,
             totals = pooled.sum((2, 3)).clamp_min(1.0)
             pooled = pooled / totals[:, :, None, None]  # [B, G, vh, vw]
         else:
-            counted = (state.active & ~state.dead).to(torch.float32)
+            counted = state.active & ~state.dead
+            if t.can_absorb:
+                # the observer's type gates it (GridWorld.cc:341-347)
+                counted = counted & ~state.absorbed
+            counted = counted.to(torch.float32)
             flat = torch.zeros((B, G * vh * vw), dtype=torch.float32,
                                device=state.x.device).scatter_add_(
                 1, k["gof"] * (vh * vw) + (py * vw + px).long(), counted)

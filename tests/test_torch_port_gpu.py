@@ -14,7 +14,9 @@ the window-gather cost ladder on tools/profile_window.py's inputs; the
 bf16 forms of the three window kernels), and short GPU-vs-CPU runs of the
 lockstep loop (battle; pursuit with and without interior walls; pursuit's
 one world on the segmented route; battle forced onto the banded route with
-bf16 views), of the stateful GridWorld and of the
+bf16 views), of the stateful GridWorld (battle; the grid path's multi-cell
+bodies, food and absorb: pursuit on both routes and the golden food,
+food_crumb and absorb layouts; the food sums' order) and of the
 fused DQN trainers (one step of each, f32, TF32 off, from the trusty battle
 weights read with numpy); the reward-rule plans (``GeneralRule`` whole and
 chunked, ``PairSharedObjectRule``) on random states, GPU against CPU.
@@ -1281,3 +1283,102 @@ def test_rule_plans_gpu_match_cpu(cuda, max_tensor, integer, monkeypatch):
         assert torch.equal(out["cpu"][0][2][-1], out["cpu"][1][2][-1])
         fired += int(out["cpu"][1][2].sum())
     assert fired >= 10
+
+
+def _golden_world(name, device):
+    """A golden scenario's GridWorld (tests/golden/scenarios.py) with its
+    placements."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "golden"))
+    from scenarios import SCENARIOS
+    from magent_tpu_torch import gridworld as tgw
+
+    spec = SCENARIOS[name]
+    env = GridWorld(spec["cfg"](tgw, spec["map_size"]), device=device)
+    env.reset()
+    for h, pos in zip(env.get_handles(), spec["placements"]):
+        env.add_agents(h, method="custom", pos=pos)
+    return env
+
+
+def _pursuit_world(device, map_size=48):
+    """train_pursuit's map (examples/train_pursuit.py:16-20)."""
+    env = GridWorld("pursuit", map_size=map_size, device=device)
+    env.set_seed(4)
+    env.reset()
+    h0, h1 = env.get_handles()
+    n = map_size * map_size
+    env.add_walls(method="random", n=n * 0.03)
+    env.add_agents(h0, method="random", n=n * 0.0125)
+    env.add_agents(h1, method="random", n=n * 0.025)
+    return env
+
+
+@pytest.mark.parametrize("name,route", [
+    ("pursuit", "quad"), ("pursuit", "sort"), ("food", "quad"),
+    ("food_crumb", "quad"), ("food_crumb", "sort"), ("absorb", "quad")])
+def test_grid_path_gridworlds_gpu_match_cpu(cuda, name, route, monkeypatch):
+    """Multi-cell bodies, food and absorb on the grid path, on the card and
+    on the CPU: the same placements and actions give equal views, features,
+    rewards and states (``cell_slot``, ``cell_food``, ``absorbed``
+    included), exactly.  The fractional values are order-fixed: food eats
+    and their per-cell totals add by elementwise ops in attack-priority
+    order (engine ``_cumsum_xla``, ``_sum_in_order``), hp changes are
+    elementwise, and the minimaps pool integer counts."""
+    from magent_tpu_torch.core import engine as tengine
+
+    if route == "sort":
+        monkeypatch.setattr(tengine, "make_step", lambda sp: (
+            tengine._build_step(sp, tengine._Route(grid=True, quad=False))))
+    envs = [(_pursuit_world(d) if name == "pursuit" else
+             _golden_world(name, d)) for d in (cuda, "cpu")]
+    assert all(e._step_fn.route.quad == (route == "quad") for e in envs)
+    rng = np.random.RandomState(11)
+    seen_food = seen_absorbed = 0
+    for step in range(8):
+        for h in envs[1].get_handles():
+            (gv, gf), (cv, cf) = (e.get_observation(h) for e in envs)
+            np.testing.assert_array_equal(gv, cv, err_msg="views %d" % step)
+            np.testing.assert_array_equal(gf, cf)
+            acts = rng.randint(0, envs[1].get_action_space(h)[0],
+                               envs[1].get_num(h)).astype(np.int32)
+            for e in envs:
+                e.set_action(h, acts)
+        assert envs[0].step() == envs[1].step()
+        for h in envs[1].get_handles():
+            np.testing.assert_array_equal(envs[0].get_reward(h),
+                                          envs[1].get_reward(h))
+        for e in envs:
+            e.clear_dead()
+        for field in FIELDS:
+            assert torch.equal(getattr(envs[0].state, field).cpu(),
+                               getattr(envs[1].state, field)), (field, step)
+        seen_food += int((envs[1].state.cell_food >= 0).sum())
+        seen_absorbed += int(envs[1].state.absorbed.sum())
+    if name.startswith("food"):
+        assert seen_food > 0
+    if name == "absorb":
+        assert seen_absorbed > 0
+
+
+def test_food_sums_gpu_match_cpu(cuda):
+    """The food phase's two f32 sums, an XLA-blocked cumulative sum and the
+    per-segment sums in row order, give the CPU's bits on the card, on
+    random fractional values with segments up to the bound."""
+    from magent_tpu_torch.core import engine as tengine
+
+    rng = np.random.RandomState(5)
+    for N in (1, 15, 16, 17, 300, 4099):
+        vals = torch.from_numpy(rng.uniform(0, 4, (3, N)).astype(np.float32))
+        keys = torch.from_numpy(np.sort(rng.randint(0, max(N // 3, 1),
+                                                    (3, N)), 1))
+        start = tengine._segment_starts(keys)
+        for fn in (lambda v, s: tengine._cumsum_xla(v),
+                   lambda v, s: tengine._segment_cumsum(v, s,
+                                                        tengine._cumsum_xla),
+                   lambda v, s: tengine._sum_in_order(v, s, 16)):
+            want = fn(vals, start)
+            got = fn(vals.to(cuda), start.to(cuda)).cpu()
+            assert torch.equal(got, want), N

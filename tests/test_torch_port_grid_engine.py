@@ -143,12 +143,23 @@ def test_clear_dead_matches_jax():
 
 
 def test_unported_specs_raise():
-    """Food, turn mode and absorb still raise, naming the ROADMAP item."""
+    """Turn mode still raises, naming its ROADMAP item; food and absorb
+    specs now build, on the grid path even where the caller asks for the
+    gridless one (the JAX package's _gridless_capable)."""
     from magent_tpu_torch import gridworld as gw
 
-    cfg = gw.Config()
-    cfg.set({"map_width": 10, "map_height": 10, "food_mode": True})
-    t = cfg.register_agent_type("t", {"width": 1, "length": 1})
-    cfg.add_group(t)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        tengine.make_step(tspec.compile_spec(cfg, [4]))
+    def config(**kw):
+        cfg = gw.Config()
+        cfg.set(dict({"map_width": 10, "map_height": 10}, **kw))
+        t = cfg.register_agent_type("t", {"width": 1, "length": 1})
+        cfg.add_group(t)
+        return tspec.compile_spec(cfg, [4])
+
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        tengine.make_step(config(turn_mode=True))
+    food = config(food_mode=True)
+    for grid in (True, False):
+        assert tengine.make_step(food, maintain_grid=grid).route == \
+            tengine._Route(grid=True, quad=True)
+    with pytest.raises(ValueError, match="grid path only"):
+        tengine._build_step(food, tengine._Route(grid=False, quad=True))

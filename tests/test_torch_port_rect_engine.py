@@ -4,9 +4,8 @@ placements of scripts/train_evidence.py), with and without interior walls,
 and the mixed 2x2 / 1x3 config of tests/test_gridless.py:362 (max_body 3).
 Resets, raw steps, 6-transition trajectories and observe_all are compared
 on equal states, actions and keys: every state field exactly, views and
-features as in _torch_port_cases.assert_obs_equal.  Also the route: where
-the port cannot follow the JAX package's route it raises, naming the
-ROADMAP item."""
+features as in _torch_port_cases.assert_obs_equal.  Also the routes:
+the port follows the JAX package's for every slot count and batch."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -258,8 +257,11 @@ def _rect_spec(A):
     return tspec.compile_spec(tpursuit.get_config(2048), [A // 3, A - A // 3])
 
 
+# "Queue 1 item 7" (the ROADMAP item that ported it) names the grid path's
+# sort branches, which the JAX package takes past the caps
 _ROUTES = {"quad": tengine._Route(grid=False, quad=True),
-           "seg": tengine._Route(grid=False, quad=True, seg=True)}
+           "seg": tengine._Route(grid=False, quad=True, seg=True),
+           "Queue 1 item 7": tengine._Route(grid=True, quad=False)}
 
 
 @pytest.mark.parametrize("A,n_envs,expect", [
@@ -274,28 +276,22 @@ def test_rect_route_raises_where_not_ported(A, n_envs, expect):
     """The JAX package's routes for multi-cell specs (engine.py:169-196,
     :1004-1011): gridless pair sweeps up to the quad cap, y-segmented sweeps
     for one world from QUAD_MAX_SINGLE (inclusive) to SEG_DEFAULT_MAX, the
-    grid path beyond.  The port takes the first two and names the ROADMAP
-    item of the grid path."""
+    grid path's sort branches beyond.  The port takes all three; nothing
+    raises any more."""
     spec = _rect_spec(A)
-    if expect in _ROUTES:
-        step = tengine.make_step(spec, maintain_grid=False, n_envs=n_envs)
-        assert step.route == _ROUTES[expect]
-    else:
-        with pytest.raises(NotImplementedError, match=expect):
-            tengine.make_step(spec, maintain_grid=False, n_envs=n_envs)
+    step = tengine.make_step(spec, maintain_grid=False, n_envs=n_envs)
+    assert step.route == _ROUTES[expect]
 
 
 def test_rect_grid_path_raises():
-    """Multi-cell bodies on the grid path (the stateful GridWorld builds
-    its step at construction) raise, naming Queue 1 item 7; so does random
-    placement of multi-cell bodies in VecGridWorld."""
+    """Multi-cell bodies on the grid path build, the stateful GridWorld's
+    included; random placement of multi-cell bodies in VecGridWorld still
+    raises (it places 1x1 bodies only, as the JAX package's does)."""
     spec = _rect_spec(96)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        tengine.make_step(spec, maintain_grid=True)
-    with pytest.raises(NotImplementedError, match="multi-cell bodies on the "
-                       "grid path are not ported yet: ROADMAP.md Queue 1 "
-                       "item 7"):
-        tmagent.GridWorld("pursuit", map_size=32, device="cpu")
+    assert tengine.make_step(spec, maintain_grid=True).route == \
+        tengine._Route(grid=True, quad=True)
+    env = tmagent.GridWorld("pursuit", map_size=32, device="cpu")
+    assert env._step_fn.route == tengine._Route(grid=True, quad=True)
     with pytest.raises(ValueError, match="explicit placements"):
         VecGridWorld(tpursuit.get_config(32), [4, 8], 2, device="cpu")
 

@@ -161,17 +161,17 @@ def _pursuit_spec(map_size):
 def test_pursuit_route_by_map(map_size, A, route):
     """One pursuit world at the reference density: quad below
     QUAD_MAX_SINGLE = 16,384 slots, segmented from it (inclusive, as the
-    JAX package's _use_seg) to 65,536, the unported grid path beyond;
-    the observation's banded route from map 500."""
+    JAX package's _use_seg) to 65,536, and beyond the grid path's sort
+    branches ("Queue 1 item 7", the ROADMAP item that ported them); the
+    observation's banded route from map 500."""
     spec = _pursuit_spec(map_size)
     assert spec.n_agents_cap == A
-    if route == "Queue 1 item 7":
-        with pytest.raises(NotImplementedError, match=route):
-            tengine.make_step(spec, maintain_grid=False, n_envs=1)
-        return
     step = tengine.make_step(spec, maintain_grid=False, n_envs=1)
-    assert step.route == tengine._Route(grid=False, quad=True,
-                                        seg=route == "seg")
+    if route == "Queue 1 item 7":
+        assert step.route == tengine._Route(grid=True, quad=False)
+    else:
+        assert step.route == tengine._Route(grid=False, quad=True,
+                                            seg=route == "seg")
     assert [tobserve.make_observe(spec, g).route for g in range(2)] == [
         "window_gather_banded"] * 2
 

@@ -120,11 +120,13 @@ def test_unported_rule_shapes_raise():
 
 
 def test_make_step_rejects_unported_specs():
-    """Multi-cell bodies and food still raise; past the batched quad cap the
-    step now takes the grid path's sort branches instead of raising, and a
-    single world keeps the pair kernels up to QUAD_MAX_SINGLE."""
-    with pytest.raises(NotImplementedError, match="multi-cell"):
-        tengine.make_step(tspec.compile_spec(jpursuit.get_config(24), [3, 6]))
+    """Multi-cell bodies now build on the grid path; past the batched quad
+    cap the step takes the grid path's sort branches, and a single world
+    keeps the pair kernels up to QUAD_MAX_SINGLE.  Only turn mode raises
+    (test_torch_port_grid_engine.py::test_unported_specs_raise)."""
+    assert tengine.make_step(tspec.compile_spec(
+        jpursuit.get_config(24), [3, 6])).route == tengine._Route(
+            grid=True, quad=True)
     big = tspec.compile_spec(tbattle.get_config(200), [4100, 4100])
     assert tengine.make_step(big, maintain_grid=False, n_envs=16).route == \
         tengine._Route(grid=True, quad=False)
