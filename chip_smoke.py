@@ -53,6 +53,28 @@ Run from the repository root:  python3 chip_smoke.py
    ``pair form`` lines, and ``move_claims`` in every split at A =
    10,240; later phases report their peak memory from the end of this
    one;
+4c. runs train_pursuit's loop — ``GridWorld("pursuit")`` placed as
+   ``examples/train_pursuit.py`` places it (3% walls, 1.25% 2x2 predators,
+   2.5% prey) — at map 1000 (A = 49,152: the sort branches, both groups on
+   ``window_gather_banded``) and map 500 (A = 12,288: ``rank_prefix_hp``),
+   20 timed steps each with the launch counts, host syncs, the profiler
+   and peak memory, ``cell_slot`` against its rebuild from the positions,
+   and the path's kernels against their plain versions;
+4d. runs turn mode at ``scripts/bench_pursuit.py --turn``'s geometry, the
+   script's config and placements copied here (predators facing at random):
+   the lockstep loop at map 1000, one world (A = 37,500: the sort branches
+   and the turn phase; both groups' four-band stacked images, ~90 MB each,
+   through ``window_gather_banded``) and at map 64 with B=16 (caps [51,
+   102]: ``rank_prefix_hp``, the stacked images through ``window_gather``):
+   20 timed steps each with the launch counts per step asserted, host
+   syncs, phase times, the profiler and the loop's peak memory;
+   ``cell_slot`` after them equal to its rebuild from positions, facings
+   and body sizes, and all four facings among the live agents; the window
+   kernel on the stacked images' recorded operands against its plain
+   version in f32 and bf16 (``window form`` lines) and ``rank_prefix_hp``
+   at map 64; then GPU = CPU, exactly, for map 64 (B=16, 3 steps), map 1000
+   (2 steps) and the golden ``turn_bodies`` layout through ``GridWorld``
+   on both grid routes;
 5. runs pursuit's gridless rect path, the lockstep loop of
    ``scripts/train_evidence.py`` — ``VecGridWorld(pursuit(64), [51, 102],
    n_envs=16)`` with its placements (seed 11): holds ``occupant_rect``
@@ -707,13 +729,17 @@ def lockstep_step(venv, carry):
 
 
 def assert_bodies_disjoint(venv, state):
-    """No two live bodies share a cell, and none stands on a wall."""
+    """No two live bodies (each its facing's footprint) share a cell, and
+    none stands on a wall."""
+    from magent_tpu_torch.core import geometry as geo
+
     spec = venv.spec
     H, W, MB = spec.height, spec.width, spec.max_body_w
     dev = state.x.device
     alive = state.active & ~state.dead
-    bw = torch.as_tensor(spec.s_width, device=dev)
-    bh = torch.as_tensor(spec.s_length, device=dev)
+    bw, bh = geo.size_for_dir(state.dir,
+                              torch.as_tensor(spec.s_width, device=dev),
+                              torch.as_tensor(spec.s_length, device=dev))
     count = torch.zeros((state.x.shape[0], H * W + 1), dtype=torch.int32,
                         device=dev)
     for i in range(MB):
@@ -1701,6 +1727,215 @@ def check_new_grid_paths_gpu_match_cpu():
         if not check_grid_world_gpu_matches_cpu(label, build,
                                                 steps)["absorbed"]:
             raise AssertionError("%s: nothing absorbed" % label)
+
+
+# turn mode (phase 4d): scripts/bench_pursuit.py --turn, pursuit's config
+# with turn_mode on and its placements (predators facing at random, seed
+# 5).  At its defaults, map 1000 and one world (12,500 + 25,000 agents, A =
+# 37,500, past QUAD_MAX_SINGLE), the grid path's sort branches and the turn
+# phase; each group's four-band stacked image ([1, 4 * 1048, 5380] and
+# [1, 4 * 1040, 5380] f32, 90 MB) is past the 6 MiB image budget: the
+# banded gather.  At map 64 with B=16 (phase 5's caps [51, 102]), the pair
+# kernels (rank_prefix_hp) and the stacked route ([16, 4 * 112, 770] and
+# [16, 4 * 104, 770], 1.4 MB per env): window_gather.  Launches per step
+# (the rest 0), and the GPU-vs-CPU steps of each:
+TURN_MAPS = {1000: (1, {"window_gather_banded": 2}),
+             64: (16, {"window_gather": 2, "rank_prefix_hp": 1})}
+TURN_SEED, TURN_GPU_CPU_STEPS, TURN_GOLDEN_STEPS = 5, {64: 3, 1000: 2}, 12
+
+
+def turn_pursuit_config(map_size):
+    """``scripts/bench_pursuit.py`` ``pursuit_config(map_size,
+    turn=True)``, built with the port's config module."""
+    from magent_tpu_torch import gridworld as gw
+
+    cfg = gw.Config()
+    cfg.set({"map_width": map_size, "map_height": map_size})
+    cfg.set({"turn_mode": True})
+    predator = cfg.register_agent_type(
+        "predator",
+        {'width': 2, 'length': 2, 'hp': 1, 'speed': 1,
+         'view_range': gw.CircleRange(5), 'attack_range': gw.CircleRange(2),
+         'attack_penalty': -0.2})
+    prey = cfg.register_agent_type(
+        "prey",
+        {'width': 1, 'length': 1, 'hp': 1, 'speed': 1.5,
+         'view_range': gw.CircleRange(4), 'attack_range': gw.CircleRange(0)})
+    g0 = cfg.add_group(predator)
+    g1 = cfg.add_group(prey)
+    a = gw.AgentSymbol(g0, index='any')
+    b = gw.AgentSymbol(g1, index='any')
+    cfg.add_reward_rule(gw.Event(a, 'attack', b), receiver=[a, b],
+                        value=[1, -1])
+    return cfg
+
+
+def turn_placements(map_size, n_pred, n_prey, seed=TURN_SEED):
+    """``scripts/bench_pursuit.py`` ``placements(..., turn=True)``: 2x2
+    predators facing at random, then prey (facing EAST), on free cells."""
+    rng = np.random.RandomState(seed)
+    taken = set()
+    preds, prey = [], []
+    while len(preds) < n_pred:
+        x = int(rng.randint(1, map_size - 3))
+        y = int(rng.randint(1, map_size - 3))
+        block = [(x + dx, y + dy) for dx in range(2) for dy in range(2)]
+        if not any(c in taken for c in block):
+            taken.update(block)
+            preds.append([x, y, rng.randint(4)])
+    while len(prey) < n_prey:
+        x = int(rng.randint(1, map_size - 2))
+        y = int(rng.randint(1, map_size - 2))
+        if (x, y) not in taken:
+            taken.add((x, y))
+            prey.append([x, y, 0])
+    return [preds, prey]
+
+
+def turn_env(map_size, device=None):
+    """bench_pursuit --turn's world at ``map_size`` (1.25% predators, 2.5%
+    prey) as a ``VecGridWorld`` of ``TURN_MAPS[map_size]``'s B."""
+    from magent_tpu_torch.parallel import VecGridWorld
+
+    n = map_size * map_size
+    counts = [int(n * 0.0125), int(n * 0.025)]
+    return VecGridWorld(turn_pursuit_config(map_size), counts,
+                        TURN_MAPS[map_size][0],
+                        placements=turn_placements(map_size, *counts),
+                        device=device)
+
+
+def rebuilt_cells(venv, state):
+    """``cell_slot`` rebuilt from the live agents' positions, facings and
+    body sizes (each body's rect in its facing's footprint)."""
+    from magent_tpu_torch.core import geometry as geo
+
+    spec = venv.spec
+    B, A = state.x.shape
+    H, W, MB = spec.height, spec.width, spec.max_body_w
+    dev = state.x.device
+    bw, bh = geo.size_for_dir(state.dir,
+                              torch.as_tensor(spec.s_width, device=dev),
+                              torch.as_tensor(spec.s_length, device=dev))
+    alive = state.active & ~state.dead
+    slots = torch.arange(A, dtype=torch.int32, device=dev).expand(B, A)
+    flat = torch.full((B, H * W + 1), -1, dtype=torch.int32, device=dev)
+    for i in range(MB):
+        for j in range(MB):
+            ok = alive & (i < bw) & (j < bh)
+            cell = torch.where(ok, (state.y + j) * W + state.x + i, H * W)
+            flat = flat.scatter(1, cell.long(), slots)
+    return flat[:, :H * W].reshape(B, H, W)
+
+
+def run_turn_path(map_size, f32_rate, int32_rate, device_name):
+    """Phase 4d at one map: bench_pursuit --turn's lockstep loop, timed
+    (launch counts, host syncs, phases, the profiler, peak memory); the
+    grid after the timed steps equal to its rebuild, all four facings
+    among the live agents; the path's kernels against their plain
+    versions on one more step's operands (the window kernels on the
+    stacked images in f32 and in bf16).  -> ({kernel: launches in the
+    timed run}, {kernel: [call_stats of the step's calls]})."""
+    from magent_tpu_torch import ops
+    from magent_tpu_torch import random as rnd
+    from magent_tpu_torch.core import engine
+    from magent_tpu_torch.ops import attack_prefix as ap
+    from magent_tpu_torch.ops import window_gather as wg
+
+    n_envs, per_step = TURN_MAPS[map_size]
+    label = "turn mode (bench_pursuit --turn) map %d, B=%d" % (map_size,
+                                                                n_envs)
+    window = [n for n in per_step if n.startswith("window")][0]
+    t0 = time.perf_counter()
+    venv = turn_env(map_size)
+    state = venv.reset(rnd.PRNGKey(0))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    spec = venv.spec
+    quad = "rank_prefix_hp" in per_step
+    if venv._step.route != engine._Route(grid=True, quad=quad) or [
+            o.route for o in venv._observe] != [window] * 2:
+        raise AssertionError("%s: route %s, observation routes %s" % (
+            label, venv._step.route, [o.route for o in venv._observe]))
+    print("%s: %s agents, A=%d, built and reset in %.2f s; %s route and "
+          "the turn phase; stacked images %s f32 (%s MB per env), %s" % (
+              label, [g.cap for g in spec.groups], spec.n_agents_cap,
+              setup_s, "pair-kernel" if quad else "sort",
+              [[n_envs, 4 * o.geometry[0], o.geometry[2]]
+               for o in venv._observe],
+              ["%.2f" % (16 * o.geometry[0] * o.geometry[2] / 1e6)
+               for o in venv._observe], window), flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    counts, state, key, ms_per_step, _ = run_lockstep(
+        label, venv, state, rnd.PRNGKey(1), per_step, device_name)
+    print("%s: loop peak device memory %.3f GB" % (
+        label, torch.cuda.max_memory_allocated() / 1e9), flush=True)
+    if not torch.equal(state.cell_slot, rebuilt_cells(venv, state)):
+        raise AssertionError("%s: cell_slot differs from its rebuild from "
+                             "positions, facings and body sizes" % label)
+    alive = state.active & ~state.dead
+    facings = torch.bincount(state.dir[alive].long(), minlength=4).tolist()
+    if min(facings) == 0:
+        raise AssertionError("%s: live agents by facing %s" % (label,
+                                                              facings))
+    print("%s: cell_slot after the timed steps equals its rebuild (%d "
+          "occupied cells); live agents by facing (E, S, W, N) %s" % (
+              label, int((state.cell_slot >= 0).sum()), facings), flush=True)
+    profile_lockstep(label, venv, state, key, ms_per_step)
+
+    # the path's kernels against their plain versions on one more step
+    wrappers = [(wg, window)] + ([(ap, "rank_prefix")] if quad else [])
+    carry = [state, key]
+    before = ops.launch_counts()
+    rec = record_operands(lambda: lockstep_step(venv, carry), wrappers)
+    launched = {n: c - before[n] for n, c in ops.launch_counts().items()}
+    if launched != {n: per_step.get(n, 0) for n in ops.KERNELS}:
+        raise AssertionError("%s: the recorded step launched %s" % (
+            label, launched))
+    form = "turn map %d, A=%d, B=%d" % (map_size, spec.n_agents_cap, n_envs)
+    stats = {}
+    if quad:
+        (rp_args, rp_kw), = rec["rank_prefix"]
+        stats["rank_prefix_hp"] = [call_stats(
+            "rank_prefix_hp", rp_args, rp_kw, f32_rate, int32_rate, form)]
+        print_split_forms({"rank_prefix_hp": [(rp_args, rp_kw, 1)]}, stats)
+    calls = [(a, k, "%s, %s, stacked %s, liveness" % (form, name, list(
+        a[0].shape))) for (a, k), name in zip(rec[window],
+                                               ("predators", "prey"))]
+    # the banded gather's forms off the path on the stacked images: no
+    # epilogue, a seeded minimap, and band order, whose band table mixes
+    # the four facings' agents
+    off = banded_off_path(calls) if window == "window_gather_banded" else []
+    for suffix, dtype in (("", torch.float32), ("_bf16", torch.bfloat16)):
+        forms = calls + (off if not suffix else [])
+        stats[window + suffix] = [
+            call_stats(window + suffix, a, dict(k, out_dtype=dtype),
+                       f32_rate, int32_rate, f)
+            for a, k, f in forms]
+        print_window_forms(
+            window + suffix, [per_step[window] if not suffix else 0] * 2
+            + [0] * (len(forms) - 2), stats[window + suffix])
+    del rec, calls, off, venv, state, carry
+    torch.cuda.empty_cache()
+    return counts, stats
+
+
+def check_turn_gpu_matches_cpu():
+    """Phase 4d's GPU-vs-CPU runs: bench_pursuit --turn at map 64, B=16
+    and at map 1000, and the golden turn_bodies layout through GridWorld
+    on both grid routes."""
+    for m, steps in TURN_GPU_CPU_STEPS.items():
+        check_gpu_matches_cpu(
+            "turn mode (bench_pursuit --turn) map %d" % m,
+            functools.partial(turn_env, m), steps, 0.0)
+    for sort in (False, True):
+        seen = check_grid_world_gpu_matches_cpu(
+            "golden turn_bodies layout%s" % (", sort branches forced"
+                                             * sort),
+            functools.partial(golden_world, "turn_bodies"),
+            TURN_GOLDEN_STEPS, sort)
+        if not seen["collides"]:
+            raise AssertionError("turn_bodies: no collision")
 
 
 # launches per step of pursuit's gridless rect path (the rest 0): at map 64
@@ -2809,6 +3044,9 @@ def main() -> int:
     pursuit_worlds = {m: run_pursuit_world_path(m, f32_rate, int32_rate,
                                                 device_name)
                       for m in PURSUIT_WORLD_MAPS}
+    turn = {m: run_turn_path(m, f32_rate, int32_rate, device_name)
+            for m in TURN_MAPS}
+    check_turn_gpu_matches_cpu()
     # later phases report their peak memory from here
     torch.cuda.reset_peak_memory_stats()
     rect_rows, banded_500, syncs_500, g4_forms = run_pursuit_paths(
@@ -2862,7 +3100,9 @@ def main() -> int:
     for path, (counts, stats) in [
             ("double_attack map %d" % m, v) for m, v in tiger.items()] + [
             ("pursuit GridWorld map %d" % m, v)
-            for m, v in pursuit_worlds.items()]:
+            for m, v in pursuit_worlds.items()] + [
+            ("turn mode map %d, B=%d" % (m, TURN_MAPS[m][0]), v)
+            for m, v in turn.items()]:
         for name, st in stats.items():
             rows[name]["per_call"] += st
             rows[name].setdefault("launches_by_path", {})[path] = counts[name]

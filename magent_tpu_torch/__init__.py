@@ -4,14 +4,14 @@ The JAX package ``magent_tpu`` is the reference; this package runs the same
 many-agent gridworld on an NVIDIA GPU with PyTorch and hand-written CUDA
 kernels (``csrc/``), and imports nothing of JAX or of ``magent_tpu``.
 
-Ported so far, for configs without turn mode: the stateful ``GridWorld``
-API on the engine's grid path (any walls, multi-cell bodies, food and
-absorb), and the lockstep vectorized loop (``parallel.VecGridWorld``) on
-the gridless path, 1x1 bodies and pursuit's multi-cell rect bodies, with
-optional interior walls (on the grid path past the pair kernels' caps and
-for food and absorb) — device reset, NORTH-only observations, both
-random-action samplers.  Entry points run on ``cuda`` unless the caller
-passes ``device="cpu"``.
+Ported so far: the stateful ``GridWorld`` API on the engine's grid path
+(any walls, multi-cell bodies, food, turn mode and absorb), and the
+lockstep vectorized loop (``parallel.VecGridWorld``) on the gridless path,
+1x1 bodies and pursuit's multi-cell rect bodies, with optional interior
+walls (on the grid path past the pair kernels' caps and for food, turn
+mode and absorb) — device reset (random facings in turn mode), NORTH-only
+and, in turn mode, rotating observations, both random-action samplers.
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 from . import gridworld

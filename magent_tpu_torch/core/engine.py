@@ -15,20 +15,22 @@ A step takes one of two paths, chosen once in :func:`make_step`:
   once per step and takes the y-segmented forms of the rect and rank
   sweeps;
 - the **grid** path (the stateful ``GridWorld``, every spec past the
-  gridless caps, food and absorb): attack targets and move blocking are
-  read from ``state.cell_slot``, ``state.cell_wall`` (any walls) and
-  ``state.cell_food``; dead bodies are cleared from the grid, and after
-  the move 1x1 grids are rebuilt while multi-cell bodies are cleared and
-  refilled rect by rect.  Damage goes through ``rank_prefix`` (hp form)
-  up to the quad cap and a sort above it; 1x1 move claims through
-  ``move_claims`` or a sort, multi-cell claims through a scatter-min over
-  a claim grid.  Food (corpse drops, eating by attack) and absorb
-  (``can_absorb`` goals) run on this path only.
+  gridless caps, food, turn mode and absorb): attack targets and move
+  blocking are read from ``state.cell_slot``, ``state.cell_wall`` (any
+  walls) and ``state.cell_food``; dead bodies are cleared from the grid,
+  and after the move 1x1 grids are rebuilt while multi-cell bodies are
+  cleared and refilled rect by rect.  Damage goes through
+  ``rank_prefix`` (hp form) up to the quad cap and a sort above it; 1x1
+  move claims through ``move_claims`` or a sort, multi-cell claims (and
+  turns) through a scatter-min over a claim grid.  Food (corpse drops,
+  eating by attack), turn mode (bodies rotating into their new facing's
+  rect, claimed as moves are) and absorb (``can_absorb`` goals) run on
+  this path only.
 
 Phases run in the reference order (reference:
 src/gridworld/GridWorld.cc:456-631)::
 
-    attack -> starve -> move -> reward rules -> done check
+    attack -> starve -> turn (turn mode) -> move -> reward rules -> done
 
 Attacks execute in a random priority order (a SplitMix mix of a fresh
 threefry subkey and the slot).  Every tensor carries the env axis B written
@@ -177,14 +179,6 @@ def _unpermute(rows, order):
     write -> [k, 1, A]."""
     return torch.empty_like(rows).scatter_(
         1, order.expand(rows.shape), rows)[:, None]
-
-
-def _check_ported(spec: speclib.GameSpec) -> None:
-    """Raise for turn mode, the one spec shape not ported yet."""
-    if spec.turn_mode:
-        raise NotImplementedError(
-            "turn mode is not ported yet: its turn phase and rotating "
-            "observation are ROADMAP.md Queue 1 item 11")
 
 
 def _gridless_capable(spec: speclib.GameSpec) -> bool:
@@ -774,9 +768,7 @@ def _move_phase(spec, T, state: State, route: _Route, seg_ctx=None):
     # the wall- and food-encoded grid answers "blocked?" and "by whom?"
     # (engine.py:764-783; Map::get_collide Map.cc:486-501)
     slots = T.slots
-    enc = torch.where(state.cell_wall, -2, state.cell_slot)
-    if spec.food_mode:
-        enc = torch.where(state.cell_food >= 0.0, -3, enc)
+    enc = _move_enc(spec, state)
     if spec.max_body_w == 1:
         e = _grid_at(enc, ny.clamp(0, H - 1) * W + nx.clamp(0, W - 1))
         reach = is_move & in_bounds
@@ -854,53 +846,123 @@ def _first_along(mask, values, fill):
     return torch.where(mask.any(0), torch.gather(values, 0, k)[0], fill)
 
 
+def _rect_cells(spec, T, x, y, bw, bh):
+    """The max_body^2 cells of every rect anchored at (x, y) of size (bw,
+    bh), scanned i (width) outer and j inner -> (in_rect [K, B, A], the
+    cells clipped into the map as flat indices [B, K*A], the cells clipped
+    into the (H+1) x (W+1) claim grid [B, K*A])."""
+    H, W = spec.height, spec.width
+    in_rect = (T.body_i < bw) & (T.body_j < bh)  # [MB*MB, B, A]
+    cx, cy = x + T.body_i, y + T.body_j
+    return (in_rect,
+            _per_cell(cy.clamp(0, H - 1) * W + cx.clamp(0, W - 1)).long(),
+            _per_cell(cy.clamp(0, H) * (W + 1) + cx.clamp(0, W)).long())
+
+
+def _per_cell(t):
+    """[K, B, A] -> [B, K*A]."""
+    K, B, A = t.shape
+    return t.permute(1, 0, 2).reshape(B, K * A)
+
+
+def _from_cells(t, K):
+    """[B, K*A] -> [K, B, A]."""
+    B = t.shape[0]
+    return t.reshape(B, K, -1).permute(1, 0, 2)
+
+
+def _claim_rects(spec, T, blank, in_rect, claim_cell):
+    """The blank rects' slots go into a (H+1) x (W+1) claim grid by one
+    scatter-min (the corner cell past the map takes the rest,
+    ``engine.py:814-833`` and ``:947-953``); a rect is won where its slot
+    holds every one of its cells -> (wins [B, A], lost [K, B, A] its cells
+    held by a lower slot, winner [K, B, A] each cell's lowest claimant)."""
+    B, A = blank.shape
+    H, W = spec.height, spec.width
+    K = in_rect.shape[0]
+    ok = blank & in_rect
+    dump = H * (W + 1) + W
+    claim = torch.full((B, (H + 1) * (W + 1)), A, dtype=torch.int32,
+                       device=blank.device).scatter_reduce(
+        1, torch.where(_per_cell(ok), claim_cell, dump),
+        T.slots.expand(B, A).repeat(1, K), "amin")
+    winner = _from_cells(torch.gather(claim, 1, claim_cell), K)
+    lost = ok & (winner != T.slots)
+    return blank & ~lost.any(0), lost, winner
+
+
 def _rect_moves_on_grid(spec, T, enc, is_move, in_bounds, nx, ny, bw, bh):
     """Blocking and claims of multi-cell movers on the grid (engine.py:764-783,
     :814-833), all max_body^2 cells of every target rect at once ->
     (blank, collide_obj, wins, lose_to).  A mover is blank where no cell
     of its rect holds a wall, food or another agent; its collider is the
     agent in the first such cell, scanning i (width) outer and j inner.
-    The blank movers' slots go into a (H+1) x (W+1) claim grid by one
-    scatter-min (the corner cell past the map takes the rest); a mover
-    wins where it holds every cell of its rect, and loses to the winner of
-    its first lost cell."""
-    B, A = nx.shape
-    H, W = spec.height, spec.width
+    The blank movers claim their rects (:func:`_claim_rects`), and a
+    loser loses to the winner of its first lost cell."""
     slots = T.slots
-    body = (T.body_i < bw) & (T.body_j < bh)  # [MB*MB, B, A]
-    K = body.shape[0]
-
-    def per_cell(idx):  # [K, B, A] -> [B, K*A]
-        return idx.permute(1, 0, 2).reshape(B, K * A).long()
-
-    def from_cells(t):  # [B, K*A] -> [K, B, A]
-        return t.reshape(B, K, A).permute(1, 0, 2)
-
+    body, cell, claim_cell = _rect_cells(spec, T, nx, ny, bw, bh)
     cell_ok = is_move & body
-    e = from_cells(_grid_at(enc, per_cell(
-        (ny + T.body_j).clamp(0, H - 1) * W
-        + (nx + T.body_i).clamp(0, W - 1))))
+    e = _from_cells(_grid_at(enc, cell), body.shape[0])
     blank = is_move & in_bounds & ~(cell_ok & (e != -1) & (e != slots)).any(0)
     collide_obj = _first_along(cell_ok & in_bounds & (e >= 0) & (e != slots),
                                e, -1)
+    wins, lost, winner = _claim_rects(spec, T, blank, body, claim_cell)
+    return blank, collide_obj, wins, _first_along(lost, winner, -1)
 
-    ok = blank & body
-    claim = torch.full((B, (H + 1) * (W + 1)), A, dtype=torch.int32,
-                       device=nx.device).scatter_reduce(
-        1, per_cell(torch.where(ok, (ny + T.body_j) * (W + 1) + nx + T.body_i,
-                                H * (W + 1) + W)),
-        slots.expand(B, A).repeat(1, K), "amin")
-    winner = from_cells(torch.gather(claim, 1, per_cell(
-        (ny + T.body_j).clamp(0, H) * (W + 1) + (nx + T.body_i).clamp(0, W))))
-    lost = ok & (winner != slots)
-    return blank, collide_obj, blank & ~lost.any(0), _first_along(
-        lost, winner, -1)
+
+def _move_enc(spec, state: State):
+    """The wall- and food-encoded grid of a phase's start: -2 a wall, -3
+    food (``food_mode``), else the occupant's slot or -1 (engine.py:764-766,
+    :935-937; Map::get_collide Map.cc:486-501)."""
+    enc = torch.where(state.cell_wall, -2, state.cell_slot)
+    if spec.food_mode:
+        enc = torch.where(state.cell_food >= 0.0, -3, enc)
+    return enc
+
+
+def _turn_phase(spec, T, state: State):
+    """Turn actions (turn mode; engine.py:896-970, reference
+    GridWorld.cc:544-571, Map::do_turn Map.cc:361-406): a turner's body
+    takes its new facing's rect about the turn anchor; turns whose rect is
+    blank at phase start (walls, food and other agents block) and claimed
+    by no lower slot commit together, as moves do.
+
+    The reference quirk is kept: turn actions are buffered as the absolute
+    action index, so the facing advances by ``2 * act - 1`` (mod 4) while
+    the body always takes do_turn's clockwise branch.  The turn offsets are
+    0, so the anchor is the body's direction corner itself and the
+    clockwise rotation about it leaves it in place: the new rect is the one
+    whose new-facing corner is the old corner."""
+    H, W = spec.height, spec.width
+    act = state.last_action
+    alive = state.active & ~state.dead
+    is_turn = alive & (act >= T.turn_base) & (act < T.attack_base)
+    new_dir = (state.dir + 2 * act - 1) % 4
+    rx, ry = geo.save_to_real(state.x, state.y, state.dir, T.width, T.length)
+    sx, sy = geo.real_to_save(rx, ry, new_dir, T.width, T.length)
+    nbw, nbh = geo.size_for_dir(new_dir, T.width, T.length)
+    in_bounds = (sx >= 0) & (sy >= 0) & (sx + nbw < W) & (sy + nbh < H)
+
+    body, cell, claim_cell = _rect_cells(spec, T, sx, sy, nbw, nbh)
+    e = _from_cells(_grid_at(_move_enc(spec, state), cell), body.shape[0])
+    blocked = is_turn & body & (e != -1) & (e != T.slots)
+    blank = is_turn & in_bounds & ~blocked.any(0)
+    success, _, _ = _claim_rects(spec, T, blank, body, claim_cell)
+
+    cell_slot = _set_bodies(state.cell_slot, success, state.x, state.y, T,
+                            state.dir, -1)
+    cell_slot = _set_bodies(cell_slot, success, sx, sy, T, new_dir, T.slots)
+    return state.replace(
+        x=torch.where(success, sx, state.x),
+        y=torch.where(success, sy, state.y),
+        dir=torch.where(success, new_dir, state.dir),
+        cell_slot=cell_slot,
+    )
 
 
 def make_step(spec: speclib.GameSpec, *, maintain_grid: bool = True,
               walls=None, n_envs: int = 1):
-    """Build ``step(state, actions=None) -> State`` (turn mode raises
-    NotImplementedError).
+    """Build ``step(state, actions=None) -> State``.
 
     The route is decided here, once (engine.py:993-1020 without its env-var
     overrides): the pair kernels serve up to ``QUAD_MAX_SINGLE`` slots for a
@@ -916,7 +978,6 @@ def make_step(spec: speclib.GameSpec, *, maintain_grid: bool = True,
     from its packed overlap grid (:func:`_wall_rect_code`).  ``None``, or a
     map of border walls only, is answered by formula.  The grid path reads
     ``state.cell_wall`` and ignores it."""
-    _check_ported(spec)
     A = spec.n_agents_cap
     quad = A <= (ap.QUAD_MAX_SINGLE if n_envs == 1 else ap.QUAD_MAX_AGENTS)
     seg = (spec.max_body_w > 1 and n_envs == 1
@@ -925,6 +986,9 @@ def make_step(spec: speclib.GameSpec, *, maintain_grid: bool = True,
         route = _Route(grid=False, quad=True, seg=seg)
     else:
         route = _Route(grid=True, quad=quad)
+    # the segmented sweeps' y-margins (_Tables.att_reach_y, max_dy) are
+    # NORTH-frame bounds: sound only where every body faces NORTH
+    assert not (route.seg and spec.turn_mode)
     wall_ctx = None
     if not route.grid and walls is not None:
         walls = np.asarray(walls, bool)
@@ -939,11 +1003,11 @@ def make_step(spec: speclib.GameSpec, *, maintain_grid: bool = True,
 def _build_step(spec: speclib.GameSpec, route: _Route, wall_ctx=None):
     """The step on a fixed route (tests pick the sort branches and the
     segmented sweeps here)."""
-    _check_ported(spec)
     if not (route.grid or route.quad):
         raise ValueError("the gridless path has no sort branch")
     if not (route.grid or _gridless_capable(spec)):
-        raise ValueError("food and absorb run on the grid path only")
+        raise ValueError("food, turn mode and absorb run on the grid path "
+                         "only")
     if route.seg and (route.grid or spec.max_body_w == 1):
         raise ValueError("the segmented sweeps serve gridless multi-cell "
                          "specs only")
@@ -963,6 +1027,8 @@ def _build_step(spec: speclib.GameSpec, route: _Route, wall_ctx=None):
         seg_ctx = _seg_order(state) if route.seg else None
         state = _attack_phase(spec, T, state, rank, route, seg_ctx)
         state = _starve_phase(spec, T, state, route)
+        if spec.turn_mode:
+            state = _turn_phase(spec, T, state)
         state = _move_phase(spec, T, state, route, seg_ctx)
 
         # reward rules (reference: GridWorld::calc_reward, GridWorld.cc:681-692)

@@ -19,6 +19,15 @@ def save_to_real(x, y, d, w, l):
     return rx, ry
 
 
+def real_to_save(x, y, d, w, l):
+    """Direction anchor -> stored top-left (reference: Map.cc:576-595)."""
+    sx = torch.where(d == NORTH, x, torch.where(
+        d == SOUTH, x - w + 1, torch.where(d == WEST, x, x - l + 1)))
+    sy = torch.where(d == NORTH, y, torch.where(
+        d == SOUTH, y - l + 1, torch.where(d == WEST, y - w + 1, y)))
+    return sx, sy
+
+
 def rela_to_abs(cx, cy, d, rx, ry):
     """Relative (agent frame) -> absolute (reference: Map.cc:515-532)."""
     ax = torch.where(d == NORTH, cx + rx, torch.where(

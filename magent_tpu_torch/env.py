@@ -133,7 +133,9 @@ class GridWorld(Environment):
         self._clear_fn = engine.make_clear_dead(sp)
         self._observe_fns = [observe.make_observe(sp, g)
                              for g in range(sp.n_groups)]
-        # one grid-render pass serves every group's get_observation of a step
+        # one grid-render pass serves every group's get_observation of a
+        # step; turn mode has none (env.py:113-115): each group's rotating
+        # observation renders its own frame
         self._grids_fn = self._observe_fns[0].grids_fn
         self._grids_cache = None  # (state object, grids)
         self._actions = np.zeros(sp.n_agents_cap, np.int32)
@@ -403,9 +405,13 @@ class GridWorld(Environment):
     # --------------------------------------------------------------- run
     def get_observation(self, handle):
         g = handle.value
-        if self._grids_cache is None or self._grids_cache[0] is not self.state:
-            self._grids_cache = (self.state, self._grids_fn(self.state))
-        view, feat = self._observe_fns[g](self.state, self._grids_cache[1])
+        grids = None
+        if self._grids_fn is not None:
+            if self._grids_cache is None or \
+                    self._grids_cache[0] is not self.state:
+                self._grids_cache = (self.state, self._grids_fn(self.state))
+            grids = self._grids_cache[1]
+        view, feat = self._observe_fns[g](self.state, grids)
         n = self.get_num(handle)
         return view[0, :n].cpu().numpy(), feat[0, :n].cpu().numpy()
 

@@ -64,7 +64,7 @@ def _egreedy_actions(venv: VecGridWorld, nets, state, key, eps,
     if train_groups is None:
         all_obs = venv.observe_all(state)
     else:  # render only the policy groups, sharing one grid pass
-        grids = venv._grids(state)
+        grids = venv._grids(state) if venv._grids is not None else None
         all_obs = [venv.observe(state, g, grids) if g in tg else None
                    for g in range(spec.n_groups)]
     for g, gs in enumerate(spec.groups):

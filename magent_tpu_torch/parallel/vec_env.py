@@ -60,8 +60,10 @@ class VecGridWorld:
     ``cuda``; raises without a card).
 
     ``placements``: per group, ``[n_g, 2 or 3]`` (x, y[, dir]) rows that
-    fill the group's capacity exactly (required for multi-cell bodies);
-    otherwise agents are placed uniformly at random on free cells.
+    fill the group's capacity exactly (required for multi-cell bodies; the
+    facings are kept in turn mode, NORTH otherwise); otherwise agents are
+    placed uniformly at random on free cells (facing at random in turn
+    mode).
     ``obs_dtype``: the views' dtype, ``torch.bfloat16`` or ``None`` for
     f32 (``make_observe``'s ``obs_dtype``; the JAX package's bf16 views for
     its trainers, ``scripts/bench_train.py``).
@@ -80,6 +82,8 @@ class VecGridWorld:
         obs_dtype = torch.float32 if obs_dtype is None else obs_dtype
         self._observe = [observe.make_observe(spec, g, obs_dtype)
                          for g in range(spec.n_groups)]
+        # one grid pass shared by the groups (None in turn mode: the
+        # rotating observation renders its own frame)
         self._grids = self._observe[0].grids_fn
 
         H, W, A = spec.height, spec.width, spec.n_agents_cap
@@ -101,17 +105,24 @@ class VecGridWorld:
                                  % ([g.cap for g in spec.groups], sizes))
             xs = np.concatenate([np.asarray(p)[:, 0] for p in placements])
             ys = np.concatenate([np.asarray(p)[:, 1] for p in placements])
+            ds = np.full(A, NORTH, np.int32)
+            if spec.turn_mode and np.asarray(placements[0]).shape[1] > 2:
+                # the facings of the placements' third column
+                # (vec_env.py:74-82)
+                ds = np.concatenate([np.asarray(p)[:, 2] for p in placements])
             cell0 = np.full((H, W), -1, np.int32)
             cell0[ys, xs] = np.arange(A)
             if spec.max_body_w > 1:
-                # every cell of a body rect (NORTH: width x length),
-                # vec_env.py:90-97
+                # every cell of a body rect, its facing's footprint
+                # (vec_env.py:90-97)
+                ns = (ds == NORTH) | (ds == speclib.SOUTH)
+                bws = np.where(ns, spec.s_width, spec.s_length)
+                bhs = np.where(ns, spec.s_length, spec.s_width)
                 for s_, (xx, yy) in enumerate(zip(xs, ys)):
-                    cell0[yy:yy + spec.s_length[s_],
-                          xx:xx + spec.s_width[s_]] = s_
+                    cell0[yy:yy + bhs[s_], xx:xx + bws[s_]] = s_
             self._placed = tuple(
                 torch.as_tensor(a.astype(np.int32), device=dev)
-                for a in (xs, ys, cell0))
+                for a in (xs, ys, ds, cell0))
         else:
             if spec.max_body_w > 1:
                 raise ValueError(
@@ -126,13 +137,14 @@ class VecGridWorld:
 
     # ------------------------------------------------------------ functional
     def _place(self, pkey):
-        """Agent positions for ``k`` envs -> (x, y, cell_slot), int32."""
+        """Agent positions and facings for ``k`` envs -> (x, y, dir,
+        cell_slot), int32."""
         spec = self.spec
         H, W, A = spec.height, spec.width, spec.n_agents_cap
         k = pkey.shape[0]
         if self._placed is not None:
-            xs, ys, cell0 = self._placed
-            return (xs.expand(k, A), ys.expand(k, A),
+            xs, ys, ds, cell0 = self._placed
+            return (xs.expand(k, A), ys.expand(k, A), ds.expand(k, A),
                     cell0.expand(k, H, W))
         # uniform scores per free cell + stable argsort = a random
         # permutation of the free cells (reference: Map::get_random_blank,
@@ -145,7 +157,13 @@ class VecGridWorld:
                           device=self.device).scatter_(
             1, cells, slots.expand(k, A))
         cells = cells.to(torch.int32)
-        return cells % W, cells // W, cell.reshape(k, H, W)
+        if spec.turn_mode:
+            # random facings (vec_env.py:127-128)
+            d = rnd.randint(rnd.fold_in(pkey, 1), (A,), 0, 4)
+        else:
+            d = torch.full((k, A), NORTH, dtype=torch.int32,
+                           device=self.device)
+        return cells % W, cells // W, d, cell.reshape(k, H, W)
 
     def _reset_keys(self, keys) -> State:
         """One fresh env per key of ``keys`` [k, 2] (the JAX package's
@@ -156,7 +174,7 @@ class VecGridWorld:
         dev = self.device
         k = keys.shape[0]
         pk = rnd.split(keys)  # [k, 2, 2]
-        x, y, cell = self._place(pk[:, 0])
+        x, y, d, cell = self._place(pk[:, 0])
 
         def full(shape, value, dtype):
             return torch.full(shape, value, dtype=dtype, device=dev)
@@ -167,7 +185,7 @@ class VecGridWorld:
             cell_food=full((k, H, W), -1.0, torch.float32),
             x=x.contiguous(),
             y=y.contiguous(),
-            dir=full((k, A), NORTH, torch.int32),
+            dir=d.contiguous(),
             hp=self._hp0.expand(k, A).clone(),
             active=full((k, A), True, torch.bool),
             dead=full((k, A), False, torch.bool),
@@ -197,8 +215,9 @@ class VecGridWorld:
         return self._observe[group](state, grids)
 
     def observe_all(self, state: State):
-        """Observations for every group, sharing one grid-render pass."""
-        grids = self._grids(state)
+        """Observations for every group, sharing one grid-render pass (none
+        in turn mode)."""
+        grids = self._grids(state) if self._grids is not None else None
         return [obs(state, grids) for obs in self._observe]
 
     def step(self, state: State, actions) -> State:

@@ -1318,11 +1318,13 @@ def _pursuit_world(device, map_size=48):
 
 @pytest.mark.parametrize("name,route", [
     ("pursuit", "quad"), ("pursuit", "sort"), ("food", "quad"),
-    ("food_crumb", "quad"), ("food_crumb", "sort"), ("absorb", "quad")])
+    ("food_crumb", "quad"), ("food_crumb", "sort"), ("absorb", "quad"),
+    ("turn_bodies", "quad"), ("turn_bodies", "sort")])
 def test_grid_path_gridworlds_gpu_match_cpu(cuda, name, route, monkeypatch):
-    """Multi-cell bodies, food and absorb on the grid path, on the card and
+    """Multi-cell bodies, food, absorb and turn mode (the turn phase and
+    the stacked-rotations observation) on the grid path, on the card and
     on the CPU: the same placements and actions give equal views, features,
-    rewards and states (``cell_slot``, ``cell_food``, ``absorbed``
+    rewards and states (``cell_slot``, ``cell_food``, ``absorbed``, ``dir``
     included), exactly.  The fractional values are order-fixed: food eats
     and their per-cell totals add by elementwise ops in attack-priority
     order (engine ``_cumsum_xla``, ``_sum_in_order``), hp changes are
@@ -1382,3 +1384,71 @@ def test_food_sums_gpu_match_cpu(cuda):
             want = fn(vals, start)
             got = fn(vals.to(cuda), start.to(cuda)).cpu()
             assert torch.equal(got, want), N
+
+
+def _turn_venv(device, obs_dtype):
+    """``scripts/bench_pursuit.py --turn``'s config at map 40, B=4: 2x2
+    predators facing at random and 1x1 prey on the odd cells."""
+    from magent_tpu_torch import gridworld as tgw
+
+    cfg = tgw.Config()
+    cfg.set({"map_width": 40, "map_height": 40, "turn_mode": True})
+    pred = cfg.register_agent_type(
+        "predator", {'width': 2, 'length': 2, 'hp': 1, 'speed': 1,
+                     'view_range': tgw.CircleRange(5),
+                     'attack_range': tgw.CircleRange(2),
+                     'attack_penalty': -0.2})
+    prey = cfg.register_agent_type(
+        "prey", {'width': 1, 'length': 1, 'hp': 1, 'speed': 1.5,
+                 'view_range': tgw.CircleRange(4),
+                 'attack_range': tgw.CircleRange(0)})
+    a = tgw.AgentSymbol(cfg.add_group(pred), index='any')
+    b = tgw.AgentSymbol(cfg.add_group(prey), index='any')
+    cfg.add_reward_rule(tgw.Event(a, 'attack', b), receiver=[a, b],
+                        value=[1, -1])
+    rng = np.random.RandomState(5)
+    cells = rng.permutation(19 * 19)[:20 + 40]
+    preds = [[1 + 2 * (c % 19), 1 + 2 * (c // 19), rng.randint(4)]
+             for c in cells[:20]]
+    prey = [[1 + 2 * (c % 19), 1 + 2 * (c // 19), 0] for c in cells[20:]]
+    return VecGridWorld(cfg, [20, 40], 4, placements=[preds, prey],
+                        obs_dtype=obs_dtype, device=device)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("route", ["window_gather", "window_gather_banded",
+                                   "per_direction"])
+def test_turn_lockstep_gpu_matches_cpu(cuda, route, dtype, monkeypatch):
+    """Turn mode's lockstep loop on each observation route, on the card
+    and on the CPU from the same keys: views (their bits), features,
+    actions and states equal, exactly; the card's run launches the
+    route's window kernel."""
+    if route != "window_gather":
+        monkeypatch.setattr(tobserve, "VMEM_IMAGE_BUDGET", 0)
+    if route == "per_direction":
+        monkeypatch.setattr(tobserve, "_BAND_BUDGET", 0)
+    obs_dtype = torch.bfloat16 if dtype == "bf16" else torch.float32
+    envs = [_turn_venv(d, obs_dtype) for d in (cuda, "cpu")]
+    assert [o.route for o in envs[0]._observe] == [route] * 2
+    states = [e.reset(trandom.PRNGKey(3)) for e in envs]
+    key = trandom.PRNGKey(4)
+    counter = route + ("_bf16" if dtype == "bf16" else "")
+    before = ops.launch_counts().get(counter, 0)
+    for step in range(4):
+        keys = trandom.split(key)
+        key, akey = keys[0], keys[1]
+        for (gv, gf), (cv, cf) in zip(*(e.observe_all(st)
+                                        for e, st in zip(envs, states))):
+            bits = torch.int16 if dtype == "bf16" else torch.int32
+            assert torch.equal(gv.cpu().view(bits), cv.view(bits)), step
+            assert torch.equal(gf.cpu(), cf), step
+        acts = [e.random_actions(akey) for e in envs]
+        assert torch.equal(acts[0].cpu(), acts[1])
+        states = [e.transition(st, a)[0] for e, st, a in zip(envs, states,
+                                                              acts)]
+        for field in FIELDS:
+            assert torch.equal(getattr(states[0], field).cpu(),
+                               getattr(states[1], field)), (field, step)
+    if route != "per_direction":
+        assert ops.launch_counts()[counter] - before == 8
+    assert len(torch.unique(states[1].dir)) == 4

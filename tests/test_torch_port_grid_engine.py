@@ -143,9 +143,9 @@ def test_clear_dead_matches_jax():
 
 
 def test_unported_specs_raise():
-    """Turn mode still raises, naming its ROADMAP item; food and absorb
-    specs now build, on the grid path even where the caller asks for the
-    gridless one (the JAX package's _gridless_capable)."""
+    """Food, turn mode and absorb specs build, on the grid path even where
+    the caller asks for the gridless one (the JAX package's
+    _gridless_capable), and a gridless route is refused for them."""
     from magent_tpu_torch import gridworld as gw
 
     def config(**kw):
@@ -155,11 +155,9 @@ def test_unported_specs_raise():
         cfg.add_group(t)
         return tspec.compile_spec(cfg, [4])
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        tengine.make_step(config(turn_mode=True))
-    food = config(food_mode=True)
-    for grid in (True, False):
-        assert tengine.make_step(food, maintain_grid=grid).route == \
-            tengine._Route(grid=True, quad=True)
-    with pytest.raises(ValueError, match="grid path only"):
-        tengine._build_step(food, tengine._Route(grid=False, quad=True))
+    for spec in (config(food_mode=True), config(turn_mode=True)):
+        for grid in (True, False):
+            assert tengine.make_step(spec, maintain_grid=grid).route == \
+                tengine._Route(grid=True, quad=True)
+        with pytest.raises(ValueError, match="grid path only"):
+            tengine._build_step(spec, tengine._Route(grid=False, quad=True))
