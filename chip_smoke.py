@@ -75,6 +75,25 @@ Run from the repository root:  python3 chip_smoke.py
    at map 64; then GPU = CPU, exactly, for map 64 (B=16, 3 steps), map 1000
    (2 steps) and the golden ``turn_bodies`` layout through ``GridWorld``
    on both grid routes;
+4e. runs the reference-order engines and the snake: every C++ GridWorld
+   golden of ``tests/golden/scenarios.py`` through ``run_scenario`` with
+   ``GridWorld(engine_mode="sequential")`` on the card (the step on the
+   host, ``core/seq_engine.py``; the observation through the window
+   kernels) and ``snake_basic`` through ``run_snake_scenario`` by the
+   port's sequential snake (host NumPy), each held to its golden with
+   ``tests/test_reference_parity.py``'s and ``tests/test_snake_parity.py``'s
+   assertions; the sequential GridWorld at train_battle's width (map 125,
+   2x625): 20 timed steps (wall ms, host ms in ``SequentialEngine.step`` and
+   in the state's round trip, launches per step asserted: ``window_gather``
+   2, nothing else), host syncs, the profiler, ``window_gather`` against its
+   plain version on one step's operands, and GPU = CPU over 5 steps with
+   the armies interleaved; the fast ``DiscreteSnake`` at the JAX package's
+   defaults (map 100, view 21 x 21, 256 slots, rings of 48; 100 walls, 500
+   food, 256 snakes, seed 0): 50 timed ``get_observation -> set_action ->
+   step -> clear_dead`` steps (``window_gather`` 1 per step, nothing else),
+   host syncs, the profiler, ``window_gather`` against its plain version at
+   the snake's shape, and GPU = CPU over 20 steps (every state field, the
+   threefry key included, views, features, rewards);
 5. runs pursuit's gridless rect path, the lockstep loop of
    ``scripts/train_evidence.py`` — ``VecGridWorld(pursuit(64), [51, 102],
    n_envs=16)`` with its placements (seed 11): holds ``occupant_rect``
@@ -177,6 +196,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 import warnings
 
 import numpy as np
@@ -1692,12 +1712,14 @@ def check_grid_world_gpu_matches_cpu(label, build, n_steps, sort=False,
             if not torch.equal(x, getattr(env_c.state, name)):
                 raise AssertionError("%s: state field %s differs at step %d"
                                      % (label, name, step))
+    route = "sort" if not routes["cpu"].quad else "pair-kernel"
+    if env_c._engine_mode == "sequential":
+        route = "sequential (host)"
     print("GridWorld GPU vs CPU: %s, %s agents, A=%d, %s route, %d steps "
           "with clear_dead: observations, rewards and states equal (%d "
           "kills, %d collisions, %d food cell-steps, %d absorbed)" % (
               label, [env_c.get_num(h) for h in handles],
-              env_c.spec.n_agents_cap,
-              "pair-kernel" if routes["cpu"].quad else "sort", n_steps,
+              env_c.spec.n_agents_cap, route, n_steps,
               seen["kills"], seen["collides"], seen["food"],
               seen["absorbed"]), flush=True)
     return seen
@@ -1936,6 +1958,334 @@ def check_turn_gpu_matches_cpu():
             TURN_GOLDEN_STEPS, sort)
         if not seen["collides"]:
             raise AssertionError("turn_bodies: no collision")
+
+
+# the reference-order engines and the snake (phase 4e).  The sequential
+# GridWorld at train_battle's width (map 125, the 2x625 armies of phase 4):
+# the step runs on the host (core/seq_engine.py), the observation on the
+# card, so a step launches window_gather twice and no pair kernel.  The
+# snake at the JAX package's defaults (magent_tpu/discrete_snake.py:88-105:
+# map 100, view 21 x 21, 256 slots, rings of 48), walls, food and snakes
+# placed as add_walls(100), add_food(500), add_agent(256) with seed 0: one
+# window_gather per observation on its 5-channel image.
+SEQ_PER_STEP = {"window_gather": 2}
+SEQ_WARMUP, SEQ_TIMED, SEQ_GPU_CPU_STEPS = 3, 20, 5
+SNAKE_CAPS, SNAKE_MAX_LENGTH, SNAKE_SEED = 256, 48, 0
+SNAKE_WALLS, SNAKE_FOOD, SNAKE_AGENTS = 100, 500, 256
+SNAKE_WARMUP, SNAKE_TIMED, SNAKE_GPU_CPU_STEPS = 3, 50, 20
+
+
+def golden_module():
+    """``tests/golden/scenarios.py`` (numpy only)."""
+    golden = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "tests", "golden")
+    if golden not in sys.path:
+        sys.path.insert(0, golden)
+    import scenarios
+
+    return scenarios, golden
+
+
+def assert_golden(name, trace, golden, keys):
+    """``tests/test_reference_parity.py``'s and
+    ``tests/test_snake_parity.py``'s assertions: ``keys`` maps each trace
+    key to its tolerance (None: exact)."""
+    if int(trace["steps"]) != int(golden["steps"]):
+        raise AssertionError("%s: %d steps, the golden %d" % (
+            name, int(trace["steps"]), int(golden["steps"])))
+    for key, atol in keys.items():
+        if key not in golden:
+            continue
+        got, want = np.asarray(trace[key]), np.asarray(golden[key])
+        ok = got.shape == want.shape and (
+            np.array_equal(got.astype(np.int64), want.astype(np.int64))
+            if atol is None else bool(np.all(np.abs(got - want) <= atol)))
+        if not ok:
+            raise AssertionError("%s: %s differs from the C++ golden" % (
+                name, key))
+
+
+def check_goldens_on_card():
+    """Phase 4e (1): every GridWorld golden through ``run_scenario`` with
+    ``engine_mode="sequential"`` on the card; ``snake_basic`` through
+    ``run_snake_scenario`` by the port's sequential snake (host NumPy)."""
+    import magent_tpu_torch
+    from magent_tpu_torch import GridWorld, gridworld, ops
+
+    sc, golden_dir = golden_module()
+    envs = []
+
+    def on_card(cfg, **kwargs):
+        envs.append(GridWorld(cfg, device="cuda", **kwargs))
+        return envs[-1]
+
+    shim = types.SimpleNamespace(gridworld=gridworld, GridWorld=on_card)
+    exact = {k % g: None for g in range(2) for k in (
+        "num_%d", "ids_%d_data", "pos_%d_data", "alive_%d_data")}
+    close = {k % g: 1e-5 for g in range(2) for k in (
+        "rew_%d_data", "views_%d_data", "view0_%d", "feat0_%d")}
+    before = ops.launch_counts()
+    t0 = time.perf_counter()
+    matched = []
+    for name in sorted(sc.SCENARIOS):
+        golden = dict(np.load(os.path.join(golden_dir,
+                                           "golden_%s.npz" % name)))
+        trace = sc.flatten_trace(sc.run_scenario(
+            shim, name, engine_mode="sequential"), 2)
+        if envs[-1].device.type != "cuda" or \
+                envs[-1]._engine_mode != "sequential":
+            raise AssertionError("%s: ran on %s, %s mode" % (
+                name, envs[-1].device, envs[-1]._engine_mode))
+        assert_golden(name, trace, golden, dict(done=None, **exact, **close))
+        matched.append(name)
+    launched = {k: v - before[k] for k, v in ops.launch_counts().items()
+                if v != before[k]}
+    if not launched or any(not k.startswith("window") for k in launched):
+        raise AssertionError("the goldens on the card launched %s" % launched)
+    print("phase 4e: %d of %d C++ GridWorld goldens matched on %s by "
+          "GridWorld(engine_mode='sequential') (test_reference_parity's "
+          "assertions) in %.2f s; launches %s" % (
+              len(matched), len(sc.SCENARIOS), torch.cuda.get_device_name(0),
+              time.perf_counter() - t0, json.dumps(launched)), flush=True)
+    golden = dict(np.load(os.path.join(golden_dir, "golden_snake_basic.npz")))
+    trace = sc.flatten_snake_trace(sc.run_snake_scenario(
+        magent_tpu_torch, "snake_basic", engine_mode="sequential"))
+    assert_golden("snake_basic", trace, golden, {
+        "num": None, "food_num": None, "ids_data": None, "head_data": None,
+        "length_data": None, "alive_data": None, "rew_data": 1e-5,
+        "view0": 1e-5, "feat0": 1e-5})
+    print("phase 4e: the C++ golden snake_basic matched by the port's "
+          "sequential snake (host NumPy, test_snake_parity's assertions)",
+          flush=True)
+    return len(matched) + 1
+
+
+def sequential_world(device, place=place_armies):
+    from magent_tpu_torch import GridWorld
+
+    env = GridWorld("battle", map_size=GW_MAP, engine_mode="sequential",
+                    device=device)
+    handles = env.get_handles()
+    env.reset()
+    place(env, handles)
+    return env, handles
+
+
+def run_sequential_path(f32_rate, int32_rate, device_name):
+    """Phase 4e (2): the sequential GridWorld at train_battle's width,
+    timed: wall ms per step, host ms in ``SequentialEngine.step`` and in the
+    whole ``_step_sequential`` (the rest is the state's round trip),
+    launches per step, host syncs, the profiler; ``window_gather`` against
+    its plain version on one more step's operands; then GPU = CPU.  ->
+    ({kernel: launches in the timed run}, {kernel: [call_stats]})."""
+    from magent_tpu_torch import ops
+    from magent_tpu_torch.ops import window_gather as wg
+
+    label = "sequential GridWorld battle map %d" % GW_MAP
+    env, handles = sequential_world(None)
+    if env.device.type != "cuda":
+        raise AssertionError("%s: on %s by default" % (label, env.device))
+    rng = np.random.RandomState(0)
+    n0 = [env.get_num(h) for h in handles]
+    for _ in range(SEQ_WARMUP):
+        gridworld_step(env, handles, rng)
+    host = {"engine": [], "step": []}
+    engine, seq_step = env._seq, env._step_sequential
+
+    def engine_step(S, lcg, _f=engine.step):
+        t = time.perf_counter()
+        out = _f(S, lcg)
+        host["engine"].append(time.perf_counter() - t)
+        return out
+
+    def step_sequential():
+        t = time.perf_counter()
+        out = seq_step()
+        host["step"].append(time.perf_counter() - t)
+        return out
+
+    engine.step, env._step_sequential = engine_step, step_sequential
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    live = 0
+    for _ in range(SEQ_TIMED):
+        n, (view, feat), rewards = gridworld_step(env, handles, rng)
+        live += n
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    if env._seq is not engine:
+        raise AssertionError("%s: the engine was rebuilt" % label)
+    ms_per_step = dt / SEQ_TIMED * 1e3
+    eng_ms = statistics.mean(host["engine"]) * 1e3
+    step_ms = statistics.mean(host["step"]) * 1e3
+    print("%s: %s agents placed, A=%d slots, %d timed steps in %.4f s: %.4f "
+          "ms/step wall, %.1f agent-steps/s on %s; host ms per step in "
+          "SequentialEngine.step %.4f, in _step_sequential %.4f (the state's "
+          "round trip %.4f)" % (
+              label, n0, env.spec.n_agents_cap, SEQ_TIMED, dt, ms_per_step,
+              live / dt, device_name, eng_ms, step_ms, step_ms - eng_ms),
+          flush=True)
+    expected = {k: SEQ_PER_STEP.get(k, 0) * SEQ_TIMED for k in ops.KERNELS}
+    if counts != expected:
+        raise AssertionError("%s: launch counts %s, expected %s" % (
+            label, counts, expected))
+    vs, fs = env.get_view_space(handles[-1]), env.get_feature_space(
+        handles[-1])
+    if view.shape[1:] != vs or feat.shape[1:] != fs or not (
+            np.isfinite(view).all() and np.isfinite(feat).all()
+            and all(np.isfinite(r).all() for r in rewards)):
+        raise AssertionError("%s outputs: shapes %s %s, want %s %s, or not "
+                             "finite" % (label, view.shape, feat.shape, vs,
+                                         fs))
+    syncs, sites = count_host_syncs(
+        lambda: gridworld_step(env, handles, rng), GW_SYNC_STEPS)
+    print("%s: %.1f host syncs per step (torch.cuda sync debug mode, %d "
+          "steps); per step by call site: %s" % (
+              label, syncs, GW_SYNC_STEPS, json.dumps(
+                  {k: v / GW_SYNC_STEPS for k, v in sites.most_common()})),
+          flush=True)
+    profile_steps(label, lambda: gridworld_step(env, handles, rng),
+                  PROFILE_STEPS, ms_per_step)
+    rec = record_operands(lambda: gridworld_step(env, handles, rng),
+                          [(wg, "window_gather")])
+    form = "sequential battle map %d, A=%d, B=1" % (GW_MAP,
+                                                    env.spec.n_agents_cap)
+    stats = {"window_gather": [
+        call_stats("window_gather", a, k, f32_rate, int32_rate,
+                   "%s, group %d" % (form, g))
+        for g, (a, k) in enumerate(rec["window_gather"])]}
+    del rec, env
+    torch.cuda.empty_cache()
+    # the armies interleaved, so that attacks land from the first step (a
+    # landed attack pays 0.2 - 0.1 - 0.005 > 0)
+    seen = check_grid_world_gpu_matches_cpu(
+        "%s, 2x625 interleaved" % label,
+        functools.partial(sequential_world, place=place_interleaved),
+        SEQ_GPU_CPU_STEPS)
+    if not any((r > 0).any() for rs in seen["rewards"] for r in rs):
+        raise AssertionError("%s: the GPU-vs-CPU run landed no attack"
+                             % label)
+    return counts, stats
+
+
+def snake_world(device):
+    from magent_tpu_torch import discrete_snake as ds
+
+    cfg = ds.Config()
+    cfg.set({"seed": SNAKE_SEED})
+    env = ds.DiscreteSnake(cfg, caps=SNAKE_CAPS, max_length=SNAKE_MAX_LENGTH,
+                           device=device)
+    env.add_walls(method="random", n=SNAKE_WALLS)
+    env.add_food(method="random", n=SNAKE_FOOD)
+    env.add_agent(method="random", n=SNAKE_AGENTS)
+    return env
+
+
+def snake_step(env, rng):
+    """``get_observation -> set_action -> step -> get_reward ->
+    clear_dead`` with uniform random actions."""
+    view, feat = env.get_observation()
+    env.set_action(0, rng.randint(0, 5, len(view)).astype(np.int32))
+    env.step()
+    reward = env.get_reward()
+    env.clear_dead()
+    return view, feat, reward
+
+
+def check_snake_gpu_matches_cpu(n_steps):
+    from magent_tpu_torch.discrete_snake import SNAKE_FIELDS
+
+    envs = {d: snake_world(d) for d in ("cuda", "cpu")}
+    rngs = {d: np.random.RandomState(7) for d in envs}
+    died = ate = 0
+    for step in range(n_steps):
+        out = {d: snake_step(envs[d], rngs[d]) for d in envs}
+        for k, what in enumerate(("views", "features", "rewards")):
+            a, b = out["cuda"][k], out["cpu"][k]
+            if a.shape != b.shape or a.dtype != b.dtype or not np.array_equal(
+                    a.view(np.int32), b.view(np.int32)):
+                raise AssertionError("snake: %s differ between GPU and CPU "
+                                     "at step %d" % (what, step))
+        for name in SNAKE_FIELDS:
+            if not torch.equal(getattr(envs["cuda"].state, name).cpu(),
+                               getattr(envs["cpu"].state, name)):
+                raise AssertionError("snake: state field %s differs at step "
+                                     "%d" % (name, step))
+        died += int((out["cpu"][2] > 1).sum())
+        ate += int(((out["cpu"][2] > 0) & (out["cpu"][2] <= 1)).sum())
+    if not (died and ate):
+        raise AssertionError("snake GPU vs CPU: %d deaths, %d eats" % (died,
+                                                                       ate))
+    print("snake GPU vs CPU: map %d, %d slots, %d steps: views, features, "
+          "rewards and every state field (the threefry key included) equal "
+          "(%d deaths, %d eats; %d snakes left)" % (
+              envs["cpu"].width, SNAKE_CAPS, n_steps, died, ate,
+              envs["cpu"].get_num()), flush=True)
+
+
+def run_snake_path(f32_rate, int32_rate, device_name):
+    """Phase 4e (3): the fast DiscreteSnake at the JAX package's defaults,
+    timed (launches, host syncs, the profiler); ``window_gather`` against
+    its plain version on one observation's operands; then GPU = CPU.  ->
+    ({kernel: launches in the timed run}, {kernel: [call_stats]})."""
+    from magent_tpu_torch import ops
+    from magent_tpu_torch.ops import window_gather as wg
+
+    label = "DiscreteSnake map 100"
+    env = snake_world(None)
+    if env.device.type != "cuda":
+        raise AssertionError("%s: on %s by default" % (label, env.device))
+    rng = np.random.RandomState(0)
+    n0 = env.get_num()
+    for _ in range(SNAKE_WARMUP):
+        snake_step(env, rng)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    live = 0
+    for _ in range(SNAKE_TIMED):
+        view, feat, reward = snake_step(env, rng)
+        live += len(view)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    ms_per_step = dt / SNAKE_TIMED * 1e3
+    print("%s: %d snakes placed in %d slots, %d left after %d timed steps "
+          "in %.4f s: %.4f ms/step wall, %.1f snake-steps/s on %s" % (
+              label, n0, SNAKE_CAPS, env.get_num(), SNAKE_TIMED, dt,
+              ms_per_step, live / dt, device_name), flush=True)
+    expected = {k: SNAKE_TIMED * (k == "window_gather") for k in ops.KERNELS}
+    if counts != expected:
+        raise AssertionError("%s: launch counts %s, expected %s" % (
+            label, counts, expected))
+    if view.shape[1:] != env.get_view_space() or \
+            feat.shape[1:] != env.get_feature_space() or not (
+                np.isfinite(view).all() and np.isfinite(feat).all()
+                and np.isfinite(reward).all()) or env.get_food_num() <= 0:
+        raise AssertionError("%s outputs: shapes %s %s, not finite, or no "
+                             "food" % (label, view.shape, feat.shape))
+    syncs, sites = count_host_syncs(lambda: snake_step(env, rng),
+                                    GW_SYNC_STEPS)
+    print("%s: %.1f host syncs per step (torch.cuda sync debug mode, %d "
+          "steps); per step by call site: %s" % (
+              label, syncs, GW_SYNC_STEPS, json.dumps(
+                  {k: v / GW_SYNC_STEPS for k, v in sites.most_common()})),
+          flush=True)
+    profile_steps(label, lambda: snake_step(env, rng), PROFILE_STEPS,
+                  ms_per_step)
+    rec = record_operands(lambda: snake_step(env, rng),
+                          [(wg, "window_gather")])
+    (args, kwargs), = rec["window_gather"]
+    stats = {"window_gather": [call_stats(
+        "window_gather", args, kwargs, f32_rate, int32_rate,
+        "snake map 100, view 21x21, A=%d, image %s" % (
+            SNAKE_CAPS, list(args[0].shape)))]}
+    del rec, env
+    torch.cuda.empty_cache()
+    check_snake_gpu_matches_cpu(SNAKE_GPU_CPU_STEPS)
+    return counts, stats
 
 
 # launches per step of pursuit's gridless rect path (the rest 0): at map 64
@@ -3047,6 +3397,12 @@ def main() -> int:
     turn = {m: run_turn_path(m, f32_rate, int32_rate, device_name)
             for m in TURN_MAPS}
     check_turn_gpu_matches_cpu()
+    n_goldens = check_goldens_on_card()
+    reference_order = {
+        "sequential GridWorld battle map %d" % GW_MAP: run_sequential_path(
+            f32_rate, int32_rate, device_name),
+        "DiscreteSnake map 100": run_snake_path(f32_rate, int32_rate,
+                                                device_name)}
     # later phases report their peak memory from here
     torch.cuda.reset_peak_memory_stats()
     rect_rows, banded_500, syncs_500, g4_forms = run_pursuit_paths(
@@ -3102,10 +3458,12 @@ def main() -> int:
             ("pursuit GridWorld map %d" % m, v)
             for m, v in pursuit_worlds.items()] + [
             ("turn mode map %d, B=%d" % (m, TURN_MAPS[m][0]), v)
-            for m, v in turn.items()]:
+            for m, v in turn.items()] + list(reference_order.items()):
         for name, st in stats.items():
             rows[name]["per_call"] += st
             rows[name].setdefault("launches_by_path", {})[path] = counts[name]
+    print("phase 4e: %d C++ goldens matched (14 GridWorld on the card, "
+          "snake_basic on the host)" % n_goldens, flush=True)
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name,

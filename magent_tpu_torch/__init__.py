@@ -5,13 +5,19 @@ many-agent gridworld on an NVIDIA GPU with PyTorch and hand-written CUDA
 kernels (``csrc/``), and imports nothing of JAX or of ``magent_tpu``.
 
 Ported so far: the stateful ``GridWorld`` API on the engine's grid path
-(any walls, multi-cell bodies, food, turn mode and absorb), and the
-lockstep vectorized loop (``parallel.VecGridWorld``) on the gridless path,
+(any walls, multi-cell bodies, food, turn mode and absorb) and in
+``engine_mode="sequential"`` (the reference C++ engine's order, stepped on
+the host by ``core.seq_engine``, observed on the device), the lockstep
+vectorized loop (``parallel.VecGridWorld``) on the gridless path,
 1x1 bodies and pursuit's multi-cell rect bodies, with optional interior
 walls (on the grid path past the pair kernels' caps and for food, turn
 mode and absorb) — device reset (random facings in turn mode), NORTH-only
-and, in turn mode, rotating observations, both random-action samplers.
-Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+and, in turn mode, rotating observations, both random-action samplers —
+and ``discrete_snake.DiscreteSnake``.
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``,
+except the sequential snake (``DiscreteSnake(..., engine_mode=
+"sequential")``, ``core.seq_snake``): host NumPy only, like the JAX
+package's, it takes no device.
 """
 
 from . import gridworld

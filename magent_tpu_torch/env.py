@@ -9,7 +9,9 @@ getters.  Underneath, the state is the port's batched :class:`State` with
 one world (B = 1) on ``device`` (the GPU unless the caller names the CPU),
 stepped by the engine's grid path; agent and wall placement run on the host
 with the reference's LCG, so a seed places the same cells as the JAX
-package.
+package.  ``engine_mode="sequential"`` steps the reference C++ engine's
+order instead (:mod:`core.seq_engine`, host NumPy): the state goes to the
+host and back once per step, and the observation stays on ``device``.
 
 Fixed capacities grow on demand (powers of two from 256); growth rebuilds
 the step and observation functions for the new slot layout.
@@ -26,20 +28,65 @@ from . import random as rnd
 from . import spec as speclib
 from .config import Config
 from .core import engine, lcg, observe
+from .core.seq_engine import SequentialEngine
 from .core.state import State, init_state
 from .environment import Environment
 from .parallel.vec_env import resolve_device
 from .spec import NORTH, OP_NULL
 
-_SEQUENTIAL = ("engine_mode='sequential' (the reference-order NumPy engine) "
-               "is not ported yet: ROADMAP.md Queue 1 item 8")
-_RENDER = ("rendering is not ported yet: ROADMAP.md Queue 1 items 8 and 16")
+_RENDER = "rendering is not ported yet: ROADMAP.md Queue 1 item 16"
 
 # per-slot state fields carried across a capacity change
 _SLOT_FIELDS = (
     "x", "y", "dir", "hp", "active", "dead", "absorbed", "id",
     "last_action", "next_reward", "last_reward", "last_op", "op_obj",
 )
+# the fields the sequential engine reads (``SequentialEngine.step``'s ``S``),
+# and those of them it writes back (with ``last_action``, ``done``)
+_SEQ_READ = (
+    "x", "y", "dir", "hp", "active", "dead", "absorbed", "next_reward",
+    "last_op", "op_obj", "id", "cell_slot", "cell_wall", "cell_food",
+    "group_reward",
+)
+_SEQ_WRITE = (
+    "x", "y", "dir", "hp", "dead", "absorbed", "next_reward", "last_op",
+    "op_obj", "cell_slot", "cell_food", "group_reward",
+)
+
+
+def _to_host(tensors, device):
+    """Row 0 of each tensor as a writable numpy array of its own.  On the
+    GPU: one asynchronous copy each into pinned memory, then one wait."""
+    if device.type != "cuda":
+        return [t[0].numpy().copy() for t in tensors]
+    out = [t[0].to("cpu", non_blocking=True) for t in tensors]
+    torch.cuda.current_stream(device).synchronize()
+    return [o.numpy() for o in out]
+
+
+def _to_device(arrays, device):
+    """Numpy arrays -> tensors on ``device`` with a leading axis of 1 and
+    their own dtypes, in one host-to-device copy: their bytes are packed
+    into one buffer (each padded to 8 bytes; pinned, and copied without a
+    wait, on the GPU) and the tensors are views of it on the device."""
+    parts, spans, off = [], [], 0
+    for a in arrays:
+        raw = np.ascontiguousarray(a).reshape(-1).view(np.uint8)
+        pad = -len(raw) % 8
+        parts.append(raw)
+        if pad:
+            parts.append(np.zeros(pad, np.uint8))
+        spans.append(off)
+        off += len(raw) + pad
+    buf = torch.from_numpy(np.concatenate(parts))
+    if device.type == "cuda":
+        buf = buf.pin_memory().to(device, non_blocking=True)
+    out = []
+    for a, start in zip(arrays, spans):
+        dtype = torch.from_numpy(a[:0]).dtype
+        t = buf[start:start + a.nbytes].view(dtype)
+        out.append(t.reshape((1,) + a.shape))
+    return out
 
 
 def _body_wh(d: int, w: int, l: int):
@@ -78,12 +125,14 @@ class GridWorld(Environment):
             config = getattr(mod, "get_config")(**kwargs)
         assert isinstance(config, Config)
         assert engine_mode in ("fast", "sequential")
-        if engine_mode == "sequential":
-            raise NotImplementedError(_SEQUENTIAL)
         super().__init__()
 
         self.device = resolve_device(device)
         self._config = config
+        self._engine_mode = engine_mode
+        self._seq = None  # SequentialEngine of the current spec
+        self._dead_ct = None  # its per-group death counts (host)
+        self._last_attack_events = []
         self._caps = self._initial_caps(config, caps)
         self._lcg = lcg.HostLCG(int(config.config_dict.get("seed", 0)))
         self._pre_step_dead = None
@@ -220,6 +269,8 @@ class GridWorld(Environment):
         self.state = init_state(self.spec, self.device).replace(
             key=carry_key, lcg=self._lcg_tensor())
         self._actions[:] = 0
+        if self._dead_ct is not None:
+            self._dead_ct[:] = 0
 
     def set_seed(self, seed):
         self._lcg.seed(seed)
@@ -239,6 +290,8 @@ class GridWorld(Environment):
         handle = Handle(len(self._config.groups) - 1)
         self.group_handles.append(handle)
         self._migrate(list(self._caps) + [256])
+        if self._dead_ct is not None:
+            self._dead_ct = np.append(self._dead_ct, 0)
         return handle
 
     def add_walls(self, method, **kwargs):
@@ -428,10 +481,37 @@ class GridWorld(Environment):
         # place, so a reference is a snapshot)
         self._pre_step_dead = self.state.dead
         counts = self._n_host
-        self.state = self._step_fn(
-            self.state, torch.tensor(self._actions[None], device=self.device))
+        if self._engine_mode == "sequential":
+            done = self._step_sequential()
+        else:
+            self.state = self._step_fn(self.state, torch.tensor(
+                self._actions[None], device=self.device))
+            done = bool(self.state.done[0])
         self._n_host = counts  # a step never changes n_in_group
-        return bool(self.state.done[0])
+        return done
+
+    def _step_sequential(self):
+        """Reference-order parity step: row 0 of the state to the host, one
+        :meth:`SequentialEngine.step` there, the changed fields back to the
+        device (``magent_tpu/env.py`` ``_step_sequential``)."""
+        if self._seq is None or self._seq.spec is not self.spec:
+            self._seq = SequentialEngine(self.spec)
+        if self._dead_ct is None:
+            self._dead_ct = np.zeros(self.spec.n_groups, np.int64)
+        st = self.state
+        S = dict(zip(_SEQ_READ, _to_host(
+            [getattr(st, f) for f in _SEQ_READ], self.device)))
+        S["last_action"] = self._actions.copy()
+        S["dead_ct"] = self._dead_ct
+        done = bool(self._seq.step(S, self._lcg))
+        # the exact event list (the fast engine's render reconstructs it)
+        self._last_attack_events = list(self._seq.attack_events)
+        new = _to_device([S[f] for f in _SEQ_WRITE]
+                         + [self._actions, np.array([done])], self.device)
+        self.state = st.replace(
+            **dict(zip(_SEQ_WRITE, new[:-2])), last_action=new[-2],
+            done=new[-1][0], lcg=self._lcg_tensor(), step_ct=st.step_ct + 1)
+        return done
 
     def get_reward(self, handle):
         g = handle.value
@@ -443,6 +523,8 @@ class GridWorld(Environment):
 
     def clear_dead(self):
         self.state = self._clear_fn(self.state)
+        if self._dead_ct is not None:
+            self._dead_ct[:] = 0
 
     # -------------------------------------------------------------- info
     def get_handles(self):

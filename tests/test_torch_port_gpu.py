@@ -16,7 +16,9 @@ lockstep loop (battle; pursuit with and without interior walls; pursuit's
 one world on the segmented route; battle forced onto the banded route with
 bf16 views), of the stateful GridWorld (battle; the grid path's multi-cell
 bodies, food and absorb: pursuit on both routes and the golden food,
-food_crumb and absorb layouts; the food sums' order) and of the
+food_crumb and absorb layouts; the food sums' order; sequential mode on
+the battle_melee, food_crumb and turn_bodies goldens), of the fast
+DiscreteSnake at its default map (100 x 100, 256 slots) and of the
 fused DQN trainers (one step of each, f32, TF32 off, from the trusty battle
 weights read with numpy); the reward-rule plans (``GeneralRule`` whole and
 chunked, ``PairSharedObjectRule``) on random states, GPU against CPU.
@@ -1285,7 +1287,7 @@ def test_rule_plans_gpu_match_cpu(cuda, max_tensor, integer, monkeypatch):
     assert fired >= 10
 
 
-def _golden_world(name, device):
+def _golden_world(name, device, **kwargs):
     """A golden scenario's GridWorld (tests/golden/scenarios.py) with its
     placements."""
     import os
@@ -1296,7 +1298,8 @@ def _golden_world(name, device):
     from magent_tpu_torch import gridworld as tgw
 
     spec = SCENARIOS[name]
-    env = GridWorld(spec["cfg"](tgw, spec["map_size"]), device=device)
+    env = GridWorld(spec["cfg"](tgw, spec["map_size"]), device=device,
+                    **kwargs)
     env.reset()
     for h, pos in zip(env.get_handles(), spec["placements"]):
         env.add_agents(h, method="custom", pos=pos)
@@ -1452,3 +1455,88 @@ def test_turn_lockstep_gpu_matches_cpu(cuda, route, dtype, monkeypatch):
     if route != "per_direction":
         assert ops.launch_counts()[counter] - before == 8
     assert len(torch.unique(states[1].dir)) == 4
+
+
+PAIR_KERNELS = ("occupant", "rank_prefix", "move_resolve", "rank_prefix_hp",
+                "move_claims", "occupant_rect", "rect_first_overlap",
+                "occupant_rect_seg", "rect_first_overlap_seg",
+                "rank_prefix_seg")
+
+
+@pytest.mark.parametrize("name", ["battle_melee", "food_crumb",
+                                  "turn_bodies"])
+def test_sequential_gridworld_gpu_matches_cpu(cuda, name):
+    """``engine_mode="sequential"`` on the card and on the CPU: the
+    golden's placements and a seeded action stream give equal views,
+    features, rewards, attack events and states after every step, exactly,
+    over the golden's steps.  The step runs on the host, so it launches no
+    pair kernel; the observation launches the window kernels."""
+    envs = [_golden_world(name, d, engine_mode="sequential")
+            for d in (cuda, "cpu")]
+    rng = np.random.RandomState(5)
+    before = ops.launch_counts()
+    for step in range(40):
+        for h in envs[1].get_handles():
+            (gv, gf), (cv, cf) = (e.get_observation(h) for e in envs)
+            np.testing.assert_array_equal(gv, cv, err_msg="views %d" % step)
+            np.testing.assert_array_equal(gf, cf)
+            acts = rng.randint(0, envs[1].get_action_space(h)[0],
+                               envs[1].get_num(h)).astype(np.int32)
+            for e in envs:
+                e.set_action(h, acts)
+        done = [e.step() for e in envs]
+        assert done[0] == done[1]
+        assert envs[0]._last_attack_events == envs[1]._last_attack_events
+        for h in envs[1].get_handles():
+            np.testing.assert_array_equal(envs[0].get_reward(h),
+                                          envs[1].get_reward(h))
+        for e in envs:
+            e.clear_dead()
+        for field in FIELDS:
+            got, want = getattr(envs[0].state, field), getattr(envs[1].state,
+                                                               field)
+            assert got.device.type == "cuda" and got.dtype == want.dtype
+            assert torch.equal(got.cpu(), want), (field, step)
+        if done[0]:
+            break
+    counts = ops.launch_counts()
+    launched = {k: counts[k] - before[k] for k in counts}
+    assert not any(launched[k] for k in PAIR_KERNELS), launched
+    assert sum(launched.values()) >= 2 * (step + 1), launched
+
+
+def test_fast_snake_gpu_matches_cpu(cuda):
+    """The fast DiscreteSnake at the JAX package's default map (100 x 100,
+    view 21 x 21, caps 256, max_length 48) on the card and on the CPU: equal
+    views, features, rewards and states (threefry key included) over 20
+    steps; one ``window_gather`` launch per observation on the card."""
+    from magent_tpu_torch import discrete_snake as tds
+
+    envs = []
+    for d in (cuda, "cpu"):
+        cfg = tds.Config()
+        cfg.set({"seed": 0})
+        env = tds.DiscreteSnake(cfg, device=d)
+        env.add_walls(method="random", n=100)
+        env.add_food(method="random", n=500)
+        env.add_agent(method="random", n=256)
+        envs.append(env)
+    rng = np.random.RandomState(3)
+    before = ops.launch_counts()["window_gather"]
+    for step in range(20):
+        (gv, gf), (cv, cf) = (e.get_observation() for e in envs)
+        np.testing.assert_array_equal(gv.view(np.int32), cv.view(np.int32))
+        np.testing.assert_array_equal(gf, cf)
+        acts = rng.randint(0, 5, envs[1].get_num()).astype(np.int32)
+        for e in envs:
+            e.set_action(0, acts)
+            e.step()
+        np.testing.assert_array_equal(envs[0].get_reward(),
+                                      envs[1].get_reward())
+        for e in envs:
+            e.clear_dead()
+        for field in tds.SNAKE_FIELDS:
+            assert torch.equal(getattr(envs[0].state, field).cpu(),
+                               getattr(envs[1].state, field)), (field, step)
+    assert ops.launch_counts()["window_gather"] - before == 20
+

@@ -401,20 +401,28 @@ def test_gridworld_runs_on_the_card_by_default():
 
 
 def test_unported_modes_raise():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        tmagent.GridWorld("battle", map_size=20, engine_mode="sequential",
-                          device="cpu")
-    env = tmagent.GridWorld("battle", map_size=20, device="cpu")
-    for call in (lambda: env.set_render_dir("x"), env.render,
-                 lambda: env._get_render_info((0, 1), (0, 1))):
-        with pytest.raises(NotImplementedError, match="items 8 and 16"):
-            call()
+    """Sequential mode is ported: it builds and steps.  Rendering is not,
+    in either mode: its calls raise, citing ROADMAP Queue 1 item 16."""
+    for mode in ("sequential", "fast"):
+        env = tmagent.GridWorld("battle", map_size=20, engine_mode=mode,
+                                device="cpu")
+        h0, h1 = env.get_handles()
+        env.add_agents(h0, method="custom", pos=[[5, 5], [7, 5]])
+        env.add_agents(h1, method="custom", pos=[[6, 6]])
+        random_round(env, np.random.RandomState(0), 2)
+        for call in (lambda: env.set_render_dir("x"), env.render,
+                     lambda: env._get_render_info((0, 1), (0, 1))):
+            with pytest.raises(NotImplementedError,
+                               match="Queue 1 item 16$"):
+                call()
 
 
 def test_env_imports_no_jax():
-    """Importing the port's GridWorld pulls in neither JAX nor the JAX
-    package."""
-    code = ("import sys, magent_tpu_torch.env, magent_tpu_torch; "
+    """Importing the port's GridWorld, DiscreteSnake and sequential engine
+    pulls in neither JAX nor the JAX package."""
+    code = ("import sys, magent_tpu_torch.env, magent_tpu_torch, "
+            "magent_tpu_torch.discrete_snake, "
+            "magent_tpu_torch.core.seq_engine; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'magent_tpu')); "
             "print(bad); sys.exit(1 if bad else 0)")
