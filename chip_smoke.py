@@ -149,24 +149,29 @@ Run from the repository root:  python3 chip_smoke.py
    the launch counters set to 0, times every variant, ``window_gather4``
    without and with its epilogue included, and prints each one's bound and
    each level's increment over the one before;
-9. runs the fused DQN trainers at ``scripts/bench_train.py``'s geometry —
+9. runs the fused trainers at ``scripts/bench_train.py``'s geometry —
    battle 2x1000, map 200, B=16, bf16 views (``obs_dtype``) and a bf16 net
-   trunk, rollout 8, 4 train steps per call, target refresh every 40, eps
-   0.3, both groups from the trusty battle checkpoints
-   (``params_from_flax``): holds the bf16 forms of the three window kernels
-   against their plain versions (``window_gather`` on the trainer's
-   operands, B=16, and on their first env, B=1; ``window_gather4`` on
-   phase 5's map-64 forms, ``window_gather_banded`` on phase 7's map-1000
-   forms, each with its ``window form`` line), checks that
-   bf16 views are the f32 views rounded (battle 2x1000, pursuit map 64),
-   then runs ``dqn`` (``train_minibatch=16384``) and ``dqn_remat``
-   (``sample_steps=2``): one warm call and 3 timed calls each, with
-   trained agent-steps/s, ms per train step split into rollout and
-   learner, host syncs, device ops and the bf16 window kernel's device
-   time per train step (torch.profiler), peak device memory, and the
-   launch counts (bf16 ``window_gather`` 2 per env step, plus 4 per
-   sampled step in remat); then one step of each trainer on the GPU and on
-   the CPU at a small size (f32, eps 1.0, TF32 off);
+   trunk, rollout 8, 4 train steps per call, ``ClipAdam(1e-4, 5)``, target
+   refresh every 40, eps 0.3: holds the bf16 forms of the three window
+   kernels against their plain versions (``window_gather`` on the
+   trainer's operands, B=16, and on their first env, B=1;
+   ``window_gather4`` on phase 5's map-64 forms, ``window_gather_banded``
+   on phase 7's map-1000 forms, each with its ``window form`` line),
+   checks that bf16 views are the f32 views rounded (battle 2x1000,
+   pursuit map 64), then runs ``dqn`` (``train_minibatch=16384``) and
+   ``dqn_remat`` (``sample_steps=2``) from the trusty battle checkpoints
+   (``params_from_flax``), ``a2c`` (no CommNet) and ``drqn``
+   (``share_acting``, ``unroll_remat="all"``) from fresh nets (flax's
+   initializers from seeded ``torch.Generator``s): one warm call and 3
+   timed calls each, with trained agent-steps/s, ms per train step split
+   into rollout and learner, host syncs, device ops and the kernels'
+   device time per train step (torch.profiler), peak device memory, and
+   the launch counts per train step (bf16 ``window_gather`` 2 per env
+   step, plus 4 per sampled step in remat and 2 for A2C's bootstrap;
+   ``occupant``, ``rank_prefix``, ``move_resolve`` 1 per env step); then
+   one step of each trainer on the GPU and on the CPU at a small size
+   (f32, TF32 off; eps 1.0 for the Q trainers; A2C's draws all clear of
+   ties by 1e-5; DRQN's hiddens too);
 10. runs 4 steps at battle map 64, 2x200, B=4, 6 GridWorld steps at battle
     map 40, 2x64, 8 double_attack GridWorld steps at map 60 (train_tiger's
     layout, pair kernels) and at map 20 (the golden layout, sort branches
@@ -240,6 +245,21 @@ TRAIN_ROLLOUT, TRAIN_SPC, TRAIN_TARGET_UPDATE, TRAIN_EPS = 8, 4, 40, 0.3
 TRAIN_MINIBATCH, TRAIN_SAMPLE_STEPS, TRAIN_CALLS, TRAIN_LR = 16384, 2, 3, 1e-4
 TRUSTY = tuple("data/models/trusty-battle-game-%s/tfdqn_0.npz" % side
                for side in "lr")
+# bench_train's four algorithms; a2c and drqn have no trusty checkpoint and
+# start from fresh nets, flax's initializers drawn from torch.Generator
+# seeds TRAIN_NET_SEED + group
+TRAINERS = ("dqn", "dqn_remat", "a2c", "drqn")
+TRAIN_NET_SEED = 16
+TRAINER_NETS = {"dqn": "trusty weights", "dqn_remat": "trusty weights",
+                "a2c": "fresh nets (no CommNet)",
+                "drqn": "fresh nets, share_acting, unroll_remat all, "
+                        "target_update %d, eps %g" % (TRAIN_TARGET_UPDATE,
+                                                      TRAIN_EPS)}
+# window_gather_bf16 launches per train step beyond the rollout's 2 per env
+# step: remat re-renders steps t and t + 1 of both groups per sampled step,
+# A2C renders the post-rollout state once for its bootstrap values
+LEARNER_VIEWS = {"dqn": 0, "dqn_remat": 4 * TRAIN_SAMPLE_STEPS, "a2c": 2,
+                 "drqn": 0}
 # the trainers' GPU-vs-CPU step: tests/test_train_fused.py's size, f32
 TRAIN_SMALL_MAP, TRAIN_SMALL_CAPS, TRAIN_SMALL_ENVS, TRAIN_SMALL_T = (
     20, [6, 6], 4, 3)
@@ -253,6 +273,10 @@ TRAIN_SMALL_MAP, TRAIN_SMALL_CAPS, TRAIN_SMALL_ENVS, TRAIN_SMALL_T = (
 # the moment tolerance), and 2 * lr more elsewhere
 TRAIN_LOSS_RTOL, TRAIN_MOMENT_RTOL = 1e-5, 1e-2
 TRAIN_PARAM_ATOL = 0.2 * TRAIN_LR
+# A2C's draws: equal wherever the top two log(policy) + gumbel scores lie
+# further apart than the devices' rounding of softmax and log
+# (tests/test_torch_port_a2c.py); DRQN's hiddens after three f32 GRU steps
+TRAIN_MARGIN, TRAIN_HIDDEN_ATOL = 1e-5, 1e-5
 
 # The data sheet's 67 TFLOP/s float32 counts an FMA as two operations; the
 # kernels here do no FMA and mostly int32 work, so their peaks are taken per
@@ -3027,9 +3051,67 @@ def check_bf16_views(label, venv, state):
               if n_diff else "all equal"), flush=True)
 
 
-def train_split_ms(step, nets, tnets, opts, state, key, n=3):
+def trainer_loop(alg, venv, tx, dtype):
+    """The loop of trainer ``alg`` at scripts/bench_train.py's settings on
+    ``venv`` and its first carry (nets first; ``dqn``, ``dqn_remat`` from
+    the trusty weights, ``a2c``, ``drqn`` fresh from seeded generators)."""
+    from magent_tpu_torch import random as rnd
+    from magent_tpu_torch import parallel as par
+
+    dev, spec = venv.device, venv.spec
+    common = dict(steps_per_call=TRAIN_SPC, rollout_len=TRAIN_ROLLOUT)
+    state = venv.reset(rnd.PRNGKey(1, dev))
+    if alg == "a2c":
+        nets = fresh_nets(alg, spec, dev, dtype)
+        return (par.make_a2c_train_loop(venv, tx, **common),
+                [nets, tuple(tx.init(n) for n in nets), state])
+    if alg == "drqn":
+        nets = fresh_nets(alg, spec, dev, dtype)
+        loop = par.make_drqn_train_loop(
+            venv, tx, target_update=TRAIN_TARGET_UPDATE, share_acting=True,
+            unroll_remat="all", **common)
+        return loop, [nets, fresh_nets(alg, spec, dev, dtype),
+                      tuple(tx.init(n) for n in nets), state,
+                      par.init_drqn_hiddens(venv, nets)]
+    if alg == "dqn":
+        loop = par.make_dqn_train_loop(
+            venv, tx, target_update=TRAIN_TARGET_UPDATE,
+            train_minibatch=TRAIN_MINIBATCH, **common)
+    else:
+        loop = par.make_dqn_remat_train_loop(
+            venv, tx, target_update=TRAIN_TARGET_UPDATE,
+            sample_steps=TRAIN_SAMPLE_STEPS, **common)
+    nets = trusty_nets(spec, dev, dtype)
+    return loop, [nets, trusty_nets(spec, dev, dtype),
+                  tuple(tx.init(n) for n in nets), state]
+
+
+def trainer_args(alg, key, c=0, step=False):
+    """The arguments after the carry of call ``c`` of trainer ``alg``'s
+    loop (or, with ``step``, of one train step): the key, and for the Q
+    trainers eps and the loop's step0."""
+    if alg == "a2c":
+        return (key,)
+    return (key, TRAIN_EPS) if step else (key, TRAIN_EPS, c * TRAIN_SPC)
+
+
+def fresh_nets(alg, spec, device, dtype):
+    """One fresh ``A2CNet`` or ``DRQNNet`` per group, flax's initializers
+    drawn from ``torch.Generator`` seeds TRAIN_NET_SEED + group."""
+    from magent_tpu_torch.builtin.torch_model import A2CNet, DRQNNet
+
+    cls = A2CNet if alg == "a2c" else DRQNNet
+    return tuple(cls(spec.view_space(g), spec.feature_size(g),
+                     spec.groups[g].type.n_action, dtype=dtype,
+                     generator=torch.Generator().manual_seed(
+                         TRAIN_NET_SEED + g)).to(device)
+                 for g in range(spec.n_groups))
+
+
+def train_split_ms(alg, step, carry, key, n=3):
     """Median ms of the rollout and of the learner of ``n`` more train
-    steps (synchronized host clock around each half)."""
+    steps of trainer ``alg`` (synchronized host clock around each half);
+    ``carry`` advances in place."""
     from magent_tpu_torch import random as rnd
 
     roll, learn = [], []
@@ -3037,30 +3119,133 @@ def train_split_ms(step, nets, tnets, opts, state, key, n=3):
         rkey, lkey = rnd.split(rnd.fold_in(key, i)).unbind(-2)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, traj = step.rollout(nets, state, rkey, TRAIN_EPS)
+        if alg == "a2c":
+            nets, opts, state = carry
+            state, traj = step.rollout(nets, state, rkey)
+        elif alg == "drqn":
+            nets, tnets, opts, h0_state, h0 = carry
+            state, hiddens, traj = step.rollout(nets, h0_state, h0, rkey,
+                                                TRAIN_EPS)
+        else:
+            nets, tnets, opts, state = carry
+            state, traj = step.rollout(nets, state, rkey, TRAIN_EPS)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        opts, _ = step.learn(nets, tnets, opts, traj, lkey)
+        if alg == "a2c":
+            opts, _ = step.learn(nets, opts, state, traj)
+            carry[:] = nets, opts, state
+        elif alg == "drqn":
+            opts, _ = step.learn(nets, tnets, opts, h0, traj)
+            carry[:] = (nets, tnets, opts, state,
+                        tuple(h.detach() for h in hiddens))
+        else:
+            opts, _ = step.learn(nets, tnets, opts, traj, lkey)
+            carry[:] = nets, tnets, opts, state
         torch.cuda.synchronize()
         roll.append((t1 - t0) * 1e3)
         learn.append((time.perf_counter() - t1) * 1e3)
         del traj
-    return statistics.median(roll), statistics.median(learn), opts, state
+    return statistics.median(roll), statistics.median(learn)
+
+
+def run_trainer(alg, venv, tx, device_name):
+    """Phase 9, one trainer at scripts/bench_train.py's geometry on
+    ``venv`` (bf16 views and trunk): a warm call, TRAIN_CALLS timed calls
+    of TRAIN_SPC steps (trained agent-steps/s, peak memory, the launch
+    counts asserted), the rollout/learner split, host syncs and the
+    profiler over one train step -> the timed calls' launch counts."""
+    from magent_tpu_torch import ops
+    from magent_tpu_torch import random as rnd
+    from magent_tpu_torch.builtin.torch_model import params_to_flax
+
+    dev = venv.device
+    n_env = TRAIN_ROLLOUT * TRAIN_SPC * TRAIN_CALLS
+    n_train = TRAIN_SPC * TRAIN_CALLS
+    loop, carry = trainer_loop(alg, venv, tx, torch.bfloat16)
+    lk = rnd.PRNGKey(2, dev)
+    before = [params_to_flax(n) for n in carry[0]]
+
+    def call(c):
+        out = loop(*carry, *trainer_args(alg, rnd.fold_in(lk, c), c))
+        carry[:] = out[:-1]
+        return out[-1]
+
+    float(call(0)["loss"].sum())  # the warm call
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    metrics = [call(c) for c in range(1, TRAIN_CALLS + 1)]
+    loss = torch.stack([m["loss"] for m in metrics]).cpu()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    agent_steps = 2 * N_PER_GROUP * N_ENVS * n_env
+    ms_step = dt / n_train * 1e3
+    extra = ("; mean values %s" % torch.stack(
+        [m["mean_value"] for m in metrics]).cpu()[-1].tolist()
+        if alg == "a2c" else "")
+    print("trainer %s: battle 2x%d, map %d, B=%d, rollout %d, %d steps "
+          "per call, bf16 views and trunk, %s: %d timed calls in %.4f s: "
+          "%.1f trained agent-steps/s, %.3f ms per train step on %s; "
+          "losses %s%s; peak device memory %.3f GB" % (
+              alg, N_PER_GROUP, MAP_SIZE, N_ENVS, TRAIN_ROLLOUT,
+              TRAIN_SPC, TRAINER_NETS[alg], TRAIN_CALLS, dt,
+              agent_steps / dt, ms_step, device_name, loss[-1].tolist(),
+              extra, peak / 1e9), flush=True)
+    expected = {name: 0 for name in ops.KERNELS}
+    expected.update(
+        window_gather_bf16=2 * n_env + LEARNER_VIEWS[alg] * n_train,
+        occupant=n_env, rank_prefix=n_env, move_resolve=n_env)
+    if counts != expected:
+        raise AssertionError("trainer %s: launch counts %s, expected %s"
+                             % (alg, counts, expected))
+    print("trainer %s: launches per train step %s" % (alg, json.dumps(
+        {k: v / n_train for k, v in counts.items() if v})), flush=True)
+    if not bool(torch.isfinite(loss).all()):
+        raise AssertionError("trainer %s: losses not finite" % alg)
+    for g, flat in enumerate(before):
+        now = params_to_flax(carry[0][g])
+        if all(np.array_equal(now[k], flat[k]) for k in flat):
+            raise AssertionError("trainer %s: group %d's params did not "
+                                 "change" % (alg, g))
+    if alg == "drqn" and any(h.requires_grad for h in carry[4]):
+        raise AssertionError("trainer drqn: the hiddens carry a graph")
+
+    step = loop.train_step
+    roll_ms, learn_ms = train_split_ms(alg, step, carry,
+                                       rnd.PRNGKey(3, dev))
+    print("trainer %s: a train step is %.3f ms of rollout (%d env steps) "
+          "and %.3f ms of learner (median of 3 synchronized steps)" % (
+              alg, roll_ms, TRAIN_ROLLOUT, learn_ms), flush=True)
+    args = trainer_args(alg, rnd.PRNGKey(4, dev), step=True)
+
+    def one_step():
+        step(*carry, *args)
+
+    syncs, sites = count_host_syncs(one_step, 1)
+    print("trainer %s: %.1f host syncs per train step (torch.cuda sync "
+          "debug mode); by call site: %s" % (
+              alg, syncs, json.dumps(dict(sites.most_common()))),
+          flush=True)
+    profile_steps("trainer %s, per train step" % alg, one_step, 1,
+                  ms_step)
+    del loop, step, carry, metrics, one_step, call
+    torch.cuda.empty_cache()
+    return counts
 
 
 def run_trainers(f32_rate, int32_rate, device_name, g4_forms, banded_1000):
-    """Phase 9: the fused DQN trainers at scripts/bench_train.py's geometry
-    with bf16 views and trunk; returns the bf16 window kernels' rows
+    """Phase 9: the fused trainers at scripts/bench_train.py's geometry
+    with bf16 views and trunk -> (the bf16 window kernels' rows
     (``window_gather4`` on phase 5's forms, ``window_gather_banded`` on
-    phase 7's: the step's calls, the forms off the path)."""
-    from magent_tpu_torch import ops
+    phase 7's: the step's calls, the forms off the path), each trainer's
+    launch counts)."""
     from magent_tpu_torch import random as rnd
     from magent_tpu_torch.builtin.config import battle
-    from magent_tpu_torch.builtin.torch_model import params_to_flax
     from magent_tpu_torch.ops import window_gather as wg
-    from magent_tpu_torch.parallel import (ClipAdam, VecGridWorld,
-                                           make_dqn_remat_train_loop,
-                                           make_dqn_train_loop)
+    from magent_tpu_torch.parallel import ClipAdam, VecGridWorld
 
     bf16 = torch.bfloat16
     venv = VecGridWorld(battle.get_config(MAP_SIZE),
@@ -3108,149 +3293,119 @@ def run_trainers(f32_rate, int32_rate, device_name, g4_forms, banded_1000):
     check_bf16_views("pursuit map 64, B=16", p64, p64.reset(rnd.PRNGKey(0)))
     del p64
 
-    flats = [dict(np.load(path)) for path in TRUSTY]
     tx = ClipAdam(TRAIN_LR, 5.0)
-    n_env = TRAIN_ROLLOUT * TRAIN_SPC * TRAIN_CALLS
-    n_train = TRAIN_SPC * TRAIN_CALLS
-    launches = collections.Counter()
-    for alg in ("dqn", "dqn_remat"):
-        if alg == "dqn":
-            loop = make_dqn_train_loop(
-                venv, tx, steps_per_call=TRAIN_SPC,
-                target_update=TRAIN_TARGET_UPDATE, rollout_len=TRAIN_ROLLOUT,
-                train_minibatch=TRAIN_MINIBATCH)
-            learner_views = 0
-        else:
-            loop = make_dqn_remat_train_loop(
-                venv, tx, steps_per_call=TRAIN_SPC,
-                target_update=TRAIN_TARGET_UPDATE, rollout_len=TRAIN_ROLLOUT,
-                sample_steps=TRAIN_SAMPLE_STEPS)
-            # each sampled step re-renders t and t + 1 for both groups
-            learner_views = 4 * TRAIN_SAMPLE_STEPS
-        nets = trusty_nets(venv.spec, dev, bf16)
-        carry = [nets, trusty_nets(venv.spec, dev, bf16),
-                 tuple(tx.init(n) for n in nets),
-                 venv.reset(rnd.PRNGKey(1, dev))]
-        lk = rnd.PRNGKey(2, dev)
-
-        def call(c):
-            out = loop(*carry, rnd.fold_in(lk, c), TRAIN_EPS, c * TRAIN_SPC)
-            carry[:] = out[:4]
-            return out[4]
-
-        float(call(0)["loss"].sum())  # the warm call
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        ops.reset_launch_counts()
-        t0 = time.perf_counter()
-        metrics = [call(c) for c in range(1, TRAIN_CALLS + 1)]
-        loss = torch.stack([m["loss"] for m in metrics]).cpu()
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        counts = ops.launch_counts()
-        peak = torch.cuda.max_memory_allocated()
-        agent_steps = 2 * N_PER_GROUP * N_ENVS * n_env
-        ms_step = dt / n_train * 1e3
-        print("trainer %s: battle 2x%d, map %d, B=%d, rollout %d, %d steps "
-              "per call, bf16 views and trunk: %d timed calls in %.4f s: "
-              "%.1f trained agent-steps/s, %.3f ms per train step on %s; "
-              "losses %s; peak device memory %.3f GB" % (
-                  alg, N_PER_GROUP, MAP_SIZE, N_ENVS, TRAIN_ROLLOUT,
-                  TRAIN_SPC, TRAIN_CALLS, dt, agent_steps / dt, ms_step,
-                  device_name, loss[-1].tolist(), peak / 1e9), flush=True)
-        expected = {name: 0 for name in ops.KERNELS}
-        expected.update(window_gather_bf16=2 * n_env + learner_views * n_train,
-                        occupant=n_env, rank_prefix=n_env, move_resolve=n_env)
-        if counts != expected:
-            raise AssertionError("trainer %s: launch counts %s, expected %s"
-                                 % (alg, counts, expected))
-        launches.update(counts)
-        if not bool(torch.isfinite(loss).all()):
-            raise AssertionError("trainer %s: losses not finite" % alg)
-        nets, tnets, opts, state = carry
-        for g, flat in enumerate(flats):
-            now = params_to_flax(nets[g])
-            if all(np.array_equal(now[k], flat[k]) for k in flat):
-                raise AssertionError("trainer %s: group %d's params did not "
-                                     "change" % (alg, g))
-
-        step = loop.train_step
-        roll_ms, learn_ms, opts, state = train_split_ms(
-            step, nets, tnets, opts, state, rnd.PRNGKey(3, dev))
-        print("trainer %s: a train step is %.3f ms of rollout (%d env steps) "
-              "and %.3f ms of learner (median of 3 synchronized steps)" % (
-                  alg, roll_ms, TRAIN_ROLLOUT, learn_ms), flush=True)
-        key = rnd.PRNGKey(4, dev)
-        syncs, sites = count_host_syncs(
-            lambda: step(nets, tnets, opts, state, key, TRAIN_EPS), 1)
-        print("trainer %s: %.1f host syncs per train step (torch.cuda sync "
-              "debug mode); by call site: %s" % (
-                  alg, syncs, json.dumps(dict(sites.most_common()))),
-              flush=True)
-        profile_steps("trainer %s, per train step" % alg,
-                      lambda: step(nets, tnets, opts, state, key, TRAIN_EPS),
-                      1, ms_step)
-        del loop, step, nets, tnets, opts, state, carry, metrics
-        torch.cuda.empty_cache()
+    by_alg = {alg: run_trainer(alg, venv, tx, device_name)
+              for alg in TRAINERS}
+    launches = sum(map(collections.Counter, by_alg.values()),
+                   collections.Counter())
 
     for name, row in rows.items():
         row["launches"] = launches[name]
     rows["window_gather_bf16"]["path"] = (
-        "the fused trainers dqn and dqn_remat, %d timed calls each" %
-        TRAIN_CALLS)
+        "the fused trainers %s, %d timed calls each" % (
+            ", ".join(TRAINERS), TRAIN_CALLS))
     for name in ("window_gather4_bf16", "window_gather_banded_bf16"):
         rows[name]["path"] = "on no trainer path (pursuit trains in f32)"
     del venv
     torch.cuda.empty_cache()
-    return rows
+    return rows, by_alg
 
 
 def small_train_step(alg, device):
     """One step of trainer ``alg`` at the GPU-vs-CPU size, f32, eps 1.0
-    (the actions do not read the Q values), from the trusty weights ->
-    (rollout, end state, metrics, per group (params, mu, nu) as flat flax
-    dicts)."""
+    for the Q trainers (the actions do not read the Q values), from the
+    trusty weights (``a2c``, ``drqn``: fresh nets from fixed seeds) ->
+    (the step's rollout or, for the DQN forms, a rollout from another key;
+    end state; metrics; per group (params, mu, nu) as flat flax dicts;
+    the returned hiddens (``drqn``) or the top-two Gumbel score gaps of
+    the rollout's draws (``a2c``))."""
     from magent_tpu_torch import random as rnd
+    from magent_tpu_torch import parallel as par
     from magent_tpu_torch.builtin.config import battle
-    from magent_tpu_torch.builtin.torch_model import params_to_flax
-    from magent_tpu_torch.builtin.torch_model.dqn import tensors_to_flax
-    from magent_tpu_torch.parallel import (ClipAdam, VecGridWorld,
-                                           make_dqn_train_step,
-                                           make_dqn_train_step_remat)
+    from magent_tpu_torch.builtin.torch_model import (params_to_flax,
+                                                      tensors_to_flax)
 
-    venv = VecGridWorld(battle.get_config(TRAIN_SMALL_MAP), TRAIN_SMALL_CAPS,
-                        TRAIN_SMALL_ENVS, device=device)
+    venv = par.VecGridWorld(battle.get_config(TRAIN_SMALL_MAP),
+                            TRAIN_SMALL_CAPS, TRAIN_SMALL_ENVS, device=device)
     dev = venv.device
-    tx = ClipAdam(TRAIN_LR, 5.0)
-    step = (make_dqn_train_step(venv, tx, rollout_len=TRAIN_SMALL_T,
-                                train_minibatch=32)
-            if alg == "dqn" else make_dqn_train_step_remat(
-                venv, tx, rollout_len=TRAIN_SMALL_T,
-                sample_steps=TRAIN_SAMPLE_STEPS))
-    nets = trusty_nets(venv.spec, dev)
+    tx = par.ClipAdam(TRAIN_LR, 5.0)
+    T = TRAIN_SMALL_T
     state = venv.reset(rnd.PRNGKey(0, dev))
-    _, traj = step.rollout(nets, state, rnd.PRNGKey(1, dev), 1.0)
-    nets, opts, state, m = step(nets, trusty_nets(venv.spec, dev),
-                                tuple(tx.init(n) for n in nets), state,
-                                rnd.PRNGKey(2, dev), 1.0)
+    key = rnd.PRNGKey(2, dev)
+    rkey = rnd.split(key)[1]  # the step's rollout key
+    extra = None
+    if alg in ("dqn", "dqn_remat"):
+        step = (par.make_dqn_train_step(venv, tx, rollout_len=T,
+                                        train_minibatch=32)
+                if alg == "dqn" else par.make_dqn_train_step_remat(
+                    venv, tx, rollout_len=T,
+                    sample_steps=TRAIN_SAMPLE_STEPS))
+        nets = trusty_nets(venv.spec, dev)
+        _, traj = step.rollout(nets, state, rnd.PRNGKey(1, dev), 1.0)
+        nets, opts, state, m = step(nets, trusty_nets(venv.spec, dev),
+                                    tuple(tx.init(n) for n in nets), state,
+                                    key, 1.0)
+    elif alg == "a2c":
+        step = par.make_a2c_train_step(venv, tx, rollout_len=T)
+        nets = fresh_nets(alg, venv.spec, dev, torch.float32)
+        _, traj = step.rollout(nets, state, rkey)
+        extra = a2c_margins(venv, nets, traj, rkey)
+        nets, opts, state, m = step(nets, tuple(tx.init(n) for n in nets),
+                                    state, key)
+    else:
+        step = par.make_drqn_train_step(venv, tx, rollout_len=T,
+                                        share_acting=True, unroll_remat="all")
+        nets = fresh_nets(alg, venv.spec, dev, torch.float32)
+        hiddens = par.init_drqn_hiddens(venv, nets)
+        with torch.no_grad():
+            _, _, traj = step.rollout(nets, state, hiddens, rkey, 1.0)
+        nets, opts, state, extra, m = step(
+            nets, fresh_nets(alg, venv.spec, dev, torch.float32),
+            tuple(tx.init(n) for n in nets), state, hiddens, key, 1.0)
     flat = []
     for net, st in zip(nets, opts):
         names = [n for n, _ in net.named_parameters()]
         flat.append((params_to_flax(net),
                      tensors_to_flax(dict(zip(names, st.mu))),
                      tensors_to_flax(dict(zip(names, st.nu)))))
-    return traj, state, m, flat
+    return traj, state, m, flat, extra
+
+
+def a2c_margins(venv, nets, traj, rkey):
+    """The gap between the top two ``log(policy) + gumbel`` scores of every
+    draw of an A2C rollout made with ``nets`` from ``rkey``
+    (parallel/train.py's key walk), checking that each draw took the top
+    score."""
+    from magent_tpu_torch import random as rnd
+
+    key, gaps = rkey, []
+    with torch.no_grad():
+        for t in range(traj["actions"].shape[0]):
+            key, akey = rnd.split(key).unbind(-2)
+            for g, gs in enumerate(venv.spec.groups):
+                sl = slice(gs.offset, gs.offset + gs.cap)
+                policy, _ = nets[g](traj["views"][g][t], traj["feats"][g][t],
+                                    traj["alive_in"][t][:, sl].float())
+                scores = (rnd.gumbel(rnd.fold_in(akey, g), policy.shape)
+                          + policy.log())
+                if not torch.equal(scores.argmax(-1).int(),
+                                   traj["actions"][t][:, sl]):
+                    raise AssertionError("a2c: a draw did not take its top "
+                                         "score")
+                top2 = scores.topk(2, -1).values
+                gaps.append((top2[..., 0] - top2[..., 1]).flatten())
+    return torch.cat(gaps).cpu()
 
 
 def train_step_errors(got, want):
-    """(loss relative error, Adam moments' largest error as a share of
-    each tensor's largest magnitude, parameters' largest error where the
-    gradient's sign is settled, parameters' largest error) between two
-    :func:`small_train_step` results."""
-    _, _, gm, gf = got
-    _, _, cm, cf = want
-    rel = float(((gm["loss"].cpu() - cm["loss"]).abs()
-                 / cm["loss"].abs()).max())
+    """(loss and mean value relative error, Adam moments' largest error as
+    a share of each tensor's largest magnitude, parameters' largest error
+    where the gradient's sign is settled, parameters' largest error)
+    between two :func:`small_train_step` results."""
+    gm, gf = got[2], got[3]
+    cm, cf = want[2], want[3]
+    rel = max(float(((gm[k].cpu() - cm[k]).abs() / cm[k].abs()).max())
+              for k in ("loss", "mean_value") if k in cm)
     moment_err = param_err = param_any = 0.0
     for (gp, gmu, gnu), (cp, cmu, cnu) in zip(gf, cf):
         for k in cp:
@@ -3268,12 +3423,15 @@ def train_step_errors(got, want):
 def check_trainers_gpu_match_cpu():
     """Phase 9, last: one step of each fused trainer on the GPU (TF32 off)
     and on the CPU at a small size (:func:`small_train_step`): the rollouts
-    and end states equal, losses within TRAIN_LOSS_RTOL, Adam moments and
-    parameters as the constants above say."""
-    for alg in ("dqn", "dqn_remat"):
+    and end states equal (A2C: every draw's top two scores on the CPU more
+    than TRAIN_MARGIN apart, so equal draws are not luck), losses (and
+    A2C's mean values) within TRAIN_LOSS_RTOL, Adam moments and
+    parameters as the constants above say, DRQN's returned hiddens within
+    TRAIN_HIDDEN_ATOL."""
+    for alg in TRAINERS:
         want = small_train_step(alg, "cpu")
         got = small_train_step(alg, "cuda")
-        (gt, gs, _, _), (ct, cs, _, _) = got, want
+        (gt, gs), (ct, cs) = got[:2], want[:2]
         for name in ("actions", "rewards", "alive", "alive_in", "done"):
             if not torch.equal(gt[name].cpu(), ct[name]):
                 raise AssertionError("trainer %s: rollout %s differs between "
@@ -3289,14 +3447,30 @@ def check_trainers_gpu_match_cpu():
                 % (alg, rel, TRAIN_LOSS_RTOL, moment_err, TRAIN_MOMENT_RTOL,
                    param_err, TRAIN_PARAM_ATOL, param_any,
                    2 * TRAIN_LR + TRAIN_PARAM_ATOL))
+        note = ""
+        if alg == "a2c":
+            gap = float(want[4].min())
+            if not gap > TRAIN_MARGIN:
+                raise AssertionError("trainer a2c: a draw's top two scores "
+                                     "lie %g apart (margin %g)"
+                                     % (gap, TRAIN_MARGIN))
+            note = ", %d draws, the least top-two gap %.3g" % (
+                want[4].numel(), gap)
+        if alg == "drqn":
+            h_err = max(float((a.cpu() - b).abs().max())
+                        for a, b in zip(got[4], want[4]))
+            if not h_err <= TRAIN_HIDDEN_ATOL:
+                raise AssertionError("trainer drqn: hiddens %g apart (tol %g)"
+                                     % (h_err, TRAIN_HIDDEN_ATOL))
+            note = ", hiddens within %.3g" % h_err
         print("GPU vs CPU: trainer %s, battle map %d, %s, B=%d, rollout %d, "
-              "f32, eps 1.0: rollouts and end states equal, losses within "
+              "f32%s: rollouts and end states equal%s, losses within "
               "%.3g relative, Adam moments within %.3g of each tensor's "
               "largest, parameters with a settled gradient sign within %.3g "
-              "(all within %.3g)" % (alg, TRAIN_SMALL_MAP, TRAIN_SMALL_CAPS,
-                                     TRAIN_SMALL_ENVS, TRAIN_SMALL_T, rel,
-                                     moment_err, param_err, param_any),
-              flush=True)
+              "(all within %.3g)" % (
+                  alg, TRAIN_SMALL_MAP, TRAIN_SMALL_CAPS, TRAIN_SMALL_ENVS,
+                  TRAIN_SMALL_T, "" if alg == "a2c" else ", eps 1.0", note,
+                  rel, moment_err, param_err, param_any), flush=True)
 
 
 def banded_battle_env(device):
@@ -3416,8 +3590,15 @@ def main() -> int:
     # peak device memory: the plain versions hold up to ~13 GB
     check_rect_ragged()
     rows.update(run_window_ladder(f32_rate))
-    rows.update(run_trainers(f32_rate, int32_rate, device_name, g4_forms,
-                             banded_1000))
+    train_rows, train_counts = run_trainers(f32_rate, int32_rate,
+                                            device_name, g4_forms,
+                                            banded_1000)
+    rows.update(train_rows)
+    for alg, counts in train_counts.items():
+        for name in ("occupant", "rank_prefix", "move_resolve"):
+            rows[name].setdefault("launches_by_path", {})[
+                "trainer %s, %d timed calls" % (alg, TRAIN_CALLS)] = (
+                counts[name])
     del g4_forms, banded_1000
     torch.cuda.empty_cache()
     check_trainers_gpu_match_cpu()

@@ -13,7 +13,9 @@ vectorized loop (``parallel.VecGridWorld``) on the gridless path,
 walls (on the grid path past the pair kernels' caps and for food, turn
 mode and absorb) — device reset (random facings in turn mode), NORTH-only
 and, in turn mode, rotating observations, both random-action samplers —
-and ``discrete_snake.DiscreteSnake``.
+and ``discrete_snake.DiscreteSnake`` (also ``magent_tpu_torch.DiscreteSnake``,
+as in the JAX package); the fused DQN, A2C (with CommNet) and DRQN trainers
+(``parallel.train``) and their nets (``builtin.torch_model``).
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``,
 except the sequential snake (``DiscreteSnake(..., engine_mode=
 "sequential")``, ``core.seq_snake``): host NumPy only, like the JAX
@@ -21,6 +23,7 @@ package's, it takes no device.
 """
 
 from . import gridworld
+from .discrete_snake import DiscreteSnake
 from .env import GridWorld
 
-__all__ = ["GridWorld", "gridworld"]
+__all__ = ["DiscreteSnake", "GridWorld", "gridworld"]

@@ -12,7 +12,8 @@ renders it; the convs run on its NCHW view (channels-last strides, no
 copy), and the conv output is flattened in (y, x, c) order, as flax's NHWC
 ``reshape`` flattens it, so ``dense_view``'s weight is the flax kernel
 transposed with no column permutation.  Conv kernels are HWIO in flax and
-OIHW here; dense kernels ``[in, out]`` there, ``[out, in]`` here.
+OIHW here; dense kernels ``[in, out]`` there, ``[out, in]`` here
+(:mod:`.flax_params`).
 
 The JAX package's CPU ``TorchDQNNet`` (``magent_tpu/builtin/torch_model``)
 has a parameter layout of its own and is not this class.
@@ -20,10 +21,13 @@ has a parameter layout of its own and is not this class.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .flax_params import params_from_flax, params_to_flax, tensors_to_flax
+
+__all__ = ["DQNNet", "params_from_flax", "params_to_flax", "tensors_to_flax"]
 
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -86,48 +90,3 @@ class DQNNet(nn.Module):
         value = self.value(dense)
         advantage = self.advantage(dense)
         return value + advantage - advantage.mean(1, keepdim=True)
-
-
-def _flax_layers(flat: dict):
-    return sorted({k.split("/")[0] for k in flat})
-
-
-def params_from_flax(flat: dict) -> dict:
-    """A flax ``DQNNet`` checkpoint, flat (``{"conv1/kernel": ndarray, ...}``
-    as ``np.load`` of a ``tfdqn_<n>.npz`` gives it) -> the ``state_dict``
-    of :class:`DQNNet` (f32 CPU tensors) for ``load_state_dict``."""
-    out = {}
-    for layer in _flax_layers(flat):
-        kernel = np.asarray(flat[layer + "/kernel"], np.float32)
-        if kernel.ndim == 4:  # HWIO -> OIHW
-            weight = kernel.transpose(3, 2, 0, 1)
-        else:  # [in, out] -> [out, in]
-            weight = kernel.T
-        out[layer + ".weight"] = torch.tensor(weight)
-        if layer + "/bias" in flat:
-            out[layer + ".bias"] = torch.tensor(
-                np.asarray(flat[layer + "/bias"], np.float32))
-    return out
-
-
-def params_to_flax(net: DQNNet) -> dict:
-    """:class:`DQNNet` -> the flat flax checkpoint dict of float32 numpy
-    arrays (the inverse of :func:`params_from_flax`; ``np.savez(path,
-    **params_to_flax(net))`` writes a ``tfdqn_<n>.npz``)."""
-    return tensors_to_flax(net.state_dict())
-
-
-def tensors_to_flax(named: dict) -> dict:
-    """``{"conv1.weight": tensor, ...}`` in :class:`DQNNet`'s layout (its
-    parameters, or anything shaped like them, such as Adam moments) -> flax
-    names and layouts, float32 numpy."""
-    out = {}
-    for name, p in named.items():
-        layer, kind = name.split(".")
-        a = p.detach().to("cpu", torch.float32).numpy()
-        if kind == "weight":
-            out[layer + "/kernel"] = np.ascontiguousarray(
-                a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T)
-        else:
-            out[layer + "/bias"] = a.copy()
-    return out

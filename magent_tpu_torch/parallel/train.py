@@ -1,13 +1,15 @@
-"""Fused rollout + learner steps of the DQN family (port of the DQN half of
-``magent_tpu/parallel/train.py``).
+"""Fused rollout + learner steps (port of ``magent_tpu/parallel/train.py``):
+DQN (whole-rollout, minibatch and observation-remat losses), A2C (with
+optional CommNet) and DRQN.
 
-A train step rolls ``rollout_len`` lockstep env steps with e-greedy
-policies (``torch.no_grad``), then takes one double-DQN gradient step per
-group, with everything on the env's device.  Where the JAX package passes
-flax modules (``nets``) and their parameter pytrees (``params``), the port
-passes one :class:`~magent_tpu_torch.builtin.torch_model.DQNNet` per group,
-module and parameters in one: a train step updates the online nets in place
-and returns them, the loop refreshes the target nets in place
+A train step rolls ``rollout_len`` lockstep env steps with the current
+policies, then takes one gradient step per group, with everything on the
+env's device.  Where the JAX package passes flax modules (``nets``) and
+their parameter pytrees (``params``), the port passes one net of
+:mod:`magent_tpu_torch.builtin.torch_model` per group (``DQNNet``,
+``A2CNet``, ``DRQNNet``), module and parameters in one: a train step
+updates the online nets in place and returns them, the loop refreshes
+the target nets in place
 (``load_state_dict``) where the JAX loop selects new target params, and
 ``tx`` is a :class:`~magent_tpu_torch.parallel.optim.ClipAdam` whose
 per-group states (``tx.init(net)``) play optax's.  Each group needs a
@@ -16,20 +18,23 @@ independently, as in the JAX package.
 
 Keys are the port's int64 ``[2]`` threefry keys (:mod:`magent_tpu_torch.random`),
 bit-equal to ``jax.random``'s, so a step from the same key draws the same
-actions and minibatch as the JAX step.  Metrics stay on the device, stacked
-per call; the only host reads inside a step are the env's auto-reset checks
-(one per env step, ``VecGridWorld.transition``).  Python loops take the
-place of ``lax.scan``.
+actions and minibatch as the JAX step (A2C's categorical draw: the same
+Gumbel bits, ``log`` in PyTorch's rounding).  Metrics stay on the device,
+stacked per call; the only host reads inside a step are the env's
+auto-reset checks (one per env step, ``VecGridWorld.transition``).  Python
+loops take the place of ``lax.scan``; the env runs under
+``torch.no_grad`` and only the nets under autograd.
 
-Not ported yet (``ROADMAP.md``): the A2C and DRQN trainers and
-``parallel/sharding.py``.
+Not ported yet (``ROADMAP.md``): ``parallel/sharding.py``.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import random as rnd
+from ..builtin.torch_model.drqn import split_unroll
 from .vec_env import VecGridWorld
 
 # the state fields the observation reads: what the remat trainer stores per
@@ -51,11 +56,11 @@ def _rows(view, feat):
 
 
 def _egreedy_actions(venv: VecGridWorld, nets, state, key, eps,
-                     return_obs=False, train_groups=None):
-    """e-greedy actions ``[B, A]`` int32 for every group over the full slot
-    axis (train.py:20-69); with ``return_obs`` also the rendered views and
-    features per group.  Groups outside ``train_groups`` act uniformly at
-    random and render nothing (scripted opponents)."""
+                     train_groups=None):
+    """(e-greedy actions ``[B, A]`` int32 for every group over the full slot
+    axis (train.py:20-69), the rendered views and features per group).
+    Groups outside ``train_groups`` act uniformly at random and render
+    nothing (scripted opponents)."""
     spec = venv.spec
     B, A = venv.n_envs, spec.n_agents_cap
     tg = _groups(venv, train_groups)
@@ -69,9 +74,9 @@ def _egreedy_actions(venv: VecGridWorld, nets, state, key, eps,
                    for g in range(spec.n_groups)]
     for g, gs in enumerate(spec.groups):
         n_act = gs.type.n_action
-        kg, kr = rnd.split(rnd.fold_in(key, g)).unbind(-2)
         sl = slice(gs.offset, gs.offset + gs.cap)
         if g not in tg:
+            kg = rnd.split(rnd.fold_in(key, g))[..., 0, :]
             actions[:, sl] = rnd.randint(kg, (B, gs.cap), 0, n_act)
             views.append(None)
             feats.append(None)
@@ -79,15 +84,20 @@ def _egreedy_actions(venv: VecGridWorld, nets, state, key, eps,
         view, feat = all_obs[g]  # [B, cap, vh, vw, C], [B, cap, F]
         with torch.no_grad():
             q = nets[g](*_rows(view, feat)).reshape(B, gs.cap, n_act)
-        greedy = q.argmax(-1).to(torch.int32)
-        rand = rnd.randint(kg, greedy.shape, 0, n_act)
-        actions[:, sl] = torch.where(rnd.uniform(kr, greedy.shape) < eps,
-                                     rand, greedy)
+        actions[:, sl] = _egreedy(q, rnd.fold_in(key, g), eps)
         views.append(view)
         feats.append(feat)
-    if return_obs:
-        return actions, views, feats
-    return actions
+    return actions, views, feats
+
+
+def _egreedy(q, gkey, eps):
+    """e-greedy actions int32 of Q values ``[..., n_act]`` from one group's
+    key (``fold_in(akey, g)``): ``randint`` from its first half where
+    ``uniform`` from its second falls below ``eps``, else the argmax."""
+    kg, kr = rnd.split(gkey).unbind(-2)
+    greedy = q.argmax(-1).to(torch.int32)
+    rand = rnd.randint(kg, greedy.shape, 0, q.shape[-1])
+    return torch.where(rnd.uniform(kr, greedy.shape) < eps, rand, greedy)
 
 
 def sample_eval_set(venv: VecGridWorld, group: int, n_steps: int = 10,
@@ -124,12 +134,14 @@ def make_eval_q(venv: VecGridWorld, group: int):
     return eval_q
 
 
-def _rollout(venv: VecGridWorld, nets, env_state, key, eps, rollout_len,
-             train_groups, store_obs):
-    """``rollout_len`` e-greedy steps under ``torch.no_grad`` -> (env_state,
-    per-step records stacked on a leading T axis).  ``store_obs`` keeps
-    each group's views and features (the plain trainer's trajectory); the
-    remat trainer keeps the compact ``OBS_FIELDS`` snapshots instead."""
+def _rollout(venv: VecGridWorld, act, env_state, key, rollout_len,
+             store_obs):
+    """``rollout_len`` steps under ``torch.no_grad``, each drawing its
+    actions from ``act(state, akey) -> (actions [B, A], views, feats)`` ->
+    (env_state, per-step records stacked on a leading T axis).
+    ``store_obs`` keeps each group's views and features (the plain
+    trainers' trajectory); the remat trainer keeps the compact
+    ``OBS_FIELDS`` snapshots instead."""
     steps = []
     with torch.no_grad():
         for _ in range(rollout_len):
@@ -138,34 +150,37 @@ def _rollout(venv: VecGridWorld, nets, env_state, key, eps, rollout_len,
             # start-of-step liveness: right across auto-resets, where the
             # last step's end-of-step alive belongs to the old episode
             rec = dict(alive_in=state.active & ~state.dead)
+            actions, views, feats = act(state, akey)
             if store_obs:
-                actions, views, feats = _egreedy_actions(
-                    venv, nets, state, akey, eps, return_obs=True,
-                    train_groups=train_groups)
                 rec.update(views=views, feats=feats)
             else:
-                actions = _egreedy_actions(venv, nets, state, akey, eps,
-                                           train_groups=train_groups)
                 rec["snap"] = {f: getattr(state, f) for f in OBS_FIELDS}
             env_state, rewards, alive, done = venv.transition(state, actions)
             rec.update(actions=actions, rewards=rewards, alive=alive,
                        done=done)
             steps.append(rec)
+    return env_state, _stack_steps(steps, venv.spec.n_groups)
 
+
+def _stack_steps(steps, n_groups):
+    """Per-step records -> one tensor per field on a leading T axis (per
+    group for views, features and Q values; None for a group that
+    rendered nothing)."""
     def stack(get):
         return torch.stack([get(r) for r in steps])
 
-    traj = {name: stack(lambda r, n=name: r[n])
-            for name in ("alive_in", "actions", "rewards", "alive", "done")}
-    if store_obs:
-        for name in ("views", "feats"):
+    traj = {}
+    for name in steps[0]:
+        if name == "snap":
+            traj[name] = {f: stack(lambda r, f=f: r[name][f])
+                          for f in OBS_FIELDS}
+        elif isinstance(steps[0][name], list):
             traj[name] = [None if steps[0][name][g] is None else
                           stack(lambda r, n=name, g=g: r[n][g])
-                          for g in range(venv.spec.n_groups)]
-    else:
-        traj["snap"] = {f: stack(lambda r, f=f: r["snap"][f])
-                        for f in OBS_FIELDS}
-    return env_state, traj
+                          for g in range(n_groups)]
+        else:
+            traj[name] = stack(lambda r, n=name: r[n])
+    return traj
 
 
 def _td_loss(q_t, next_v, rew, terminal, mask, gamma):
@@ -194,6 +209,16 @@ def _apply(net, tx, opt_state, loss):
     return tx.update(net, opt_state)
 
 
+def _group_slicer(spec):
+    offs = [g.offset for g in spec.groups]
+    caps = [g.cap for g in spec.groups]
+
+    def group_slice(t, g):
+        return t[..., offs[g]:offs[g] + caps[g]]
+
+    return group_slice
+
+
 def make_dqn_train_step(venv: VecGridWorld, tx, gamma: float = 0.99,
                         rollout_len: int = 8, use_double: bool = True,
                         train_minibatch: int | None = None,
@@ -214,11 +239,8 @@ def make_dqn_train_step(venv: VecGridWorld, tx, gamma: float = 0.99,
     spec = venv.spec
     G, B = spec.n_groups, venv.n_envs
     caps = [g.cap for g in spec.groups]
-    offs = [g.offset for g in spec.groups]
     tg = _groups(venv, train_groups)
-
-    def group_slice(t, g):
-        return t[..., offs[g]:offs[g] + caps[g]]
+    group_slice = _group_slicer(spec)
 
     def group_loss_sampled(net, tnet, g, traj, skey):
         """Double-DQN TD loss on ``train_minibatch`` sampled transitions
@@ -275,8 +297,11 @@ def make_dqn_train_step(venv: VecGridWorld, tx, gamma: float = 0.99,
         return total / denom.clamp_min(1.0)
 
     def rollout(nets, env_state, key, eps):
-        return _rollout(venv, nets, env_state, key, eps, rollout_len,
-                        train_groups, store_obs=True)
+        def act(state, akey):
+            return _egreedy_actions(venv, nets, state, akey, eps,
+                                    train_groups)
+        return _rollout(venv, act, env_state, key, rollout_len,
+                        store_obs=True)
 
     def learn(nets, target_nets, opt_states, traj, key):
         opt_states = list(opt_states)
@@ -361,8 +386,10 @@ def make_dqn_train_step_remat(venv: VecGridWorld, tx, gamma: float = 0.99,
 
     def rollout(nets, env_state, key, eps):
         template = env_state  # grids and walls for the rebuilt states
-        env_state, traj = _rollout(venv, nets, env_state, key, eps,
-                                   rollout_len, None, store_obs=False)
+        def act(state, akey):
+            return _egreedy_actions(venv, nets, state, akey, eps)
+        env_state, traj = _rollout(venv, act, env_state, key, rollout_len,
+                                   store_obs=False)
         # snap[f][t] is the state before step t; t = rollout_len the state
         # after the rollout
         for f in OBS_FIELDS:
@@ -409,6 +436,273 @@ def make_dqn_train_step_remat(venv: VecGridWorld, tx, gamma: float = 0.99,
     return train_step
 
 
+def make_a2c_train_step(venv: VecGridWorld, tx, gamma: float = 0.99,
+                        rollout_len: int = 16, value_coef: float = 0.1,
+                        ent_coef: float = 0.08):
+    """Build ``train_step(nets, opt_states, env_state, key) -> (nets,
+    opt_states, env_state, metrics)``: fused advantage actor-critic
+    (train.py:493-655) with one :class:`~magent_tpu_torch.builtin.
+    torch_model.A2CNet` per group.
+
+    One call samples ``rollout_len`` steps from the current policies
+    (group g draws ``categorical(fold_in(akey, g), log(policy))``, CommNet
+    pooling over the start-of-step live agents, ``alive_in``), then takes
+    one gradient step per group on n-step returns cut at ``~alive | done``
+    and bootstrapped from the value of the post-rollout state times its
+    live mask: policy gradient + ``value_coef`` x value MSE + ``ent_coef``
+    x negative entropy, each over ``max(sum(alive_in), 1)``.  The
+    bootstrap renders one more observation.  ``metrics``: ``loss``,
+    ``mean_value`` and ``mean_reward``, ``[G]`` f32 on the device.
+    ``train_step.rollout`` and ``train_step.learn`` are its two halves."""
+    spec = venv.spec
+    G, B, A = spec.n_groups, venv.n_envs, spec.n_agents_cap
+    group_slice = _group_slicer(spec)
+
+    def rollout(nets, env_state, key):
+        def act(state, akey):
+            live = (state.active & ~state.dead).float()
+            actions = torch.zeros((B, A), dtype=torch.int32,
+                                  device=venv.device)
+            all_obs = venv.observe_all(state)
+            for g in range(G):
+                policy, _ = nets[g](*all_obs[g], group_slice(live, g))
+                group_slice(actions, g)[:] = rnd.categorical(
+                    rnd.fold_in(akey, g), policy.log())
+            return actions, [o[0] for o in all_obs], [o[1] for o in all_obs]
+
+        return _rollout(venv, act, env_state, key, rollout_len,
+                        store_obs=True)
+
+    def group_loss(net, g, traj, boot_v):
+        """(loss, mean value) over the rollout window (train.py:582-606)."""
+        rew = group_slice(traj["rewards"], g)
+        terminal = ~group_slice(traj["alive"], g) | traj["done"][:, :, None]
+        R, rets = boot_v, []
+        for t in reversed(range(rew.shape[0])):
+            R = rew[t] + gamma * torch.where(terminal[t], 0.0, R)
+            rets.append(R)
+        rets = torch.stack(rets[::-1])
+        # the start-of-step mask the sampling pass pooled over
+        mask = group_slice(traj["alive_in"], g).float()
+        policy, value = net(traj["views"][g], traj["feats"][g], mask)
+        logp = (policy + 1e-6).log()
+        act = group_slice(traj["actions"], g).long()
+        lp_a = logp.gather(-1, act[..., None])[..., 0]
+        adv = (rets - value).detach()
+        msum = mask.sum().clamp_min(1.0)
+        pg = -(adv * lp_a * mask).sum() / msum
+        vf = value_coef * ((rets - value).square() * mask).sum() / msum
+        neg_ent = ent_coef * ((policy * logp).sum(-1) * mask).sum() / msum
+        return pg + vf + neg_ent, (value * mask).sum() / msum
+
+    def learn(nets, opt_states, env_state, traj):
+        """The gradient steps, from the post-rollout ``env_state``."""
+        opt_states = list(opt_states)
+        with torch.no_grad():
+            final_obs = venv.observe_all(env_state)
+            live = (env_state.active & ~env_state.dead).float()
+        losses, values = [], []
+        for g in range(G):
+            m_fin = group_slice(live, g)
+            with torch.no_grad():  # dead agents bootstrap 0
+                boot_v = nets[g](*final_obs[g], m_fin)[1] * m_fin
+            loss, mean_v = group_loss(nets[g], g, traj, boot_v)
+            opt_states[g] = _apply(nets[g], tx, opt_states[g], loss)
+            losses.append(loss.detach())
+            values.append(mean_v.detach())
+        metrics = dict(loss=torch.stack(losses), mean_value=torch.stack(values),
+                       mean_reward=torch.stack(
+                           [group_slice(traj["rewards"], g).mean()
+                            for g in range(G)]))
+        return tuple(opt_states), metrics
+
+    def train_step(nets, opt_states, env_state, key):
+        key, rkey = rnd.split(key.to(venv.device)).unbind(-2)
+        env_state, traj = rollout(nets, env_state, rkey)
+        opt_states, metrics = learn(nets, opt_states, env_state, traj)
+        return nets, opt_states, env_state, metrics
+
+    train_step.rollout = rollout
+    train_step.learn = learn
+    train_step.device = venv.device
+    return train_step
+
+
+def make_drqn_train_step(venv: VecGridWorld, tx, gamma: float = 0.99,
+                         rollout_len: int = 8, use_double: bool = True,
+                         unroll_remat="all", share_acting: bool = True):
+    """Build ``train_step(nets, target_nets, opt_states, env_state,
+    hiddens, key, eps) -> (nets, opt_states, env_state, hiddens,
+    metrics)``: fused recurrent-Q training (train.py:658-904) with one
+    :class:`~magent_tpu_torch.builtin.torch_model.DRQNNet` per group.
+
+    The GRU state is carried per agent slot across calls (``hiddens``,
+    one ``[B, cap, H]`` f32 tensor per group, :func:`init_drqn_hiddens`),
+    zeroed after a death or an episode's end; each call acts e-greedily
+    for ``rollout_len`` steps and takes one double-DQN (or max) TD step
+    per group over the window, back-propagated through time from the
+    window's initial state.  ``share_acting`` (JAX's default): the acting
+    rollout runs under autograd, each per-step apply checkpointed, and its
+    Q values are the online unroll; only the target nets re-unroll the
+    stored window (:func:`split_unroll`).  ``share_acting=False``: the
+    rollout runs under ``torch.no_grad`` and both nets re-unroll.
+    ``unroll_remat`` is :func:`split_unroll`'s ``remat`` for those
+    unrolls.  The returned hiddens are detached.  ``metrics``: ``loss``
+    and ``mean_reward``, ``[G]`` f32 on the device.  ``train_step.rollout``
+    and ``train_step.learn`` are its two halves."""
+    spec = venv.spec
+    G, B, A = spec.n_groups, venv.n_envs, spec.n_agents_cap
+    caps = [g.cap for g in spec.groups]
+    group_slice = _group_slicer(spec)
+
+    def net_step(net, h, view, feat):
+        """One GRU step over ``[B, cap, ...]``."""
+        h2, q = net(h.reshape(-1, net.state_size), *_rows(view, feat))
+        return h2.reshape(h.shape), q.reshape(h.shape[:2] + (-1,))
+
+    def rollout(nets, env_state, hiddens, key, eps):
+        """-> (env_state, hiddens, traj); with ``share_acting`` the Q values
+        ``traj["qs"]`` and the hiddens carry the graph back to the
+        parameters (and the window's initial state)."""
+        steps, hs = [], list(hiddens)
+        for _ in range(rollout_len):
+            key, akey = rnd.split(key).unbind(-2)
+            state = env_state
+            with torch.no_grad():
+                all_obs = venv.observe_all(state)
+            actions = torch.zeros((B, A), dtype=torch.int32,
+                                  device=venv.device)
+            new_h, qs = [], []
+            for g in range(G):
+                if share_acting:
+                    h2, q = checkpoint(net_step, nets[g], hs[g], *all_obs[g],
+                                       use_reentrant=False)
+                else:
+                    with torch.no_grad():
+                        h2, q = net_step(nets[g], hs[g], *all_obs[g])
+                group_slice(actions, g)[:] = _egreedy(
+                    q.detach(), rnd.fold_in(akey, g), eps)
+                new_h.append(h2)
+                qs.append(q)
+            with torch.no_grad():
+                env_state, rewards, alive, done = venv.transition(state,
+                                                                  actions)
+            for g in range(G):
+                keep = group_slice(alive, g) & ~done[:, None]
+                hs[g] = torch.where(keep[..., None], new_h[g], 0.0)
+            steps.append(dict(
+                views=[o[0] for o in all_obs], feats=[o[1] for o in all_obs],
+                qs=qs, actions=actions, rewards=rewards, alive=alive,
+                alive_in=state.active & ~state.dead, done=done))
+        return env_state, tuple(hs), _stack_steps(steps, G)
+
+    def unroll_q(g, net, h0, traj):
+        """Q ``[T, B, cap, n_act]`` of ``net`` over the stored window,
+        resetting at the rollout's boundaries."""
+        views, feats = traj["views"][g], traj["feats"][g]
+        T = views.shape[0]
+        keep = (group_slice(traj["alive"], g)
+                & ~traj["done"][:, :, None]).reshape(T, -1, 1)
+        q = split_unroll(net, views.reshape((T, -1) + tuple(views.shape[3:])),
+                         feats.reshape(T, -1, feats.shape[-1]),
+                         h0.reshape(-1, net.state_size), keep=keep,
+                         remat=unroll_remat)
+        return q.reshape(T, B, caps[g], -1)
+
+    def td_loss(g, qs, tqs, traj):
+        """Masked TD error over the window (train.py:812-834)."""
+        act = group_slice(traj["actions"], g)
+        q_t = qs[:-1].gather(-1, act[:-1].long()[..., None])[..., 0]
+        if use_double:
+            sel = qs[1:].detach().argmax(-1, keepdim=True)
+            next_v = tqs[1:].gather(-1, sel)[..., 0]
+        else:
+            next_v = tqs[1:].max(-1).values
+        terminal = (~group_slice(traj["alive"], g)[:-1]
+                    | traj["done"][:-1][:, :, None])
+        total, denom = _td_loss(q_t, next_v,
+                                group_slice(traj["rewards"], g)[:-1],
+                                terminal,
+                                group_slice(traj["alive_in"], g)[:-1], gamma)
+        return total / denom.clamp_min(1.0)
+
+    def learn(nets, target_nets, opt_states, h0, traj):
+        """The gradient steps on the window that started from ``h0``.  The
+        groups' losses are separable (they meet only in the env, which
+        carries no gradient), so each group steps on its own backward."""
+        opt_states = list(opt_states)
+        losses = []
+        for g in range(G):
+            with torch.no_grad():
+                tqs = unroll_q(g, target_nets[g], h0[g], traj)
+            qs = (traj["qs"][g] if share_acting
+                  else unroll_q(g, nets[g], h0[g], traj))
+            loss = td_loss(g, qs, tqs, traj)
+            opt_states[g] = _apply(nets[g], tx, opt_states[g], loss)
+            losses.append(loss.detach())
+        metrics = dict(loss=torch.stack(losses), mean_reward=torch.stack(
+            [group_slice(traj["rewards"], g).mean() for g in range(G)]))
+        return tuple(opt_states), metrics
+
+    def train_step(nets, target_nets, opt_states, env_state, hiddens, key,
+                   eps):
+        key, rkey = rnd.split(key.to(venv.device)).unbind(-2)
+        h0 = hiddens
+        env_state, hiddens, traj = rollout(nets, env_state, hiddens, rkey,
+                                           eps)
+        opt_states, metrics = learn(nets, target_nets, opt_states, h0, traj)
+        # the kept chain was the BPTT path inside the step: cut it here
+        return (nets, opt_states, env_state,
+                tuple(h.detach() for h in hiddens), metrics)
+
+    train_step.rollout = rollout
+    train_step.learn = learn
+    train_step.device = venv.device
+    return train_step
+
+
+def init_drqn_hiddens(venv: VecGridWorld, nets):
+    """Zero per-agent GRU states, one ``[B, cap, H]`` f32 tensor per group
+    on the env's device (train.py:907-914)."""
+    spec = venv.spec
+    return tuple(torch.zeros((venv.n_envs, spec.groups[g].cap,
+                              nets[g].state_size), device=venv.device)
+                 for g in range(spec.n_groups))
+
+
+def make_a2c_train_loop(venv: VecGridWorld, tx, steps_per_call: int,
+                        **kwargs):
+    """``steps_per_call`` steps of :func:`make_a2c_train_step` per call
+    (train.py:917-934): ``loop(nets, opt_states, env_state, key) -> (nets,
+    opt_states, env_state, metrics)``, metrics ``[steps_per_call, G]``."""
+    train_step = make_a2c_train_step(venv, tx, **kwargs)
+
+    def loop(nets, opt_states, env_state, key):
+        key = key.to(venv.device)
+        metrics = []
+        for _ in range(steps_per_call):
+            key, skey = rnd.split(key).unbind(-2)
+            nets, opt_states, env_state, m = train_step(
+                nets, opt_states, env_state, skey)
+            metrics.append(m)
+        return nets, opt_states, env_state, _stack(metrics)
+
+    loop.train_step = train_step
+    return loop
+
+
+def make_drqn_train_loop(venv: VecGridWorld, tx, steps_per_call: int,
+                         target_update: int, **kwargs):
+    """``steps_per_call`` steps of :func:`make_drqn_train_step` per call
+    with the target refresh (train.py:937-965): ``loop(nets, target_nets,
+    opt_states, env_state, hiddens, key, eps, step0) -> (nets,
+    target_nets, opt_states, env_state, hiddens, metrics)``, with
+    :func:`make_dqn_train_loop`'s refresh rule."""
+    train_step = make_drqn_train_step(venv, tx, **kwargs)
+    return _scan_q_loop(train_step, steps_per_call, target_update,
+                        n_carry=2)
+
+
 def make_dqn_train_loop(venv: VecGridWorld, tx, steps_per_call: int,
                         target_update: int, **kwargs):
     """``steps_per_call`` train steps of :func:`make_dqn_train_step` per
@@ -432,24 +726,29 @@ def make_dqn_remat_train_loop(venv: VecGridWorld, tx, steps_per_call: int,
     return _scan_q_loop(train_step, steps_per_call, target_update)
 
 
-def _scan_q_loop(train_step, steps_per_call: int, target_update: int):
-    """train.py:1008-1029 as a Python loop."""
+def _scan_q_loop(train_step, steps_per_call: int, target_update: int,
+                 n_carry: int = 1):
+    """train.py:1008-1029 as a Python loop.  The train step's env carry is
+    ``n_carry`` values: the env state, and for DRQN also the hiddens."""
 
-    def loop(nets, target_nets, opt_states, env_state, key, eps, step0):
+    def loop(nets, target_nets, opt_states, *args):
+        carry, (key, eps, step0) = args[:n_carry], args[n_carry:]
         key = key.to(train_step.device)
         metrics = []
         for t in range(steps_per_call):
             key, skey = rnd.split(key).unbind(-2)
-            nets, opt_states, env_state, m = train_step(
-                nets, target_nets, opt_states, env_state, skey, eps)
+            nets, opt_states, *carry, m = train_step(
+                nets, target_nets, opt_states, *carry, skey, eps)
             if (int(step0) + t + 1) % target_update == 0:
                 with torch.no_grad():
                     for tnet, net in zip(target_nets, nets):
                         tnet.load_state_dict(net.state_dict())
             metrics.append(m)
-        stacked = {k: torch.stack([m[k] for m in metrics])
-                   for k in metrics[0]}
-        return nets, target_nets, opt_states, env_state, stacked
+        return (nets, target_nets, opt_states, *carry, _stack(metrics))
 
     loop.train_step = train_step
     return loop
+
+
+def _stack(metrics):
+    return {k: torch.stack([m[k] for m in metrics]) for k in metrics[0]}

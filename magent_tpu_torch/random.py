@@ -19,7 +19,8 @@ Semantics (jax/_src/prng.py, partitionable mode):
 - ``bits(key, shape)`` at flat index n = ``w0 ^ w1`` of
   ``threefry(key, (n >> 32, n & 0xFFFFFFFF))``;
 - ``uniform`` puts the top 23 bits of ``bits`` in a float's mantissa in
-  [1, 2) and subtracts 1;
+  [1, 2) and subtracts 1; ``gumbel`` and ``categorical`` build on it
+  (``-log(-log(u))``, the Gumbel-max draw);
 - ``randint`` (int32) draws ``hi`` and ``lo`` words from the two halves of
   ``split(key)`` and returns ``minval + ((hi % span) * m + lo % span) %
   span`` with ``m = (2**16 % span)**2 % span``, every product and sum
@@ -31,6 +32,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 MASK32 = 0xFFFFFFFF
@@ -101,12 +103,37 @@ def bits(key: torch.Tensor, shape) -> torch.Tensor:
     return (b1 ^ b2).reshape(key.shape[:lead] + shape)
 
 
-def uniform(key: torch.Tensor, shape) -> torch.Tensor:
-    """``jax.random.uniform`` in [0, 1), float32: ``[..., 2]`` ->
-    ``[..., *shape]``."""
+def uniform(key: torch.Tensor, shape, minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform`` in [minval, maxval), float32: ``[..., 2]`` ->
+    ``[..., *shape]``.  Outside the default range JAX scales as
+    ``max(minval, floats * (maxval - minval) + minval)`` in float32, and so
+    does this, with XLA's fused multiply-add: the float32 product is exact
+    in float64, so the sum rounds there and once more to float32."""
     b = bits(key, shape)
-    f = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
-    return f - 1.0
+    f = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    if minval == 0.0 and maxval == 1.0:
+        return f
+    lo, hi = np.float32(minval), np.float32(maxval)
+    scaled = f.double() * float(hi - lo) + float(lo)
+    return scaled.float().clamp_min(float(lo))
+
+
+def gumbel(key: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.gumbel`` (``mode="low"``), float32:
+    ``-log(-log(uniform(key, shape, tiny, 1)))``.  The bits are JAX's; the
+    two ``log``s are PyTorch's, which differ from XLA's by an ulp here and
+    there."""
+    tiny = float(torch.finfo(torch.float32).tiny)
+    return -torch.log(-torch.log(uniform(key, shape, tiny, 1.0)))
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, logits, axis=-1)`` for one key, as
+    jax computes it: ``argmax(gumbel(key, logits.shape) + logits, -1)``
+    (the first maximum on ties) -> int32 ``logits.shape[:-1]``."""
+    noise = gumbel(key, logits.shape)
+    return (noise + logits).argmax(-1).to(torch.int32)
 
 
 def randint(key: torch.Tensor, shape, minval: int, maxval: int) -> torch.Tensor:

@@ -7,6 +7,8 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
+import torch
 
 from magent_tpu.builtin.config import battle as jbattle
 from magent_tpu.builtin.config import forest as jforest
@@ -145,3 +147,18 @@ def split_pair(jkey, tkey):
     jk, jsub = jax.random.split(jkey)
     tks = trandom.split(tkey)
     return (jk, jsub), (tks[0], tks[1])
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """One torch intra-op thread while a module runs.  Modules of many
+    mid-sized torch ops open an OpenMP region over every core per op; when
+    several test workers share the cores those regions' barriers stall for
+    the scheduler (a file of seconds alone took minutes beside five other
+    workers).  Integer results are the same on any number of threads, and
+    so are float sums of at most two terms; the tests that use this state
+    their float tolerances."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

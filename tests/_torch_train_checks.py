@@ -17,8 +17,8 @@ the other and pass a whole sample's gradient; runs on one kind of device
 
 import numpy as np
 
-from magent_tpu_torch.builtin.torch_model import params_to_flax
-from magent_tpu_torch.builtin.torch_model.dqn import tensors_to_flax
+from magent_tpu_torch.builtin.torch_model import (params_to_flax,
+                                                  tensors_to_flax)
 
 
 def step_flat(nets, opt_states):
@@ -53,3 +53,31 @@ def assert_adam_steps_close(got, want, got_moments, want_moments, *, lr,
             tag, name, float(diff[settled].max(initial=0.0)))
         assert diff.max() <= (2 * lr + param_atol) * steps, (
             tag, name, float(diff.max()))
+
+
+def flatten_tree(tree, prefix=""):
+    """A nested dict of arrays (a flax parameter tree, an optax moment) ->
+    the flat ``{"a/b/kernel": ndarray}`` of a checkpoint."""
+    if not isinstance(tree, dict):
+        return {prefix[:-1]: np.asarray(tree)}
+    out = {}
+    for k, v in tree.items():
+        out.update(flatten_tree(v, prefix + k + "/"))
+    return out
+
+
+def assert_optax_steps_close(nets, opt_states, jparams, jopts, *, lr,
+                             steps=1, moment_rtol, param_atol, tag=""):
+    """The port's nets and ``ClipAdam`` states against optax's parameters
+    and ``chain(clip_by_global_norm, adam)`` states (``(clip state, (adam
+    state, ...))``), per group, by :func:`assert_adam_steps_close`'s
+    rule."""
+    for g, ((params, moments), jp, jst) in enumerate(zip(
+            step_flat(nets, opt_states), jparams, jopts)):
+        adam = jst[1][0]
+        assert opt_states[g].count == int(adam.count), tag
+        assert_adam_steps_close(
+            params, flatten_tree(jp), moments,
+            (flatten_tree(adam.mu), flatten_tree(adam.nu)), lr=lr,
+            steps=steps, moment_rtol=moment_rtol, param_atol=param_atol,
+            tag="%s group %d" % (tag, g))

@@ -19,8 +19,8 @@ bodies, food and absorb: pursuit on both routes and the golden food,
 food_crumb and absorb layouts; the food sums' order; sequential mode on
 the battle_melee, food_crumb and turn_bodies goldens), of the fast
 DiscreteSnake at its default map (100 x 100, 256 slots) and of the
-fused DQN trainers (one step of each, f32, TF32 off, from the trusty battle
-weights read with numpy); the reward-rule plans (``GeneralRule`` whole and
+fused trainers (one step of each, f32, TF32 off: DQN from the trusty battle
+weights read with numpy, A2C and DRQN from fresh seeded nets); the reward-rule plans (``GeneralRule`` whole and
 chunked, ``PairSharedObjectRule``) on random states, GPU against CPU.
 Marked ``gpu``: each test decides at run time whether a card exists and
 skips without one.  On a machine with an H100:
@@ -938,6 +938,92 @@ def test_train_step_gpu_matches_cpu(cuda, remat):
         assert torch.equal(getattr(gs, name).cpu(), getattr(cs, name)), name
     torch.testing.assert_close(gm["loss"].cpu(), cm["loss"], rtol=1e-5,
                                atol=0)
+    for g, ((gp, gmom), (cp, cmom)) in enumerate(zip(gf, cf)):
+        assert_adam_steps_close(gp, cp, gmom, cmom, lr=1e-4, moment_rtol=1e-2,
+                                param_atol=2e-5, tag="group %d" % g)
+
+
+def _fresh(cls, spec, device):
+    return tuple(cls(spec.view_space(g), spec.feature_size(g),
+                     spec.groups[g].type.n_action,
+                     generator=torch.Generator().manual_seed(16 + g)).to(
+                         device) for g in range(spec.n_groups))
+
+
+def _a2c_gaps(venv, nets, traj, rkey):
+    """Top-two ``log(policy) + gumbel`` gaps of an A2C rollout's draws
+    (parallel/train.py's key walk); each draw took its top score."""
+    key, gaps = rkey, []
+    with torch.no_grad():
+        for t in range(traj["actions"].shape[0]):
+            key, akey = trandom.split(key).unbind(-2)
+            for g, gs in enumerate(venv.spec.groups):
+                sl = slice(gs.offset, gs.offset + gs.cap)
+                pol, _ = nets[g](traj["views"][g][t], traj["feats"][g][t],
+                                 traj["alive_in"][t][:, sl].float())
+                scores = (trandom.gumbel(trandom.fold_in(akey, g), pol.shape)
+                          + pol.log())
+                assert torch.equal(scores.argmax(-1).int(),
+                                   traj["actions"][t][:, sl])
+                top2 = scores.topk(2, -1).values
+                gaps.append((top2[..., 0] - top2[..., 1]).flatten())
+    return torch.cat(gaps)
+
+
+@pytest.mark.parametrize("alg", ["a2c", "drqn"])
+def test_a2c_drqn_step_gpu_matches_cpu(cuda, alg):
+    """One fused A2C step (fresh nets, no CommNet) and one DRQN step
+    (fresh nets, ``share_acting``, ``unroll_remat="all"``, eps 1.0) at
+    battle map 20, [6, 6], B=4, rollout 3, f32 with TF32 off: the
+    rollouts and end states equal (A2C: every draw's top two scores on the
+    CPU more than 1e-5 apart, so the equal draws are not luck); losses
+    (A2C's mean values too) within rtol 1e-5; DRQN's hiddens within 1e-5;
+    the Adam moments and parameters by ``test_train_step_gpu_matches_cpu``'s
+    rule."""
+    from magent_tpu_torch.builtin.torch_model import A2CNet, DRQNNet
+    from magent_tpu_torch.parallel import (init_drqn_hiddens,
+                                           make_a2c_train_step,
+                                           make_drqn_train_step)
+
+    out = {}
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        for d in (cuda, torch.device("cpu")):
+            venv = VecGridWorld(battle.get_config(20), [6, 6], 4, device=d)
+            tx = ClipAdam(1e-4, 5.0)
+            state = venv.reset(trandom.PRNGKey(0).to(d))
+            key = trandom.PRNGKey(2).to(d)
+            rkey = trandom.split(key)[1]
+            if alg == "a2c":
+                step = make_a2c_train_step(venv, tx, rollout_len=3)
+                nets = _fresh(A2CNet, venv.spec, d)
+                _, traj = step.rollout(nets, state, rkey)
+                extra = _a2c_gaps(venv, nets, traj, rkey)
+                nets, opts, state, m = step(
+                    nets, tuple(tx.init(n) for n in nets), state, key)
+            else:
+                step = make_drqn_train_step(venv, tx, rollout_len=3)
+                nets = _fresh(DRQNNet, venv.spec, d)
+                h0 = init_drqn_hiddens(venv, nets)
+                with torch.no_grad():
+                    _, _, traj = step.rollout(nets, state, h0, rkey, 1.0)
+                nets, opts, state, extra, m = step(
+                    nets, _fresh(DRQNNet, venv.spec, d),
+                    tuple(tx.init(n) for n in nets), state, h0, key, 1.0)
+            out[d.type] = (traj, state, m, step_flat(nets, opts), extra)
+    (gt, gs, gm, gf, ge), (ct, cs, cm, cf, ce) = out["cuda"], out["cpu"]
+    for name in ("actions", "rewards", "alive", "alive_in", "done"):
+        assert torch.equal(gt[name].cpu(), ct[name]), name
+    for name in FIELDS:
+        assert torch.equal(getattr(gs, name).cpu(), getattr(cs, name)), name
+    for name in cm:
+        torch.testing.assert_close(gm[name].cpu(), cm[name], rtol=1e-5,
+                                   atol=0)
+    if alg == "a2c":
+        assert float(ce.min()) > 1e-5
+    else:
+        for a, b in zip(ge, ce):
+            assert a.grad_fn is None
+            torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-5)
     for g, ((gp, gmom), (cp, cmom)) in enumerate(zip(gf, cf)):
         assert_adam_steps_close(gp, cp, gmom, cmom, lr=1e-4, moment_rtol=1e-2,
                                 param_atol=2e-5, tag="group %d" % g)

@@ -430,3 +430,25 @@ def test_env_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=root,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+@pytest.mark.parametrize("modules", ["magent_tpu_torch",
+                                     "magent_tpu_torch.parallel, "
+                                     "magent_tpu_torch.builtin.torch_model"])
+def test_package_exports_snake_and_imports_no_jax(modules):
+    """``magent_tpu_torch.DiscreteSnake`` is the ported class, as the JAX
+    package's alias is; importing the package alone, and the trainers and
+    their nets, loads neither JAX nor any ``magent_tpu`` module."""
+    import magent_tpu_torch
+    from magent_tpu_torch import discrete_snake
+
+    assert magent_tpu_torch.DiscreteSnake is discrete_snake.DiscreteSnake
+    assert "DiscreteSnake" in magent_tpu_torch.__all__
+    code = ("import sys, %s; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'optax', 'magent_tpu')); "
+            "print(bad); sys.exit(1 if bad else 0)" % modules)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr

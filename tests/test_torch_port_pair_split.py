@@ -29,6 +29,11 @@ from magent_tpu.ops import attack_prefix as jap
 from magent_tpu_torch.ops import attack_prefix as tap
 from magent_tpu_torch.tools import profile_rect as tpr
 
+from _torch_port_cases import one_torch_thread  # noqa: F401
+
+# the folds' thousands of mid-sized reductions (see one_torch_thread)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 H100_SMS = 132
 # around the 128-slot query tile, a ragged middle, battle's 2000 slots and
 # the GridWorld's 2048
@@ -92,53 +97,56 @@ def test_rect_split_picks(B_, A, want):
     assert tap.rect_split(B_, A, H100_SMS) == want
 
 
-def _fold_occupant(acell, cell, hp, split):
+def _fold_occupant(acell, cell, hp, splits):
     """The occupant's plain partials over each tile's ranges, folded in
-    range order: (count, slot sum, hp sum) by three adds."""
+    range order, for every split: (count, slot sum, hp sum) by three adds.
+    Each tile's [B, A, tile] match terms are built once and every split's
+    ranges slice them."""
     Bn, A = acell.shape
-    n = split[0] * split[1]
     slots = torch.arange(A)
-    tgt = torch.full((Bn, A), -2, dtype=torch.int32)
-    hp_t = torch.full((Bn, A), float("nan"))
+    out = [(torch.full((Bn, A), -2, dtype=torch.int32),
+            torch.full((Bn, A), float("nan"))) for _ in splits]
     for t, q in _tiles(A):
-        cnt = torch.zeros((Bn, q.stop - q.start), dtype=torch.int64)
-        ssum = torch.zeros_like(cnt)
-        hsum = torch.zeros((Bn, q.stop - q.start))
-        for lo, hi in _ranges(t, n, A, False):
-            b = slice(lo, hi)
-            m = cell[:, b, None] == acell[:, None, q]  # [B, range, tile]
-            cnt = cnt + m.sum(1)
-            ssum = ssum + (m * slots[b, None]).sum(1)
-            hsum = hsum + (m * hp[:, b, None]).sum(1)
-        tgt[:, q] = torch.where(cnt > 0, ssum, -1).to(torch.int32)
-        hp_t[:, q] = hsum
-    return tgt, hp_t
+        m = cell[:, :, None] == acell[:, None, q]  # [B, A, tile]
+        # (match, slot) per pair, and its hp
+        ints = torch.stack([m.long(), m * slots[:, None]], -1)
+        hps = m * hp[:, :, None]
+        for (tgt, hp_t), split in zip(out, splits):
+            acc = torch.zeros((Bn, q.stop - q.start, 2), dtype=torch.int64)
+            hsum = torch.zeros((Bn, q.stop - q.start))
+            for lo, hi in _ranges(t, split[0] * split[1], A, False):
+                acc = acc + ints[:, lo:hi].sum(1)
+                hsum = hsum + hps[:, lo:hi].sum(1)
+            cnt, ssum = acc.unbind(-1)
+            tgt[:, q] = torch.where(cnt > 0, ssum, -1).to(torch.int32)
+            hp_t[:, q] = hsum
+    return out
 
 
-def _fold_claims(tcell, split):
+def _fold_claims(tcell, splits):
     """move_claims' plain partials over each tile's lower ranges, the i < j
-    gate on every pair, folded in range order: (cnt, head) by an add and a
-    min, head starting at j."""
+    gate on every pair, folded in range order for every split: (cnt, head)
+    by an add and a min, head starting at j.  Each tile's [B, A, tile]
+    gated match mask is built once and every split's ranges slice it."""
     Bn, A = tcell.shape
-    n = split[0] * split[1]
     slots = torch.arange(A)
-    cnt_out = torch.full((Bn, A), -2, dtype=torch.int32)
-    head_out = torch.full((Bn, A), -2, dtype=torch.int32)
+    out = [(torch.full((Bn, A), -2, dtype=torch.int32),
+            torch.full((Bn, A), -2, dtype=torch.int32)) for _ in splits]
     for t, q in _tiles(A):
-        cnt = torch.zeros((Bn, q.stop - q.start), dtype=torch.int64)
-        head = slots[q].expand(Bn, -1).clone()
-        for lo, hi in _ranges(t, n, A, True):
-            if hi == lo:  # the identity: the kernel folds it all the same
-                continue
-            b = slice(lo, hi)
-            m = (tcell[:, b, None] == tcell[:, None, q]) & (
-                slots[b, None] < slots[None, q])
-            cnt = cnt + m.sum(1)
-            head = torch.minimum(head, torch.where(m, slots[b, None],
-                                                   A).amin(1))
-        cnt_out[:, q], head_out[:, q] = cnt.to(torch.int32), head.to(
-            torch.int32)
-    return cnt_out, head_out
+        m = (tcell[:, :, None] == tcell[:, None, q]) & (
+            slots[:, None] < slots[None, q])
+        heads = torch.where(m, slots[:, None], A)
+        for (cnt_out, head_out), split in zip(out, splits):
+            cnt = torch.zeros((Bn, q.stop - q.start), dtype=torch.int64)
+            head = slots[q].expand(Bn, -1).clone()
+            for lo, hi in _ranges(t, split[0] * split[1], A, True):
+                if hi == lo:  # the identity: the kernel folds it all the same
+                    continue
+                cnt = cnt + m[:, lo:hi].sum(1)
+                head = torch.minimum(head, heads[:, lo:hi].amin(1))
+            cnt_out[:, q], head_out[:, q] = cnt.to(torch.int32), head.to(
+                torch.int32)
+    return out
 
 
 def _assert_hp(got, want, matches, tag):
@@ -164,8 +172,8 @@ def test_combined_occupant_partials_match_jax(A, duplicates):
                                                              hp)))
     matches = tpr.occupant_matches(acell, cell)
     splits = tpr.SPLITS + [tap.rect_split(B, A, H100_SMS)]
-    for split in splits:
-        tgt, hp_t = _fold_occupant(acell, cell, hp, split)
+    for split, (tgt, hp_t) in zip(splits, _fold_occupant(acell, cell, hp,
+                                                         splits)):
         np.testing.assert_array_equal(tgt.numpy(), np.asarray(want_t),
                                       err_msg=str(split))
         _assert_hp(hp_t, want_h, matches, split)
@@ -190,8 +198,8 @@ def test_combined_move_claims_partials_match_jax(A, operands):
         tcell = tpr.claim_operands(A, B, 7 * A, SENTINEL)
         ref = jax.jit(jax.vmap(jap.move_claims_xla))
     want_c, want_h = (np.asarray(w) for w in ref(jnp.asarray(tcell.numpy())))
-    for split in tpr.SPLITS + [tap.rect_split(B, A, H100_SMS)]:
-        cnt, head = _fold_claims(tcell, split)
+    splits = tpr.SPLITS + [tap.rect_split(B, A, H100_SMS)]
+    for split, (cnt, head) in zip(splits, _fold_claims(tcell, splits)):
         np.testing.assert_array_equal(cnt.numpy(), want_c, err_msg=str(split))
         np.testing.assert_array_equal(head.numpy(), want_h,
                                       err_msg=str(split))

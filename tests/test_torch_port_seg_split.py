@@ -26,7 +26,11 @@ from magent_tpu.ops import attack_prefix as jap
 from magent_tpu_torch.ops import attack_prefix as tap
 from magent_tpu_torch.tools.profile_rect import SPLITS
 
+from _torch_port_cases import one_torch_thread  # noqa: F401
 from _torch_seg_operands import CASES, occupant_case, rank_case, t as _t
+
+# the folds' thousands of mid-sized reductions (see one_torch_thread)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 H100_SMS = 132
 # ragged sorted row counts: around the 128-row tile and the 1024-row
@@ -115,6 +119,41 @@ def _ranges(A, plan, split):
         yield q, [slice(lo, hi) for lo, hi in zip(b[:-1], b[1:]) if lo < hi]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _free_row_partials():
+    yield
+    _occupant_rows.cache_clear()
+    _rank_rows.cache_clear()
+
+
+@functools.lru_cache(maxsize=None)
+def _occupant_rows(case):
+    """Per query tile of the case's plan: each window row's own partial
+    (slot id or -1, hp) against the tile's queries, ``[W, tile]``, from one
+    call of the plain pair function with every row a partner set of its
+    own; every split's ranges fold slices of it."""
+    args, sort_y, order, margin = occupant_case(case)
+    qx, qy, x, y, bw, bh, hp = (_t(a) for a in args)
+    order_t = _t(order)
+    plan = tap._seg_plan(_t(sort_y), margin)
+    rows = [tap._occupant_rect_pairs(
+        qx[q], qy[q], *(a[w, None] for a in (x, y, bw, bh, hp, order_t)))
+        for q, (w,) in _ranges(qx.shape[0], plan, (1, 1))]
+    return plan, rows
+
+
+@functools.lru_cache(maxsize=None)
+def _rank_rows(case):
+    """The same for the rank sweep: each window row's damage term."""
+    args, sort_y, live, margin = rank_case(case)
+    tgt, rank, dmg = (_t(a) for a in args)
+    plan = tap._seg_plan(_t(sort_y), margin)
+    rows = [tap._rank_pairs(tgt[q], rank[q], *(a[w, None]
+                                                for a in (tgt, rank, dmg)))
+            for q, (w,) in _ranges(tgt.shape[0], plan, (1, 1))]
+    return plan, rows
+
+
 @functools.lru_cache(maxsize=None)
 def _jax_occupant(case):
     args, sort_y, order, margin = occupant_case(case)
@@ -139,21 +178,21 @@ def test_combined_occupant_seg_partials_match_jax(case, split):
     (a + b = b + a), within 1e-6 on the degenerate case's piles of three
     or more (as tests/test_torch_port_seg_kernels.py holds the plain
     version)."""
-    args, sort_y, order, margin = occupant_case(case)
+    args, _, _, _ = occupant_case(case)
     qx, qy, x, y, bw, bh, hp = (_t(a) for a in args)
-    order_t = _t(order)
     A = qx.shape[0]
-    plan = tap._seg_plan(_t(sort_y), margin)
+    plan, rows = _occupant_rows(case)
     tgt = torch.full((A,), -2, dtype=torch.int32)
     hp_t = torch.full((A,), -1.0)
-    for q, ranges in _ranges(A, plan, split):
+    for (q, ranges), (w,), (row_t, row_h) in zip(
+            _ranges(A, plan, split), (r for _, r in _ranges(A, plan, (1, 1))),
+            rows):
         best = torch.full((q.stop - q.start,), -1, dtype=torch.int32)
         hsum = torch.zeros(q.stop - q.start)
         for b in ranges:
-            part_t, part_h = tap._occupant_rect_pairs(
-                qx[q], qy[q], x[b], y[b], bw[b], bh[b], hp[b], order_t[b])
-            best = torch.maximum(best, part_t)
-            hsum = hsum + part_h
+            b = slice(b.start - w.start, b.stop - w.start)
+            best = torch.maximum(best, row_t[b].amax(0))
+            hsum = hsum + row_h[b].sum(0)
         tgt[q], hp_t[q] = best, hsum
     want_t, want_h = _jax_occupant(case)
     np.testing.assert_array_equal(tgt.numpy(), want_t)
@@ -172,15 +211,16 @@ def test_combined_rank_seg_partials_match_jax(case, split):
     live rows (sentinel rows sum window-dependent terms that the engine
     masks), as tests/test_torch_port_seg_kernels.py holds the plain
     version."""
-    args, sort_y, live, margin = rank_case(case)
-    tgt, rank, dmg = (_t(a) for a in args)
-    A = tgt.shape[0]
-    plan = tap._seg_plan(_t(sort_y), margin)
+    args, _, live, _ = rank_case(case)
+    A = args[0].shape[0]
+    plan, rows = _rank_rows(case)
     got = torch.full((A,), float("nan"))
-    for q, ranges in _ranges(A, plan, split):
+    for (q, ranges), (w,), row_p in zip(
+            _ranges(A, plan, split), (r for _, r in _ranges(A, plan, (1, 1))),
+            rows):
         p = torch.zeros(q.stop - q.start)
         for b in ranges:
-            p = p + tap._rank_pairs(tgt[q], rank[q], tgt[b], rank[b], dmg[b])
+            p = p + row_p[b.start - w.start:b.stop - w.start].sum(0)
         got[q] = p
     want = _jax_rank(case)
     np.testing.assert_allclose(got.numpy()[live], want[live], atol=1e-5,
