@@ -182,7 +182,27 @@ Run from the repository root:  python3 chip_smoke.py
     battle map 64, 2x200, B=4 with bf16 views forced onto the banded route
     (its minimap epilogue), on the GPU and on the CPU from the same keys
     and actions, and asserts equal states, views and features;
-11. prints the ``kernels`` JSON line, then ``{"ok": true, "device": ...}``
+11. runs the model layer at ``examples/train_battle.py``'s width —
+    ``GridWorld("battle", map_size=125)`` with the 2x625 armies, two
+    ``ProcessingModel``s of ``DeepQNetwork`` with ``build_alg("dqn")``'s
+    hyperparameters (batch 256, memory 2**20, target_update 1200,
+    train_freq 5, lr 1e-4) loaded from the bundled trusty checkpoints:
+    20 timed ``get_observation -> infer_action(eps 0.1) -> set_action ->
+    step -> get_reward -> sample_step -> clear_dead`` steps (ms per env
+    step split into env, inference and sampling; launches per env step
+    asserted: ``window_gather`` 2, ``rank_prefix_hp`` 1, ``move_claims``
+    1), host syncs, the profiler, then one ``train()`` per model (ms and
+    host syncs per batch; device ops and device ms per batch from the
+    profiler) and peak memory; the same for ``AdvantageActorCritic`` and
+    ``DeepRecurrentQNetwork`` from fresh seeded nets (10 steps); the views'
+    NumPy round trip (card -> host -> card) timed; both trusty checkpoints
+    saved and reloaded bit for bit; a ``SubprocessModel`` whose spawned
+    worker holds the card: act (equal to a ``ProcessingModel``'s), sample,
+    train, save, load, quit; then GPU = CPU for each kind over one round
+    (DQN 5 steps, A2C and DRQN 3; episode buffers of 100 agents) and one
+    ``train()`` per model (``tests/_torch_model_play.py``'s loop and
+    near-tie rule; the trainers' tolerances per Adam step);
+12. prints the ``kernels`` JSON line, then ``{"ok": true, "device": ...}``
     as the last line.
 
 Any failure raises (exit code 1).  Without a CUDA device it exits with 2
@@ -260,6 +280,31 @@ TRAINER_NETS = {"dqn": "trusty weights", "dqn_remat": "trusty weights",
 # A2C renders the post-rollout state once for its bootstrap values
 LEARNER_VIEWS = {"dqn": 0, "dqn_remat": 4 * TRAIN_SAMPLE_STEPS, "a2c": 2,
                  "drqn": 0}
+
+# phase 11, the model layer: examples/train_battle.py's per-group loop
+# (train_battle.py:49-64, the steps of examples/rollout.py:88-200) at its
+# map GW_MAP with place_armies' 2x625; build_alg's hyperparameters, copied
+# from examples/rollout.py:273-301 (a2c: 10 x the learning rate)
+MODEL_HYPER = {
+    "dqn": dict(batch_size=256, memory_size=2 ** 20, learning_rate=1e-4,
+                target_update=1200, train_freq=5),
+    "a2c": dict(batch_size=256, learning_rate=1e-3),
+    "drqn": dict(batch_size=256 // 8, unroll_step=8, memory_size=8 * 625,
+                 learning_rate=1e-4, target_update=1200, train_freq=5),
+}
+MODEL_CLASSES = {"dqn": "DeepQNetwork", "a2c": "AdvantageActorCritic",
+                 "drqn": "DeepRecurrentQNetwork"}
+# timed env steps per kind (dqn from the trusty checkpoints, a2c and drqn
+# from fresh nets seeded MODEL_SEED + group), then one train() per model;
+# e-greedy eps as the examples' late rounds
+MODEL_STEPS = {"dqn": 20, "a2c": 10, "drqn": 10}
+MODEL_WARMUP, MODEL_SYNC_STEPS, MODEL_PROFILE_STEPS = 2, 2, 2
+MODEL_EPS, MODEL_SEED = 0.1, 0
+MODEL_PER_STEP = {"window_gather": 2, "rank_prefix_hp": 1, "move_claims": 1}
+# GPU = CPU: one round of this many steps per kind, then one train() per
+# model, under the trainers' tolerances (TRAIN_* above), per Adam step
+MODEL_CMP_STEPS = {"dqn": 5, "a2c": 3, "drqn": 3}
+MODEL_CMP_EPISODES = 100
 # the trainers' GPU-vs-CPU step: tests/test_train_fused.py's size, f32
 TRAIN_SMALL_MAP, TRAIN_SMALL_CAPS, TRAIN_SMALL_ENVS, TRAIN_SMALL_T = (
     20, [6, 6], 4, 3)
@@ -883,7 +928,8 @@ def profile_steps(label, step, n_steps, ms_per_step):
     """torch.profiler over ``n_steps`` more calls of ``step()``: device ops
     per step, device time per step, and the device's busy share (measured
     with the profiler on, and estimated against the unprofiled
-    ``ms_per_step``)."""
+    ``ms_per_step``) -> (device ops, device ms) per step, or None when the
+    profiler saw no device event."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -902,7 +948,7 @@ def profile_steps(label, step, n_steps, ms_per_step):
     if not kernels:
         print("%s profiler: no device events captured; device time not "
               "measured" % label, flush=True)
-        return
+        return None
     kernels.sort(reverse=True)
     device_ms = sum(k[0] for k in kernels) / n_steps
     own = {name: sum(k[0] for k in kernels if sym in k[2]) / n_steps
@@ -925,6 +971,7 @@ def profile_steps(label, step, n_steps, ms_per_step):
     for dev_ms, calls, name in kernels[:15]:
         print("  %9.4f ms/step  %6.1f calls/step  %s" % (
             dev_ms / n_steps, calls / n_steps, name[:90]))
+    return sum(k[1] for k in kernels) / n_steps, device_ms
 
 
 def profile_lockstep(label, venv, state, key, ms_per_step):
@@ -3508,6 +3555,451 @@ def seg_world_env(device):
     return venv
 
 
+def model_play_module():
+    """``tests/_torch_model_play.py`` (the port and NumPy only): the
+    per-agent models' play loop and its near-tie rule."""
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import _torch_model_play
+
+    return _torch_model_play
+
+
+def model_class(kind):
+    from magent_tpu_torch.builtin import torch_model
+
+    return getattr(torch_model, MODEL_CLASSES[kind])
+
+
+def load_trusty(models, names=("l", "r")):
+    from magent_tpu_torch import utility
+
+    for m, tag in zip(models, names):
+        m.load(utility.bundled_model_dir(), 0, name="trusty-battle-game-" + tag)
+
+
+def model_step(env, handles, models, clock):
+    """One step of examples/rollout.py's loop over ``ProcessingModel``s:
+    ``get_observation -> infer_action(eps) -> set_action -> step ->
+    get_reward -> sample_step -> clear_dead``; the host seconds of the
+    env's calls, the inference and the sampling are added into ``clock``
+    (each ends in a copy to the host, so each is synchronized).  -> (live
+    agents, observations, rewards)."""
+    t0 = time.perf_counter()
+    obs = [env.get_observation(h) for h in handles]
+    ids = [env.get_agent_id(h) for h in handles]
+    t1 = time.perf_counter()
+    acts = [m.infer_action(o, i, "e_greedy", MODEL_EPS)
+            for m, o, i in zip(models, obs, ids)]
+    t2 = time.perf_counter()
+    for h, a in zip(handles, acts):
+        env.set_action(h, a)
+    done = env.step()
+    rewards = [env.get_reward(h) for h in handles]
+    alives = [env.get_alive(h) for h in handles]
+    t3 = time.perf_counter()
+    for m, r, a in zip(models, rewards, alives):
+        m.sample_step(r, a)
+    t4 = time.perf_counter()
+    env.clear_dead()
+    clock["env"] += (t1 - t0) + (t3 - t2) + (time.perf_counter() - t4)
+    clock["inference"] += t2 - t1
+    clock["sampling"] += t4 - t3
+    if done:
+        raise AssertionError("model layer: the episode ended")
+    return sum(len(i) for i in ids), obs, rewards
+
+
+def views_round_trip_ms(view):
+    """ms of one group's views (as ``get_observation`` returns them)
+    copied card -> host and host -> card, CUDA-synchronized, median of
+    20: the NumPy round trip between the env and the model."""
+    dev = torch.from_numpy(view).cuda()
+    d2h, h2d = [], []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dev.cpu().numpy()
+        t1 = time.perf_counter()
+        torch.from_numpy(view).to("cuda")
+        torch.cuda.synchronize()
+        d2h.append(t1 - t0)
+        h2d.append(time.perf_counter() - t1)
+    return statistics.median(d2h) * 1e3, statistics.median(h2d) * 1e3
+
+
+def run_model_loop(kind, env, models, device_name):
+    """Phase 11, one model kind on train_battle's loop: warm-up, timed
+    steps with the launch counts asserted, host syncs, the profiler, then
+    one timed ``train()`` per model, and one more step and a short
+    ``train()`` of group 1 under the profiler and the sync count -> the
+    timed steps' launch counts."""
+    from magent_tpu_torch import ops
+
+    handles = env.get_handles()
+    for _ in range(MODEL_WARMUP):
+        model_step(env, handles, models, collections.Counter())
+    torch.cuda.synchronize()
+    n = MODEL_STEPS[kind]
+    clock = collections.Counter()
+    ops.reset_launch_counts()
+    live = 0
+    t0 = time.perf_counter()
+    for _ in range(n):
+        k, obs, rewards = model_step(env, handles, models, clock)
+        live += k
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    expected = {name: MODEL_PER_STEP.get(name, 0) * n for name in ops.KERNELS}
+    if counts != expected:
+        raise AssertionError("model layer %s: launch counts %s, expected %s"
+                             % (kind, counts, expected))
+    ms = dt / n * 1e3
+    print("model layer %s: train_battle's loop, battle map %d, %d live "
+          "agent-steps in %d timed steps: %.4f ms per env step (env %.4f, "
+          "inference %.4f, sampling %.4f), %.1f agent-steps/s on %s; "
+          "launches per env step %s" % (
+              kind, GW_MAP, live, n, ms, clock["env"] / n * 1e3,
+              clock["inference"] / n * 1e3, clock["sampling"] / n * 1e3,
+              live / dt, device_name, json.dumps(
+                  {k: v / n for k, v in counts.items() if v})), flush=True)
+    if not all(np.isfinite(v).all() and np.isfinite(f).all()
+               for v, f in obs) or not all(np.isfinite(r).all()
+                                           for r in rewards):
+        raise AssertionError("model layer %s: outputs not finite" % kind)
+    syncs, sites = count_host_syncs(
+        lambda: model_step(env, handles, models, collections.Counter()),
+        MODEL_SYNC_STEPS)
+    print("model layer %s: %.1f host syncs per env step (torch.cuda sync "
+          "debug mode, %d steps); by call site: %s" % (
+              kind, syncs, MODEL_SYNC_STEPS, json.dumps(
+                  {k: v / MODEL_SYNC_STEPS for k, v in sites.most_common()})),
+          flush=True)
+    profile_steps("model layer %s, per env step" % kind,
+                  lambda: model_step(env, handles, models,
+                                     collections.Counter()),
+                  MODEL_PROFILE_STEPS, ms)
+
+    out, train_ms, batches = [], [], []
+    for m in models:
+        before = m.model.train_ct
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out.append(m.train(print_every=1000))
+        torch.cuda.synchronize()
+        train_ms.append((time.perf_counter() - t0) * 1e3)
+        batches.append(m.model.train_ct - before)
+    print("model layer %s: train() of each group: %s batches in %s ms, %s "
+          "ms per batch; returned %s" % (
+              kind, batches, ["%.3f" % t for t in train_ms],
+              ["%.4f" % (t / b) for t, b in zip(train_ms, batches)], out),
+          flush=True)
+    # one more env step recorded, and a short train() call of group 1
+    # under the profiler and the sync count
+    model_step(env, handles, models, collections.Counter())
+    m1 = models[1]
+    before = m1.model.train_ct
+    prof = []
+    syncs, sites = count_host_syncs(lambda: prof.append(profile_steps(
+        "model layer %s, group 1 train() of one step" % kind,
+        lambda: out.append(m1.train(print_every=1000)), 1,
+        train_ms[1] / batches[1])), 1)
+    short = m1.model.train_ct - before
+    print("model layer %s: group 1 train() of one step: %d batches, %.2f "
+          "host syncs per batch (%d in the call; by call site: %s)%s" % (
+              kind, short, syncs / short, syncs,
+              json.dumps(dict(sites.most_common())),
+              "" if prof[0] is None else
+              ", %.1f device ops and %.4f ms of device time per batch" % (
+                  prof[0][0] / short, prof[0][1] / short)), flush=True)
+    if not (min(batches) > 0 and short > 0 and all(
+            np.isfinite(np.hstack(r).astype(np.float64)).all()
+            for r in out)):
+        raise AssertionError("model layer %s: train() gave %s" % (kind, out))
+    print("model layer %s: peak device memory %.3f GB" % (
+        kind, torch.cuda.max_memory_allocated() / 1e9), flush=True)
+    return counts
+
+
+def check_trusty_round_trip(env):
+    """Each trusty checkpoint loaded, saved and loaded again: the saved
+    file and the reloaded weights equal the bundled file bit for bit."""
+    import tempfile
+
+    from magent_tpu_torch import utility
+
+    cls = model_class("dqn")
+    for g, tag in enumerate("lr"):
+        h = env.get_handles()[g]
+        name = "trusty-battle-game-" + tag
+        with np.load(os.path.join(utility.bundled_model_dir(), name,
+                                  "tfdqn_0.npz")) as f:
+            trusty = dict(f)
+        m = cls(env, h, "round-trip", memory_size=64)
+        load_trusty([m], [tag])
+        with tempfile.TemporaryDirectory() as d:
+            m.save(d, 3)
+            with np.load(os.path.join(d, "round-trip", "tfdqn_3.npz")) as f:
+                saved = dict(f)
+            again = cls(env, h, "again", memory_size=64, seed=7)
+            again.load(d, 3, name="round-trip")
+        for flat in (saved, again.get_params()):
+            if sorted(flat) != sorted(trusty) or not all(
+                    flat[k].dtype == trusty[k].dtype
+                    and np.array_equal(flat[k], trusty[k]) for k in trusty):
+                raise AssertionError("model layer: %s does not round-trip "
+                                     "bit for bit" % name)
+    print("model layer: both trusty checkpoints saved and loaded again on "
+          "the card, bit for bit", flush=True)
+
+
+def check_subprocess_model(env):
+    """One ``SubprocessModel`` round trip with its worker on the card (the
+    default device): the trusty weights loaded, act, sample, train, save,
+    load; its actions equal a ``ProcessingModel``'s of the same seed and
+    weights; ``quit()`` ends the worker."""
+    import tempfile
+
+    from magent_tpu_torch import ProcessingModel, SubprocessModel
+
+    cls = model_class("dqn")
+    handles = env.get_handles()
+    h = handles[0]
+    rng = np.random.RandomState(3)
+    # the worker computes with PyTorch's defaults (cuDNN's convolutions in
+    # TF32); the in-process model it is held to does too, meanwhile
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    t0 = time.perf_counter()
+    sub = SubprocessModel(env, h, "battle-l", 20000, 1000, cls,
+                          seed=MODEL_SEED, **MODEL_HYPER["dqn"])
+    try:
+        local = ProcessingModel(env, h, "battle-l", 20000, 1000, cls,
+                                seed=MODEL_SEED, **MODEL_HYPER["dqn"])
+        load_trusty([sub, local], ["l", "l"])
+        other = handles[1]
+        for _ in range(2):  # two steps: a one-step episode is all masked
+            obs, ids = env.get_observation(h), env.get_agent_id(h)
+            sub.infer_action(obs, ids, "e_greedy", MODEL_EPS, block=False)
+            acts = sub.fetch_action()
+            want = local.infer_action(obs, ids, "e_greedy", MODEL_EPS)
+            if acts.dtype != np.int32 or not np.array_equal(acts, want):
+                raise AssertionError("SubprocessModel: actions differ from "
+                                     "the in-process model's")
+            env.set_action(h, acts)
+            env.set_action(other, rng.randint(
+                0, env.get_action_space(other)[0],
+                env.get_num(other)).astype(np.int32))
+            env.step()
+            sub.sample_step(env.get_reward(h), env.get_alive(h),
+                            block=False)
+            sub.check_done()
+            env.clear_dead()
+        loss, value = sub.train(print_every=1000)
+        if not (np.isfinite(loss) and np.isfinite(value) and loss > 0):
+            raise AssertionError("SubprocessModel: train gave %s"
+                                 % ((loss, value),))
+        with tempfile.TemporaryDirectory() as d:
+            sub.save(d, 1)
+            local.load(d, 1, name="battle-l")
+            sub.load(d, 1)
+        obs, ids = env.get_observation(h), env.get_agent_id(h)
+        if not np.array_equal(sub.infer_action(obs, ids, "greedy"),
+                              local.infer_action(obs, ids, "greedy")):
+            raise AssertionError("SubprocessModel: greedy actions differ "
+                                 "after the weights crossed")
+    finally:
+        sub.quit()
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    if sub.proc.is_alive() or sub.proc.exitcode != 0:
+        raise AssertionError("SubprocessModel: the worker did not exit "
+                             "cleanly (exit code %s)" % sub.proc.exitcode)
+    print("model layer: SubprocessModel on the card (spawned worker, trusty "
+          "weights): 2 steps of act = ProcessingModel's on %d agents and "
+          "sample, train (loss %.6f), save, load, greedy acts equal again, "
+          "quit (exit 0); "
+          "%.2f s with the spawn" % (len(acts), loss,
+                                       time.perf_counter() - t0), flush=True)
+
+
+def model_param_errors(gm, cm):
+    """(Adam moments' largest error as a share of each tensor's largest
+    magnitude, parameters' largest error where the gradient's sign is
+    settled, parameters' largest error) of two per-agent models."""
+    from magent_tpu_torch.builtin.torch_model import (params_to_flax,
+                                                      tensors_to_flax)
+
+    def flat(m):
+        names = [n for n, _ in m.net.named_parameters()]
+        return params_to_flax(m.net), [
+            tensors_to_flax(dict(zip(names, getattr(m.opt_state, k))))
+            for k in ("mu", "nu")]
+
+    (gp, gmom), (cp, cmom) = flat(gm), flat(cm)
+    moment_err = param_err = param_any = 0.0
+    for k in cp:
+        for a, b in zip(gmom, cmom):
+            err, scale = np.abs(a[k] - b[k]).max(), np.abs(b[k]).max()
+            # a moment that is 0 on the CPU must be 0 on the card
+            moment_err = max(moment_err, float(
+                err / scale if scale else np.inf if err else 0.0))
+        diff = np.abs(gp[k] - cp[k])
+        mu = cmom[0][k]
+        settled = np.abs(mu) > TRAIN_MOMENT_RTOL * np.abs(mu).max()
+        param_err = max(param_err, float(diff[settled].max(initial=0.0)))
+        param_any = max(param_any, float(diff.max()))
+    return moment_err, param_err, param_any
+
+
+def check_models_gpu_match_cpu():
+    """Phase 11, last: each model kind on the card and on the CPU over one
+    round of MODEL_CMP_STEPS steps of train_battle's map and armies and one
+    ``train()`` per model (``tests/_torch_model_play.py``'s loop, the same
+    seeds, NumPy reseeded before each run): actions equal wherever the CPU
+    run's top two scores lie more than its MARGIN apart (on a tie the card
+    must pick a tied action, and the CPU's is played), rewards exact,
+    ``train()``'s returns within TRAIN_LOSS_RTOL, Adam moments within
+    TRAIN_MOMENT_RTOL of each tensor's largest and parameters within 0.2
+    lr per Adam step where the gradient's sign is settled (2 lr more
+    elsewhere), DRQN's hidden states within TRAIN_HIDDEN_ATOL.  The
+    episode buffers hold MODEL_CMP_EPISODES agents per group, as
+    ``tests/test_models.py``'s loop does (9 DQN batches per model): a
+    train batch's double-Q argmax or a ReLU can meet a tie within the
+    devices' rounding, after which the two runs' losses part; over 61
+    batches (every agent recorded) one group's did, at its fifth batch,
+    in one run on an H100."""
+    import magent_tpu_torch as tmag
+
+    play = model_play_module()
+    for kind in ("dqn", "a2c", "drqn"):
+        cls = model_class(kind)
+        runs, models = {}, {}
+        for dev in ("cpu", "cuda"):
+            env = tmag.GridWorld("battle", map_size=GW_MAP, device=dev)
+            models[dev] = [
+                cls(env, h, "battle-%s" % tag, seed=MODEL_SEED + g,
+                    device=dev, **MODEL_HYPER[kind])
+                for g, (h, tag) in enumerate(zip(env.get_handles(), "lr"))]
+            if kind == "dqn":
+                load_trusty(models[dev])
+            np.random.seed(MODEL_SEED)
+            runs[dev] = play.play(
+                tmag, env, models[dev], MODEL_EPS, rounds=1,
+                steps=MODEL_CMP_STEPS[kind], place=place_armies,
+                capacity=MODEL_CMP_EPISODES, **(
+                    dict(scores=lambda m, v, f, ids: play.port_scores(
+                        kind, m, v, f, ids, MODEL_EPS))
+                    if dev == "cpu" else dict(ref=runs["cpu"])))
+        want, got = runs["cpu"], runs["cuda"]
+        gaps = np.concatenate([np.where(ex, np.inf, play.top_two_gap(sc))
+                               for sc, ex in want["scores"]])
+        compared = gaps > play.MARGIN
+        if compared.sum() != len(gaps) - got["ties"]:
+            raise AssertionError("model %s: tie count" % kind)
+        for a, b in zip(got["acts"] + got["rewards"],
+                        want["acts"] + want["rewards"]):
+            if not np.array_equal(a, b):
+                raise AssertionError("model %s: GPU and CPU actions or "
+                                     "rewards differ" % kind)
+        rel = max(float(np.max(np.abs(
+            np.hstack(a).astype(np.float64) - np.hstack(b)) / np.abs(
+            np.hstack(b)))) for a, b in zip(got["train"], want["train"]))
+        lr = MODEL_HYPER[kind]["learning_rate"]
+        errs = []
+        for gm, cm in zip(models["cuda"], models["cpu"]):
+            steps = cm.opt_state.count
+            if gm.opt_state.count != steps or steps < 1:
+                raise AssertionError("model %s: %d and %d Adam steps" % (
+                    kind, gm.opt_state.count, steps))
+            moment_err, param_err, param_any = model_param_errors(gm, cm)
+            errs.append((steps, moment_err, param_err, param_any))
+            if not (moment_err <= TRAIN_MOMENT_RTOL
+                    and param_err <= 0.2 * lr * steps
+                    and param_any <= 2.2 * lr * steps):
+                raise AssertionError(
+                    "model %s: GPU vs CPU after %d Adam steps: moments %g "
+                    "(tol %g), settled params %g (tol %g), params %g (tol %g)"
+                    % (kind, steps, moment_err, TRAIN_MOMENT_RTOL, param_err,
+                       0.2 * lr * steps, param_any, 2.2 * lr * steps))
+        if not rel <= TRAIN_LOSS_RTOL:
+            raise AssertionError("model %s: train() returns %g apart "
+                                 "relative (tol %g)" % (kind, rel,
+                                                        TRAIN_LOSS_RTOL))
+        note = ""
+        if kind == "drqn":
+            h_err = 0.0
+            for gm, cm in zip(models["cuda"], models["cpu"]):
+                if sorted(gm.agent_states) != sorted(cm.agent_states):
+                    raise AssertionError("model drqn: hidden state ids "
+                                         "differ")
+                h_err = max([h_err] + [
+                    float(np.abs(gm.agent_states[k] - s).max())
+                    for k, s in cm.agent_states.items()])
+            if not h_err <= TRAIN_HIDDEN_ATOL:
+                raise AssertionError("model drqn: hiddens %g apart (tol %g)"
+                                     % (h_err, TRAIN_HIDDEN_ATOL))
+            note = ", hidden states within %.3g" % h_err
+        print("GPU vs CPU: model %s, battle map %d, %d agents, %d steps and "
+              "one train() per model, f32: %d actions compared (%d greedy rows "
+              "or draws, least top-two gap %.3g; %d ties played from the "
+              "CPU run), rewards equal, train() returns within %.3g "
+              "relative, (Adam steps, moments, settled params, params) per "
+              "group %s%s" % (
+                  kind, GW_MAP,
+                  len(want["acts"][0]) + len(want["acts"][1]),
+                  MODEL_CMP_STEPS[kind], int(compared.sum()),
+                  int(np.isfinite(gaps[compared]).sum()),
+                  float(gaps.min()), got["ties"], rel,
+                  json.dumps([[s, float("%.3g" % a), float("%.3g" % b),
+                               float("%.3g" % c)] for s, a, b, c in errs]),
+                  note), flush=True)
+        del runs, models
+    torch.cuda.empty_cache()
+
+
+def run_model_layer(device_name):
+    """Phase 11: the model layer at train_battle's full width -> the DQN
+    loop's launch counts."""
+    from magent_tpu_torch import GridWorld, ProcessingModel
+
+    torch.cuda.reset_peak_memory_stats()
+    env = GridWorld("battle", map_size=GW_MAP)
+    handles = env.get_handles()
+    counts = None
+    for kind in ("dqn", "a2c", "drqn"):
+        env.reset()
+        place_armies(env, handles)
+        models = [ProcessingModel(env, h, "battle-%s" % tag, 20000 + g, 1000,
+                                  model_class(kind), seed=MODEL_SEED + g,
+                                  **MODEL_HYPER[kind])
+                  for g, (h, tag) in enumerate(zip(handles, "lr"))]
+        if kind == "dqn":
+            load_trusty(models)
+            view, _ = env.get_observation(handles[0])
+            d2h, h2d = views_round_trip_ms(view)
+            print("model layer: one group's views (%d x %s f32, %.3f MB) "
+                  "take %.4f ms card -> host and %.4f ms host -> card "
+                  "(synchronized, median of 20)" % (
+                      len(view), view.shape[1:], view.nbytes / 1e6, d2h,
+                      h2d), flush=True)
+        got = run_model_loop(kind, env, models, device_name)
+        counts = counts or got
+        del models
+    env.reset()
+    place_armies(env, handles)
+    check_trusty_round_trip(env)
+    check_subprocess_model(env)
+    del env
+    torch.cuda.empty_cache()
+    check_models_gpu_match_cpu()
+    return counts
+
+
 def _flat(items):
     for item in items:
         if isinstance(item, list):
@@ -3633,6 +4125,11 @@ def main() -> int:
     check_gpu_matches_cpu(
         "battle map %d forced onto the banded route, bf16 views, minimap"
         % SMALL_MAP, banded_battle_env, SMALL_STEPS, 0.0)
+    model_counts = run_model_layer(device_name)
+    for name in MODEL_PER_STEP:
+        rows[name].setdefault("launches_by_path", {})[
+            "model layer, train_battle's DQN loop, %d steps"
+            % MODEL_STEPS["dqn"]] = model_counts[name]
 
     for path, (counts, stats) in [
             ("double_attack map %d" % m, v) for m, v in tiger.items()] + [

@@ -15,15 +15,25 @@ mode and absorb) — device reset (random facings in turn mode), NORTH-only
 and, in turn mode, rotating observations, both random-action samplers —
 and ``discrete_snake.DiscreteSnake`` (also ``magent_tpu_torch.DiscreteSnake``,
 as in the JAX package); the fused DQN, A2C (with CommNet) and DRQN trainers
-(``parallel.train``) and their nets (``builtin.torch_model``).
+(``parallel.train``) and their nets (``builtin.torch_model``); the model
+layer: ``BaseModel``, ``ProcessingModel`` and ``SubprocessModel``
+(``model``), ``utility``, the rule bots (``builtin.rule_model``) and the
+per-agent ``DeepQNetwork``, ``AdvantageActorCritic`` and
+``DeepRecurrentQNetwork`` (``builtin.torch_model``, also under the
+reference's name ``builtin.tf_model``), whose checkpoints are the JAX
+package's files.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``,
 except the sequential snake (``DiscreteSnake(..., engine_mode=
 "sequential")``, ``core.seq_snake``): host NumPy only, like the JAX
 package's, it takes no device.
 """
 
-from . import gridworld
+from . import builtin, gridworld, utility
 from .discrete_snake import DiscreteSnake
 from .env import GridWorld
+from .model import BaseModel, ProcessingModel, SubprocessModel
 
-__all__ = ["DiscreteSnake", "GridWorld", "gridworld"]
+round = utility.rec_round
+
+__all__ = ["BaseModel", "DiscreteSnake", "GridWorld", "ProcessingModel",
+           "SubprocessModel", "gridworld", "round", "utility"]

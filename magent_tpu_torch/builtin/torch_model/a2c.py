@@ -1,5 +1,7 @@
-"""The fused A2C trainer's actor-critic net in PyTorch (port of the flax
-``CommNet`` and ``A2CNet`` of ``magent_tpu/builtin/jax_model/a2c.py:27-83``).
+"""The actor-critic net in PyTorch: the net of the fused A2C trainer and of
+the per-agent model (port of the flax ``CommNet`` and ``A2CNet`` and of
+``AdvantageActorCritic``, ``magent_tpu/builtin/jax_model/a2c.py:27-83`` and
+``:86-233``).
 
 Dense trunk: the flattened view (in (y, x, c) order, as flax flattens) and
 the features through ``dense_view`` and ``dense_emb`` (256 each), their
@@ -15,10 +17,14 @@ once.  Parameter names are the flax paths (:mod:`.flax_params`).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ... import random as rnd
+from ...parallel.optim import ClipAdam
+from .base import CheckpointModel, compute_dtype, round_up_pow2
 from .dqn import DTYPES
 from .flax_params import init_dense_, lecun_normal_
 
@@ -106,3 +112,128 @@ class A2CNet(nn.Module):
         policy = torch.softmax(self.policy(dense), -1).clamp(
             1e-10, 1.0 - 1e-10)
         return policy, self.value(dense)[..., 0]
+
+
+class AdvantageActorCritic(CheckpointModel):
+    """The per-agent advantage actor-critic, with CommNet on ``use_comm``
+    (JAX ``jax_model/a2c.py:86-233``; reference:
+    python/magent/builtin/tf_model/a2c.py): actions drawn by
+    ``random.categorical`` on the policy's log, JAX's Gumbel-max draw at
+    its padded shape (:meth:`_scores`); ``train`` takes one step on every
+    recorded transition, the n-step returns bootstrapped from V of each
+    episode's last observation evaluated alone (an all-zero CommNet mask,
+    ``a2c.py:186-194``); loss = policy gradient + ``value_coef`` x value MSE
+    + ``ent_coef`` x negative entropy; ``clip_by_global_norm(5)`` then Adam.
+
+    Same arguments as the JAX class, plus ``device`` (``None``: the card);
+    ``batch_size`` and ``train_freq`` are accepted and unused, as there.
+    Fresh nets are flax's initializers drawn from a torch generator seeded
+    ``seed``."""
+
+    def __init__(self, env, handle, name, learning_rate=1e-3,
+                 batch_size=64, reward_decay=0.99, eval_obs=None,
+                 train_freq=1, value_coef=0.1, ent_coef=0.08, use_comm=False,
+                 custom_view_space=None, custom_feature_space=None, seed=0,
+                 dtype="f32", device=None, **kwargs):
+        CheckpointModel.__init__(self, env, handle, name, "tfa2c",
+                                 device=device, seed=seed)
+
+        self.view_space = custom_view_space or env.get_view_space(handle)
+        self.feature_space = (custom_feature_space
+                              or env.get_feature_space(handle))
+        self.num_actions = env.get_action_space(handle)[0]
+        self.gamma = reward_decay
+        self.value_coef = value_coef
+        self.ent_coef = ent_coef
+        self.train_ct = 0
+
+        self.net = A2CNet(self.view_space, self.feature_space[0],
+                          self.num_actions, use_comm,
+                          dtype=compute_dtype(dtype),
+                          generator=torch.Generator().manual_seed(seed)
+                          ).to(self.device)
+        self.tx = ClipAdam(learning_rate, 5.0)
+        self._restart_training()
+
+    def _restart_training(self):
+        self.opt_state = self.tx.init(self.net)
+
+    # ------------------------------------------------------------ inference
+    def _scores(self, view, feature, key):
+        """The categorical draw's scores ``[n, n_act]`` on the device:
+        ``gumbel(key, [round_up_pow2(n), n_act])[:n] + log(policy)``, the
+        policy of the n live rows (CommNet pooling over them); the action
+        is their argmax."""
+        n = len(view)
+        with torch.no_grad():
+            policy, _ = self.net(self._tensor(view), self._tensor(feature))
+        noise = rnd.gumbel(key, (round_up_pow2(n), self.num_actions))[:n]
+        return noise + torch.log(policy)
+
+    def infer_action(self, raw_obs, ids, *args, **kwargs):
+        view, feature = raw_obs[0], raw_obs[1]
+        n = len(view)
+        if n == 0:
+            return np.empty(0, np.int32)
+        scores = self._scores(view, feature, self._next_key())
+        return scores.argmax(1).to(torch.int32).cpu().numpy()
+
+    # ------------------------------------------------------------- training
+    def train(self, sample_buffer, print_every=1000, **kwargs):
+        episodes = list(sample_buffer.episodes())
+        n = sum(len(e.rewards) for e in episodes)
+        if n == 0:
+            return [0, 0, 0], 0
+
+        view = np.empty((n,) + tuple(self.view_space), np.float32)
+        feature = np.empty((n,) + tuple(self.feature_space), np.float32)
+        action = np.empty(n, np.int32)
+        ret = np.empty(n, np.float32)
+
+        # bootstrap each episode's return from V(last obs) (a2c.py:253-265),
+        # each row alone: the reference feeds num_agent=1, whose CommNet
+        # message is 0; an all-zero mask gives that for every row at once
+        last_v = np.stack([np.asarray(e.views[-1]) for e in episodes])
+        last_f = np.stack([np.asarray(e.features[-1]) for e in episodes])
+        with torch.no_grad():
+            _, keeps = self.net(
+                self._tensor(last_v), self._tensor(last_f),
+                torch.zeros(len(episodes), device=self.device))
+        keeps = keeps.cpu().numpy()
+
+        ct = 0
+        for e, keep in zip(episodes, keeps):
+            m = len(e.rewards)
+            r = np.asarray(e.rewards, np.float32).copy()
+            acc = float(keep)
+            for i in reversed(range(m)):
+                acc = acc * self.gamma + r[i]
+                r[i] = acc
+            view[ct : ct + m] = e.views
+            feature[ct : ct + m] = e.features
+            action[ct : ct + m] = e.actions
+            ret[ct : ct + m] = r
+            ct += m
+
+        ret_t = self._tensor(ret)
+        policy, value = self.net(self._tensor(view), self._tensor(feature))
+        advantage = (ret_t - value).detach()
+        log_policy = torch.log(policy + 1e-6)
+        log_prob = log_policy.gather(
+            1, self._tensor(action, np.int64)[:, None])[:, 0]
+        msum = float(max(n, 1))
+        pg_loss = -(advantage * log_prob).sum() / msum
+        vf_loss = self.value_coef * (ret_t - value).square().sum() / msum
+        neg_entropy = self.ent_coef * (policy * log_policy).sum(1).sum() / msum
+        self.net.zero_grad(set_to_none=True)
+        (pg_loss + vf_loss + neg_entropy).backward()
+        self.opt_state = self.tx.update(self.net, self.opt_state)
+        pg, vf, ent, value = torch.stack(
+            [pg_loss, vf_loss, neg_entropy, value.sum() / max(n, 1)]
+        ).detach().tolist()
+        self.train_ct += 1
+        print("sample", n, pg, vf, ent)
+        return [pg, vf, ent], value
+
+    def get_info(self):
+        return "a2c train_time: %d" % self.train_ct

@@ -1,5 +1,6 @@
-"""The fused trainers' deep Q network in PyTorch (port of the flax
-``DQNNet`` of ``magent_tpu/builtin/jax_model/dqn.py:28-60``).
+"""The deep Q network in PyTorch: the net of the fused trainers and of the
+per-agent model (port of the flax ``DQNNet`` and of ``DeepQNetwork``,
+``magent_tpu/builtin/jax_model/dqn.py:28-60`` and ``:64-326``).
 
 conv(32, 3x3, valid) x2 + dense(256) view stream, dense(256) feature stream,
 dueling value/advantage heads (reference: builtin/tf_model/dqn.py).  The
@@ -21,13 +22,26 @@ has a parameter layout of its own and is not this class.
 
 from __future__ import annotations
 
+import copy
+import time
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .flax_params import params_from_flax, params_to_flax, tensors_to_flax
+from ...parallel.optim import ClipAdam
+from ..common import ReplayBuffer
+from .base import CheckpointModel, compute_dtype, round_up_pow2
+from .flax_params import (init_dense_, params_from_flax, params_to_flax,
+                          tensors_to_flax)
 
-__all__ = ["DQNNet", "params_from_flax", "params_to_flax", "tensors_to_flax"]
+__all__ = ["DQNNet", "DeepQNetwork", "params_from_flax", "params_to_flax",
+           "tensors_to_flax"]
+
+# ROADMAP.md item 14: the mesh inference of the JAX model
+SHARDING = ("num_gpu > 1 / shard_inference: data-parallel inference over "
+            "several devices is not ported (ROADMAP.md item 14)")
 
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -90,3 +104,204 @@ class DQNNet(nn.Module):
         value = self.value(dense)
         advantage = self.advantage(dense)
         return value + advantage - advantage.mean(1, keepdim=True)
+
+
+class DeepQNetwork(CheckpointModel):
+    """The per-agent parameter-sharing DQN (JAX ``jax_model/dqn.py:64-326``;
+    reference: python/magent/builtin/tf_model/dqn.py): e-greedy inference
+    in chunks of ``infer_batch_size``, a host NumPy replay of
+    ``memory_size`` transitions with terminal and padding masks, double and
+    dueling Q, the target net copied every ``target_update`` batches (and
+    at the first batch of each ``train`` call, as the JAX model does),
+    ``clip_by_global_norm(5)`` then Adam (:class:`ClipAdam`).
+
+    Same arguments as the JAX class, plus ``device`` (``None``: the card).
+    Fresh nets are flax's initializers drawn from a torch generator seeded
+    ``seed``, not flax's draws; load a checkpoint to share weights with the
+    JAX model.  ``num_gpu > 1`` raises ``NotImplementedError``.
+
+    Host syncs: an ``infer_action`` chunk copies its views and features to
+    the device and its actions back; a train batch copies its eight
+    minibatch arrays to the device, and the losses stay there until the
+    call ends, as in the JAX model."""
+
+    def __init__(self, env, handle, name,
+                 batch_size=64, learning_rate=1e-4, reward_decay=0.99,
+                 train_freq=1, target_update=2000, memory_size=2 ** 20,
+                 eval_obs=None, use_dueling=True, use_double=True,
+                 use_conv=True, custom_view_space=None,
+                 custom_feature_space=None, num_gpu=1, infer_batch_size=8192,
+                 network_type=0, seed=0, dtype="f32", device=None):
+        CheckpointModel.__init__(self, env, handle, name, "tfdqn",
+                                 device=device, seed=seed)
+        if num_gpu and num_gpu > 1:
+            raise NotImplementedError(SHARDING)
+
+        self.view_space = custom_view_space or env.get_view_space(handle)
+        self.feature_space = (custom_feature_space
+                              or env.get_feature_space(handle))
+        self.num_actions = env.get_action_space(handle)[0]
+
+        self.batch_size = int(batch_size)
+        self.train_freq = train_freq
+        self.target_update = target_update
+        self.eval_obs = eval_obs
+        self.infer_batch_size = infer_batch_size
+        self.use_double = use_double
+        self.gamma = reward_decay
+        self.train_ct = 0
+
+        self.net = DQNNet(self.view_space, self.feature_space[0],
+                          self.num_actions, use_dueling, use_conv,
+                          dtype=compute_dtype(dtype))
+        init_dense_(self.net, torch.Generator().manual_seed(seed))
+        self.net.to(self.device)
+        self.tx = ClipAdam(learning_rate, 5.0)
+        self._restart_training()
+
+        # ---- replay buffers (reference: dqn.py:140-149) ----
+        self.replay_buf_len = 0
+        self.memory_size = memory_size
+        self.replay_buf_view = ReplayBuffer(
+            shape=(memory_size,) + tuple(self.view_space))
+        self.replay_buf_feature = ReplayBuffer(
+            shape=(memory_size,) + tuple(self.feature_space))
+        self.replay_buf_action = ReplayBuffer(shape=(memory_size,),
+                                              dtype=np.int32)
+        self.replay_buf_reward = ReplayBuffer(shape=(memory_size,))
+        self.replay_buf_terminal = ReplayBuffer(shape=(memory_size,),
+                                                dtype=bool)
+        self.replay_buf_mask = ReplayBuffer(shape=(memory_size,))
+
+    def _restart_training(self):
+        self.target_net = copy.deepcopy(self.net).requires_grad_(False)
+        self.opt_state = self.tx.init(self.net)
+
+    def shard_inference(self, n_devices=None):
+        raise NotImplementedError(SHARDING)
+
+    # ------------------------------------------------------------ inference
+    def _q(self, view, feature):
+        """Q values ``[n, n_act]`` f32 on the device of host views and
+        features (no gradient)."""
+        with torch.no_grad():
+            return self.net(self._tensor(view), self._tensor(feature))
+
+    def infer_action(self, raw_obs, ids, policy="e_greedy", eps=0,
+                     block=True):
+        view, feature = raw_obs[0], raw_obs[1]
+        n = len(view)
+        if n == 0:
+            return np.empty(0, np.int32)
+        if policy == "greedy":
+            eps = 0.0
+
+        out = np.empty(n, np.int32)
+        pos = 0
+        while pos < n:
+            chunk = min(n - pos, self.infer_batch_size)
+            q = self._q(view[pos : pos + chunk], feature[pos : pos + chunk])
+            acts = self._egreedy(q, round_up_pow2(chunk), eps)
+            out[pos : pos + chunk] = acts.cpu().numpy()
+            pos += chunk
+        return out
+
+    # ------------------------------------------------------------- training
+    def _add_to_replay_buffer(self, sample_buffer):
+        """episodes -> flat circular buffers with terminal/padding masks
+        (reference: dqn.py:250-275)"""
+        n = 0
+        for episode in sample_buffer.episodes():
+            v, f, a, r = (episode.views, episode.features, episode.actions,
+                          episode.rewards)
+            m = len(r)
+            mask = np.ones(m)
+            terminal = np.zeros(m, dtype=bool)
+            if episode.terminal:
+                terminal[-1] = True
+            else:
+                mask[-1] = 0
+
+            self.replay_buf_view.put(np.asarray(v))
+            self.replay_buf_feature.put(np.asarray(f))
+            self.replay_buf_action.put(np.asarray(a, np.int32))
+            self.replay_buf_reward.put(np.asarray(r))
+            self.replay_buf_terminal.put(terminal)
+            self.replay_buf_mask.put(mask)
+            n += m
+
+        self.replay_buf_len = min(self.memory_size, self.replay_buf_len + n)
+        return n
+
+    def _train_step(self, index):
+        """One gradient step on the replay rows ``index`` -> (loss, mean
+        target), 0-d tensors left on the device (JAX ``train_step``)."""
+        view, next_view = (self._tensor(self.replay_buf_view.get(i))
+                           for i in (index, index + 1))
+        feat, next_feat = (self._tensor(self.replay_buf_feature.get(i))
+                           for i in (index, index + 1))
+        action = self._tensor(self.replay_buf_action.get(index), np.int64)
+        reward = self._tensor(self.replay_buf_reward.get(index))
+        terminal = self._tensor(self.replay_buf_terminal.get(index), bool)
+        mask = self._tensor(self.replay_buf_mask.get(index))
+        with torch.no_grad():
+            t_q = self.target_net(next_view, next_feat)
+            if self.use_double:
+                sel = self.net(next_view, next_feat).argmax(1, keepdim=True)
+                next_value = t_q.gather(1, sel)[:, 0]
+            else:
+                next_value = t_q.max(1).values
+            target = torch.where(terminal, reward,
+                                 reward + self.gamma * next_value)
+        q_a = self.net(view, feat).gather(1, action[:, None])[:, 0]
+        loss = ((target - q_a).square() * mask).sum() / \
+            mask.sum().clamp_min(1.0)
+        self.net.zero_grad(set_to_none=True)
+        loss.backward()
+        self.opt_state = self.tx.update(self.net, self.opt_state)
+        return loss.detach(), target.mean()
+
+    def train(self, sample_buffer, print_every=1000, **kwargs):
+        add_num = self._add_to_replay_buffer(sample_buffer)
+        batch_size = self.batch_size
+
+        n_batches = int(self.train_freq * add_num / batch_size)
+        if n_batches == 0:
+            return 0, 0
+
+        print("batch number: %d  add: %d  replay_len: %d/%d" %
+              (n_batches, add_num, self.replay_buf_len, self.memory_size))
+
+        start_time = time.time()
+        ct = 0
+        mean_target = 0.0
+        losses = []
+        for _ in range(n_batches):
+            index = np.random.choice(self.replay_buf_len - 1, batch_size)
+            loss, mean_target = self._train_step(index)
+            losses.append(loss)  # read once, after the loop
+
+            if ct % self.target_update == 0:
+                self.target_net.load_state_dict(self.net.state_dict())
+            if ct % print_every == 0:
+                print("batch %5d,  loss %.6f, eval %.6f" % (
+                    ct, float(loss), self._eval(mean_target)))
+            ct += 1
+            self.train_ct += 1
+
+        total_loss = float(torch.stack(losses).sum())
+        total_time = time.time() - start_time
+        print("batches: %d,  total time: %.2f,  1k average: %.2f" %
+              (ct, total_time, total_time / max(1.0, ct / 1000.0)))
+
+        return total_loss / ct, self._eval(mean_target)
+
+    def _eval(self, fallback):
+        """mean max-Q on the held-out eval set (reference: dqn.py:348-366)"""
+        if self.eval_obs is None:
+            return float(fallback)
+        q = self._q(self.eval_obs[0], self.eval_obs[1])
+        return float(q.max(1).values.mean())
+
+    def get_info(self):
+        return "torch dqn train_time: %d" % self.train_ct

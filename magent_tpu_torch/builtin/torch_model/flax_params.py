@@ -68,10 +68,12 @@ def lecun_normal_(weight: torch.Tensor, fan_in: int,
 
 
 def init_dense_(module: nn.Module, generator: torch.Generator) -> None:
-    """Every ``nn.Linear`` in ``module``: flax ``nn.Dense``'s defaults
-    (``lecun_normal`` kernel, zero bias)."""
+    """Every ``nn.Linear`` and ``nn.Conv2d`` in ``module``: flax
+    ``nn.Dense``'s and ``nn.Conv``'s defaults (``lecun_normal`` kernel over
+    the fan-in, a conv's window times its input channels; zero bias)."""
     for layer in module.modules():
-        if isinstance(layer, nn.Linear):
-            lecun_normal_(layer.weight, layer.in_features, generator)
+        if isinstance(layer, (nn.Linear, nn.Conv2d)):
+            fan_in = layer.weight[0].numel()
+            lecun_normal_(layer.weight, fan_in, generator)
             if layer.bias is not None:
                 nn.init.zeros_(layer.bias)
