@@ -202,7 +202,25 @@ Run from the repository root:  python3 chip_smoke.py
     (DQN 5 steps, A2C and DRQN 3; episode buffers of 100 agents) and one
     ``train()`` per model (``tests/_torch_model_play.py``'s loop and
     near-tie rule; the trainers' tolerances per Adam step);
-12. prints the ``kernels`` JSON line, then ``{"ok": true, "device": ...}``
+12. runs rendering (pygame is never imported): (a) phase 4's world and
+    loop with ``set_render_dir`` and ``render()`` after each step: ms per
+    step with and without it, ms per rendered frame, host syncs per frame
+    (sync debug mode), bytes written per frame, launches per step asserted
+    (``window_gather`` 2, ``rank_prefix_hp`` 1, ``move_claims`` 1), then
+    a second episode and a render query; (b) ``BattleServer()`` at its
+    defaults (map 125, eps 0.05, the trusty checkpoints asserted loaded):
+    ``get_info``, 20 timed ``get_data`` frames over the whole map (ms per
+    frame split into env step, inference and render info; syncs and
+    launches per frame, the launches asserted as in (a)), ``get_banners``
+    and ``get_status``; ``ArrangeServer()`` at its defaults (map 100,
+    ``RandomActor``) for 10 frames, each drawing the absorbed goal markers
+    and no other; (c) GPU = CPU: (a)'s calls replayed on a CPU
+    ``GridWorld`` (``tests/_torch_render_replay.py``) write the same
+    ``config.json``, ``video_1.txt`` and ``video_2.txt`` byte for byte;
+    the card server's first 10 frames equal a CPU server's playing the
+    card models' actions; the fast ``DiscreteSnake`` at phase 4e's
+    defaults rendered for 20 steps, replayed on the CPU, the same files;
+13. prints the ``kernels`` JSON line, then ``{"ok": true, "device": ...}``
     as the last line.
 
 Any failure raises (exit code 1).  Without a CUDA device it exits with 2
@@ -214,6 +232,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import functools
+import gc
 import json
 import math
 import os
@@ -3555,15 +3574,17 @@ def seg_world_env(device):
     return venv
 
 
-def model_play_module():
-    """``tests/_torch_model_play.py`` (the port and NumPy only): the
-    per-agent models' play loop and its near-tie rule."""
+def tests_helper(name):
+    """A JAX-free helper module of ``tests/`` (the port and NumPy only):
+    ``_torch_model_play`` (the per-agent models' play loop and its
+    near-tie rule), ``_torch_render_replay`` (record a world's calls,
+    replay them on another device, compare the dumps)."""
+    import importlib
+
     tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
     if tests not in sys.path:
         sys.path.insert(0, tests)
-    import _torch_model_play
-
-    return _torch_model_play
+    return importlib.import_module(name)
 
 
 def model_class(kind):
@@ -3875,7 +3896,7 @@ def check_models_gpu_match_cpu():
     in one run on an H100."""
     import magent_tpu_torch as tmag
 
-    play = model_play_module()
+    play = tests_helper("_torch_model_play")
     for kind in ("dqn", "a2c", "drqn"):
         cls = model_class(kind)
         runs, models = {}, {}
@@ -3998,6 +4019,336 @@ def run_model_layer(device_name):
     torch.cuda.empty_cache()
     check_models_gpu_match_cpu()
     return counts
+
+
+# phase 12, rendering: the replay path (phase 4's world and loop, rendered
+# after each step, then a second episode), the live battle at
+# ``BattleServer``'s defaults (map 125, eps 0.05, the bundled trusty
+# checkpoints), ``ArrangeServer`` at its defaults (map 100, RandomActor),
+# each card run against the CPU
+RENDER_WARMUP, RENDER_TIMED, RENDER_SYNC_FRAMES, RENDER_EPISODE2 = 3, 20, 5, 5
+RENDER_PER_STEP = {"window_gather": 2, "rank_prefix_hp": 1, "move_claims": 1}
+SERVER_WARMUP, SERVER_FRAMES, SERVER_SYNC_FRAMES = 2, 20, 2
+SERVER_CMP_FRAMES, ARRANGE_FRAMES, SNAKE_RENDER_STEPS = 10, 10, 20
+RENDER_FILES = ["config.json", "video_1.txt", "video_2.txt"]
+
+
+def rendered_step(env, handles, rng, after_step=None):
+    """Phase 4's step with ``after_step()`` (a render) between ``step`` and
+    ``get_reward``; re-places the armies when the episode ends."""
+    for h in handles:
+        view, _ = env.get_observation(h)
+        env.set_action(h, rng.randint(0, env.get_action_space(h)[0],
+                                      len(view)).astype(np.int32))
+    done = env.step()
+    if after_step is not None:
+        after_step()
+    for h in handles:
+        env.get_reward(h)
+    env.clear_dead()
+    if done:
+        env.reset()
+        place_armies(env, handles)
+
+
+def run_replay_path(tmp, device_name):
+    """Phase 12 (a), and its part of (c): the rendered GridWorld at battle
+    map 125, 2x625; its calls replayed on the CPU write the same files.
+    -> the timed rendered steps' launch counts."""
+    from magent_tpu_torch import GridWorld, ops
+
+    rr = tests_helper("_torch_render_replay")
+    env = rr.Recorder(GridWorld("battle", map_size=GW_MAP))
+    handles = env.get_handles()
+    card_dir, cpu_dir = os.path.join(tmp, "cuda"), os.path.join(tmp, "cpu")
+    env.set_render_dir(card_dir)
+    env.reset()
+    place_armies(env, handles)
+    rng = np.random.RandomState(0)
+    frame_s, events = [], []
+
+    def render():
+        t0 = time.perf_counter()
+        env.render()  # ends in its host copy and a file write
+        frame_s.append(time.perf_counter() - t0)
+        events.append(len(env._attack_events))
+
+    def timed(after_step):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(RENDER_TIMED):
+            rendered_step(env, handles, rng, after_step)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / RENDER_TIMED * 1e3
+
+    for _ in range(RENDER_WARMUP):
+        rendered_step(env, handles, rng, render)
+    gc.collect()  # no collection of earlier phases' garbage in the timing
+    bare_ms = timed(None)
+    video = os.path.join(card_dir, "video_1.txt")
+    size0 = os.path.getsize(video)
+    frame_s.clear()
+    events.clear()
+    ops.reset_launch_counts()
+    with_ms = timed(render)
+    counts = ops.launch_counts()
+    grew = os.path.getsize(video) - size0
+    expected = {name: RENDER_PER_STEP.get(name, 0) * RENDER_TIMED
+                for name in ops.KERNELS}
+    if counts != expected:
+        raise AssertionError("rendered GridWorld launch counts %s, expected "
+                             "%s" % (counts, expected))
+    syncs, sites = [], collections.Counter()
+
+    def counted_render():
+        n, where = count_host_syncs(env.render, 1)
+        syncs.append(n)
+        sites.update(where)
+
+    for _ in range(RENDER_SYNC_FRAMES):
+        rendered_step(env, handles, rng, counted_render)
+    step_syncs, _ = count_host_syncs(
+        lambda: rendered_step(env, handles, rng, env.render), 2)
+    print("phase 12 (a) rendered GridWorld: battle map %d, %s agents, %d "
+          "timed steps: %.4f ms/step without render(), %.4f ms/step with "
+          "it; %.4f ms per rendered frame (render() alone, host clock: it "
+          "ends in its one host copy and the file write); %.1f host syncs "
+          "per frame (render() alone, sync debug mode, %d frames; by call "
+          "site: %s), %.1f per rendered step; %.1f bytes written per frame "
+          "(%d attack events in %d frames); launches per step %s; on %s" % (
+              GW_MAP, [env.get_num(h) for h in handles], RENDER_TIMED,
+              bare_ms, with_ms, statistics.mean(frame_s) * 1e3,
+              statistics.mean(syncs), RENDER_SYNC_FRAMES, json.dumps(
+                  {k: v / RENDER_SYNC_FRAMES for k, v in sites.items()}),
+              step_syncs, grew / RENDER_TIMED, sum(events), len(events),
+              json.dumps({k: v / RENDER_TIMED for k, v in counts.items()
+                          if v}), device_name), flush=True)
+    if not sum(events):
+        raise AssertionError("rendered GridWorld: no attack event drawn")
+    # a second episode (video_2.txt), then a render query
+    env.reset()
+    place_armies(env, handles)
+    for _ in range(RENDER_EPISODE2):
+        rendered_step(env, handles, rng, env.render)
+    card_info = env._get_render_info((0, GW_MAP - 1), (0, GW_MAP - 1))
+    t0 = time.perf_counter()
+    cpu_info = rr.replay(env.log, GridWorld("battle", map_size=GW_MAP,
+                                            device="cpu"), cpu_dir)[-1]
+    diffs = rr.dump_differences(card_dir, cpu_dir)
+    files = sorted(os.listdir(card_dir))
+    if diffs or files != RENDER_FILES or not rr.frames_equal(cpu_info,
+                                                             card_info):
+        raise AssertionError("rendered GridWorld GPU vs CPU: files %s, "
+                             "differing %s, render info equal %s" % (
+                                 files, diffs,
+                                 rr.frames_equal(cpu_info, card_info)))
+    print("phase 12 (c) rendered GridWorld GPU vs CPU: %d calls replayed on "
+          "the CPU in %.1f s; %s equal byte for byte (%s bytes), the last "
+          "render query equal (%d agents, %d events)" % (
+              len(env.log), time.perf_counter() - t0, files,
+              [os.path.getsize(os.path.join(card_dir, f)) for f in files],
+              len(card_info[0]), len(card_info[1])), flush=True)
+    return counts
+
+
+def run_battle_server(device_name):
+    """Phase 12 (b), and its part of (c): ``BattleServer()`` at its
+    defaults on the card; the CPU server playing the card models' actions
+    gives the same frames.  -> the timed frames' launch counts."""
+    from magent_tpu_torch import ops
+    from magent_tpu_torch.renderer.server import BattleServer
+
+    rr = tests_helper("_torch_render_replay")
+    t0 = time.perf_counter()
+    server = BattleServer()
+    setup_s = time.perf_counter() - t0
+    if not all(server.loaded):
+        raise AssertionError("BattleServer: the trusty checkpoints did not "
+                             "load: %s" % server.loaded)
+    (size, groups, static) = server.get_info()
+    n = server.map_size
+    if size != (n, n) or groups.shape != (2, 5) or \
+            static["wall"].shape[1:] != (2,):
+        raise AssertionError("BattleServer.get_info: %s %s %s" % (
+            size, groups.shape, static["wall"].shape))
+    clock = collections.Counter()
+    tape = rr.record_actions(server, clock)
+    info_fn = server.env._get_render_info
+    timing = [False]
+
+    def timed_info(*args):
+        if timing[0]:  # the step's device work counts as the step's
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = info_fn(*args)
+        clock["render info"] += time.perf_counter() - t
+        return out
+
+    server.env._get_render_info = timed_info
+    frames, frame_id = [], 0
+
+    def frame():
+        nonlocal frame_id
+        frame_id += 1
+        if server.get_status(frame_id) is not True:
+            raise AssertionError("BattleServer: status %r at frame %d" % (
+                server.get_status(frame_id), frame_id))
+        out = server.get_data(frame_id, (0, n), (0, n))
+        if len(frames) < SERVER_CMP_FRAMES:
+            frames.append((dict(out[0]), out[1].copy()))
+        return out
+
+    for _ in range(SERVER_WARMUP):
+        frame()
+    gc.collect()  # no collection of earlier phases' garbage in the timing
+    torch.cuda.synchronize()
+    clock.clear()
+    ops.reset_launch_counts()
+    timing[0] = True
+    t0 = time.perf_counter()
+    for _ in range(SERVER_FRAMES):
+        pos, events = frame()
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / SERVER_FRAMES * 1e3
+    timing[0] = False
+    counts = ops.launch_counts()
+    expected = {name: RENDER_PER_STEP.get(name, 0) * SERVER_FRAMES
+                for name in ops.KERNELS}
+    if counts != expected:
+        raise AssertionError("BattleServer launch counts %s, expected %s" % (
+            counts, expected))
+    inference = clock["inference"] / SERVER_FRAMES * 1e3
+    info = clock["render info"] / SERVER_FRAMES * 1e3
+    t0 = time.perf_counter()
+    banners = server.get_banners(frame_id, (800, 600))
+    status = server.get_status(frame_id)
+    ui_ms = (time.perf_counter() - t0) * 1e3
+    alive = [server.env.get_num(h) for h in server.handles]
+    syncs, sites = count_host_syncs(frame, SERVER_SYNC_FRAMES)
+    if not (pos and len(pos) == sum(alive) and events.dtype == np.int32
+            and events.shape[1:] == (3,) and status is True
+            and "vs" in banners[0][1][0]):
+        raise AssertionError("BattleServer frame: %d agents for %s alive, "
+                             "events %s, status %r, banners %s" % (
+                                 len(pos), alive, events.shape, status,
+                                 banners))
+    print("phase 12 (b) BattleServer(): map %d, eps %g, trusty checkpoints "
+          "loaded, set up in %.2f s; %d timed frames: %.4f ms per frame "
+          "(env step %.4f, its device work included, inference %.4f, render "
+          "info %.4f); get_banners + "
+          "get_status %.4f ms; %.1f host syncs per frame (sync debug mode, "
+          "%d frames; by call site: %s); launches per frame %s; last frame "
+          "%d agents, %d attack events, banners %s; on %s" % (
+              n, server.eps, setup_s, SERVER_FRAMES, dt,
+              dt - inference - info, inference, info, ui_ms, syncs,
+              SERVER_SYNC_FRAMES, json.dumps(
+                  {k: v / SERVER_SYNC_FRAMES for k, v in sites.items()}),
+              json.dumps({k: v / SERVER_FRAMES for k, v in counts.items()
+                          if v}), len(pos), len(events),
+              json.dumps(banners), device_name), flush=True)
+    del server
+    torch.cuda.empty_cache()
+
+    cpu = BattleServer(device="cpu")
+    rr.play_actions(cpu, tape)
+    for f, want in enumerate(frames, 1):
+        got = cpu.get_data(f, (0, n), (0, n))
+        if not rr.frames_equal(got, want):
+            raise AssertionError("BattleServer GPU vs CPU: frame %d differs "
+                                 "(%d vs %d agents, %d vs %d events)" % (
+                                     f, len(got[0]), len(want[0]),
+                                     len(got[1]), len(want[1])))
+    print("phase 12 (c) BattleServer GPU vs CPU: the card models' actions "
+          "played on a CPU server: %d frames' agents and attack events "
+          "equal (%d events)" % (len(frames), sum(len(w[1]) for w in frames)),
+          flush=True)
+    return counts
+
+
+def run_arrange_server(device_name):
+    """Phase 12 (b): ``ArrangeServer()`` at its defaults: only absorbed
+    goal markers are drawn."""
+    from magent_tpu_torch import ops
+    from magent_tpu_torch.renderer.server import ArrangeServer
+
+    np.random.seed(0)  # RandomActor's draws
+    server = ArrangeServer()
+    env, goal, seeker = server.env, server.goal_handle, server.agent_handle
+    n = server.map_size
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    drawn = []
+    for f in range(1, ARRANGE_FRAMES + 1):
+        pos, _ = server.get_data(f, (0, n), (0, n))
+        absorbed = set(env.get_agent_id(goal)[
+            env._host("absorbed", goal)].tolist())
+        marks = {i for i, p in pos.items() if p[2] == goal.value}
+        seekers = sum(p[2] == seeker.value for p in pos.values())
+        if marks != absorbed or seekers != env.get_num(seeker):
+            raise AssertionError("ArrangeServer frame %d: %d markers drawn "
+                                 "for %d absorbed, %d of %d seekers" % (
+                                     f, len(marks), len(absorbed), seekers,
+                                     env.get_num(seeker)))
+        drawn.append(len(marks))
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / ARRANGE_FRAMES * 1e3
+    counts = ops.launch_counts()
+    print("phase 12 (b) ArrangeServer(): map %d, %d goal markers, %d "
+          "seekers (%s); %d frames: %.4f ms per frame (the check's reads "
+          "included); absorbed markers drawn per frame %s and no other; "
+          "banners %s; launches per frame %s; on %s" % (
+              n, env.get_num(goal), env.get_num(seeker),
+              type(server.model).__name__, ARRANGE_FRAMES, dt, drawn,
+              json.dumps(server.get_banners(ARRANGE_FRAMES, (800, 600))),
+              json.dumps({k: v / ARRANGE_FRAMES for k, v in counts.items()
+                          if v}), device_name), flush=True)
+
+
+def check_snake_render_gpu_matches_cpu(tmp):
+    """Phase 12 (c): the fast DiscreteSnake at phase 4e's defaults rendered
+    on the card, its calls replayed on the CPU: the same files."""
+    rr = tests_helper("_torch_render_replay")
+    env = rr.Recorder(snake_world("cuda"))
+    card_dir, cpu_dir = os.path.join(tmp, "cuda"), os.path.join(tmp, "cpu")
+    env.set_render_dir(card_dir)
+    rng = np.random.RandomState(7)
+    frame_s = []
+    for _ in range(SNAKE_RENDER_STEPS):
+        view, _ = env.get_observation()
+        env.set_action(0, rng.randint(0, 5, len(view)).astype(np.int32))
+        env.step()
+        t0 = time.perf_counter()
+        env.render()
+        frame_s.append(time.perf_counter() - t0)
+        env.get_reward()
+        env.clear_dead()
+    rr.replay(env.log, snake_world("cpu"), cpu_dir)
+    diffs = rr.dump_differences(card_dir, cpu_dir)
+    files = sorted(os.listdir(card_dir))
+    if diffs or files != ["config.json", "static.map", "video_0.txt"]:
+        raise AssertionError("snake render GPU vs CPU: files %s, differing "
+                             "%s" % (files, diffs))
+    print("phase 12 (c) DiscreteSnake render GPU vs CPU: map %d, %d steps "
+          "rendered, %s equal byte for byte (%s bytes); %.4f ms per frame "
+          "on the card (render() alone)" % (
+              env.width, SNAKE_RENDER_STEPS, files,
+              [os.path.getsize(os.path.join(card_dir, f)) for f in files],
+              statistics.mean(frame_s) * 1e3), flush=True)
+
+
+def run_rendering(device_name):
+    """Phase 12: rendering -> the launch counts of the replay path and of
+    the live battle."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="magent_render_") as tmp:
+        os.makedirs(os.path.join(tmp, "snake"))
+        replay_counts = run_replay_path(tmp, device_name)
+        server_counts = run_battle_server(device_name)
+        run_arrange_server(device_name)
+        check_snake_render_gpu_matches_cpu(os.path.join(tmp, "snake"))
+    return replay_counts, server_counts
 
 
 def _flat(items):
@@ -4130,6 +4481,13 @@ def main() -> int:
         rows[name].setdefault("launches_by_path", {})[
             "model layer, train_battle's DQN loop, %d steps"
             % MODEL_STEPS["dqn"]] = model_counts[name]
+    replay_counts, server_counts = run_rendering(device_name)
+    for name in RENDER_PER_STEP:
+        paths = rows[name].setdefault("launches_by_path", {})
+        paths["rendered battle replay, %d steps" % RENDER_TIMED] = (
+            replay_counts[name])
+        paths["rendered battle game (BattleServer), %d frames"
+              % SERVER_FRAMES] = server_counts[name]
 
     for path, (counts, stats) in [
             ("double_attack map %d" % m, v) for m, v in tiger.items()] + [

@@ -21,7 +21,10 @@ layer: ``BaseModel``, ``ProcessingModel`` and ``SubprocessModel``
 per-agent ``DeepQNetwork``, ``AdvantageActorCritic`` and
 ``DeepRecurrentQNetwork`` (``builtin.torch_model``, also under the
 reference's name ``builtin.tf_model``), whose checkpoints are the JAX
-package's files.
+package's files; and rendering: replay dumps (``render``), the PyGame
+client and its game servers (``renderer``, ``renderer.server``) and the
+live games' entry points (``examples.show_battle_game``,
+``examples.show_arrange``).
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``,
 except the sequential snake (``DiscreteSnake(..., engine_mode=
 "sequential")``, ``core.seq_snake``): host NumPy only, like the JAX

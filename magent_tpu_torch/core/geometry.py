@@ -1,10 +1,12 @@
 """Coordinate transforms between body ("save") coords, the direction anchor
 ("real") coords and relative offsets, as branch-free tensor ops over the
-direction enum EAST=0, SOUTH=1, WEST=2, NORTH=3 (port of
+direction enum EAST=0, SOUTH=1, WEST=2, NORTH=3, and their host forms
+(``*_np``) for placement and the replay dumps (port of
 ``magent_tpu/core/geometry.py``; reference Map.cc:515-607)."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..spec import NORTH, SOUTH, WEST
@@ -50,3 +52,30 @@ def rotate_move_delta(d, dx, dy):
     ddy = torch.where(d == NORTH, dy, torch.where(
         d == SOUTH, -dy, torch.where(d == WEST, -dx, dx)))
     return ddx, ddy
+
+
+# ---------------------------------------------------------------- host forms
+# the same conventions on host integers and NumPy arrays (placement and the
+# replay dumps; JAX ``core/geometry.py:55-87``)
+def size_for_dir_np(d, w, l):
+    """Host (scalar) variant of :func:`size_for_dir`."""
+    ns = (d == NORTH) | (d == SOUTH)
+    return (w if ns else l), (l if ns else w)
+
+
+def save_to_real_np(x, y, d, w, l):
+    """Host (NumPy) variant of :func:`save_to_real`."""
+    rx = np.where(d == NORTH, x, np.where(
+        d == SOUTH, x + w - 1, np.where(d == WEST, x, x + l - 1)))
+    ry = np.where(d == NORTH, y, np.where(
+        d == SOUTH, y + l - 1, np.where(d == WEST, y + w - 1, y)))
+    return rx, ry
+
+
+def rela_to_abs_np(cx, cy, d, rx, ry):
+    """Host (NumPy) variant of :func:`rela_to_abs`."""
+    ax = np.where(d == NORTH, cx + rx, np.where(
+        d == SOUTH, cx - rx, np.where(d == WEST, cx + ry, cx - ry)))
+    ay = np.where(d == NORTH, cy + ry, np.where(
+        d == SOUTH, cy - ry, np.where(d == WEST, cy - rx, cy + rx)))
+    return ax, ay

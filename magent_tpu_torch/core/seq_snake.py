@@ -37,7 +37,6 @@ OCC_NONE, OCC_WALL, OCC_FOOD, OCC_AGENT = 0, 1, 2, 3
 CHANNEL_NUM = 5  # wall food self other id
 _DELTA = [(1, 0), (0, 1), (-1, 0), (0, -1)]
 _DIR2INVERSE = [ACT_LEFT, ACT_UP, ACT_RIGHT, ACT_DOWN]
-RENDER = "rendering is not ported yet: ROADMAP.md Queue 1 item 16"
 
 
 class _Agent:
@@ -228,15 +227,20 @@ class SequentialSnake:
         return (np.asarray(self.occ_type).reshape(W, H).T == OCC_WALL)
 
     def set_render_dir(self, name):
-        raise NotImplementedError(RENDER)
+        from ..render.generator import SnakeRenderGenerator
+
+        self._render_dir = name
+        self._render_gen = SnakeRenderGenerator(name)
+        self._render_gen.file_ct = getattr(self, "_render_reset_ct", 0)
+        self._render_gen.gen_config(self)
 
     def render(self):
         """Dump one frame in the reference snake format (reference:
         src/discrete_snake/RenderGenerator.cc:146-203; food order follows
         this engine's creation order — the reference iterates a
         std::set<Food*> keyed by heap addresses, which is not reproducible
-        even across its own runs).  Does nothing while no render generator
-        exists, and none can until rendering is ported (``RENDER``)."""
+        even across its own runs).  Does nothing until
+        :meth:`set_render_dir` has attached a dumper."""
         gen = getattr(self, "_render_gen", None)
         if gen is None:
             return

@@ -42,9 +42,10 @@ import numpy as np
 import torch
 
 from . import random as rnd
-from .core.seq_snake import RENDER, SequentialSnake
+from .core.seq_snake import SequentialSnake
 from .ops import window_gather as wg
 from .parallel.vec_env import resolve_device
+from .render.generator import SnakeRenderGenerator
 
 ACT_RIGHT, ACT_DOWN, ACT_LEFT, ACT_UP, ACT_NOOP, ACT_NUM = 0, 1, 2, 3, 4, 5
 _DELTA = np.asarray([[1, 0], [0, 1], [-1, 0], [0, -1]], np.int32)
@@ -576,13 +577,17 @@ class DiscreteSnake:
 
     # ------------------------------------------------------------ render
     def set_render_dir(self, name):
-        raise NotImplementedError(RENDER)
+        """Attach a replay dumper writing into ``name`` (``config.json`` and
+        ``static.map`` now, ``video_<k>.txt`` per :meth:`render`)."""
+        self._render_dir = name
+        self._render_gen = SnakeRenderGenerator(name)
+        self._render_gen.file_ct = getattr(self, "_render_reset_ct", 0)
+        self._render_gen.gen_config(self)
 
     def render(self):
         """Append one replay frame (reference:
-        src/discrete_snake/RenderGenerator.cc:146-203).  Does nothing while
-        no render generator exists, and none can until rendering is ported
-        (``RENDER``)."""
+        src/discrete_snake/RenderGenerator.cc:146-203).  Does nothing until
+        :meth:`set_render_dir` has attached a dumper."""
         gen = getattr(self, "_render_gen", None)
         if gen is not None:
             gen.render_a_frame(self)

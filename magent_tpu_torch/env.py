@@ -20,6 +20,7 @@ the step and observation functions for the new slot layout.
 from __future__ import annotations
 
 import importlib
+import os
 
 import numpy as np
 import torch
@@ -28,13 +29,14 @@ from . import random as rnd
 from . import spec as speclib
 from .config import Config
 from .core import engine, lcg, observe
+from .core import geometry as geo
 from .core.seq_engine import SequentialEngine
 from .core.state import State, init_state
 from .environment import Environment
 from .parallel.vec_env import resolve_device
+from .render.generator import (COLORS, FRAME_FIELDS, RenderGenerator,
+                               attack_events, to_host)
 from .spec import NORTH, OP_NULL
-
-_RENDER = "rendering is not ported yet: ROADMAP.md Queue 1 item 16"
 
 # per-slot state fields carried across a capacity change
 _SLOT_FIELDS = (
@@ -89,11 +91,6 @@ def _to_device(arrays, device):
     return out
 
 
-def _body_wh(d: int, w: int, l: int):
-    """(bw, bh) of a body facing ``d`` (geometry.size_for_dir on ints)."""
-    return (w, l) if d in (NORTH, speclib.SOUTH) else (l, w)
-
-
 class Handle:
     """Group handle with a ``.value`` attribute like ``ctypes.c_int32``."""
 
@@ -132,9 +129,21 @@ class GridWorld(Environment):
         self._engine_mode = engine_mode
         self._seq = None  # SequentialEngine of the current spec
         self._dead_ct = None  # its per-group death counts (host)
-        self._last_attack_events = []
+        # the sequential engine's exact attack events of the last step;
+        # None until a sequential step sets it (the render then
+        # reconstructs them, render/generator.py attack_events)
+        self._last_attack_events = None
         self._caps = self._initial_caps(config, caps)
         self._lcg = lcg.HostLCG(int(config.config_dict.get("seed", 0)))
+        self._render_dir = None
+        self._render_gen = None
+        self._render_reset_ct = 0  # resets before the generator exists
+        self._first_render = True
+        # the reference records per-step attack events only after rendering
+        # was activated by the first render()/render_window_info call
+        # (GridWorld.cc:18,484,798,944) — never reset by reset()
+        self._render_ever = False
+        self._attack_events = np.zeros((0, 3), np.int32)
         self._pre_step_dead = None
         self._goals = {}
 
@@ -271,6 +280,14 @@ class GridWorld(Environment):
         self._actions[:] = 0
         if self._dead_ct is not None:
             self._dead_ct[:] = 0
+        self._first_render = True
+        # the reference bumps the video file number on EVERY reset
+        # (GridWorld.cc:97 render_generator.next_file()), so the first
+        # episode dumps video_1.txt, the second video_2.txt, ...
+        if self._render_gen is not None:
+            self._render_gen.next_file()
+        else:
+            self._render_reset_ct += 1
 
     def set_seed(self, seed):
         self._lcg.seed(seed)
@@ -343,7 +360,7 @@ class GridWorld(Environment):
         placements = []  # (x, y, dir)
 
         def body_wh(d):
-            return _body_wh(d, t.width, t.length)
+            return geo.size_for_dir_np(d, t.width, t.length)
 
         def rect_blank(x, y, bw, bh):
             if x < 0 or y < 0 or x + bw >= W or y + bh >= H:
@@ -427,7 +444,7 @@ class GridWorld(Environment):
         # fill the occupancy grid (body rects) in one scatter
         cys, cxs, vals = [], [], []
         for k, (x, y, d) in enumerate(placements):
-            bw, bh = _body_wh(d, t.width, t.length)
+            bw, bh = geo.size_for_dir_np(d, t.width, t.length)
             for i in range(bw):
                 for j in range(bh):
                     cxs.append(x + i)
@@ -627,13 +644,83 @@ class GridWorld(Environment):
 
     # ------------------------------------------------------------ render
     def set_render_dir(self, name):
-        raise NotImplementedError(_RENDER)
+        os.makedirs(name, exist_ok=True)
+        self._render_dir = name
 
     def render(self):
-        raise NotImplementedError(_RENDER)
+        """Append one replay frame to ``video_<k>.txt`` of the render
+        directory (``config.json`` at the first frame of an episode)."""
+        if self._render_gen is None:
+            self._render_gen = RenderGenerator(self._render_dir or "render")
+            self._render_gen.file_ct = self._render_reset_ct
+        if self._first_render:
+            self._first_render = False
+            self._render_gen.gen_config(self)
+        self._render_gen.render_a_frame(self, include_events=self._render_ever)
+        self._render_ever = True
+
+    def _frame_host(self, wall=False):
+        """Row 0 of the fields a replay frame or a render query reads
+        (``FRAME_FIELDS``), the pre-step liveness ``pre_dead``,
+        ``n_in_group`` and, with ``wall``, ``cell_wall`` as ``wall``: NumPy
+        arrays from one copy to the host.  The group counts are kept for
+        ``get_num``."""
+        st = self.state
+        pre = self._pre_step_dead
+        if pre is None or pre.shape[1] != st.dead.shape[1]:
+            pre = st.dead  # no snapshot (e.g. render before any step)
+        names = FRAME_FIELDS + ("pre_dead", "n_in_group")
+        tensors = [getattr(st, f)[0] for f in FRAME_FIELDS] + [
+            pre[0], st.n_in_group[0]]
+        if wall:
+            names += ("wall",)
+            tensors.append(st.cell_wall[0])
+        host = dict(zip(names, to_host(tensors)))
+        if self._n_host is None:
+            self._n_host = host["n_in_group"]
+        return host
+
+    def _get_groups_info(self):
+        sp = self.spec
+        out = np.empty((sp.n_groups, 5), np.int32)
+        for i, g in enumerate(sp.groups):
+            out[i, 0] = g.type.width
+            out[i, 1] = g.type.length
+            out[i, 2:5] = COLORS[i % len(COLORS)]
+        return out
+
+    def _get_walls_info(self):
+        ys, xs = np.nonzero(self.state.cell_wall[0].cpu().numpy())
+        return np.stack([xs, ys], axis=1).astype(np.int32)
 
     def _get_render_info(self, x_range, y_range):
-        raise NotImplementedError(_RENDER)
+        """({id: [x, y, group]} of the agents in the window, last step's
+        attack events [n, 3]).  Querying render info activates event
+        capture, like the first render() (reference: GridWorld.cc:797-798):
+        the first query returns no events, later ones return last step's
+        attack events."""
+        host = self._frame_host()
+        if self._render_ever:
+            ev = attack_events(self, host)
+            self._attack_events = (
+                np.asarray(ev, np.int32).reshape(-1, 3)
+                if ev else np.zeros((0, 3), np.int32))
+        self._render_ever = True
+        agent_info = {}
+        for handle in self.group_handles:
+            g = handle.value
+            off = self.spec.groups[g].offset
+            sl = slice(off, off + int(host["n_in_group"][g]))
+            xs, ys = host["x"][sl], host["y"][sl]
+            keep = ((x_range[0] <= xs) & (xs <= x_range[1])
+                    & (y_range[0] <= ys) & (ys <= y_range[1]))
+            if self.spec.groups[g].type.can_absorb:
+                keep &= host["absorbed"][sl]
+            idx = np.nonzero(keep)[0]
+            for i, x, y in zip(host["id"][sl][idx].tolist(),
+                               xs[idx].tolist(), ys[idx].tolist()):
+                agent_info[i] = [x, y, g]
+        return agent_info, self._attack_events
 
     # ----------------------------------------------------------- special
     def set_goal(self, handle, method, *args, **kwargs):

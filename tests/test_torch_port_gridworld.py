@@ -400,9 +400,12 @@ def test_gridworld_runs_on_the_card_by_default():
             tmagent.GridWorld("battle", map_size=20)
 
 
-def test_unported_modes_raise():
-    """Sequential mode is ported: it builds and steps.  Rendering is not,
-    in either mode: its calls raise, citing ROADMAP Queue 1 item 16."""
+def test_unported_modes_raise(tmp_path):
+    """Sequential mode and rendering are ported: in either mode the world
+    builds, steps and dumps a replay (``config.json`` and
+    ``video_<k>.txt``; ``tests/test_torch_port_render.py`` holds the bytes
+    against the JAX package), and no call raises the old
+    ``NotImplementedError`` citing ROADMAP Queue 1 item 16."""
     for mode in ("sequential", "fast"):
         env = tmagent.GridWorld("battle", map_size=20, engine_mode=mode,
                                 device="cpu")
@@ -410,11 +413,13 @@ def test_unported_modes_raise():
         env.add_agents(h0, method="custom", pos=[[5, 5], [7, 5]])
         env.add_agents(h1, method="custom", pos=[[6, 6]])
         random_round(env, np.random.RandomState(0), 2)
-        for call in (lambda: env.set_render_dir("x"), env.render,
-                     lambda: env._get_render_info((0, 1), (0, 1))):
-            with pytest.raises(NotImplementedError,
-                               match="Queue 1 item 16$"):
-                call()
+        env.set_render_dir(str(tmp_path / mode))
+        env.render()
+        pos, events = env._get_render_info((0, 19), (0, 19))
+        assert len(pos) == env.get_num(h0) + env.get_num(h1)
+        assert events.shape[1] == 3 and events.dtype == np.int32
+        assert sorted(os.listdir(tmp_path / mode)) == ["config.json",
+                                                        "video_0.txt"]
 
 
 def test_env_imports_no_jax():

@@ -12,9 +12,9 @@
   (the JAX package observes through ``window_gather_xla`` on the CPU);
 - the padded image geometry at the snake's shapes equals the JAX
   package's;
-- the invariant cases of ``tests/test_snake.py`` on the port (not the
-  render dump: rendering is not ported, and its calls raise or do
-  nothing)."""
+- the invariant cases of ``tests/test_snake.py`` on the port (the render
+  dump's bytes are held against the JAX package by
+  ``tests/test_torch_port_render.py``)."""
 
 import os
 import sys
@@ -208,13 +208,18 @@ def test_snake_runs_on_the_card_by_default():
 
 
 @pytest.mark.parametrize("mode", ["fast", "sequential"])
-def test_snake_render_is_not_ported(mode):
+def test_snake_render_is_not_ported(mode, tmp_path):
+    """Rendering is ported: ``render`` does nothing until
+    ``set_render_dir`` attaches a dumper, which writes ``config.json`` and
+    ``static.map`` at once and a frame per ``render``."""
     kwargs = {"device": "cpu"} if mode == "fast" else {}
     env = tds.DiscreteSnake(_config(tds), engine_mode=mode, **kwargs)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 16$"):
-        env.set_render_dir("x")
     env.render()  # no generator: nothing to write
     env.render_next_file()
+    env.set_render_dir(str(tmp_path))
+    assert sorted(os.listdir(tmp_path)) == ["config.json", "static.map"]
+    env.render()
+    assert (tmp_path / "video_0.txt").read_text().startswith("F ")
 
 
 # ---- tests/test_snake.py's invariant cases on the port ----
