@@ -220,7 +220,34 @@ Run from the repository root:  python3 chip_smoke.py
     the card server's first 10 frames equal a CPU server's playing the
     card models' actions; the fast ``DiscreteSnake`` at phase 4e's
     defaults rendered for 20 steps, replayed on the CPU, the same files;
-13. prints the ``kernels`` JSON line, then ``{"ok": true, "device": ...}``
+13. runs the examples (``magent_tpu_torch/examples``), the second backend
+    (``builtin/th_model``) and the scale scripts: (a) the second backend's
+    DQN and A2C (``build_alg(..., backend="torch")``) on train_battle's
+    loop at map 125, 2x625 (20 and 10 timed steps, ms per env step split
+    into env, inference and sampling, launches per step asserted, syncs,
+    one ``train()`` per model with its syncs per batch), GPU = CPU over one
+    round of 5 steps and one ``train()`` (episode buffers of 100 agents;
+    phase 11's tolerances and near-tie rule), and a ``thdqn``/``tha2c``
+    checkpoint saved on the card loaded on the CPU bit for bit; (b) every
+    training example at its default map through its ``setup`` (battle,
+    single, against, multi at 125, trans at 60, gather at 200, pursuit at
+    1000, tiger at 500, arrange at 100), one untrained round of 20 steps at
+    round 0's eps: ms per step, launches per step asserted from the
+    counters against the routes' kernels; ``train_battle_fused`` at its
+    defaults (map 64, B=16), one train step per algorithm, launches
+    asserted; (c) the reference harness's nine candidates
+    (``scripts/test/test_examples.py``) at their sizes with ``--train``,
+    cut to 20 steps, on both backends; (d) ``python -m
+    magent_tpu_torch.examples.train_battle --train --n_round 1 --map_size
+    32`` in a subprocess: exit 0 and its round-0 log line; (e) ``test_1m``
+    at 1,000,000 agents (host loop: FPS, per-phase times, the engine's
+    route, the copies' share of the step, peak memory, a profiled step;
+    ``--vectorized --n_envs 1``), ``test_mega`` at 1M over 64 envs with
+    ``--observe`` in f32 and bf16, each window kernel they launch held
+    against its plain version at those shapes and timed beside its bound,
+    and GPU = CPU for test_1m's world at 10,000 agents over 5 steps (every
+    state field);
+14. prints the ``kernels`` JSON line, then ``{"ok": true, "device": ...}``
     as the last line.
 
 Any failure raises (exit code 1).  Without a CUDA device it exits with 2
@@ -3650,14 +3677,16 @@ def views_round_trip_ms(view):
     return statistics.median(d2h) * 1e3, statistics.median(h2d) * 1e3
 
 
-def run_model_loop(kind, env, models, device_name):
+def run_model_loop(kind, env, models, device_name, label=None):
     """Phase 11, one model kind on train_battle's loop: warm-up, timed
     steps with the launch counts asserted, host syncs, the profiler, then
     one timed ``train()`` per model, and one more step and a short
     ``train()`` of group 1 under the profiler and the sync count -> the
-    timed steps' launch counts."""
+    timed steps' launch counts.  ``label`` starts each line (default
+    "model layer <kind>")."""
     from magent_tpu_torch import ops
 
+    label = label or "model layer %s" % kind
     handles = env.get_handles()
     for _ in range(MODEL_WARMUP):
         model_step(env, handles, models, collections.Counter())
@@ -3675,30 +3704,30 @@ def run_model_loop(kind, env, models, device_name):
     counts = ops.launch_counts()
     expected = {name: MODEL_PER_STEP.get(name, 0) * n for name in ops.KERNELS}
     if counts != expected:
-        raise AssertionError("model layer %s: launch counts %s, expected %s"
-                             % (kind, counts, expected))
+        raise AssertionError("%s: launch counts %s, expected %s"
+                             % (label, counts, expected))
     ms = dt / n * 1e3
-    print("model layer %s: train_battle's loop, battle map %d, %d live "
+    print("%s: train_battle's loop, battle map %d, %d live "
           "agent-steps in %d timed steps: %.4f ms per env step (env %.4f, "
           "inference %.4f, sampling %.4f), %.1f agent-steps/s on %s; "
           "launches per env step %s" % (
-              kind, GW_MAP, live, n, ms, clock["env"] / n * 1e3,
+              label, GW_MAP, live, n, ms, clock["env"] / n * 1e3,
               clock["inference"] / n * 1e3, clock["sampling"] / n * 1e3,
               live / dt, device_name, json.dumps(
                   {k: v / n for k, v in counts.items() if v})), flush=True)
     if not all(np.isfinite(v).all() and np.isfinite(f).all()
                for v, f in obs) or not all(np.isfinite(r).all()
                                            for r in rewards):
-        raise AssertionError("model layer %s: outputs not finite" % kind)
+        raise AssertionError("%s: outputs not finite" % label)
     syncs, sites = count_host_syncs(
         lambda: model_step(env, handles, models, collections.Counter()),
         MODEL_SYNC_STEPS)
-    print("model layer %s: %.1f host syncs per env step (torch.cuda sync "
+    print("%s: %.1f host syncs per env step (torch.cuda sync "
           "debug mode, %d steps); by call site: %s" % (
-              kind, syncs, MODEL_SYNC_STEPS, json.dumps(
+              label, syncs, MODEL_SYNC_STEPS, json.dumps(
                   {k: v / MODEL_SYNC_STEPS for k, v in sites.most_common()})),
           flush=True)
-    profile_steps("model layer %s, per env step" % kind,
+    profile_steps("%s, per env step" % label,
                   lambda: model_step(env, handles, models,
                                      collections.Counter()),
                   MODEL_PROFILE_STEPS, ms)
@@ -3712,9 +3741,9 @@ def run_model_loop(kind, env, models, device_name):
         torch.cuda.synchronize()
         train_ms.append((time.perf_counter() - t0) * 1e3)
         batches.append(m.model.train_ct - before)
-    print("model layer %s: train() of each group: %s batches in %s ms, %s "
+    print("%s: train() of each group: %s batches in %s ms, %s "
           "ms per batch; returned %s" % (
-              kind, batches, ["%.3f" % t for t in train_ms],
+              label, batches, ["%.3f" % t for t in train_ms],
               ["%.4f" % (t / b) for t, b in zip(train_ms, batches)], out),
           flush=True)
     # one more env step recorded, and a short train() call of group 1
@@ -3724,13 +3753,13 @@ def run_model_loop(kind, env, models, device_name):
     before = m1.model.train_ct
     prof = []
     syncs, sites = count_host_syncs(lambda: prof.append(profile_steps(
-        "model layer %s, group 1 train() of one step" % kind,
+        "%s, group 1 train() of one step" % label,
         lambda: out.append(m1.train(print_every=1000)), 1,
         train_ms[1] / batches[1])), 1)
     short = m1.model.train_ct - before
-    print("model layer %s: group 1 train() of one step: %d batches, %.2f "
+    print("%s: group 1 train() of one step: %d batches, %.2f "
           "host syncs per batch (%d in the call; by call site: %s)%s" % (
-              kind, short, syncs / short, syncs,
+              label, short, syncs / short, syncs,
               json.dumps(dict(sites.most_common())),
               "" if prof[0] is None else
               ", %.1f device ops and %.4f ms of device time per batch" % (
@@ -3738,9 +3767,9 @@ def run_model_loop(kind, env, models, device_name):
     if not (min(batches) > 0 and short > 0 and all(
             np.isfinite(np.hstack(r).astype(np.float64)).all()
             for r in out)):
-        raise AssertionError("model layer %s: train() gave %s" % (kind, out))
-    print("model layer %s: peak device memory %.3f GB" % (
-        kind, torch.cuda.max_memory_allocated() / 1e9), flush=True)
+        raise AssertionError("%s: train() gave %s" % (label, out))
+    print("%s: peak device memory %.3f GB" % (
+        label, torch.cuda.max_memory_allocated() / 1e9), flush=True)
     return counts
 
 
@@ -3848,20 +3877,81 @@ def check_subprocess_model(env):
                                        time.perf_counter() - t0), flush=True)
 
 
-def model_param_errors(gm, cm):
-    """(Adam moments' largest error as a share of each tensor's largest
-    magnitude, parameters' largest error where the gradient's sign is
-    settled, parameters' largest error) of two per-agent models."""
+def port_adam(m):
+    """(Adam steps, parameters, first and second moments) of a model of the
+    JAX family's port, each a flat {name: array}."""
     from magent_tpu_torch.builtin.torch_model import (params_to_flax,
                                                       tensors_to_flax)
 
-    def flat(m):
-        names = [n for n, _ in m.net.named_parameters()]
-        return params_to_flax(m.net), [
-            tensors_to_flax(dict(zip(names, getattr(m.opt_state, k))))
-            for k in ("mu", "nu")]
+    names = [n for n, _ in m.net.named_parameters()]
+    return (int(m.opt_state.count), params_to_flax(m.net), *[
+        tensors_to_flax(dict(zip(names, getattr(m.opt_state, k))))
+        for k in ("mu", "nu")])
 
-    (gp, gmom), (cp, cmom) = flat(gm), flat(cm)
+
+def th_adam(m):
+    """:func:`port_adam` of a second-backend model (``torch.optim.Adam``)."""
+    state = m.opt.state_dict()["state"]
+    named = list(m.net.named_parameters())
+    return (int(state[0]["step"]) if state else 0,
+            {n: p.detach().cpu().numpy() for n, p in named}, *[
+                {n: state[i][k].cpu().numpy()
+                 for i, (n, _) in enumerate(named)}
+                for k in ("exp_avg", "exp_avg_sq")])
+
+
+def th_scores(kind, model, view, feat):
+    """What a second-backend model's ``infer_action`` decides by, from its
+    state before the call, as ``_torch_model_play.port_scores`` gives it:
+    DQN, the Q values and the rows whose host e-greedy draw explores; A2C,
+    scores that put the drawn action on top by the host uniform's distance
+    from the nearest boundary of the policy's running sum (so the near-tie
+    rule compares the draw wherever that distance exceeds MARGIN)."""
+    import copy
+
+    probe = copy.deepcopy(model._rng)
+    with torch.no_grad():
+        out = model.net(model._tensor(view), model._tensor(feat))
+    n = len(view)
+    if kind == "dqn":
+        return out.double().cpu().numpy(), probe.rand(n) < MODEL_EPS
+    cdf = np.cumsum(out[0].cpu().numpy(), axis=1)
+    u = probe.rand(n, 1) * cdf[:, -1:]
+    drawn = (cdf < u).sum(axis=1).clip(0, cdf.shape[1] - 1)
+    scores = np.zeros(cdf.shape)
+    scores[np.arange(n), drawn] = np.abs(cdf - u).min(axis=1)
+    return scores, np.zeros(n, bool)
+
+
+def model_family(family, kind):
+    """What phase 11's loop and GPU = CPU check need of model ``kind`` of
+    ``family``: "port" (``builtin/torch_model``, the JAX family's port) or
+    "th" (``builtin/th_model``, the second backend; build_alg's
+    hyperparameters with backend="torch")."""
+    if family == "port":
+        play = tests_helper("_torch_model_play")
+        return types.SimpleNamespace(
+            label="model %s" % kind, cls=model_class(kind),
+            hyper=MODEL_HYPER[kind], trusty=kind == "dqn",
+            cmp_steps=MODEL_CMP_STEPS[kind], adam=port_adam,
+            scores=lambda m, v, f, ids: play.port_scores(kind, m, v, f, ids,
+                                                         MODEL_EPS))
+    from magent_tpu_torch.examples.rollout import build_alg
+
+    cls, hyper = build_alg(kind, backend="torch")
+    return types.SimpleNamespace(
+        label="second backend th_model %s" % kind, cls=cls, hyper=hyper,
+        trusty=False, cmp_steps=TH_CMP_STEPS, adam=th_adam,
+        scores=lambda m, v, f, ids: th_scores(kind, m, v, f))
+
+
+def model_param_errors(got, want):
+    """(Adam moments' largest error as a share of each tensor's largest
+    magnitude, parameters' largest error where the gradient's sign is
+    settled, parameters' largest error) of two models' :func:`port_adam`
+    tuples."""
+    _, gp, *gmom = got
+    _, cp, *cmom = want
     moment_err = param_err = param_any = 0.0
     for k in cp:
         for a, b in zip(gmom, cmom):
@@ -3877,9 +3967,10 @@ def model_param_errors(gm, cm):
     return moment_err, param_err, param_any
 
 
-def check_models_gpu_match_cpu():
+def check_models_gpu_match_cpu(family="port", kinds=("dqn", "a2c", "drqn")):
     """Phase 11, last: each model kind on the card and on the CPU over one
-    round of MODEL_CMP_STEPS steps of train_battle's map and armies and one
+    round of MODEL_CMP_STEPS (the second backend: TH_CMP_STEPS) steps of
+    train_battle's map and armies and one
     ``train()`` per model (``tests/_torch_model_play.py``'s loop, the same
     seeds, NumPy reseeded before each run): actions equal wherever the CPU
     run's top two scores lie more than its MARGIN apart (on a tie the card
@@ -3893,64 +3984,67 @@ def check_models_gpu_match_cpu():
     train batch's double-Q argmax or a ReLU can meet a tie within the
     devices' rounding, after which the two runs' losses part; over 61
     batches (every agent recorded) one group's did, at its fifth batch,
-    in one run on an H100."""
+    in one run on an H100.  ``family``: :func:`model_family`'s."""
     import magent_tpu_torch as tmag
 
     play = tests_helper("_torch_model_play")
-    for kind in ("dqn", "a2c", "drqn"):
-        cls = model_class(kind)
+    for kind in kinds:
+        fam = model_family(family, kind)
         runs, models = {}, {}
         for dev in ("cpu", "cuda"):
             env = tmag.GridWorld("battle", map_size=GW_MAP, device=dev)
             models[dev] = [
-                cls(env, h, "battle-%s" % tag, seed=MODEL_SEED + g,
-                    device=dev, **MODEL_HYPER[kind])
+                fam.cls(env, h, "battle-%s" % tag, seed=MODEL_SEED + g,
+                        device=dev, **fam.hyper)
                 for g, (h, tag) in enumerate(zip(env.get_handles(), "lr"))]
-            if kind == "dqn":
+            if fam.trusty:
                 load_trusty(models[dev])
             np.random.seed(MODEL_SEED)
             runs[dev] = play.play(
                 tmag, env, models[dev], MODEL_EPS, rounds=1,
-                steps=MODEL_CMP_STEPS[kind], place=place_armies,
+                steps=fam.cmp_steps, place=place_armies,
                 capacity=MODEL_CMP_EPISODES, **(
-                    dict(scores=lambda m, v, f, ids: play.port_scores(
-                        kind, m, v, f, ids, MODEL_EPS))
-                    if dev == "cpu" else dict(ref=runs["cpu"])))
+                    dict(scores=fam.scores) if dev == "cpu"
+                    else dict(ref=runs["cpu"])))
         want, got = runs["cpu"], runs["cuda"]
         gaps = np.concatenate([np.where(ex, np.inf, play.top_two_gap(sc))
                                for sc, ex in want["scores"]])
         compared = gaps > play.MARGIN
         if compared.sum() != len(gaps) - got["ties"]:
-            raise AssertionError("model %s: tie count" % kind)
+            raise AssertionError("%s: tie count" % fam.label)
         for a, b in zip(got["acts"] + got["rewards"],
                         want["acts"] + want["rewards"]):
             if not np.array_equal(a, b):
-                raise AssertionError("model %s: GPU and CPU actions or "
-                                     "rewards differ" % kind)
+                raise AssertionError("%s: GPU and CPU actions or rewards "
+                                     "differ" % fam.label)
         rel = max(float(np.max(np.abs(
-            np.hstack(a).astype(np.float64) - np.hstack(b)) / np.abs(
-            np.hstack(b)))) for a, b in zip(got["train"], want["train"]))
-        lr = MODEL_HYPER[kind]["learning_rate"]
+            np.hstack(a).astype(np.float64) - np.hstack(b)) / np.maximum(
+            np.abs(np.hstack(b)), 1e-30))) for a, b in zip(got["train"],
+                                                       want["train"]))
+        lr = fam.hyper["learning_rate"]
         errs = []
         for gm, cm in zip(models["cuda"], models["cpu"]):
-            steps = cm.opt_state.count
-            if gm.opt_state.count != steps or steps < 1:
-                raise AssertionError("model %s: %d and %d Adam steps" % (
-                    kind, gm.opt_state.count, steps))
-            moment_err, param_err, param_any = model_param_errors(gm, cm)
+            got_adam, want_adam = fam.adam(gm), fam.adam(cm)
+            steps = want_adam[0]
+            if got_adam[0] != steps or steps < 1:
+                raise AssertionError("%s: %d and %d Adam steps" % (
+                    fam.label, got_adam[0], steps))
+            moment_err, param_err, param_any = model_param_errors(
+                got_adam, want_adam)
             errs.append((steps, moment_err, param_err, param_any))
             if not (moment_err <= TRAIN_MOMENT_RTOL
                     and param_err <= 0.2 * lr * steps
                     and param_any <= 2.2 * lr * steps):
                 raise AssertionError(
-                    "model %s: GPU vs CPU after %d Adam steps: moments %g "
-                    "(tol %g), settled params %g (tol %g), params %g (tol %g)"
-                    % (kind, steps, moment_err, TRAIN_MOMENT_RTOL, param_err,
-                       0.2 * lr * steps, param_any, 2.2 * lr * steps))
+                    "%s: GPU vs CPU after %d Adam steps: moments %g (tol "
+                    "%g), settled params %g (tol %g), params %g (tol %g)"
+                    % (fam.label, steps, moment_err, TRAIN_MOMENT_RTOL,
+                       param_err, 0.2 * lr * steps, param_any,
+                       2.2 * lr * steps))
         if not rel <= TRAIN_LOSS_RTOL:
-            raise AssertionError("model %s: train() returns %g apart "
-                                 "relative (tol %g)" % (kind, rel,
-                                                        TRAIN_LOSS_RTOL))
+            raise AssertionError("%s: train() returns %g apart relative "
+                                 "(tol %g)" % (fam.label, rel,
+                                               TRAIN_LOSS_RTOL))
         note = ""
         if kind == "drqn":
             h_err = 0.0
@@ -3965,15 +4059,15 @@ def check_models_gpu_match_cpu():
                 raise AssertionError("model drqn: hiddens %g apart (tol %g)"
                                      % (h_err, TRAIN_HIDDEN_ATOL))
             note = ", hidden states within %.3g" % h_err
-        print("GPU vs CPU: model %s, battle map %d, %d agents, %d steps and "
+        print("GPU vs CPU: %s, battle map %d, %d agents, %d steps and "
               "one train() per model, f32: %d actions compared (%d greedy rows "
               "or draws, least top-two gap %.3g; %d ties played from the "
               "CPU run), rewards equal, train() returns within %.3g "
               "relative, (Adam steps, moments, settled params, params) per "
               "group %s%s" % (
-                  kind, GW_MAP,
+                  fam.label, GW_MAP,
                   len(want["acts"][0]) + len(want["acts"][1]),
-                  MODEL_CMP_STEPS[kind], int(compared.sum()),
+                  fam.cmp_steps, int(compared.sum()),
                   int(np.isfinite(gaps[compared]).sum()),
                   float(gaps.min()), got["ties"], rel,
                   json.dumps([[s, float("%.3g" % a), float("%.3g" % b),
@@ -4351,6 +4445,632 @@ def run_rendering(device_name):
     return replay_counts, server_counts
 
 
+# phase 13: the examples (magent_tpu_torch/examples), the second backend
+# (builtin/th_model) and the scale scripts.  (a) the second backend on
+# train_battle's loop at map GW_MAP with place_armies' 2x625 (build_alg's
+# hyperparameters with backend="torch"); (b) each training example at its
+# default map through its setup, one round cut to EX_STEPS steps at round
+# 0's eps, untrained; the fused example at its defaults (map 64, B=16)
+# for one call of one train step per algorithm; (c) the reference
+# harness's candidates (test_examples.candidates) with --train, cut to
+# EX_STEPS, on both backends; (d) one train_battle CLI run in a
+# subprocess; (e) test_1m at SCALE_N agents (host loop and one-world
+# vectorized loop), test_mega at its defaults (1M over 64 envs) in f32
+# and bf16, and the host loop GPU = CPU at SCALE_CMP_N agents
+TH_CMP_STEPS = 5
+EX_STEPS = 20
+EXAMPLES = ("train_battle", "train_single", "train_against", "train_multi",
+            "train_trans", "train_gather", "train_pursuit", "train_tiger",
+            "train_arrange")
+FUSED_ALGS = ("dqn", "dqn_remat", "a2c", "drqn")
+FUSED_ROLLOUT, FUSED_SAMPLE_STEPS = 8, 2
+SCALE_N, SCALE_STEPS, SCALE_CMP_N, SCALE_CMP_STEPS = 1000000, 4, 10000, 5
+CLI_ARGV = ["--train", "--n_round", "1", "--map_size", "32"]
+
+
+def check_th_checkpoint(model, fam):
+    """A checkpoint of a second-backend model on the card, loaded into a
+    CPU model of another seed: every tensor equal bit for bit."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        model.save(d, 3)
+        back = fam.cls(model.env, model.handle, "back", seed=99,
+                       device="cpu", **fam.hyper)
+        back.load(d, 3, name=model.name)
+    for k, v in model.net.state_dict().items():
+        if not torch.equal(back.net.state_dict()[k], v.cpu()):
+            raise AssertionError("%s: the card's checkpoint does not load "
+                                 "bit for bit (%s)" % (fam.label, k))
+    print("%s: a %s checkpoint saved on the card after the loop's train() "
+          "loaded on the CPU bit for bit" % (fam.label, model.subclass_name),
+          flush=True)
+
+
+def run_second_backend(device_name):
+    """Phase 13 (a): each kind of the second backend through phase 11's
+    loop and GPU = CPU check, and a checkpoint of each -> the DQN loop's
+    launch counts."""
+    from magent_tpu_torch import GridWorld, ProcessingModel
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.cuda.reset_peak_memory_stats()
+    env = GridWorld("battle", map_size=GW_MAP)
+    handles = env.get_handles()
+    counts = {}
+    for kind in ("dqn", "a2c"):
+        fam = model_family("th", kind)
+        env.reset()
+        place_armies(env, handles)
+        models = [ProcessingModel(env, h, "battle-%s" % tag, 20000 + g, 1000,
+                                  fam.cls, seed=MODEL_SEED + g, **fam.hyper)
+                  for g, (h, tag) in enumerate(zip(handles, "lr"))]
+        counts[kind] = run_model_loop(kind, env, models, device_name,
+                                      "phase 13 (a) " + fam.label)
+        check_th_checkpoint(models[0].model, fam)
+        del models
+    del env
+    torch.cuda.empty_cache()
+    check_models_gpu_match_cpu("th", ("dqn", "a2c"))
+    if (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32) != tf32:
+        raise AssertionError("the second backend changed the TF32 flags")
+    return counts["dqn"]
+
+
+def numbers(x):
+    """The numbers of nested lists and tuples (strings skipped), as a
+    float64 array."""
+    if isinstance(x, str):
+        return np.zeros(0)
+    if isinstance(x, (list, tuple, np.ndarray)):
+        return np.concatenate([np.zeros(0)] + [numbers(v) for v in x])
+    return np.array([float(x)])
+
+
+def example_module(name):
+    import importlib
+
+    return importlib.import_module("magent_tpu_torch.examples." + name)
+
+
+def counting_steps(env):
+    """Count ``env.step`` calls in ``env.steps_taken``."""
+    step = env.step
+    env.steps_taken = 0
+
+    def counted():
+        env.steps_taken += 1
+        return step()
+
+    env.step = counted
+
+
+def expected_launches(env, observed):
+    """Kernel launches per step of a ``GridWorld`` whose groups
+    ``observed`` are observed once each: each group's observation route,
+    and on the grid path's pair-kernel route (``route.quad``) the damage
+    sweep (``rank_prefix_hp``) and, for 1x1 bodies, the move claims."""
+    per = collections.Counter(env._observe_fns[g].route for g in observed)
+    if env._step_fn.route.quad:
+        per["rank_prefix_hp"] += 1
+        if env.spec.max_body_w == 1:
+            per["move_claims"] += 1
+    return per
+
+
+def record_launched(step_fn):
+    """Run ``step_fn`` with every kernel entry point of ``ops`` recording a
+    copy of each call's operands and the launch counter the call moved ->
+    ``[(counter name, args, kwargs)]`` in call order; fails unless every
+    launch of the run was recorded."""
+    from magent_tpu_torch import ops
+    from magent_tpu_torch.ops import attack_prefix as ap
+    from magent_tpu_torch.ops import window_gather as wg
+
+    calls = []
+    patched = {(mod, kernel.__name__): kernel
+               for kernel, _ in kernel_fns().values() for mod in (ap, wg)
+               if getattr(mod, kernel.__name__, None) is kernel}
+
+    def wrap(fn):
+        def rec(*args, **kwargs):
+            copy = ([a.clone() if isinstance(a, torch.Tensor) else a
+                     for a in args],
+                    {k: v.clone() if isinstance(v, torch.Tensor) else v
+                     for k, v in kwargs.items()})
+            before = ops.launch_counts()
+            out = fn(*args, **kwargs)
+            moved = {k: v - before[k] for k, v in ops.launch_counts().items()
+                     if v != before[k]}
+            if list(moved.values()) != [1]:
+                raise AssertionError("%s: one call moved the launch counts "
+                                     "by %s" % (fn.__name__, moved))
+            calls.append((next(iter(moved)),) + copy)
+            return out
+
+        return rec
+
+    before = ops.launch_counts()
+    for (mod, name), fn in patched.items():
+        setattr(mod, name, wrap(fn))
+    try:
+        step_fn()
+    finally:
+        for (mod, name), fn in patched.items():
+            setattr(mod, name, fn)
+    launched = {k: v - before[k] for k, v in ops.launch_counts().items()
+                if v != before[k]}
+    if launched != dict(collections.Counter(c[0] for c in calls)):
+        raise AssertionError("launches %s, recorded calls %s" % (
+            launched, collections.Counter(c[0] for c in calls)))
+    return calls
+
+
+def kernel_stats_of(step_fn, per, rows, f32_rate, int32_rate, form):
+    """The kernel calls of ``step_fn()`` recorded (:func:`record_launched`),
+    its launches held to ``per``, and each call held against its plain
+    version and timed (:func:`call_stats`) into ``rows``."""
+    calls = record_launched(step_fn)
+    if collections.Counter(c[0] for c in calls) != per:
+        raise AssertionError("%s: one step launched %s, expected %s" % (
+            form, collections.Counter(c[0] for c in calls), dict(per)))
+    for k, (name, args, kwargs) in enumerate(calls):
+        rows[name]["per_call"].append(call_stats(
+            name, args, kwargs, f32_rate, int32_rate,
+            "%s, call %d" % (form, k)))
+    del calls
+    torch.cuda.empty_cache()
+
+
+def example_step(env, observed):
+    """One step of an example's world: each observed group observed,
+    random actions for every group."""
+    rng = np.random.RandomState(1)
+    for h in env.get_handles():
+        if h.value in observed:
+            env.get_observation(h)
+        env.set_action(h, rng.randint(0, env.get_action_space(h)[0],
+                                      env.get_num(h)).astype(np.int32))
+    env.step()
+    env.clear_dead()
+
+
+def example_round(name, argv, train, device_name, tag, check=None):
+    """One round of example ``name`` through its ``setup`` on the card,
+    cut to EX_STEPS steps, at round 0's eps; the launch counts set to 0
+    just before the round and read just after, held to
+    :func:`expected_launches` per step; with ``check`` = (rows, f32_rate,
+    int32_rate), then :func:`kernel_stats_of` one more step of its world
+    (:func:`example_step`) -> (counts, steps, ms per step)."""
+    from magent_tpu_torch import ops
+
+    mod = example_module(name)
+    args = mod.cli().parse_args(argv)
+    t0 = time.perf_counter()
+    ex = mod.setup(args)
+    setup_s = time.perf_counter() - t0
+    env = ex.env
+    counting_steps(env)
+    eps = mod.round_eps(args, 0)
+    np.random.seed(0)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    if name == "train_arrange":
+        out = mod.play_a_round(env, args.map_size, ex.font, [args.message],
+                               ex.handles, ex.model, train=train,
+                               eps=eps, max_steps=EX_STEPS - 1)
+        observed = [ex.handles[1].value]
+        round_s = time.perf_counter() - t0
+    else:
+        ex.new_round()
+        ex.runner.max_steps = EX_STEPS - 1
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        totals = ex.runner.sample(eps)
+        torch.cuda.synchronize()
+        round_s = time.perf_counter() - t0
+        out = (totals.tolist(), ex.runner.nums)
+        if train:
+            counts_sampled = ops.launch_counts()
+            t1 = time.perf_counter()
+            out = out + ex.runner.train()
+            torch.cuda.synchronize()
+            out = out + ("train %.3f s" % (time.perf_counter() - t1),)
+        observed = [s.handle.value for s in ex.runner.sides if s.observe]
+    torch.cuda.synchronize()
+    counts = ops.launch_counts() if name == "train_arrange" or not train \
+        else counts_sampled
+    steps = env.steps_taken
+    per = expected_launches(env, observed)
+    want = {k: per.get(k, 0) * steps for k in ops.KERNELS}
+    if counts != want or steps < 1:
+        raise AssertionError("%s (%s): launch counts %s over %d steps, "
+                             "expected %s" % (name, tag, counts, steps, want))
+    if not np.isfinite(numbers(out)).all():
+        raise AssertionError("%s (%s): round gave %s" % (name, tag, out))
+    agents = sum(env.get_num(h) for h in env.get_handles())
+    print("phase 13 %s %s: map %d, %d agents (%s), engine route %s, "
+          "observation routes %s: setup %.2f s, %d steps in %.3f s, %.4f ms "
+          "per step on %s; launches per step %s; round %s" % (
+              tag, name, env.spec.width, agents,
+              [env.get_num(h) for h in env.get_handles()],
+              tuple(env._step_fn.route), [env._observe_fns[g].route
+                                          for g in observed],
+              setup_s, steps, round_s, round_s / steps * 1e3, device_name,
+              json.dumps(dict(per)), out), flush=True)
+    if check is not None:
+        kernel_stats_of(lambda: example_step(env, observed), per, *check,
+                        "%s %s, map %d" % (tag, name, env.spec.width))
+    for m in ex.models:
+        getattr(m, "quit", lambda: None)()
+    del ex, env
+    torch.cuda.empty_cache()
+    return counts, steps, round_s / steps * 1e3
+
+
+def run_fused_example(device_name, rows, f32_rate, int32_rate):
+    """Phase 13 (b), train_battle_fused at its defaults (map 64, 64 per
+    side, B=16, rollout 8, f32): one warm call and one timed call of one
+    train step per algorithm, launches asserted per train step; after the
+    first, one lockstep step of its envs through :func:`kernel_stats_of`."""
+    from magent_tpu_torch import ops
+    from magent_tpu_torch import random as rnd
+
+    fused = example_module("train_battle_fused")
+    extra = {"dqn": 0, "dqn_remat": 4 * FUSED_SAMPLE_STEPS, "a2c": 2,
+             "drqn": 0}
+    out = {}
+    for alg in FUSED_ALGS:
+        args = fused.cli().parse_args(["--alg", alg, "--steps_per_call", "1"])
+        ex = fused.setup(args)
+        ex.call(0, 1.0)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        metrics = ex.call(1, 1.0)
+        loss = metrics["loss"].cpu().numpy()
+        dt = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        want = {k: 0 for k in ops.KERNELS}
+        want.update(window_gather=2 * FUSED_ROLLOUT + extra[alg],
+                    occupant=FUSED_ROLLOUT, rank_prefix=FUSED_ROLLOUT,
+                    move_resolve=FUSED_ROLLOUT)
+        if counts != want or not np.isfinite(loss).all():
+            raise AssertionError("train_battle_fused %s: launches %s, "
+                                 "expected %s; loss %s" % (alg, counts, want,
+                                                           loss))
+        n_agents = 2 * args.agents_per_side * args.n_envs * args.rollout_len
+        print("phase 13 (b) train_battle_fused %s: map %d, B=%d, 2x%d, "
+              "rollout %d: %.3f ms per train step (%.1f trained agent-steps/s) "
+              "on %s; launches per train step %s; loss %s" % (
+                  alg, args.map_size, args.n_envs, args.agents_per_side,
+                  args.rollout_len, dt * 1e3, n_agents / dt, device_name,
+                  json.dumps({k: v for k, v in counts.items() if v}),
+                  loss.tolist()), flush=True)
+        if alg == FUSED_ALGS[0]:
+            carry = [ex.carry[3], rnd.PRNGKey(5, ex.venv.device)]
+            kernel_stats_of(
+                lambda: lockstep_step(ex.venv, carry), collections.Counter(
+                    window_gather=2, occupant=1, rank_prefix=1,
+                    move_resolve=1), rows, f32_rate, int32_rate,
+                "(b) train_battle_fused, map %d, B=%d, 2x%d" % (
+                    args.map_size, args.n_envs, args.agents_per_side))
+        out[alg] = counts
+        del ex
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_cli_round():
+    """Phase 13 (d): ``python -m magent_tpu_torch.examples.train_battle
+    --train --n_round 1 --map_size 32`` in a subprocess, in a scratch
+    directory, with the checkout on PYTHONPATH: exits 0 and logs its round
+    0 line."""
+    import tempfile
+
+    from magent_tpu_torch.examples.test_examples import module_env
+
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "magent_tpu_torch.examples.train_battle"]
+            + CLI_ARGV, cwd=d, env=module_env(), capture_output=True,
+            text=True, timeout=600)
+        dt = time.perf_counter() - t0
+    lines = [ln for ln in (out.stdout + out.stderr).splitlines()
+             if ln.startswith("round 0\t loss:")]
+    if out.returncode != 0 or not lines:
+        raise AssertionError("train_battle CLI: exit %d, no round-0 line; "
+                             "stderr tail %s" % (out.returncode,
+                                                 out.stderr[-2000:]))
+    print("phase 13 (d) python -m magent_tpu_torch.examples.train_battle %s: "
+          "exit 0 in %.1f s; %s" % (" ".join(CLI_ARGV), dt, lines[0]),
+          flush=True)
+
+
+def scale_args(**kw):
+    base = dict(n_step=SCALE_STEPS, agent_number=SCALE_N, num_gpu=0,
+                n_envs=1, unroll=1, vectorized=False, fast_rand=False,
+                no_walls=False, frame="jax", device=None)
+    return types.SimpleNamespace(**dict(base, **kw))
+
+
+def run_scale(rows, f32_rate, int32_rate, device_name):
+    """Phase 13 (e): the scale scripts at one million agents; the window
+    kernels at their shapes against their plain versions, into ``rows``."""
+    from magent_tpu_torch import ops
+    from magent_tpu_torch import random as rnd
+
+    t1m = example_module("test_1m")
+    mega = example_module("test_mega")
+
+    # the host loop, 20 warm-ups and SCALE_STEPS timed steps
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = t1m.run_host_loop(scale_args())
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    env = res["env"]
+    steps = len(res["steps"])
+    groups = env.get_handles()
+    per = expected_launches(env, [h.value for h in groups])
+    want = {k: per.get(k, 0) * steps for k in ops.KERNELS}
+    if counts != want or res["fps"] is None:
+        raise AssertionError("test_1m host loop: launches %s over %d steps, "
+                             "expected %s" % (counts, steps, want))
+    phases = {k: v / steps * 1e3 for k, v in res["phase_totals"].items()}
+    obs_ms = phases["obs:deer"] + phases["obs:tiger"]
+    # the observations' device work alone, synchronized (the rest of
+    # get_observation is the copy to pageable host memory)
+    grids = env._grids_fn(env.state)
+    dev_obs = []
+    for h in groups:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        view, _ = env._observe_fns[h.value](env.state, grids)
+        torch.cuda.synchronize()
+        dev_obs.append((time.perf_counter() - t0) * 1e3)
+        nbytes_view = view[0, :env.get_num(h)].numel() * 4
+        del view
+    step_ms = sum(phases.values())
+    check_cells_rebuilt("phase 13 (e) test_1m host loop", env, env.state)
+    print("phase 13 (e) test_1m host loop: %d agents on map %d (%d walls), "
+          "engine route %s (grid path, %s), observation routes %s; placement "
+          "%.2f s on the host; FPS %.1f over %d timed steps after %d "
+          "warm-ups; %.4f ms per step by phase %s; get_observation %.4f ms "
+          "per step of which the observations' device work %.4f ms "
+          "(synchronized, per group %s), the rest the copies to pageable "
+          "host memory: %.3f of the step; launches per step %s; peak device "
+          "memory %.3f GB; %.1f s in all on %s" % (
+              SCALE_N, env.spec.width, SCALE_N // 10,
+              tuple(env._step_fn.route),
+              "pair kernels" if env._step_fn.route.quad else "sort branches",
+              [env._observe_fns[h.value].route for h in groups],
+              res["place_s"], res["fps"], SCALE_STEPS, t1m.WARMUP_STEPS,
+              step_ms, json.dumps({k: round(v, 4) for k, v in
+                                   phases.items()}), obs_ms, sum(dev_obs),
+              ["%.4f" % t for t in dev_obs],
+              (obs_ms - sum(dev_obs)) / step_ms, json.dumps(dict(per)),
+              torch.cuda.max_memory_allocated() / 1e9, wall, device_name),
+          flush=True)
+    profile_steps("phase 13 (e) test_1m host loop, per step",
+                  lambda: [env.get_observation(h) for h in groups]
+                  and env.step(), 1, step_ms)
+    # row 13 (or whichever window kernel the routes take) at 1M
+    paths = {}
+    for name, stats in scale_window_rows(
+            "test_1m host loop, %d agents, map %d" % (SCALE_N,
+                                                      env.spec.width),
+            lambda: [env.get_observation(h) for h in groups],
+            f32_rate, int32_rate).items():
+        rows[name]["per_call"] += stats
+        paths[name] = counts[name]
+    for name, n in paths.items():
+        rows[name].setdefault("launches_by_path", {})[
+            "test_1m host loop, %d agents, %d steps" % (SCALE_N, steps)] = n
+    del env, res, grids
+    torch.cuda.empty_cache()
+
+    # the vectorized loop in one world
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    vres = t1m.run_vectorized(scale_args(vectorized=True))
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    venv = vres["venv"]
+    print("phase 13 (e) test_1m --vectorized --n_envs 1: %d agents on map "
+          "%d, engine route %s, observation routes %s: FPS %.1f, %.4f ms "
+          "per step; launches per step %s; peak device memory %.3f GB; %.1f "
+          "s in all" % (
+              SCALE_N, vres["map_size"], tuple(venv._step.route),
+              [o.route for o in venv._observe], vres["fps"],
+              1e3 / vres["env_steps_per_s"], json.dumps(
+                  {k: v / (2 * SCALE_STEPS) for k, v in counts.items() if v}),
+              torch.cuda.max_memory_allocated() / 1e9, wall), flush=True)
+    if not any(counts.values()):
+        raise AssertionError("test_1m --vectorized launched no kernel")
+    if venv._step.route.grid:  # the gridless path keeps no cell_slot
+        check_cells_rebuilt("phase 13 (e) test_1m --vectorized", venv,
+                            vres["state"])
+    for name, n in counts.items():
+        if n:
+            rows[name].setdefault("launches_by_path", {})[
+                "test_1m --vectorized, %d agents, %d steps" % (
+                    SCALE_N, 2 * SCALE_STEPS)] = n
+    del venv, vres
+    torch.cuda.empty_cache()
+
+    # test_mega at its defaults, f32 and bf16, with --observe
+    for dtype in ("f32", "bf16"):
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        mres = mega.main(["--observe", "--obs_dtype", dtype])
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        venv = mres["venv"]
+        n_steps = 2 * mega.cli().parse_args([]).steps
+        if not (math.isfinite(mres["sink"]) and any(counts.values())):
+            raise AssertionError("test_mega %s: sink %s, launches %s"
+                                 % (dtype, mres["sink"], counts))
+        print("phase 13 (e) test_mega --observe --obs_dtype %s: %d envs x %d "
+              "agents on %dx%d maps, engine route %s, observation routes %s: "
+              "%.1f agent-steps/s (%.4f ms per step); launches per step %s; "
+              "peak device memory %.3f GB; %.1f s in all" % (
+                  dtype, venv.n_envs, mres["per_env"], mres["map_size"],
+                  mres["map_size"], tuple(venv._step.route),
+                  [o.route for o in venv._observe], mres["value"],
+                  mres["seconds"] / (n_steps // 2) * 1e3, json.dumps(
+                      {k: v / n_steps for k, v in counts.items() if v}),
+                  torch.cuda.max_memory_allocated() / 1e9, wall), flush=True)
+        state = venv.reset(rnd.PRNGKey(3, venv.device))
+        for name, stats in scale_window_rows(
+                "test_mega %s, B=%d, %d agents" % (dtype, venv.n_envs,
+                                                   mres["per_env"]),
+                lambda: venv.observe_all(state), f32_rate,
+                int32_rate).items():
+            rows[name]["per_call"] += stats
+            rows[name].setdefault("launches_by_path", {})[
+                "test_mega %s, 1M agents, %d steps" % (dtype, n_steps)] = (
+                counts[name])
+        del venv, mres, state
+        torch.cuda.empty_cache()
+
+    check_scale_gpu_matches_cpu()
+
+
+def check_cells_rebuilt(label, world, state):
+    """``cell_slot`` of a 1M world equals its rebuild from the live agents'
+    positions and bodies (:func:`rebuilt_cells`), and its occupied cells
+    are the live bodies' area: no flat offset, sentinel or slot wrapped."""
+    cells = rebuilt_cells(world, state)
+    if not torch.equal(state.cell_slot, cells):
+        raise AssertionError("%s: cell_slot differs from its rebuild"
+                             % label)
+    spec = world.spec
+    alive = state.active & ~state.dead
+    area = torch.as_tensor(spec.s_width * spec.s_length,
+                           device=state.x.device)
+    occupied, want = int((cells >= 0).sum()), int(area[alive[0]].sum())
+    if occupied != want:
+        raise AssertionError("%s: %d occupied cells for %d cells of live "
+                             "bodies" % (label, occupied, want))
+    print("%s: cell_slot after the timed steps equals its rebuild from the "
+          "positions (%d live agents, %d occupied cells, slots up to %d, "
+          "flat cells up to %d)" % (label, int(alive.sum()), occupied,
+                                    int(cells.max()),
+                                    spec.height * spec.width - 1),
+          flush=True)
+
+
+def scale_window_rows(label, fn, f32_rate, int32_rate):
+    """The window kernels ``fn()`` launches, each call held against its
+    plain version and timed (:func:`call_stats`) -> {row name: stats}."""
+    out = collections.defaultdict(list)
+    for g, (name, args, kwargs) in enumerate(record_launched(fn)):
+        out[name].append(call_stats(name, args, kwargs, f32_rate,
+                                    int32_rate, "%s, group %d" % (label, g)))
+    for name, stats in out.items():
+        print_window_forms(name, [1] * len(stats), stats)
+    torch.cuda.empty_cache()
+    if not out:
+        raise AssertionError("%s launched no window kernel" % label)
+    return out
+
+
+def check_scale_gpu_matches_cpu():
+    """Phase 13 (e): test_1m's host-loop world at SCALE_CMP_N agents on the
+    card and on the CPU (the same LCG placements), SCALE_CMP_STEPS steps of
+    its random actors (NumPy reseeded before each run): every state field
+    equal."""
+    from magent_tpu_torch.builtin.rule_model import RandomActor
+
+    t1m = example_module("test_1m")
+    states = {}
+    for dev in ("cpu", "cuda"):
+        env, groups, _ = t1m.host_world(scale_args(agent_number=SCALE_CMP_N,
+                                                   device=dev))
+        actors = [RandomActor(env, h) for h in groups]
+        np.random.seed(3)
+        paid = 0.0
+        for _ in range(SCALE_CMP_STEPS):
+            for h, actor in zip(groups, actors):
+                env.set_action(h, actor.infer_action(env.get_observation(h),
+                                                     None))
+            env.step()
+            paid += float(np.abs(env.get_reward(groups[1])).sum())
+            env.clear_dead()
+        states[dev] = (env.state, paid, [env.get_num(h) for h in groups])
+    assert_state_equal(states["cuda"][0], states["cpu"][0],
+                       "test_1m host loop, %d agents" % SCALE_CMP_N)
+    if states["cuda"][1:] != states["cpu"][1:] or not states["cpu"][1]:
+        raise AssertionError("test_1m GPU vs CPU: rewards or counts differ")
+    print("GPU vs CPU: test_1m host loop, %d agents on map %d, %d steps of "
+          "random actors: every state field equal (|reward| paid %.1f, alive "
+          "%s)" % (SCALE_CMP_N, int(math.sqrt(SCALE_CMP_N * 20)),
+                   SCALE_CMP_STEPS, states["cpu"][1], states["cpu"][2]),
+          flush=True)
+
+
+def run_examples_phase(rows, f32_rate, int32_rate, device_name):
+    """Phase 13: the second backend, every example at its default map, the
+    reference harness's protocol, the CLI round and the scale scripts; the
+    launches of each path into ``rows``."""
+    from magent_tpu_torch.examples.test_examples import candidates
+
+    t_phase = time.perf_counter()
+    th_counts = run_second_backend(device_name)
+    for name in MODEL_PER_STEP:
+        rows[name].setdefault("launches_by_path", {})[
+            "second backend (th_model DQN), train_battle's loop, %d steps"
+            % MODEL_STEPS["dqn"]] = th_counts[name]
+    t = {"(a)": time.perf_counter() - t_phase}
+
+    t0 = time.perf_counter()
+    for name in EXAMPLES:
+        counts, steps, _ = example_round(name, [], False, device_name,
+                                         "(b) default map",
+                                         (rows, f32_rate, int32_rate))
+        for k, n in counts.items():
+            if n:
+                rows[k].setdefault("launches_by_path", {})[
+                    "%s at its default map, %d steps" % (name, steps)] = n
+    for alg, counts in run_fused_example(device_name, rows, f32_rate,
+                                         int32_rate).items():
+        for k, n in counts.items():
+            if n:
+                rows[k].setdefault("launches_by_path", {})[
+                    "train_battle_fused %s, one train step" % alg] = n
+    t["(b)"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    for backend in ("jax", "torch"):
+        for name, argv in candidates:
+            # the kernels' shapes do not depend on the backend
+            example_round(name, argv + ["--backend", backend], True,
+                          device_name, "(c) harness, --backend %s" % backend,
+                          (rows, f32_rate, int32_rate) if backend == "jax"
+                          else None)
+    t["(c)"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    run_cli_round()
+    t["(d)"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    run_scale(rows, f32_rate, int32_rate, device_name)
+    t["(e)"] = time.perf_counter() - t0
+    print("phase 13: %.1f s (%s)" % (time.perf_counter() - t_phase,
+                                     ", ".join("%s %.1f s" % kv
+                                               for kv in t.items())),
+          flush=True)
+
+
 def _flat(items):
     for item in items:
         if isinstance(item, list):
@@ -4498,6 +5218,7 @@ def main() -> int:
         for name, st in stats.items():
             rows[name]["per_call"] += st
             rows[name].setdefault("launches_by_path", {})[path] = counts[name]
+    run_examples_phase(rows, f32_rate, int32_rate, device_name)
     print("phase 4e: %d C++ goldens matched (14 GridWorld on the card, "
           "snake_basic on the host)" % n_goldens, flush=True)
     print(json.dumps({"kernels": list(rows.values())}))

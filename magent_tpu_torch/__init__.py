@@ -24,7 +24,12 @@ reference's name ``builtin.tf_model``), whose checkpoints are the JAX
 package's files; and rendering: replay dumps (``render``), the PyGame
 client and its game servers (``renderer``, ``renderer.server``) and the
 live games' entry points (``examples.show_battle_game``,
-``examples.show_arrange``).
+``examples.show_arrange``); the examples and scale scripts
+(``examples``: the ``train_*`` examples over ``examples.rollout``,
+``api_demo``, ``test_1m``, ``test_mega``, ``test_fps`` and the harnesses)
+and the second NN backend they select with ``--backend torch``
+(``builtin.th_model``, also under the reference's name
+``builtin.mx_model``).
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``,
 except the sequential snake (``DiscreteSnake(..., engine_mode=
 "sequential")``, ``core.seq_snake``): host NumPy only, like the JAX
