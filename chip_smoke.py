@@ -247,7 +247,24 @@ Run from the repository root:  python3 chip_smoke.py
     against its plain version at those shapes and timed beside its bound,
     and GPU = CPU for test_1m's world at 10,000 agents over 5 steps (every
     state field);
-14. prints the ``kernels`` JSON line, then ``{"ok": true, "device": ...}``
+14. runs sharding (``parallel/sharding.py``): (a) on a one-rank mesh
+    (``make_mesh()``: the card, nccl) at scripts/bench_train.py's
+    geometry, the ``dqn`` fused trainer placed by ``param_sharding`` over
+    2 train steps and the lockstep loop from a state placed by
+    ``state_sharding`` over 20 steps, each equal to the unsharded run bit
+    for bit (the trainers on cuDNN's deterministic algorithms); (b) two
+    gloo ranks sharing the card (this script with ``--shard-rank``,
+    started through ``examples/launch_multihost.py``'s poller, each under
+    ``timeout``) run launch_multihost's ``--mode env``, ``--mode train``
+    at dp=2 and at dp=1 x tp=2 (map 64, 2x64, 4 envs): every rank's env
+    rows equal the one-process run's, losses within TRAIN_LOSS_RTOL, the
+    gathered parameters and moments by the Adam rule, and each rank's
+    kernel calls of one lockstep step held against their plain versions;
+    (c) ``python -m magent_tpu_torch.examples.test_scaling`` at its
+    defaults (map 200, 2x1000, 8 envs, 32 steps): its one point; (d)
+    ``DeepQNetwork(num_gpu=2)`` caps at the one card, and two replicas on
+    it (``devices=["cuda:0"] * 2``) act as the unsharded model;
+15. prints the ``kernels`` JSON line, then ``{"ok": true, "device": ...}``
     as the last line.
 
 Any failure raises (exit code 1).  Without a CUDA device it exits with 2
@@ -5071,6 +5088,447 @@ def run_examples_phase(rows, f32_rate, int32_rate, device_name):
           flush=True)
 
 
+# phase 14, sharding: the ("dp", "tp") mesh over torch.distributed
+SHARD_TRAIN_STEPS, SHARD_LOCKSTEP_STEPS = 2, 20
+# launch_multihost's defaults (map 64, 64 per side, rollout 8), cut to one
+# timed call of 16 env steps (train: two calls of two train steps)
+SHARD_LM_ARGV = ["--map_size", "64", "--agents_per_side", "64", "--steps",
+                 "16", "--calls", "1", "--rollout_len", "8"]
+SHARD_RANKS, SHARD_RANK_TIMEOUT_S = 2, 300
+# (name, launch_multihost mode, tp) of each two-rank run
+SHARD_RUNS = (("env dp=2", "env", 1), ("train dp=2", "train", 1),
+              ("train dp=1 tp=2", "train", 2))
+SHARD_TRAIN_LR = 1e-4  # launch_multihost's ClipAdam(1e-4, inf)
+SHARD_INFER_ROWS = 3000
+
+
+def shard_lm_args(mode, envs_per_device, nproc):
+    from magent_tpu_torch.examples import launch_multihost as lm
+
+    return lm.parse_args(["--mode", mode,
+                          "--envs_per_device", str(envs_per_device),
+                          "--nproc", str(nproc)] + SHARD_LM_ARGV)
+
+
+def flat_train(out, gather_fn=None):
+    """(params, (mu, nu)) per group of a launch_multihost train run, as
+    flat flax dicts of full tensors (``gather_fn``: the mesh's gather)."""
+    from magent_tpu_torch.builtin.torch_model import tensors_to_flax
+
+    res = []
+    for g, (net, st) in enumerate(zip(out["nets"], out["opt_states"])):
+        names = [n for n, _ in net.named_parameters()]
+        if gather_fn is not None:
+            params = gather_fn(net)
+            st = gather_fn(st, out["placement"][g])
+        else:
+            params = dict(net.named_parameters())
+        res.append((tensors_to_flax(params), tuple(
+            tensors_to_flax(dict(zip(names, m))) for m in (st.mu, st.nu))))
+    return res
+
+
+def shard_rank_main(argv):
+    """One rank of phase 14 (b): ``--shard-rank R --coordinator H:P --out
+    DIR``.  Joins a gloo group of SHARD_RANKS ranks on card 0, runs
+    SHARD_RUNS through launch_multihost's ``run`` on its mesh, and writes
+    its env rows, metrics and launch counts (and, rank 0, the gathered
+    parameters and moments); then holds the kernel calls of one lockstep
+    step of the env run against their plain versions, one rank after the
+    other."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from magent_tpu_torch import ops
+    from magent_tpu_torch import random as rnd
+    from magent_tpu_torch.core.state import FIELDS
+    from magent_tpu_torch.examples import launch_multihost as lm
+    from magent_tpu_torch.parallel import gather, make_mesh
+
+    rank = int(argv[argv.index("--shard-rank") + 1])
+    coord = argv[argv.index("--coordinator") + 1]
+    out_dir = argv[argv.index("--out") + 1]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method="tcp://" + coord, rank=rank,
+                            world_size=SHARD_RANKS)
+    res = {}
+    env_out = None
+    for name, mode, tp in SHARD_RUNS:
+        mesh = make_mesh(tp=tp, devices="cuda:0")
+        ops.reset_launch_counts()
+        out = lm.run(shard_lm_args(mode, 2, SHARD_RANKS), mesh)
+        torch.cuda.synchronize()
+        r = dict(record=out["record"], rows=out["venv"].env_rows,
+                 launches={k: v for k, v in ops.launch_counts().items() if v},
+                 state={f: getattr(out["state"], f).cpu()
+                        for f in FIELDS})
+        if mode == "train":
+            r["metrics"] = {k: v.cpu() for k, v in out["metrics"].items()}
+            flat = flat_train(out, gather)
+            if rank == 0:
+                r["flat"] = flat
+            r["dense_view_rows"] = [n.dense_view.weight.shape[0]
+                                    for n in out["nets"]]
+        else:
+            env_out = out
+        res[name] = r
+    f32_rate, int32_rate, _ = peak_rates()
+    stats = []
+    for turn in range(SHARD_RANKS):
+        dist.barrier()
+        if turn != rank:
+            continue
+        venv = env_out["venv"]
+        carry = [env_out["state"], rnd.PRNGKey(5, venv.device)]
+        calls = record_launched(lambda: lockstep_step(venv, carry))
+        for k, (kname, args, kwargs) in enumerate(calls):
+            stats.append((kname, call_stats(
+                kname, args, kwargs, f32_rate, int32_rate,
+                "(b) rank %d of 2 (gloo, one card), map 64, B=2 of 4, 2x64, "
+                "call %d" % (rank, k))))
+        torch.cuda.synchronize()
+    dist.barrier()
+    res["kernel_calls"] = stats
+    with open(os.path.join(out_dir, "rank%d.pkl" % rank), "wb") as f:
+        pickle.dump(res, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def run_shard_ranks(out_dir):
+    """Start the SHARD_RANKS ranks of phase 14 (b) (this script with
+    ``--shard-rank``) through launch_multihost's poller, each under
+    ``timeout`` -> their results."""
+    import pickle
+
+    from magent_tpu_torch.examples import launch_multihost as lm
+
+    coord = "127.0.0.1:%d" % lm.free_port()
+    script = os.path.abspath(__file__)
+    lm.run_ranks([["timeout", "-k", "10", str(SHARD_RANK_TIMEOUT_S),
+                   sys.executable, script, "--shard-rank", str(r),
+                   "--coordinator", coord, "--out", out_dir]
+                  for r in range(SHARD_RANKS)])
+    res = []
+    for r in range(SHARD_RANKS):
+        with open(os.path.join(out_dir, "rank%d.pkl" % r), "rb") as f:
+            res.append(pickle.load(f))
+    return res
+
+
+def check_shard_world_of_one(mesh, rows, device_name):
+    """Phase 14 (a): at scripts/bench_train.py's geometry, the ``dqn``
+    fused trainer placed through ``param_sharding`` on a one-rank mesh
+    against the unsharded trainer over SHARD_TRAIN_STEPS steps, and the
+    lockstep loop of a mesh venv (its state placed by ``state_sharding``)
+    against the unsharded loop over SHARD_LOCKSTEP_STEPS steps: every
+    value equal, bit for bit.  The trainers run on cuDNN's deterministic
+    algorithms: the convolutions' gradient sums otherwise vary from run
+    to run on the card, mesh or no mesh."""
+    from magent_tpu_torch import ops
+    from magent_tpu_torch import random as rnd
+    from magent_tpu_torch.builtin.config import battle
+    from magent_tpu_torch.core.state import FIELDS
+    from magent_tpu_torch.parallel import (ClipAdam, VecGridWorld,
+                                           device_put, param_sharding,
+                                           state_sharding)
+
+    bf16 = torch.bfloat16
+    cfg = battle.get_config(MAP_SIZE)
+    caps = [N_PER_GROUP, N_PER_GROUP]
+    tx = ClipAdam(TRAIN_LR, 5.0)
+    runs = {}
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    for placed in (False, True):
+        venv = VecGridWorld(cfg, caps, N_ENVS, obs_dtype=bf16,
+                            mesh=mesh if placed else None)
+        loop, carry = trainer_loop("dqn", venv, tx, bf16)
+        if placed:
+            placement = param_sharding(mesh, carry[0])
+            for i in range(3):
+                carry[i] = device_put(carry[i], placement)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        metrics = []
+        for s in range(SHARD_TRAIN_STEPS):
+            nets, opts, state, m = loop.train_step(
+                *carry, rnd.fold_in(rnd.PRNGKey(5, venv.device), s),
+                TRAIN_EPS)
+            carry[0], carry[2], carry[3] = nets, opts, state
+            metrics.append(m)
+        torch.cuda.synchronize()
+        runs[placed] = (carry, metrics, time.perf_counter() - t0,
+                        ops.launch_counts())
+        del loop, venv
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    (c0, m0, dt0, _), (c1, m1, dt1, counts) = runs[False], runs[True]
+    for s, (a, b) in enumerate(zip(m0, m1)):
+        for k in a:
+            if not torch.equal(a[k], b[k]):
+                raise AssertionError("phase 14 (a) dqn step %d: %s %s vs "
+                                     "unsharded %s" % (s, k, b[k], a[k]))
+    assert_state_equal(c1[3], c0[3], "phase 14 (a) dqn trainer env state")
+    for g in range(2):
+        for (n, p), (_, q) in zip(c0[0][g].named_parameters(),
+                                  c1[0][g].named_parameters()):
+            if not torch.equal(p, q):
+                raise AssertionError("phase 14 (a) dqn group %d %s" % (g, n))
+        for a, b in zip(c0[2][g].mu + c0[2][g].nu, c1[2][g].mu + c1[2][g].nu):
+            if not torch.equal(a, b):
+                raise AssertionError("phase 14 (a) dqn group %d moments"
+                                     % g)
+    for name in ("window_gather_bf16", "occupant", "rank_prefix",
+                 "move_resolve"):
+        if not counts[name]:
+            raise AssertionError("phase 14 (a): the placed dqn trainer "
+                                 "launched no %s" % name)
+        row = "window_gather" if name == "window_gather_bf16" else name
+        rows[row].setdefault("launches_by_path", {})[
+            "phase 14 (a) dqn trainer on a one-rank mesh, %d train steps"
+            % SHARD_TRAIN_STEPS] = counts[name]
+    print("phase 14 (a) dqn fused trainer, battle 2x%d, map %d, B=%d, "
+          "rollout %d, bf16, on a one-rank mesh (%s backend) placed by "
+          "param_sharding: %d train steps equal the unsharded trainer bit "
+          "for bit (cuDNN deterministic; losses %s, every parameter, moment "
+          "and state field); "
+          "%.1f ms vs %.1f ms for the %d steps on %s; launches %s" % (
+              N_PER_GROUP, MAP_SIZE, N_ENVS, TRAIN_ROLLOUT,
+              torch.distributed.get_backend(), SHARD_TRAIN_STEPS,
+              [m["loss"].tolist() for m in m1], dt1 * 1e3, dt0 * 1e3,
+              SHARD_TRAIN_STEPS, device_name,
+              json.dumps({k: v for k, v in counts.items() if v})),
+          flush=True)
+    del runs, c0, c1
+    torch.cuda.empty_cache()
+
+    venv = VecGridWorld(cfg, caps, N_ENVS)
+    mvenv = VecGridWorld(cfg, caps, N_ENVS, mesh=mesh)
+    state = venv.reset(rnd.PRNGKey(0))
+    carries = [[state, rnd.PRNGKey(2)],
+               [device_put(state, state_sharding(mesh, state)),
+                rnd.PRNGKey(2)]]
+    sinks, counts = [], None
+    for v, carry in zip((venv, mvenv), carries):
+        ops.reset_launch_counts()
+        sink = [lockstep_step(v, carry) for _ in range(SHARD_LOCKSTEP_STEPS)]
+        sinks.append(torch.stack(sink))
+        counts = ops.launch_counts()
+    if not torch.equal(sinks[0], sinks[1]):
+        raise AssertionError("phase 14 (a) lockstep: the sums differ")
+    for f in FIELDS:
+        if not torch.equal(getattr(carries[0][0], f),
+                           getattr(carries[1][0], f)):
+            raise AssertionError("phase 14 (a) lockstep: %s differs" % f)
+    want = {"window_gather": 2, "occupant": 1, "rank_prefix": 1,
+            "move_resolve": 1}
+    for name, per in want.items():
+        if counts[name] != per * SHARD_LOCKSTEP_STEPS:
+            raise AssertionError("phase 14 (a) lockstep: %s launched %d "
+                                 "times in %d steps" % (
+                                     name, counts[name],
+                                     SHARD_LOCKSTEP_STEPS))
+        rows[name].setdefault("launches_by_path", {})[
+            "phase 14 (a) lockstep on a one-rank mesh, %d steps"
+            % SHARD_LOCKSTEP_STEPS] = counts[name]
+    print("phase 14 (a) lockstep, battle 2x%d, map %d, B=%d: the state "
+          "placed by state_sharding on a one-rank mesh, %d steps equal the "
+          "unsharded loop bit for bit (every state field, the step sums); "
+          "launches %s" % (N_PER_GROUP, MAP_SIZE, N_ENVS,
+                           SHARD_LOCKSTEP_STEPS,
+                           json.dumps({k: v for k, v in counts.items()
+                                       if v})), flush=True)
+    del venv, mvenv, carries
+    torch.cuda.empty_cache()
+
+
+def check_shard_two_ranks(mesh, rows, device_name):
+    """Phase 14 (b): SHARD_RUNS on two gloo ranks sharing the card against
+    the same workloads at world size one (this process): env rows exact,
+    losses and mean rewards within TRAIN_LOSS_RTOL, the gathered
+    parameters and moments by the Adam rule; each rank's kernel calls of
+    one step held against their plain versions."""
+    import tempfile
+
+    from magent_tpu_torch.examples import launch_multihost as lm
+
+    checks = tests_helper("_torch_train_checks")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        ranks = run_shard_ranks(d)
+    dt = time.perf_counter() - t0
+    for name, mode, tp in SHARD_RUNS:
+        # the one-process run: the same global envs (4) on one rank
+        ref = lm.run(shard_lm_args(mode, 4, 1), mesh)
+        recs = [r[name]["record"] for r in ranks]
+        if any((rec["dp"], rec["tp"], rec["backend"], rec["n_envs"])
+               != (SHARD_RANKS // tp, tp, "gloo", 4) for rec in recs):
+            raise AssertionError("phase 14 (b) %s: records %s" % (name, recs))
+        for r, res in enumerate(ranks):
+            r0, r1 = res[name]["rows"]
+            for f, t in res[name]["state"].items():
+                if not torch.equal(t, getattr(ref["state"], f)[r0:r1].cpu()):
+                    raise AssertionError(
+                        "phase 14 (b) %s rank %d: %s rows %d:%d differ from "
+                        "the one-process run" % (name, r, f, r0, r1))
+        msg = ""
+        if mode == "train":
+            want = {k: v.cpu() for k, v in ref["metrics"].items()}
+            for res in ranks:
+                for k, v in want.items():
+                    np.testing.assert_allclose(
+                        res[name]["metrics"][k].numpy(), v.numpy(),
+                        rtol=TRAIN_LOSS_RTOL, err_msg="phase 14 (b) " + name)
+            if any(res[name]["dense_view_rows"] != [256 // tp] * 2
+                   for res in ranks):
+                raise AssertionError("phase 14 (b) %s: dense_view rows %s"
+                                     % (name, [res[name]["dense_view_rows"]
+                                               for res in ranks]))
+            steps = 2 * 2  # two calls of two train steps
+            for g, ((gp, gm), (wp, wm)) in enumerate(zip(
+                    ranks[0][name]["flat"], flat_train(ref))):
+                checks.assert_adam_steps_close(
+                    gp, wp, gm, wm, lr=SHARD_TRAIN_LR, steps=steps,
+                    moment_rtol=TRAIN_MOMENT_RTOL,
+                    param_atol=0.2 * SHARD_TRAIN_LR,
+                    tag="phase 14 (b) %s group %d" % (name, g))
+            msg = (", losses %s within %g of %s, gathered parameters and "
+                   "moments within the Adam rule over %d steps" % (
+                       ranks[0][name]["metrics"]["loss"].tolist(),
+                       TRAIN_LOSS_RTOL, want["loss"].tolist(), steps))
+        for k, n in ranks[0][name]["launches"].items():
+            rows[k].setdefault("launches_by_path", {})[
+                "phase 14 (b) %s, rank 0 of 2 (gloo, one card)" % name] = n
+        print("phase 14 (b) %s: 2 gloo ranks on one %s, map 64, 2x64, "
+              "4 envs; every rank's env rows equal the one-process run's%s; "
+              "rank 0 launches %s; %.1f agent-steps/s (rank 0's record)" % (
+                  name, device_name, msg,
+                  json.dumps(ranks[0][name]["launches"]),
+                  recs[0]["agent_steps_per_s"] or 0.0), flush=True)
+        del ref
+    n_calls = 0
+    for res in ranks:
+        for kname, st in res["kernel_calls"]:
+            rows[kname]["per_call"].append(st)
+            n_calls += 1
+    want = collections.Counter(window_gather=2, occupant=1, rank_prefix=1,
+                               move_resolve=1)
+    for r, res in enumerate(ranks):
+        got = collections.Counter(k for k, _ in res["kernel_calls"])
+        if got != want:
+            raise AssertionError("phase 14 (b) rank %d: one step launched "
+                                 "%s" % (r, dict(got)))
+    print("phase 14 (b): %d kernel calls of one lockstep step per rank "
+          "held against their plain versions (largest error %g); the two "
+          "ranks' runs took %.1f s" % (
+              n_calls, max(st["max_abs_err"] for res in ranks
+                           for _, st in res["kernel_calls"]), dt),
+          flush=True)
+
+
+def run_test_scaling(device_name):
+    """Phase 14 (c): ``python -m magent_tpu_torch.examples.test_scaling``
+    at its defaults (map 200, 2x1000 agents, 8 envs per device, 32 steps):
+    one point on the one card."""
+    from magent_tpu_torch.examples import launch_multihost as lm
+
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m",
+                          "magent_tpu_torch.examples.test_scaling"],
+                         capture_output=True, text=True, timeout=600,
+                         env=lm.module_env())
+    if out.returncode != 0:
+        raise AssertionError("test_scaling failed (%d): %s" % (
+            out.returncode, out.stderr[-3000:]))
+    recs = [json.loads(line) for line in out.stdout.splitlines()
+            if line.startswith("{")]
+    if len(recs) != 1 or recs[0]["devices"] != 1 or not (
+            recs[0]["env_steps_per_s"] > 0):
+        raise AssertionError("test_scaling printed %s" % out.stdout[-2000:])
+    print("phase 14 (c) test_scaling (defaults: map 200, 2x1000, 8 envs per "
+          "device, 32 steps) on %s, %.1f s: %s" % (
+              device_name, time.perf_counter() - t0, json.dumps(recs[0])),
+          flush=True)
+
+
+def check_sharded_inference(device_name):
+    """Phase 14 (d): ``DeepQNetwork(num_gpu=2)`` on the one card caps at
+    one device, and with the card twice as its devices runs two replicas
+    on it; greedy and eps-0.3 actions of SHARD_INFER_ROWS rows equal the
+    unsharded model's (trusty weights, train_battle's map 125)."""
+    import magent_tpu_torch as tmag
+    from magent_tpu_torch.builtin.torch_model import DeepQNetwork
+
+    env = tmag.GridWorld("battle", map_size=GW_MAP)
+    h = env.get_handles()[0]
+    flat = dict(np.load(TRUSTY[0]))
+    models = {"unsharded": DeepQNetwork(env, h, "shard", memory_size=64),
+              "num_gpu=2": DeepQNetwork(env, h, "shard", memory_size=64,
+                                        num_gpu=2),
+              "num_gpu=2, devices=[cuda:0, cuda:0]": DeepQNetwork(
+                  env, h, "shard", memory_size=64, num_gpu=2,
+                  devices=["cuda:0", "cuda:0"])}
+    n_dev = [m._infer_devices for m in models.values()]
+    if n_dev != [1, 1, 2]:
+        raise AssertionError("phase 14 (d): inference devices %s" % n_dev)
+    rng = np.random.RandomState(0)
+    m0 = models["unsharded"]
+    view = rng.rand(SHARD_INFER_ROWS, *m0.view_space).astype(np.float32)
+    feat = rng.rand(SHARD_INFER_ROWS, *m0.feature_space).astype(np.float32)
+    ids = np.arange(SHARD_INFER_ROWS)
+    acts = {}
+    for tag, m in models.items():
+        m.set_params(flat)
+        key0 = m.key
+        greedy = m.infer_action((view, feat), ids, policy="greedy")
+        m.key = key0
+        acts[tag] = (greedy, m.infer_action((view, feat), ids, eps=0.3))
+    for tag, (greedy, eps) in acts.items():
+        if not (np.array_equal(greedy, acts["unsharded"][0])
+                and np.array_equal(eps, acts["unsharded"][1])):
+            raise AssertionError("phase 14 (d) %s: actions differ from the "
+                                 "unsharded model's" % tag)
+    print("phase 14 (d) DeepQNetwork on one %s, trusty weights, %d rows: "
+          "num_gpu=2 caps at 1 device; with devices=[cuda:0, cuda:0] two "
+          "replicas on the card split the padded chunk (4096, 2048 rows "
+          "each); greedy and eps-0.3 actions of both equal the unsharded "
+          "model's (%d of %d eps-0.3 actions differ from the greedy ones)"
+          % (device_name, SHARD_INFER_ROWS,
+             int((acts["unsharded"][0] != acts["unsharded"][1]).sum()),
+             SHARD_INFER_ROWS), flush=True)
+
+
+def run_sharding_phase(rows, device_name):
+    """Phase 14: the mesh at world size one on the card, two gloo ranks
+    sharing it, test_scaling at its defaults, sharded DQN inference."""
+    from magent_tpu_torch.parallel import make_mesh
+
+    t_phase = time.perf_counter()
+    mesh = make_mesh()
+    if mesh.shape != {"dp": 1, "tp": 1} or mesh.device.type != "cuda":
+        raise AssertionError("phase 14: make_mesh() gave %s" % mesh)
+    t = {}
+    for part, fn in (("(a)", lambda: check_shard_world_of_one(
+                          mesh, rows, device_name)),
+                     ("(b)", lambda: check_shard_two_ranks(
+                         mesh, rows, device_name)),
+                     ("(c)", lambda: run_test_scaling(device_name)),
+                     ("(d)", lambda: check_sharded_inference(device_name))):
+        t0 = time.perf_counter()
+        fn()
+        t[part] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    print("phase 14: %.1f s (%s)" % (time.perf_counter() - t_phase,
+                                     ", ".join("%s %.1f s" % kv
+                                               for kv in t.items())),
+          flush=True)
+
+
 def _flat(items):
     for item in items:
         if isinstance(item, list):
@@ -5219,6 +5677,7 @@ def main() -> int:
             rows[name]["per_call"] += st
             rows[name].setdefault("launches_by_path", {})[path] = counts[name]
     run_examples_phase(rows, f32_rate, int32_rate, device_name)
+    run_sharding_phase(rows, device_name)
     print("phase 4e: %d C++ goldens matched (14 GridWorld on the card, "
           "snake_basic on the host)" % n_goldens, flush=True)
     print(json.dumps({"kernels": list(rows.values())}))
@@ -5229,4 +5688,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if "--shard-rank" in sys.argv:  # one rank of phase 14 (b)
+        sys.exit(shard_rank_main(sys.argv))
     sys.exit(main())

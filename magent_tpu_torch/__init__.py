@@ -29,7 +29,10 @@ live games' entry points (``examples.show_battle_game``,
 ``api_demo``, ``test_1m``, ``test_mega``, ``test_fps`` and the harnesses)
 and the second NN backend they select with ``--backend torch``
 (``builtin.th_model``, also under the reference's name
-``builtin.mx_model``).
+``builtin.mx_model``); and sharding: the ``("dp", "tp")`` mesh over
+``torch.distributed`` (``parallel.sharding``), with its multi-process
+launcher and scaling harness (``examples.launch_multihost``,
+``examples.test_scaling``).
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``,
 except the sequential snake (``DiscreteSnake(..., engine_mode=
 "sequential")``, ``core.seq_snake``): host NumPy only, like the JAX

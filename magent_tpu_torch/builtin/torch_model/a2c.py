@@ -24,6 +24,7 @@ from torch import nn
 
 from ... import random as rnd
 from ...parallel.optim import ClipAdam
+from ...parallel.sharding import linear, matmul, split_of
 from .base import CheckpointModel, compute_dtype, round_up_pow2
 from .dqn import DTYPES
 from .flax_params import init_dense_, lecun_normal_
@@ -55,9 +56,13 @@ class CommNet(nn.Module):
         for i in range(self.n_step):
             total = (h * m).sum(-2, keepdim=True)
             message = (total - h * m) / denom
-            h = torch.tanh(message @ getattr(self, "step_%d_C" % i)
-                           + h @ getattr(self, "step_%d_H" % i) + skip)
+            h = torch.tanh(self._mm(message, "step_%d_C" % i)
+                           + self._mm(h, "step_%d_H" % i) + skip)
         return h
+
+    def _mm(self, x, name):
+        """``x @ <name>``, column-parallel where ``tp`` splits it."""
+        return matmul(x, getattr(self, name), split_of(self, name))
 
 
 class A2CNet(nn.Module):
@@ -94,8 +99,7 @@ class A2CNet(nn.Module):
                 lecun_normal_(p, HIDDEN, gen)
 
     def _dense(self, layer, x):
-        dt = self.dtype
-        return F.relu(F.linear(x, layer.weight.to(dt), layer.bias.to(dt)))
+        return F.relu(linear(layer, x, self.dtype))
 
     def forward(self, view, feature, mask=None):
         dt = self.dtype

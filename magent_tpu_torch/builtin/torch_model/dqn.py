@@ -31,17 +31,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...parallel.optim import ClipAdam
+from ...parallel.sharding import linear
 from ..common import ReplayBuffer
+from ...parallel.vec_env import resolve_device
 from .base import CheckpointModel, compute_dtype, round_up_pow2
 from .flax_params import (init_dense_, params_from_flax, params_to_flax,
                           tensors_to_flax)
 
 __all__ = ["DQNNet", "DeepQNetwork", "params_from_flax", "params_to_flax",
            "tensors_to_flax"]
-
-# ROADMAP.md item 14: the mesh inference of the JAX model
-SHARDING = ("num_gpu > 1 / shard_inference: data-parallel inference over "
-            "several devices is not ported (ROADMAP.md item 14)")
 
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -84,8 +82,7 @@ class DQNNet(nn.Module):
             self.value = nn.Linear(512, num_actions)
 
     def _trunk(self, layer, x, op):
-        dt = self.dtype
-        return F.relu(op(x, layer.weight.to(dt), layer.bias.to(dt)))
+        return F.relu(linear(layer, x, self.dtype, op))
 
     def forward(self, view, feature):
         dt = self.dtype
@@ -115,10 +112,14 @@ class DeepQNetwork(CheckpointModel):
     at the first batch of each ``train`` call, as the JAX model does),
     ``clip_by_global_norm(5)`` then Adam (:class:`ClipAdam`).
 
-    Same arguments as the JAX class, plus ``device`` (``None``: the card).
-    Fresh nets are flax's initializers drawn from a torch generator seeded
-    ``seed``, not flax's draws; load a checkpoint to share weights with the
-    JAX model.  ``num_gpu > 1`` raises ``NotImplementedError``.
+    Same arguments as the JAX class, plus ``device`` (``None``: the card)
+    and ``devices``, the local devices :meth:`shard_inference` may use
+    (default: every visible card for a model on a card, the model's one
+    device on the CPU; a list of CPU devices is the CPU's counterpart of
+    the JAX tests' virtual host devices).  ``num_gpu > 1`` shards the
+    inference over that many of them.  Fresh nets are flax's initializers
+    drawn from a torch generator seeded ``seed``, not flax's draws; load a
+    checkpoint to share weights with the JAX model.
 
     Host syncs: an ``infer_action`` chunk copies its views and features to
     the device and its actions back; a train batch copies its eight
@@ -131,11 +132,10 @@ class DeepQNetwork(CheckpointModel):
                  eval_obs=None, use_dueling=True, use_double=True,
                  use_conv=True, custom_view_space=None,
                  custom_feature_space=None, num_gpu=1, infer_batch_size=8192,
-                 network_type=0, seed=0, dtype="f32", device=None):
+                 network_type=0, seed=0, dtype="f32", device=None,
+                 devices=None):
         CheckpointModel.__init__(self, env, handle, name, "tfdqn",
                                  device=device, seed=seed)
-        if num_gpu and num_gpu > 1:
-            raise NotImplementedError(SHARDING)
 
         self.view_space = custom_view_space or env.get_view_space(handle)
         self.feature_space = (custom_feature_space
@@ -159,6 +159,15 @@ class DeepQNetwork(CheckpointModel):
         self.tx = ClipAdam(learning_rate, 5.0)
         self._restart_training()
 
+        # data-parallel inference: one eval-net replica per local device,
+        # the reference DQN's per-GPU round-robin
+        # (reference: tf_model/dqn.py:368-393), through the same knob
+        self._devices = devices
+        self._replicas = None
+        self._infer_devices = 1
+        if num_gpu and num_gpu > 1:
+            self.shard_inference(num_gpu)
+
         # ---- replay buffers (reference: dqn.py:140-149) ----
         self.replay_buf_len = 0
         self.memory_size = memory_size
@@ -177,8 +186,53 @@ class DeepQNetwork(CheckpointModel):
         self.target_net = copy.deepcopy(self.net).requires_grad_(False)
         self.opt_state = self.tx.init(self.net)
 
+    def local_devices(self):
+        """The devices :meth:`shard_inference` may use, in order."""
+        if self._devices is not None:
+            return [resolve_device(d) for d in self._devices]
+        if self.device.type == "cuda":
+            return [torch.device("cuda", i)
+                    for i in range(torch.cuda.device_count())]
+        return [self.device]
+
     def shard_inference(self, n_devices=None):
-        raise NotImplementedError(SHARDING)
+        """Split large ``infer_action`` chunks data-parallel over the first
+        ``n_devices`` local devices (capped at their number; all of them
+        when None; ``n <= 1`` goes back to the single-device path), one
+        replica of the eval net on each (JAX ``dqn.py:154-161``): a chunk's
+        padded size is rounded up to a multiple of the device count, as
+        JAX's sharded program pads it, its rows split evenly, each part's Q
+        values computed on its device and the parts concatenated.  The
+        e-greedy draw is the single path's, at the padded shape."""
+        devs = self.local_devices()
+        n = min(n_devices or len(devs), len(devs))
+        if n <= 1:
+            self._replicas = None
+            self._infer_devices = 1
+            return self
+        self._replicas = [copy.deepcopy(self.net).to(d).requires_grad_(False)
+                          for d in devs[:n]]
+        self._infer_devices = n
+        return self
+
+    def _sharded_q(self, view, feature, padded):
+        """Q values ``[n, n_act]`` on the model's device of host rows split
+        in parts of ``padded / d`` rows over the ``d`` replicas (the padding
+        rows' Q values are never read, so they are not computed)."""
+        m = padded // self._infer_devices
+        state = self.net.state_dict()
+        parts = []
+        with torch.no_grad():
+            for i, rep in enumerate(self._replicas):
+                lo, hi = i * m, min((i + 1) * m, len(view))
+                if lo >= hi:
+                    break
+                rep.load_state_dict(state)  # the current online weights
+                dev = next(rep.parameters()).device
+                v, f = (torch.from_numpy(np.ascontiguousarray(
+                    a[lo:hi], np.float32)).to(dev) for a in (view, feature))
+                parts.append(rep(v, f).to(self.device))
+        return torch.cat(parts)
 
     # ------------------------------------------------------------ inference
     def _q(self, view, feature):
@@ -200,8 +254,15 @@ class DeepQNetwork(CheckpointModel):
         pos = 0
         while pos < n:
             chunk = min(n - pos, self.infer_batch_size)
-            q = self._q(view[pos : pos + chunk], feature[pos : pos + chunk])
-            acts = self._egreedy(q, round_up_pow2(chunk), eps)
+            padded = round_up_pow2(chunk)
+            rows = (view[pos : pos + chunk], feature[pos : pos + chunk])
+            if self._replicas is None:
+                q = self._q(*rows)
+            else:
+                d = self._infer_devices  # the batch splits evenly over dp
+                padded = -(-padded // d) * d
+                q = self._sharded_q(*rows, padded)
+            acts = self._egreedy(q, padded, eps)
             out[pos : pos + chunk] = acts.cpu().numpy()
             pos += chunk
         return out

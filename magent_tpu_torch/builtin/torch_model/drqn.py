@@ -32,6 +32,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ...parallel.optim import ClipAdam
+from ...parallel.sharding import linear, matmul, split_of
 from .base import CheckpointModel, compute_dtype, round_up_pow2
 from .dqn import DTYPES
 from .flax_params import init_dense_
@@ -39,9 +40,10 @@ from .flax_params import init_dense_
 REMAT = (False, True, "dots", "all")
 
 
-def _linear(layer, x, dt):
-    bias = None if layer.bias is None else layer.bias.to(dt)
-    return F.linear(x, layer.weight.to(dt), bias)
+def _cols(layer, dt):
+    """(``layer.weight.T`` in ``dt``, its ``tp`` sharding or None): the
+    arguments of :func:`~...parallel.sharding.matmul`."""
+    return layer.weight.to(dt).t(), split_of(layer, "weight")
 
 
 class DRQNTrunk(nn.Module):
@@ -57,8 +59,8 @@ class DRQNTrunk(nn.Module):
         """[N, vh, vw, C], [N, F] -> [N, 512] f32."""
         dt = self.dtype
         flat = view.reshape(view.shape[0], self.view_size).to(dt)
-        h_view = F.relu(_linear(self.dense_view, flat, dt))
-        h_emb = F.relu(_linear(self.dense_emb, feature.to(dt), dt))
+        h_view = F.relu(linear(self.dense_view, flat, dt))
+        h_emb = F.relu(linear(self.dense_emb, feature.to(dt), dt))
         return torch.cat([h_view, h_emb], 1).float()
 
 
@@ -80,7 +82,7 @@ class GRUCell(nn.Module):
         """-> the new state in ``dtype``."""
         dt = self.dtype
         h, x = h.to(dt), x.to(dt)
-        lin = lambda k, v: _linear(self.get_submodule(k), v, dt)  # noqa: E731
+        lin = lambda k, v: linear(self.get_submodule(k), v, dt)  # noqa: E731
         r = torch.sigmoid(lin("ir", x) + lin("hr", h))
         z = torch.sigmoid(lin("iz", x) + lin("hz", h))
         n = torch.tanh(lin("in", x) + r * lin("hn", h))
@@ -165,10 +167,10 @@ def split_unroll(net: DRQNNet, views, features, h0, keep=None, remat=False):
                   features.reshape(T * N, -1)).to(dt)
     g = net.gru
     # each projection rounds to dt before its bias add, as JAX's does
-    xr, xz, xn = ((x @ g.get_submodule(k).weight.to(dt).t()
+    xr, xz, xn = ((matmul(x, *_cols(g.get_submodule(k), dt))
                    + g.get_submodule(k).bias.to(dt)).reshape(T, N, H)
                   for k in ("ir", "iz", "in"))
-    khr, khz, khn = (g.get_submodule(k).weight.to(dt).t()
+    khr, khz, khn = (_cols(g.get_submodule(k), dt)
                      for k in ("hr", "hz", "hn"))
     hn_bias = g.hn.bias
     # under no_grad nothing is stored: every form runs plain
@@ -179,13 +181,14 @@ def split_unroll(net: DRQNNet, views, features, h0, keep=None, remat=False):
         if remat == "all":
             def whole(h, xr, xz, xn, k):
                 hd = h.to(dt)
-                return _carry_step(h, xr, xz, xn, hd @ khr, hd @ khz,
-                                   hd @ khn, hn_bias, k)
+                return _carry_step(h, xr, xz, xn, matmul(hd, *khr),
+                                   matmul(hd, *khz), matmul(hd, *khn),
+                                   hn_bias, k)
             return checkpoint(whole, h, xr[t], xz[t], xn[t], k,
                               use_reentrant=False)
         hd = h.to(dt)
-        args = (h, xr[t], xz[t], xn[t], hd @ khr, hd @ khz, hd @ khn,
-                hn_bias, k)
+        args = (h, xr[t], xz[t], xn[t], matmul(hd, *khr), matmul(hd, *khz),
+                matmul(hd, *khn), hn_bias, k)
         if remat:  # "dots" / True: the matmul outputs stay stored
             return checkpoint(_carry_step, *args, use_reentrant=False)
         return _carry_step(*args)

@@ -264,8 +264,10 @@ def cli():
     parser.add_argument("--n_step", type=int, default=20)
     parser.add_argument("--agent_number", type=int, default=1000)
     parser.add_argument("--num_gpu", type=int, default=0,
-                        help="0: random actors; 1: the DQN on the device "
-                             "(more raises: ROADMAP item 14)")
+                        help="0: random actors; n >= 1: DQN actors, their "
+                             "inference sharded over n local devices "
+                             "(DeepQNetwork num_gpu, capped at the "
+                             "devices there are)")
     parser.add_argument("--n_envs", type=int, default=16)
     parser.add_argument("--unroll", type=int, default=1,
                         help="accepted for the JAX script's command lines; "

@@ -8,8 +8,12 @@ mirrors the reference's host-driven loop): transitions never leave device
 memory.  The trainers are ``parallel.train``'s
 ``make_{dqn,dqn_remat,a2c,drqn}_train_loop`` and ``make_eval_q``, the
 optimizer ``parallel.optim.ClipAdam`` (optax's ``clip_by_global_norm(5)``
-then Adam).  One device: the JAX example's mesh sharding waits for ROADMAP
-item 14.  From the repository root::
+then Adam).  The env batch, the nets, the target nets and the optimizer
+states are placed on ``make_mesh()``'s mesh as the JAX example places them
+(``parallel.sharding``): alone the run is a one-rank mesh on one device;
+started as ranks of a ``torch.distributed`` group (``init_process_group``
+before ``main``) each rank steps its slice of the envs and rank 0 alone
+prints and saves.  From the repository root::
 
     python -m magent_tpu_torch.examples.train_battle_fused [--alg a2c]
         [--device cpu]
@@ -29,13 +33,15 @@ import magent_tpu_torch as magent
 from magent_tpu_torch import random as rnd
 from magent_tpu_torch.builtin.config import battle
 from magent_tpu_torch.builtin.torch_model import (A2CNet, DQNNet, DRQNNet,
-                                                  params_to_flax)
+                                                  tensors_to_flax)
 from magent_tpu_torch.builtin.torch_model.flax_params import init_dense_
-from magent_tpu_torch.parallel import (ClipAdam, VecGridWorld,
-                                       init_drqn_hiddens, make_a2c_train_loop,
+from magent_tpu_torch.parallel import (ClipAdam, VecGridWorld, device_put,
+                                       gather, init_drqn_hiddens,
+                                       make_a2c_train_loop,
                                        make_dqn_remat_train_loop,
                                        make_dqn_train_loop,
                                        make_drqn_train_loop, make_eval_q,
+                                       make_mesh, param_sharding,
                                        sample_eval_set)
 
 SUBCLASS = {"dqn": "tfdqn", "dqn_remat": "tfdqn", "drqn": "tfdrqn",
@@ -72,8 +78,8 @@ def cli():
                              "(utility.py:115-178, dqn.py:348-356); dqn "
                              "algs only")
     parser.add_argument("--device", default=None,
-                        help="torch device of the envs and the nets "
-                             "(default: the GPU)")
+                        help="torch device of every rank's envs and nets "
+                             "(default: the rank's GPU)")
     return parser
 
 
@@ -97,11 +103,16 @@ def fresh_net(alg, spec, g, dtype):
 def setup(args):
     """The envs, nets, optimizer states and train loop of ``args``, in the
     JAX example's order -> a namespace whose ``carry`` is the loop's state
-    (``call(c, eps)`` runs loop call ``c``)."""
+    (``call(c, eps)`` runs loop call ``c``) and whose ``placement`` is the
+    nets' ``param_sharding`` (what ``gather`` of an optimizer state
+    takes)."""
     dt = {"f32": None, "bf16": torch.bfloat16}[args.dtype]
+    mesh = make_mesh(devices=args.device)
+    # the envs' dp placement (JAX: device_put(env_state, state_sharding)):
+    # the venv holds this rank's rows and resets only those
     venv = VecGridWorld(battle.get_config(args.map_size),
                         [args.agents_per_side, args.agents_per_side],
-                        n_envs=args.n_envs, obs_dtype=dt, device=args.device)
+                        n_envs=args.n_envs, obs_dtype=dt, mesh=mesh)
     spec = venv.spec
     dev = venv.device
     nets = tuple(fresh_net(args.alg, spec, g, dt or torch.float32).to(dev)
@@ -111,6 +122,10 @@ def setup(args):
     opt_states = tuple(tx.init(n) for n in nets)
     target_nets = tuple(copy.deepcopy(n).requires_grad_(False)
                         for n in nets)
+    placement = param_sharding(mesh, nets)
+    nets = device_put(nets, placement)
+    target_nets = device_put(target_nets, placement)
+    opt_states = device_put(opt_states, placement)
 
     common = dict(steps_per_call=args.steps_per_call,
                   rollout_len=args.rollout_len)
@@ -149,34 +164,45 @@ def setup(args):
         carry[:] = out[:-1]
         return out[-1]
 
-    return SimpleNamespace(venv=venv, tx=tx, loop=loop, carry=carry,
-                           call=call)
+    return SimpleNamespace(venv=venv, mesh=mesh, placement=placement, tx=tx,
+                           loop=loop, carry=carry, call=call)
+
+
+def _quiet(*args, **kwargs):
+    pass
 
 
 def main(argv=None):
     args = cli().parse_args(argv)
 
-    magent.utility.init_logger(args.name)
     ex = setup(args)
     venv = ex.venv
+    lead = ex.mesh.rank == 0  # rank 0 alone logs, prints and saves
+    if lead:
+        magent.utility.init_logger(args.name)
+    say = print if lead else _quiet
+    info = log.info if lead else _quiet
 
     def save(epoch):
         for g, suffix in enumerate(["l", "r"]):
+            flat = tensors_to_flax(gather(ex.carry[0][g]))  # every rank
+            if not lead:
+                continue
             savedir = os.path.join("save_model",
                                    "%s-%s" % (args.name, suffix))
             os.makedirs(savedir, exist_ok=True)
             path = os.path.join(savedir,
                                 "%s_%d.npz" % (SUBCLASS[args.alg], epoch))
-            np.savez(path, **params_to_flax(ex.carry[0][g]))
-        print("saved generation", epoch)
+            np.savez(path, **flat)
+        say("saved generation", epoch)
 
-    print("alg:", args.alg, " device:", venv.device,
+    say("alg:", args.alg, " device:", venv.device,
           " envs:", args.n_envs, " agents/env:", 2 * args.agents_per_side)
     if args.save_every and args.save_every % args.steps_per_call:
         # saves fire on call boundaries; align rather than silently skip
         args.save_every = -(-args.save_every
                             // args.steps_per_call) * args.steps_per_call
-        print("save_every rounded up to %d (steps_per_call boundary)"
+        say("save_every rounded up to %d (steps_per_call boundary)"
               % args.save_every)
     if args.save_every:
         save(0)  # the untrained generation anchors the tournament
@@ -185,7 +211,7 @@ def main(argv=None):
         if args.eval_q_every % args.steps_per_call:
             args.eval_q_every = -(-args.eval_q_every
                                   // args.steps_per_call) * args.steps_per_call
-            print("eval_q_every rounded up to %d" % args.eval_q_every)
+            say("eval_q_every rounded up to %d" % args.eval_q_every)
         ev_views, ev_feats = sample_eval_set(venv, 0)
         evq = make_eval_q(venv, 0)
     start = time.time()
@@ -203,19 +229,19 @@ def main(argv=None):
         if evq is not None and (k + args.steps_per_call) % args.eval_q_every == 0:
             q_on = float(evq(ex.carry[0], ev_views, ev_feats))
             q_tg = float(evq(ex.carry[1], ev_views, ev_feats))
-            log.info("round %d\t evalq: %.4f\t targetq: %.4f"
+            info("round %d\t evalq: %.4f\t targetq: %.4f"
                      % (k + args.steps_per_call, q_on, q_tg))
         if c % 2 == 0 or c == n_calls - 1:
             loss = metrics["loss"][-1].cpu().numpy()
             rew = metrics["mean_reward"][-1].cpu().numpy()
             dt = time.time() - start
-            log.info("round %d\t loss: %s\t reward: %s\t env_steps/s: %.1f"
+            info("round %d\t loss: %s\t reward: %s\t env_steps/s: %.1f"
                      % (k, np.round(loss, 4).tolist(),
                         np.round(rew, 4).tolist(), env_steps / dt))
 
     dt = time.time() - start
     total_agents = 2 * args.agents_per_side
-    print("trained %d env-steps (%.1fM agent-steps) in %.1fs -> %.1f "
+    say("trained %d env-steps (%.1fM agent-steps) in %.1fs -> %.1f "
           "agent-steps/s" % (env_steps, env_steps * total_agents / 1e6, dt,
                              env_steps * total_agents / dt))
 

@@ -6,13 +6,17 @@ all started together), linked into ``build/torch_kernels/libmagent_kernels.so``
 at the repository root and loaded with ``ctypes``.  Nothing is built at
 import: the first CUDA launch builds, so the package imports cleanly on a
 machine without ``nvcc``.  A stamp of the sources' and flags' hash skips the
-build when the library is current.
+build when the library is current.  Processes that start together (the
+ranks of a mesh on one machine) build under a file lock on
+``build/torch_kernels/build.lock``: one compiles, the others wait and find
+the stamp current.
 """
 
 from __future__ import annotations
 
 import collections
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -88,7 +92,15 @@ def _stamp() -> str:
 def build(force: bool = False) -> str:
     """Compile and link the kernels library unless it is current.  Returns
     the compiler's output (``-Xptxas -v`` register and shared-memory use),
-    empty when the build was skipped."""
+    empty when the build was skipped.  Holds the cross-process build lock
+    throughout."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        return _build_locked(force)
+
+
+def _build_locked(force: bool) -> str:
     stamp_path = BUILD_DIR / "stamp"
     stamp = _stamp()
     if (not force and LIB_PATH.exists() and stamp_path.exists()

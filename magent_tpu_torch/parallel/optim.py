@@ -18,6 +18,13 @@ parameters and the state in place, with optax's arithmetic:
 Everything stays on the parameters' device: the clip is a ``torch.where`` on
 the device-side norm, and ``count`` is a host integer, so an update reads
 nothing back from the card.
+
+Under ``tp`` (a net placed by :func:`.sharding.device_put`, whose shards
+carry their :class:`~.sharding.Sharding`): the global norm sums the
+squares of the ``tp`` shards over ``tp`` and counts the replicated
+parameters once; the moments are the shards' own.  The gradients come in
+already summed over ``dp``: the trainer that owns the mesh reduces them
+(``train._apply``), as it reduces its losses' counts.
 """
 
 from __future__ import annotations
@@ -62,7 +69,7 @@ class ClipAdam:
         ``state`` with its count advanced.  The gradients are cleared."""
         params = list(net.parameters())
         grads = [p.grad for p in params]
-        norm = torch.stack([g.square().sum() for g in grads]).sum().sqrt()
+        norm = _global_norm(net, grads)
         keep = norm < self.max_norm
         grads = [torch.where(keep, g, g / norm * self.max_norm)
                  for g in grads]
@@ -80,3 +87,21 @@ class ClipAdam:
                 p.grad = None
         state.count = count
         return state
+
+
+def _global_norm(net: nn.Module, grads) -> torch.Tensor:
+    """The L2 norm of all of ``net``'s gradients: where ``tp`` splits some
+    of its parameters, the squares of the shards summed over ``tp`` and
+    those of the replicated ones counted once."""
+    from .sharding import all_reduce, param_splits
+
+    sq = [g.square().sum() for g in grads]
+    splits = param_splits(net)
+    shards = [s for s, split in zip(sq, splits) if split is not None]
+    if not shards:
+        return torch.stack(sq).sum().sqrt()
+    rep = [s for s, split in zip(sq, splits) if split is None]
+    mesh = next(split for split in splits if split is not None).mesh
+    zero = torch.zeros((), device=grads[0].device)
+    return (all_reduce(sum(shards, zero), mesh, "tp")
+            + sum(rep, zero)).sqrt()

@@ -25,7 +25,18 @@ auto-reset checks (one per env step, ``VecGridWorld.transition``).  Python
 loops take the place of ``lax.scan``; the env runs under
 ``torch.no_grad`` and only the nets under autograd.
 
-Not ported yet (``ROADMAP.md``): ``parallel/sharding.py``.
+Data parallelism (:mod:`.sharding`): with a venv on a mesh, each ``dp``
+rank rolls out its own env rows and every draw is made at the global
+batch and sliced, so the ranks act as the unsharded step does on their
+rows.  A loss is this rank's sum over the global count (the counts are
+all-reduced), and the gradients are summed over the venv's ``dp`` before
+the optimizer's step (:func:`_apply`): the gradient of the global loss,
+which JAX's single program computes with XLA's inserted ``psum``.  The
+mesh of the venv alone decides both reductions, so a net that is not
+placed (its parameters replicated on every rank) trains as a placed one
+does.  The metrics are global.  Tensor parallelism lives in the nets
+(:func:`.sharding.linear`).  Without a mesh, or at world size 1, no
+collective runs and every value is the unsharded step's.
 """
 
 from __future__ import annotations
@@ -35,6 +46,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import random as rnd
 from ..builtin.torch_model.drqn import split_unroll
+from .sharding import all_reduce_flat, sum_dp
 from .vec_env import VecGridWorld
 
 # the state fields the observation reads: what the remat trainer stores per
@@ -55,6 +67,14 @@ def _rows(view, feat):
             feat.reshape(-1, feat.shape[-1]))
 
 
+def _global_mean(venv: VecGridWorld, t):
+    """The mean of the per-env-row tensor ``t`` over every rank's rows."""
+    if venv.n_local == venv.n_envs:
+        return t.mean()
+    return sum_dp(t.sum(), venv.mesh) / (t.numel() * venv.n_envs
+                                         // venv.n_local)
+
+
 def _egreedy_actions(venv: VecGridWorld, nets, state, key, eps,
                      train_groups=None):
     """(e-greedy actions ``[B, A]`` int32 for every group over the full slot
@@ -62,7 +82,7 @@ def _egreedy_actions(venv: VecGridWorld, nets, state, key, eps,
     Groups outside ``train_groups`` act uniformly at random and render
     nothing (scripted opponents)."""
     spec = venv.spec
-    B, A = venv.n_envs, spec.n_agents_cap
+    B, A = venv.n_local, spec.n_agents_cap
     tg = _groups(venv, train_groups)
     actions = torch.zeros((B, A), dtype=torch.int32, device=venv.device)
     views, feats = [], []
@@ -77,27 +97,31 @@ def _egreedy_actions(venv: VecGridWorld, nets, state, key, eps,
         sl = slice(gs.offset, gs.offset + gs.cap)
         if g not in tg:
             kg = rnd.split(rnd.fold_in(key, g))[..., 0, :]
-            actions[:, sl] = rnd.randint(kg, (B, gs.cap), 0, n_act)
+            actions[:, sl] = venv.local_rows(
+                rnd.randint(kg, (venv.n_envs, gs.cap), 0, n_act))
             views.append(None)
             feats.append(None)
             continue
         view, feat = all_obs[g]  # [B, cap, vh, vw, C], [B, cap, F]
         with torch.no_grad():
             q = nets[g](*_rows(view, feat)).reshape(B, gs.cap, n_act)
-        actions[:, sl] = _egreedy(q, rnd.fold_in(key, g), eps)
+        actions[:, sl] = _egreedy(q, rnd.fold_in(key, g), eps, venv)
         views.append(view)
         feats.append(feat)
     return actions, views, feats
 
 
-def _egreedy(q, gkey, eps):
-    """e-greedy actions int32 of Q values ``[..., n_act]`` from one group's
-    key (``fold_in(akey, g)``): ``randint`` from its first half where
-    ``uniform`` from its second falls below ``eps``, else the argmax."""
+def _egreedy(q, gkey, eps, venv: VecGridWorld):
+    """e-greedy actions int32 of Q values ``[B, cap, n_act]`` of ``venv``'s
+    rows from one group's key (``fold_in(akey, g)``): ``randint`` from its
+    first half where ``uniform`` from its second falls below ``eps``, else
+    the argmax; both drawn at the global batch."""
     kg, kr = rnd.split(gkey).unbind(-2)
     greedy = q.argmax(-1).to(torch.int32)
-    rand = rnd.randint(kg, greedy.shape, 0, q.shape[-1])
-    return torch.where(rnd.uniform(kr, greedy.shape) < eps, rand, greedy)
+    shape = (venv.n_envs,) + tuple(greedy.shape[1:])
+    rand = venv.local_rows(rnd.randint(kg, shape, 0, q.shape[-1]))
+    explore = venv.local_rows(rnd.uniform(kr, shape)) < eps
+    return torch.where(explore, rand, greedy)
 
 
 def sample_eval_set(venv: VecGridWorld, group: int, n_steps: int = 10,
@@ -125,11 +149,11 @@ def make_eval_q(venv: VecGridWorld, group: int):
     """``eval_q(nets, views, feats) -> mean max-Q`` of ``nets[group]`` on a
     fixed eval set (train.py:107-116; pair with :func:`sample_eval_set`),
     a 0-d tensor on the device.  Pass the online or the target nets."""
-    del venv  # the JAX signature's; the nets carry what eval_q needs
-
     def eval_q(nets, views, feats):
         with torch.no_grad():
-            return nets[group](views, feats).max(-1).values.mean()
+            # on a mesh: every rank's eval rows (the same count on each)
+            return _global_mean(venv, nets[group](views, feats).max(-1)
+                                .values)
 
     return eval_q
 
@@ -202,10 +226,18 @@ def _next_value(net, tnet, view, feat, use_double):
         return tq.gather(-1, sel)[..., 0]
 
 
-def _apply(net, tx, opt_state, loss):
-    """Backward and one ``tx`` step on ``net`` in place -> new state."""
+def _apply(net, tx, opt_state, loss, mesh):
+    """Backward, the gradients summed over ``mesh``'s ``dp`` (``loss`` is
+    this rank's part of the global loss; the ranks of one ``tp`` group
+    hold the same env rows), and one ``tx`` step on ``net`` in place ->
+    new state."""
     net.zero_grad(set_to_none=True)
     loss.backward()
+    if mesh is not None and mesh.groups["dp"] is not None:
+        params = list(net.parameters())
+        for p, g in zip(params, all_reduce_flat([p.grad for p in params],
+                                                mesh, "dp")):
+            p.grad = g
     return tx.update(net, opt_state)
 
 
@@ -237,10 +269,11 @@ def make_dqn_train_step(venv: VecGridWorld, tx, gamma: float = 0.99,
     on the device.  ``train_step.rollout`` and ``train_step.learn`` are its
     two halves."""
     spec = venv.spec
-    G, B = spec.n_groups, venv.n_envs
+    G, B = spec.n_groups, venv.n_local
     caps = [g.cap for g in spec.groups]
     tg = _groups(venv, train_groups)
     group_slice = _group_slicer(spec)
+    mesh = venv.mesh
 
     def group_loss_sampled(net, tnet, g, traj, skey):
         """Double-DQN TD loss on ``train_minibatch`` sampled transitions
@@ -258,7 +291,14 @@ def make_dqn_train_step(venv: VecGridWorld, tx, gamma: float = 0.99,
         prev = group_slice(traj["alive_in"], g).reshape(-1)
 
         K = train_minibatch
-        cur = rnd.randint(skey, (K,), 0, (T - 1) * B * cap).long()
+        cur = rnd.randint(skey, (K,), 0, (T - 1) * venv.n_envs * cap).long()
+        if B != venv.n_envs:
+            # the draws that fall in this rank's env rows, renumbered
+            t, rest = cur // (venv.n_envs * cap), cur % (venv.n_envs * cap)
+            b = rest // cap - venv.env_rows[0]
+            mine = (b >= 0) & (b < B)
+            cur = ((t * B + b) * cap + rest % cap)[mine]
+            K = cur.shape[0]
         nxt = cur + B * cap  # the same (env, agent) one step later
 
         def rows(ix):
@@ -269,7 +309,7 @@ def make_dqn_train_step(venv: VecGridWorld, tx, gamma: float = 0.99,
         next_v = _next_value(net, tnet, *rows(nxt), use_double)
         total, denom = _td_loss(q_t, next_v, rew[cur], term[cur], prev[cur],
                                 gamma)
-        return total / denom.clamp_min(1.0)
+        return total / sum_dp(denom, mesh).clamp_min(1.0)
 
     def group_loss(net, tnet, g, traj):
         """Masked double-DQN TD loss over the whole rollout
@@ -294,7 +334,7 @@ def make_dqn_train_step(venv: VecGridWorld, tx, gamma: float = 0.99,
                                 group_slice(traj["rewards"], g)[:-1],
                                 terminal,
                                 group_slice(traj["alive_in"], g)[:-1], gamma)
-        return total / denom.clamp_min(1.0)
+        return total / sum_dp(denom, mesh).clamp_min(1.0)
 
     def rollout(nets, env_state, key, eps):
         def act(state, akey):
@@ -316,10 +356,11 @@ def make_dqn_train_step(venv: VecGridWorld, tx, gamma: float = 0.99,
                                           rnd.fold_in(key, 1000 + g))
             else:
                 loss = group_loss(nets[g], target_nets[g], g, traj)
-            opt_states[g] = _apply(nets[g], tx, opt_states[g], loss)
-            losses.append(loss.detach())
+            opt_states[g] = _apply(nets[g], tx, opt_states[g], loss, mesh)
+            losses.append(sum_dp(loss.detach(), mesh))
         metrics = dict(loss=torch.stack(losses), mean_reward=torch.stack(
-            [group_slice(traj["rewards"], g).mean() for g in range(G)]))
+            [_global_mean(venv, group_slice(traj["rewards"], g))
+             for g in range(G)]))
         return tuple(opt_states), metrics
 
     def train_step(nets, target_nets, opt_states, env_state, key, eps):
@@ -351,7 +392,7 @@ def make_dqn_train_step_remat(venv: VecGridWorld, tx, gamma: float = 0.99,
     if spec.turn_mode or spec.food_mode:
         raise ValueError("the remat trainer needs the NORTH-only observation "
                          "and static grids (no turn mode, no food)")
-    G, B = spec.n_groups, venv.n_envs
+    G, B = spec.n_groups, venv.n_local
     caps = [g.cap for g in spec.groups]
     offs = [g.offset for g in spec.groups]
     grids_fn = venv._grids
@@ -416,11 +457,12 @@ def make_dqn_train_step_remat(venv: VecGridWorld, tx, gamma: float = 0.99,
                 lt, lm = step_loss(nets[g], target_nets[g], g, traj, *sample)
                 total = total + lt
                 denom = denom + lm
-            loss = total / denom.clamp_min(1.0)
-            opt_states[g] = _apply(nets[g], tx, opt_states[g], loss)
-            losses.append(loss.detach())
+            loss = total / sum_dp(denom, venv.mesh).clamp_min(1.0)
+            opt_states[g] = _apply(nets[g], tx, opt_states[g], loss,
+                                  venv.mesh)
+            losses.append(sum_dp(loss.detach(), venv.mesh))
         metrics = dict(loss=torch.stack(losses), mean_reward=torch.stack(
-            [traj["rewards"][:, :, offs[g]:offs[g] + caps[g]].mean()
+            [_global_mean(venv, traj["rewards"][:, :, offs[g]:offs[g] + caps[g]])
              for g in range(G)]))
         return tuple(opt_states), metrics
 
@@ -455,8 +497,9 @@ def make_a2c_train_step(venv: VecGridWorld, tx, gamma: float = 0.99,
     ``mean_value`` and ``mean_reward``, ``[G]`` f32 on the device.
     ``train_step.rollout`` and ``train_step.learn`` are its two halves."""
     spec = venv.spec
-    G, B, A = spec.n_groups, venv.n_envs, spec.n_agents_cap
+    G, B, A = spec.n_groups, venv.n_local, spec.n_agents_cap
     group_slice = _group_slicer(spec)
+    mesh = venv.mesh
 
     def rollout(nets, env_state, key):
         def act(state, akey):
@@ -466,8 +509,13 @@ def make_a2c_train_step(venv: VecGridWorld, tx, gamma: float = 0.99,
             all_obs = venv.observe_all(state)
             for g in range(G):
                 policy, _ = nets[g](*all_obs[g], group_slice(live, g))
-                group_slice(actions, g)[:] = rnd.categorical(
-                    rnd.fold_in(akey, g), policy.log())
+                logits = policy.log()
+                # the Gumbel noise at the global batch, this rank's rows
+                noise = venv.local_rows(rnd.gumbel(
+                    rnd.fold_in(akey, g),
+                    (venv.n_envs,) + tuple(logits.shape[1:])))
+                group_slice(actions, g)[:] = (noise + logits).argmax(-1).to(
+                    torch.int32)
             return actions, [o[0] for o in all_obs], [o[1] for o in all_obs]
 
         return _rollout(venv, act, env_state, key, rollout_len,
@@ -489,7 +537,7 @@ def make_a2c_train_step(venv: VecGridWorld, tx, gamma: float = 0.99,
         act = group_slice(traj["actions"], g).long()
         lp_a = logp.gather(-1, act[..., None])[..., 0]
         adv = (rets - value).detach()
-        msum = mask.sum().clamp_min(1.0)
+        msum = sum_dp(mask.sum(), mesh).clamp_min(1.0)
         pg = -(adv * lp_a * mask).sum() / msum
         vf = value_coef * ((rets - value).square() * mask).sum() / msum
         neg_ent = ent_coef * ((policy * logp).sum(-1) * mask).sum() / msum
@@ -507,12 +555,12 @@ def make_a2c_train_step(venv: VecGridWorld, tx, gamma: float = 0.99,
             with torch.no_grad():  # dead agents bootstrap 0
                 boot_v = nets[g](*final_obs[g], m_fin)[1] * m_fin
             loss, mean_v = group_loss(nets[g], g, traj, boot_v)
-            opt_states[g] = _apply(nets[g], tx, opt_states[g], loss)
-            losses.append(loss.detach())
-            values.append(mean_v.detach())
+            opt_states[g] = _apply(nets[g], tx, opt_states[g], loss, mesh)
+            losses.append(sum_dp(loss.detach(), mesh))
+            values.append(sum_dp(mean_v.detach(), mesh))
         metrics = dict(loss=torch.stack(losses), mean_value=torch.stack(values),
                        mean_reward=torch.stack(
-                           [group_slice(traj["rewards"], g).mean()
+                           [_global_mean(venv, group_slice(traj["rewards"], g))
                             for g in range(G)]))
         return tuple(opt_states), metrics
 
@@ -551,9 +599,10 @@ def make_drqn_train_step(venv: VecGridWorld, tx, gamma: float = 0.99,
     and ``mean_reward``, ``[G]`` f32 on the device.  ``train_step.rollout``
     and ``train_step.learn`` are its two halves."""
     spec = venv.spec
-    G, B, A = spec.n_groups, venv.n_envs, spec.n_agents_cap
+    G, B, A = spec.n_groups, venv.n_local, spec.n_agents_cap
     caps = [g.cap for g in spec.groups]
     group_slice = _group_slicer(spec)
+    mesh = venv.mesh
 
     def net_step(net, h, view, feat):
         """One GRU step over ``[B, cap, ...]``."""
@@ -581,7 +630,7 @@ def make_drqn_train_step(venv: VecGridWorld, tx, gamma: float = 0.99,
                     with torch.no_grad():
                         h2, q = net_step(nets[g], hs[g], *all_obs[g])
                 group_slice(actions, g)[:] = _egreedy(
-                    q.detach(), rnd.fold_in(akey, g), eps)
+                    q.detach(), rnd.fold_in(akey, g), eps, venv)
                 new_h.append(h2)
                 qs.append(q)
             with torch.no_grad():
@@ -624,7 +673,7 @@ def make_drqn_train_step(venv: VecGridWorld, tx, gamma: float = 0.99,
                                 group_slice(traj["rewards"], g)[:-1],
                                 terminal,
                                 group_slice(traj["alive_in"], g)[:-1], gamma)
-        return total / denom.clamp_min(1.0)
+        return total / sum_dp(denom, mesh).clamp_min(1.0)
 
     def learn(nets, target_nets, opt_states, h0, traj):
         """The gradient steps on the window that started from ``h0``.  The
@@ -638,10 +687,11 @@ def make_drqn_train_step(venv: VecGridWorld, tx, gamma: float = 0.99,
             qs = (traj["qs"][g] if share_acting
                   else unroll_q(g, nets[g], h0[g], traj))
             loss = td_loss(g, qs, tqs, traj)
-            opt_states[g] = _apply(nets[g], tx, opt_states[g], loss)
-            losses.append(loss.detach())
+            opt_states[g] = _apply(nets[g], tx, opt_states[g], loss, mesh)
+            losses.append(sum_dp(loss.detach(), mesh))
         metrics = dict(loss=torch.stack(losses), mean_reward=torch.stack(
-            [group_slice(traj["rewards"], g).mean() for g in range(G)]))
+            [_global_mean(venv, group_slice(traj["rewards"], g))
+             for g in range(G)]))
         return tuple(opt_states), metrics
 
     def train_step(nets, target_nets, opt_states, env_state, hiddens, key,
@@ -663,9 +713,9 @@ def make_drqn_train_step(venv: VecGridWorld, tx, gamma: float = 0.99,
 
 def init_drqn_hiddens(venv: VecGridWorld, nets):
     """Zero per-agent GRU states, one ``[B, cap, H]`` f32 tensor per group
-    on the env's device (train.py:907-914)."""
+    on the env's device, for ``venv``'s env rows (train.py:907-914)."""
     spec = venv.spec
-    return tuple(torch.zeros((venv.n_envs, spec.groups[g].cap,
+    return tuple(torch.zeros((venv.n_local, spec.groups[g].cap,
                               nets[g].state_size), device=venv.device)
                  for g in range(spec.n_groups))
 

@@ -5,7 +5,8 @@ ops on one device (port of ``magent_tpu/parallel/vec_env.py``).
 - dead agents stay in their slot as masked entries; the reward rotation of
   ``clear_dead`` (``last <- next``, ``next <- step_reward``, reference
   GridWorld.h:168-174) is applied in place by :meth:`VecGridWorld.transition`;
-- ``done`` envs auto-reset inside ``transition`` so batches never stall.
+- ``done`` envs auto-reset inside ``transition`` so batches never stall;
+- with a ``mesh``, each ``dp`` rank holds a slice of the batch.
 
 Keys are int64 ``[2]`` tensors of uint32 words (:mod:`magent_tpu_torch.random`),
 bit-equal to ``jax.random`` keys, so the same key gives the same reset and
@@ -69,13 +70,35 @@ class VecGridWorld:
     its trainers, ``scripts/bench_train.py``).
     ``walls``: interior (x, y) wall cells shared by every env, added to
     the border (reference: test_1m.py's n/10 random walls).  The positional
-    order is the JAX package's (``vec_env.py:177-178``)."""
+    order is the JAX package's (``vec_env.py:177-178``).
+    ``mesh``: a :func:`~magent_tpu_torch.parallel.sharding.make_mesh` mesh
+    whose ``dp`` axis splits the ``n_envs`` envs; this rank then holds
+    envs ``env_rows = (r0, r1)`` on the mesh's device, and every state,
+    action and reward it takes or returns has ``n_local = r1 - r0`` rows.
+    Its draws are made from the global key at the global shape and
+    sliced, so each rank steps the same envs as an unsharded run does on
+    those rows (the route is the unsharded batch's too)."""
 
     def __init__(self, config: Config, caps, n_envs: int, placements=None,
-                 obs_dtype=None, walls=None, device=None):
+                 obs_dtype=None, walls=None, device=None, mesh=None):
+        if mesh is not None:
+            if device is not None and resolve_device(device) != mesh.device:
+                raise ValueError("device %s is not the mesh's %s"
+                                 % (device, mesh.device))
+            device = mesh.device
+            dp, i = mesh.shape["dp"], mesh.coord["dp"]
+            if n_envs % dp:
+                raise ValueError("%d envs do not split over dp=%d"
+                                 % (n_envs, dp))
+            r0 = i * (n_envs // dp)
+            self.env_rows = (r0, r0 + n_envs // dp)
+        else:
+            self.env_rows = (0, n_envs)
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.spec = spec = speclib.compile_spec(config, caps)
         self.n_envs = n_envs
+        self.n_local = self.env_rows[1] - self.env_rows[0]
         wall = _wall_map(spec, walls)
         self._step = engine.make_step(spec, maintain_grid=False,
                                       n_envs=n_envs, walls=wall)
@@ -205,10 +228,17 @@ class VecGridWorld:
             step_ct=full((k,), 0, torch.int32),
         )
 
+    def local_rows(self, t):
+        """Rows ``env_rows`` of a draw ``t`` made at the global batch
+        (``t`` itself when this venv holds every env)."""
+        r0, r1 = self.env_rows
+        return t if (r0, r1) == (0, self.n_envs) else t[r0:r1]
+
     def reset(self, key) -> State:
         """key [2] -> batched State (``jax.random.split(key, n_envs)``, one
-        env per subkey)."""
-        return self._reset_keys(rnd.split(key.to(self.device), self.n_envs))
+        env per subkey; this venv's ``env_rows`` of them)."""
+        return self._reset_keys(self.local_rows(
+            rnd.split(key.to(self.device), self.n_envs)))
 
     def observe(self, state: State, group: int, grids=None):
         """-> (views [B, cap, vh, vw, C], feats [B, cap, F])."""
@@ -262,12 +292,13 @@ class VecGridWorld:
 
     def random_actions(self, key, fast: bool = False):
         """Uniform random action per slot, valid for each slot's group ->
-        [B, A] int32.  ``fast=True`` replaces the threefry draw with a
-        SplitMix mix of (key words, env, slot) (vec_env.py:283-312)."""
+        [B, A] int32 (this venv's rows of the global draw).  ``fast=True``
+        replaces the threefry draw with a SplitMix mix of (key words,
+        global env index, slot) (vec_env.py:283-312)."""
         A = self.spec.n_agents_cap
         key = key.to(self.device)
         if fast:
-            env = torch.arange(self.n_envs, dtype=torch.int64,
+            env = torch.arange(*self.env_rows, dtype=torch.int64,
                                device=self.device)
             lane = (rnd.mul32(env, 0x632BE59B)[:, None]
                     + torch.arange(A, dtype=torch.int64,
@@ -282,7 +313,7 @@ class VecGridWorld:
                 (seed + rnd.mul32(lane, 0x9E3779B9)) & rnd.MASK32)
             u = (z >> 8).to(torch.float32) * (1.0 / (1 << 24))
         else:
-            u = rnd.uniform(key, (self.n_envs, A))
+            u = self.local_rows(rnd.uniform(key, (self.n_envs, A)))
         return (u * self._n_action).to(torch.int32)
 
     # ------------------------------------------------------------------ info

@@ -318,10 +318,18 @@ def test_bf16_models_train(cls, kw):
 
 
 def test_dqn_sharding_is_not_ported():
+    """``num_gpu=2`` now works (the name is kept from before the port had
+    sharding): it shards the inference over the local devices, on the
+    CPU the model's one device (so it caps at 1, the single path), or the
+    devices it is given."""
     env = small_battle(tmag, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        DeepQNetwork(env, env.get_handles()[0], "m", num_gpu=2,
-                     memory_size=64, device="cpu")
+    h = env.get_handles()[0]
+    model = DeepQNetwork(env, h, "m", num_gpu=2, memory_size=64,
+                         device="cpu")
+    assert model._infer_devices == 1 and model._replicas is None
+    model = DeepQNetwork(env, h, "m", num_gpu=2, memory_size=64,
+                         device="cpu", devices=["cpu"] * 3)
+    assert model._infer_devices == 2 and len(model._replicas) == 2
 
 
 @pytest.mark.parametrize("modules", [

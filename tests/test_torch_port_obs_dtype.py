@@ -279,11 +279,11 @@ def test_vec_env_bf16_views_are_f32_rounded(case):
 
 def test_positional_order_matches_jax():
     """``(config, caps, n_envs, placements, obs_dtype, walls)``, then the
-    port's ``device``: a fifth positional argument is the view dtype in
-    both packages."""
+    port's ``device`` and ``mesh``: a fifth positional argument is the
+    view dtype in both packages."""
     j = list(inspect.signature(JVec.__init__).parameters)
     t = list(inspect.signature(TVec.__init__).parameters)
-    assert t[:len(j)] == j and t[len(j):] == ["device"]
+    assert t[:len(j)] == j and t[len(j):] == ["device", "mesh"]
     venv = TVec(CONFIGS["battle"][0](20), [4, 4], 1, None, BF16, None, "cpu")
     _, tkey = key_pair(0)
     view, _ = venv.observe(venv.reset(tkey), 0)
