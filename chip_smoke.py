@@ -264,7 +264,29 @@ Run from the repository root:  python3 chip_smoke.py
     defaults (map 200, 2x1000, 8 envs, 32 steps): its one point; (d)
     ``DeepQNetwork(num_gpu=2)`` caps at the one card, and two replicas on
     it (``devices=["cuda:0"] * 2``) act as the unsharded model;
-15. prints the ``kernels`` JSON line, then ``{"ok": true, "device": ...}``
+15. runs the driving scripts (``magent_tpu_torch/tools``, ``/examples``,
+    ROADMAP item 22), each through its ``main`` at its own widths, the
+    launch counters set to 0 before it and read after, and one sample of
+    each path's kernel calls held against the plain versions: (repair)
+    each trainer at bench_train's geometry twice from one key, bit for
+    bit (``deterministic_convolutions``), ``dqn`` f32 and bf16 also on
+    cuDNN's defaults (parameters that differ, ms per train step either
+    way, the learn half's device ms either way), ``DeepQNetwork.train``
+    twice with and without the repair at the card test's size, and a
+    deterministic-algorithms scan of one f32 step each;
+    (22a) ``tools.bench``, ``tools.bench_train`` (all four trainers) and
+    ``tools.bench_pursuit`` (map 1000, default and ``--turn``) at their
+    defaults; (22b) ``examples.train_evidence`` on pursuit, gather and
+    tiger at map 64, B=16, then ``tournament_pursuit`` over pursuit's
+    generations, ``eval_checkpoint`` with ``trusty-battle-game-l`` at its
+    map 64 and ``tournament`` over two of its epochs at its map 125 (the
+    depth cuts printed); (22c) the five profilers at their defaults, one
+    step of each ``profile_phases`` variant and one iteration of each
+    ``profile_banded`` variant held; (22d) both
+    fuzzers (the port's leg on the card against its leg on the CPU),
+    ``diff_seg_chip`` at n=6000 and n=20000 (the segmented sweeps engaged
+    there, bit for bit) and ``search`` cut to one round of one algorithm;
+16. prints the ``kernels`` JSON line, then ``{"ok": true, "device": ...}``
     as the last line.
 
 Any failure raises (exit code 1).  Without a CUDA device it exits with 2
@@ -274,6 +296,7 @@ and prints no result.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import contextlib
 import functools
 import gc
@@ -281,8 +304,10 @@ import json
 import math
 import os
 import statistics
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import types
 import warnings
@@ -290,9 +315,14 @@ import warnings
 import numpy as np
 import torch
 
+from magent_tpu_torch.tools import bench, bench_train
+from magent_tpu_torch.tools.bench_pursuit import pursuit_config
+from magent_tpu_torch.tools.bench_pursuit import placements as pursuit_placements
+from magent_tpu_torch.tools.bench_train import fresh_nets, trainer_args
 from magent_tpu_torch.tools.profile_gather import window_bytes
 from magent_tpu_torch.tools.timing import HBM_BYTES_PER_S, device_ms
 
+REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
 # battle's full width: the BASELINE.json headline workload (bench.py)
 MAP_SIZE, N_PER_GROUP, N_ENVS = 200, 1000, 16
 WARMUP_STEPS, TIMED_STEPS, PROFILE_STEPS = 3, 20, 5
@@ -322,17 +352,20 @@ SEG_PLANS_PER_STEP = 2
 # target (the step's attackers rarely share one, so its sums are mostly 0)
 SEG_SHARE = 4
 
-# the fused trainers: scripts/bench_train.py's geometry (battle 2x1000 at
-# MAP_SIZE, N_ENVS; bf16 views and trunk), from the trusty checkpoints
-TRAIN_ROLLOUT, TRAIN_SPC, TRAIN_TARGET_UPDATE, TRAIN_EPS = 8, 4, 40, 0.3
-TRAIN_MINIBATCH, TRAIN_SAMPLE_STEPS, TRAIN_CALLS, TRAIN_LR = 16384, 2, 3, 1e-4
+# the fused trainers: tools.bench_train's geometry (battle 2x1000 at
+# MAP_SIZE, N_ENVS; bf16 views and trunk), its defaults and constants,
+# from the trusty checkpoints
+_BENCH_TRAIN = bench_train.cli().parse_args([])
+TRAIN_ROLLOUT, TRAIN_SPC = _BENCH_TRAIN.rollout, _BENCH_TRAIN.steps_per_call
+TRAIN_SAMPLE_STEPS = _BENCH_TRAIN.sample_steps
+TRAIN_TARGET_UPDATE, TRAIN_EPS = bench_train.TARGET_UPDATE, bench_train.EPS
+TRAIN_CALLS, TRAIN_LR = bench_train.CALLS, bench_train.LR
 TRUSTY = tuple("data/models/trusty-battle-game-%s/tfdqn_0.npz" % side
                for side in "lr")
 # bench_train's four algorithms; a2c and drqn have no trusty checkpoint and
-# start from fresh nets, flax's initializers drawn from torch.Generator
-# seeds TRAIN_NET_SEED + group
+# start from tools.bench_train's fresh nets, flax's initializers drawn from
+# torch.Generator seeds bench_train.NET_SEED + group
 TRAINERS = ("dqn", "dqn_remat", "a2c", "drqn")
-TRAIN_NET_SEED = 16
 TRAINER_NETS = {"dqn": "trusty weights", "dqn_remat": "trusty weights",
                 "a2c": "fresh nets (no CommNet)",
                 "drqn": "fresh nets, share_acting, unroll_remat all, "
@@ -707,16 +740,11 @@ def pair_work(name, args, kwargs):
     return pairs, n_int, n_f32
 
 
-def call_stats(name, args, kwargs, f32_rate, int32_rate, form,
-               nonzero=False):
+def hold_call(name, args, kwargs, form, nonzero=False):
     """Hold kernel ``name`` against its plain version on one call's operands
     (ints exact; floats exact for EXACT kernels and the hp form's hp_t, else
     within PAIR_ATOL; with ``nonzero``, the plain version's floats must not
-    all be zero), check that the call launches its kernel once, time both,
-    and compute the bound: instructions at ``f32_rate`` / ``int32_rate``
-    per second against bytes at HBM_BYTES_PER_S."""
-    from magent_tpu_torch import ops
-
+    all be zero) -> (kernel's results, plain results, max abs error)."""
     kernel, plain = kernel_fns()[name]
     got = kernel(*args, **kwargs)
     want = plain(*args, **kwargs)
@@ -754,6 +782,20 @@ def call_stats(name, args, kwargs, f32_rate, int32_rate, form,
         elif not torch.equal(g, w):
             raise AssertionError("%s (%s): integer outputs differ from the "
                                  "plain version" % (name, form))
+    return got, want, err
+
+
+def call_stats(name, args, kwargs, f32_rate, int32_rate, form,
+               nonzero=False):
+    """:func:`hold_call`, then check that the call launches its kernel
+    once, time both, and compute the bound: instructions at ``f32_rate`` /
+    ``int32_rate`` per second against bytes at HBM_BYTES_PER_S."""
+    from magent_tpu_torch import ops
+
+    kernel, plain = kernel_fns()[name]
+    got, want, err = hold_call(name, args, kwargs, form, nonzero)
+    n_nonzero = sum(int((w != 0).sum()) for w in want
+                    if w.dtype.is_floating_point)
     before = ops.launch_counts()[name]
     kernel(*args, **kwargs)
     if ops.launch_counts()[name] != before + 1:
@@ -1900,54 +1942,6 @@ TURN_MAPS = {1000: (1, {"window_gather_banded": 2}),
 TURN_SEED, TURN_GPU_CPU_STEPS, TURN_GOLDEN_STEPS = 5, {64: 3, 1000: 2}, 12
 
 
-def turn_pursuit_config(map_size):
-    """``scripts/bench_pursuit.py`` ``pursuit_config(map_size,
-    turn=True)``, built with the port's config module."""
-    from magent_tpu_torch import gridworld as gw
-
-    cfg = gw.Config()
-    cfg.set({"map_width": map_size, "map_height": map_size})
-    cfg.set({"turn_mode": True})
-    predator = cfg.register_agent_type(
-        "predator",
-        {'width': 2, 'length': 2, 'hp': 1, 'speed': 1,
-         'view_range': gw.CircleRange(5), 'attack_range': gw.CircleRange(2),
-         'attack_penalty': -0.2})
-    prey = cfg.register_agent_type(
-        "prey",
-        {'width': 1, 'length': 1, 'hp': 1, 'speed': 1.5,
-         'view_range': gw.CircleRange(4), 'attack_range': gw.CircleRange(0)})
-    g0 = cfg.add_group(predator)
-    g1 = cfg.add_group(prey)
-    a = gw.AgentSymbol(g0, index='any')
-    b = gw.AgentSymbol(g1, index='any')
-    cfg.add_reward_rule(gw.Event(a, 'attack', b), receiver=[a, b],
-                        value=[1, -1])
-    return cfg
-
-
-def turn_placements(map_size, n_pred, n_prey, seed=TURN_SEED):
-    """``scripts/bench_pursuit.py`` ``placements(..., turn=True)``: 2x2
-    predators facing at random, then prey (facing EAST), on free cells."""
-    rng = np.random.RandomState(seed)
-    taken = set()
-    preds, prey = [], []
-    while len(preds) < n_pred:
-        x = int(rng.randint(1, map_size - 3))
-        y = int(rng.randint(1, map_size - 3))
-        block = [(x + dx, y + dy) for dx in range(2) for dy in range(2)]
-        if not any(c in taken for c in block):
-            taken.update(block)
-            preds.append([x, y, rng.randint(4)])
-    while len(prey) < n_prey:
-        x = int(rng.randint(1, map_size - 2))
-        y = int(rng.randint(1, map_size - 2))
-        if (x, y) not in taken:
-            taken.add((x, y))
-            prey.append([x, y, 0])
-    return [preds, prey]
-
-
 def turn_env(map_size, device=None):
     """bench_pursuit --turn's world at ``map_size`` (1.25% predators, 2.5%
     prey) as a ``VecGridWorld`` of ``TURN_MAPS[map_size]``'s B."""
@@ -1955,9 +1949,10 @@ def turn_env(map_size, device=None):
 
     n = map_size * map_size
     counts = [int(n * 0.0125), int(n * 0.025)]
-    return VecGridWorld(turn_pursuit_config(map_size), counts,
+    return VecGridWorld(pursuit_config(map_size, True), counts,
                         TURN_MAPS[map_size][0],
-                        placements=turn_placements(map_size, *counts),
+                        placements=pursuit_placements(
+                            map_size, *counts, True, seed=TURN_SEED),
                         device=device)
 
 
@@ -3162,60 +3157,12 @@ def check_bf16_views(label, venv, state):
 
 
 def trainer_loop(alg, venv, tx, dtype):
-    """The loop of trainer ``alg`` at scripts/bench_train.py's settings on
-    ``venv`` and its first carry (nets first; ``dqn``, ``dqn_remat`` from
-    the trusty weights, ``a2c``, ``drqn`` fresh from seeded generators)."""
-    from magent_tpu_torch import random as rnd
-    from magent_tpu_torch import parallel as par
-
-    dev, spec = venv.device, venv.spec
-    common = dict(steps_per_call=TRAIN_SPC, rollout_len=TRAIN_ROLLOUT)
-    state = venv.reset(rnd.PRNGKey(1, dev))
-    if alg == "a2c":
-        nets = fresh_nets(alg, spec, dev, dtype)
-        return (par.make_a2c_train_loop(venv, tx, **common),
-                [nets, tuple(tx.init(n) for n in nets), state])
-    if alg == "drqn":
-        nets = fresh_nets(alg, spec, dev, dtype)
-        loop = par.make_drqn_train_loop(
-            venv, tx, target_update=TRAIN_TARGET_UPDATE, share_acting=True,
-            unroll_remat="all", **common)
-        return loop, [nets, fresh_nets(alg, spec, dev, dtype),
-                      tuple(tx.init(n) for n in nets), state,
-                      par.init_drqn_hiddens(venv, nets)]
-    if alg == "dqn":
-        loop = par.make_dqn_train_loop(
-            venv, tx, target_update=TRAIN_TARGET_UPDATE,
-            train_minibatch=TRAIN_MINIBATCH, **common)
-    else:
-        loop = par.make_dqn_remat_train_loop(
-            venv, tx, target_update=TRAIN_TARGET_UPDATE,
-            sample_steps=TRAIN_SAMPLE_STEPS, **common)
-    nets = trusty_nets(spec, dev, dtype)
-    return loop, [nets, trusty_nets(spec, dev, dtype),
-                  tuple(tx.init(n) for n in nets), state]
-
-
-def trainer_args(alg, key, c=0, step=False):
-    """The arguments after the carry of call ``c`` of trainer ``alg``'s
-    loop (or, with ``step``, of one train step): the key, and for the Q
-    trainers eps and the loop's step0."""
-    if alg == "a2c":
-        return (key,)
-    return (key, TRAIN_EPS) if step else (key, TRAIN_EPS, c * TRAIN_SPC)
-
-
-def fresh_nets(alg, spec, device, dtype):
-    """One fresh ``A2CNet`` or ``DRQNNet`` per group, flax's initializers
-    drawn from ``torch.Generator`` seeds TRAIN_NET_SEED + group."""
-    from magent_tpu_torch.builtin.torch_model import A2CNet, DRQNNet
-
-    cls = A2CNet if alg == "a2c" else DRQNNet
-    return tuple(cls(spec.view_space(g), spec.feature_size(g),
-                     spec.groups[g].type.n_action, dtype=dtype,
-                     generator=torch.Generator().manual_seed(
-                         TRAIN_NET_SEED + g)).to(device)
-                 for g in range(spec.n_groups))
+    """``tools.bench_train``'s loop of trainer ``alg`` on ``venv`` and its
+    first carry: ``dqn``, ``dqn_remat`` from the trusty weights, ``a2c``,
+    ``drqn`` fresh from seeded generators."""
+    nets = (trusty_nets(venv.spec, venv.device, dtype)
+            if alg in ("dqn", "dqn_remat") else None)
+    return bench_train.trainer_loop(alg, venv, tx, dtype, nets)
 
 
 def train_split_ms(alg, step, carry, key, n=3):
@@ -3403,7 +3350,7 @@ def run_trainers(f32_rate, int32_rate, device_name, g4_forms, banded_1000):
     check_bf16_views("pursuit map 64, B=16", p64, p64.reset(rnd.PRNGKey(0)))
     del p64
 
-    tx = ClipAdam(TRAIN_LR, 5.0)
+    tx = ClipAdam(TRAIN_LR, bench_train.CLIP)
     by_alg = {alg: run_trainer(alg, venv, tx, device_name)
               for alg in TRAINERS}
     launches = sum(map(collections.Counter, by_alg.values()),
@@ -3438,7 +3385,7 @@ def small_train_step(alg, device):
     venv = par.VecGridWorld(battle.get_config(TRAIN_SMALL_MAP),
                             TRAIN_SMALL_CAPS, TRAIN_SMALL_ENVS, device=device)
     dev = venv.device
-    tx = par.ClipAdam(TRAIN_LR, 5.0)
+    tx = par.ClipAdam(TRAIN_LR, bench_train.CLIP)
     T = TRAIN_SMALL_T
     state = venv.reset(rnd.PRNGKey(0, dev))
     key = rnd.PRNGKey(2, dev)
@@ -5239,11 +5186,8 @@ def check_shard_world_of_one(mesh, rows, device_name):
     bf16 = torch.bfloat16
     cfg = battle.get_config(MAP_SIZE)
     caps = [N_PER_GROUP, N_PER_GROUP]
-    tx = ClipAdam(TRAIN_LR, 5.0)
+    tx = ClipAdam(TRAIN_LR, bench_train.CLIP)
     runs = {}
-    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
     for placed in (False, True):
         venv = VecGridWorld(cfg, caps, N_ENVS, obs_dtype=bf16,
                             mesh=mesh if placed else None)
@@ -5266,7 +5210,6 @@ def check_shard_world_of_one(mesh, rows, device_name):
         runs[placed] = (carry, metrics, time.perf_counter() - t0,
                         ops.launch_counts())
         del loop, venv
-    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
     (c0, m0, dt0, _), (c1, m1, dt1, counts) = runs[False], runs[True]
     for s, (a, b) in enumerate(zip(m0, m1)):
         for k in a:
@@ -5529,6 +5472,475 @@ def run_sharding_phase(rows, device_name):
           flush=True)
 
 
+# phase 15, the driving scripts (ROADMAP item 22): each module of
+# magent_tpu_torch/tools and /examples through its main() at its own
+# widths, the launch counters set to 0 before it and read after; one
+# sample of each path's kernel calls (a step, a train step, a variant's
+# iteration) recorded and held against the plain versions
+REPRO_ALGS, REPRO_STEPS, REPRO_TIMED = ("dqn", "dqn_remat", "a2c", "drqn"), 2, 3
+REPRO_LEARN_CALLS = 10  # learn-half calls per timed batch (4 batches)
+
+
+def train_once(alg, step, carry, key, repaired=True):
+    """One train step of trainer ``alg`` (``step``, a loop's
+    ``train_step``) on ``carry`` in place; ``repaired=False`` (``dqn``):
+    the step's two halves unwrapped from ``deterministic_convolutions``
+    (``__wrapped__``), i.e. on cuDNN's default algorithms."""
+    from magent_tpu_torch import random as rnd
+
+    args = trainer_args(alg, key, step=True)
+    if repaired:
+        out = step(*carry, *args)
+    else:
+        nets, tnets, opts, state = carry
+        key, rkey = rnd.split(key).unbind(-2)
+        state, traj = step.rollout.__wrapped__(nets, state, rkey, args[1])
+        opts, m = step.learn.__wrapped__(nets, tnets, opts, traj, key)
+        out = (nets, opts, state, m)
+    if alg == "a2c":
+        carry[:] = out[:-1]
+    else:
+        carry[0], carry[2:] = out[0], list(out[1:-1])
+    return out[-1]
+
+
+def repro_run(alg, dtype, repaired, device, timed=0):
+    """bench_train's trainer ``alg`` at its geometry with ``dtype`` views
+    and trunk: REPRO_STEPS train steps from the keys fold_in(PRNGKey(2),
+    s) -> (the nets' parameters flattened, ms per step of ``timed`` more
+    synchronized steps)."""
+    from magent_tpu_torch import random as rnd
+
+    args = bench_train.cli().parse_args(
+        [alg, "--obs_dtype", dtype, "--net_dtype", dtype])
+    loop, carry = bench_train.build(args, alg, device)
+    step, key = loop.train_step, rnd.PRNGKey(2, device)
+    for s in range(REPRO_STEPS):
+        train_once(alg, step, carry, rnd.fold_in(key, s), repaired)
+    params = [torch.cat([p.detach().reshape(-1) for p in net.parameters()])
+              for net in carry[0]]
+    ms = None
+    if timed:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for s in range(timed):
+            train_once(alg, step, carry, rnd.fold_in(key, 100 + s),
+                       repaired)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / timed * 1e3
+    return params, ms
+
+
+def learn_cost(dtype, device):
+    """Device ms per call of ``dqn``'s learn half at bench_train's geometry
+    with ``dtype`` views and trunk, with the repair and without it
+    (``__wrapped__``): CUDA events around REPRO_LEARN_CALLS back-to-back
+    calls on one rollout, in batches with, without, without, with, after
+    a warm-up call of each -> ({repaired: [ms per call of each batch]})."""
+    from magent_tpu_torch import random as rnd
+    from magent_tpu_torch.tools.timing import elapsed_ms
+
+    args = bench_train.cli().parse_args(
+        ["dqn", "--obs_dtype", dtype, "--net_dtype", dtype])
+    loop, (nets, tnets, opts, state) = bench_train.build(args, "dqn", device)
+    step, key = loop.train_step, rnd.PRNGKey(2, device)
+    state, traj = step.rollout(nets, state, key, TRAIN_EPS)
+    learn = {True: step.learn, False: step.learn.__wrapped__}
+    box = [opts]
+
+    def call(repaired, k):
+        box[0] = learn[repaired](nets, tnets, box[0], traj,
+                                 rnd.fold_in(key, k))[0]
+
+    for repaired in (True, False):
+        call(repaired, 0)
+    ms = {True: [], False: []}
+    for b, repaired in enumerate((True, False, False, True)):
+        ks = iter(range(b * REPRO_LEARN_CALLS, (b + 1) * REPRO_LEARN_CALLS))
+        ms[repaired].append(elapsed_ms(lambda: call(repaired, next(ks)),
+                                       REPRO_LEARN_CALLS, device)
+                            / REPRO_LEARN_CALLS)
+    return ms
+
+
+def check_model_reproducible():
+    """``DeepQNetwork.train`` twice from fixed seeds at the card test's
+    size (``tests/_torch_model_play.py`` ``DQN_REPRO``), with the repair
+    and without it (``__wrapped__``) -> {repaired: parameters that
+    differ}; fails if any differ with it."""
+    import io
+
+    import magent_tpu_torch as tmag
+    from magent_tpu_torch.builtin.torch_model import DeepQNetwork
+
+    helper = tests_helper("_torch_model_play")
+    repaired_train, out = DeepQNetwork.train, {}
+    try:
+        for repaired in (True, False):
+            DeepQNetwork.train = (repaired_train if repaired
+                                  else repaired_train.__wrapped__)
+            with contextlib.redirect_stdout(io.StringIO()):  # train's log
+                a, b = (helper.dqn_train_params(
+                    tmag, DeepQNetwork, torch.device("cuda"),
+                    **helper.DQN_REPRO) for _ in range(2))
+            out[repaired] = sum(int((x != y).sum()) for x, y in zip(a, b))
+            print("phase 15 reproducibility: DeepQNetwork.train %s (battle "
+                  "map %d, %d agents a side, batch %d): two runs differ in "
+                  "%d of %d parameters" % (
+                      "with deterministic_convolutions" if repaired
+                      else "on cuDNN's defaults",
+                      helper.DQN_REPRO["map_size"], helper.DQN_REPRO["n"],
+                      helper.DQN_REPRO["batch_size"], out[repaired],
+                      sum(x.numel() for x in a)), flush=True)
+    finally:
+        DeepQNetwork.train = repaired_train
+    if out[True]:
+        raise AssertionError("phase 15: DeepQNetwork.train is not "
+                             "reproducible with the repair")
+    return out
+
+
+def check_reproducible(device_name):
+    """Phase 15 (repair): each trainer at bench_train's geometry (battle
+    2x1000, B=16, rollout 8) run twice from one key, parameters compared
+    bit for bit; ``dqn`` in f32 and bf16 also without the repair, and its
+    ms per train step with and without; then one f32 step of each under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)``, the ops
+    it flags printed; and :func:`check_model_reproducible` -> {(alg,
+    dtype, repaired): (differing, ms), ("learn", dtype): :func:`learn_cost`,
+    "DeepQNetwork": {repaired: differing}}."""
+    device = torch.device("cuda")
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic = cudnn.benchmark = False  # PyTorch's defaults
+    out = {}
+    try:
+        for alg in REPRO_ALGS:
+            for dtype in ("f32", "bf16") if alg == "dqn" else ("f32",):
+                for repaired in (True, False) if alg == "dqn" else (True,):
+                    # the cost is measured on dqn alone
+                    a, ms = repro_run(alg, dtype, repaired, device,
+                                      REPRO_TIMED if alg == "dqn" else 0)
+                    b, _ = repro_run(alg, dtype, repaired, device)
+                    n_diff = sum(int((x != y).sum()) for x, y in zip(a, b))
+                    n_all = sum(x.numel() for x in a)
+                    out[alg, dtype, repaired] = (n_diff, ms)
+                    cost = ("; %.3f ms per train step (%d synchronized "
+                            "steps) on %s" % (ms, REPRO_TIMED, device_name)
+                            if ms is not None else "")
+                    print("phase 15 reproducibility: %s %s %s: two runs "
+                          "of %d train steps from one key differ in %d of "
+                          "%d parameters%s" % (
+                              alg, dtype, "with deterministic_convolutions"
+                              if repaired else "on cuDNN's defaults",
+                              REPRO_STEPS, n_diff, n_all, cost), flush=True)
+                    if repaired and n_diff:
+                        raise AssertionError(
+                            "phase 15: trainer %s %s is not reproducible "
+                            "with the repair" % (alg, dtype))
+                    del a, b
+                    torch.cuda.empty_cache()
+        out["DeepQNetwork"] = check_model_reproducible()
+        for dtype in ("f32", "bf16"):
+            ms = learn_cost(dtype, device)
+            out["learn", dtype] = ms
+            print("phase 15 the repair's device cost, dqn %s learn half: "
+                  "%.4f ms per call with deterministic_convolutions, %.4f "
+                  "ms on cuDNN's defaults (CUDA events, %d calls per batch, "
+                  "batches with %s, without %s) on %s" % (
+                      dtype, statistics.mean(ms[True]),
+                      statistics.mean(ms[False]), REPRO_LEARN_CALLS,
+                      json.dumps(ms[True]), json.dumps(ms[False]),
+                      device_name), flush=True)
+            torch.cuda.empty_cache()
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        for alg in REPRO_ALGS:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                repro_run(alg, "f32", True, device)
+                torch.cuda.synchronize()
+            flagged = sorted({str(w.message).strip().splitlines()[0][:160]
+                              for w in caught})
+            print("phase 15 deterministic-algorithms scan, %s f32: %s" % (
+                alg, json.dumps(flagged) if flagged else "nothing flagged"),
+                flush=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        cudnn.deterministic, cudnn.benchmark = saved
+    return out
+
+
+def hold_calls(calls, label):
+    """Each recorded ``(counter, args, kwargs)`` kernel call held against
+    its plain version (:func:`hold_call`) -> the largest error."""
+    err = 0.0
+    for k, (name, args, kwargs) in enumerate(calls):
+        err = max(err, hold_call(name, args, kwargs,
+                                 "%s, call %d" % (label, k))[2])
+    print("phase 15 %s: %d kernel calls (%s) equal their plain versions "
+          "(max abs error %g)" % (label, len(calls), json.dumps(dict(
+              collections.Counter(c[0] for c in calls))), err), flush=True)
+    return err
+
+
+def run_module(rows, label, fn):
+    """``fn()`` (a module's main) with the launch counters set to 0 before
+    it and read after, into ``rows``' ``launches_by_path`` -> (its result,
+    the counts, seconds)."""
+    from magent_tpu_torch import ops
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    for name, n in counts.items():
+        rows[name].setdefault("launches_by_path", {})[label] = n
+    print("phase 15 %s: %.1f s, launches %s" % (label, dt,
+                                                json.dumps(counts)),
+          flush=True)
+    return result, counts, dt
+
+
+def run_bench_scripts(rows):
+    """Phase 15 (22a): tools.bench, tools.bench_train (the four trainers)
+    and tools.bench_pursuit (default and --turn) at their defaults; one
+    step (train step) of each path recorded and held."""
+    from magent_tpu_torch import random as rnd
+    from magent_tpu_torch.tools import bench_pursuit
+
+    dev = torch.device("cuda")
+    run_module(rows, "tools.bench at its defaults",
+               lambda: bench.main([]))
+    args = bench.cli().parse_args([])
+    venv = bench.build(args, dev)
+    state = venv.reset(rnd.PRNGKey(0, dev))
+    hold_calls(record_launched(lambda: bench.run(
+        venv, state, rnd.PRNGKey(1, dev), 1)), "tools.bench, one step")
+    del venv, state
+    run_module(rows, "tools.bench_train, dqn dqn_remat a2c drqn",
+               lambda: bench_train.main(list(REPRO_ALGS)))
+    for alg in REPRO_ALGS:
+        targs = bench_train.cli().parse_args([alg])
+        loop, carry = bench_train.build(targs, alg, dev)
+        hold_calls(record_launched(lambda: train_once(
+            alg, loop.train_step, carry, rnd.PRNGKey(2, dev))),
+            "tools.bench_train %s, one train step" % alg)
+        del loop, carry
+        torch.cuda.empty_cache()
+    for argv in ([], ["--turn"]):
+        label = "tools.bench_pursuit %s" % (" ".join(argv) or "default")
+        run_module(rows, label + ", map 1000",
+                   lambda: bench_pursuit.main(argv))
+        pargs = bench_pursuit.cli().parse_args(argv)
+        venv = bench_pursuit.build(pargs, dev)
+        state = venv.reset(rnd.PRNGKey(0, dev))
+        hold_calls(record_launched(lambda: bench_pursuit.run(
+            venv, state, rnd.PRNGKey(1, dev), 1)), label + ", one step")
+        del venv, state
+        torch.cuda.empty_cache()
+
+
+EV_ROUNDS, EV_SAVE, EV_EVAL_STEPS = 20, 10, 20  # train_evidence: 600, 0, 200
+PLAY_GAMES, PLAY_STEPS = 2, 50  # eval_checkpoint 4 x 400; tournament 10 x 550
+SEG_DIFF_N = (6000, 20000)  # diff_seg_chip: its default, and in the seg range
+FUZZ_SEEDS = 1  # the fuzzers' 25 and 10 (each leg a process of ~10 s)
+
+
+def run_evidence_paths(rows):
+    """Phase 15 (22b) in ``work``: train_evidence on its three games, then
+    the checkpoint plays over what it and ``data/models`` hold."""
+    from magent_tpu_torch.examples import (eval_checkpoint, tournament,
+                                           tournament_pursuit,
+                                           train_evidence)
+
+    print("phase 15 cuts: train_evidence --n_round %d (600) --save_every "
+          "%d --eval_steps %d (200); tournament_pursuit --eval_steps %d "
+          "(200); eval_checkpoint --n_games %d (4) --max_steps %d (400); "
+          "tournament --n_game %d (10) --max_steps %d (550)"
+          % (EV_ROUNDS, EV_SAVE, EV_EVAL_STEPS, EV_EVAL_STEPS, PLAY_GAMES,
+             PLAY_STEPS, PLAY_GAMES, PLAY_STEPS), flush=True)
+    for game in ("pursuit", "gather", "tiger"):
+        argv = ["--game", game, "--n_round", str(EV_ROUNDS), "--save_every",
+                str(EV_SAVE), "--eval_steps", str(EV_EVAL_STEPS), "--name",
+                "smoke-" + game]
+        out = run_module(rows, "examples.train_evidence %s, map 64, B=16, "
+                         "%d rounds" % (game, EV_ROUNDS),
+                         lambda: train_evidence.main(argv))[0]
+        if not (math.isfinite(out["trained"])
+                and math.isfinite(out["untrained"])):
+            raise AssertionError("train_evidence %s: eval %s" % (game, out))
+        args = train_evidence.cli().parse_args(argv + [
+            "--steps_per_call", "1", "--rollout_len", "2"])
+        ex = train_evidence.setup(args)
+        hold_calls(record_launched(lambda: ex.call(0, 1.0)),
+                   "examples.train_evidence %s, one train step of rollout "
+                   "2" % game)
+        del ex
+    gens, matrix = run_module(
+        rows, "examples.tournament_pursuit, 3 x 3 generations",
+        lambda: tournament_pursuit.main(
+            ["--name", "smoke-pursuit", "--eval_steps",
+             str(EV_EVAL_STEPS)]))[0]
+    if gens != [0, EV_SAVE, 2 * EV_SAVE] or not np.isfinite(matrix).all():
+        raise AssertionError("tournament_pursuit: %s %s" % (gens, matrix))
+    models = os.path.join(REPO_ROOT, "data", "models")
+    play_argv = ["--savedir", models, "--name", "trusty-battle-game-l",
+                 "--n_games", str(PLAY_GAMES), "--max_steps", str(PLAY_STEPS)]
+    games = run_module(rows, "examples.eval_checkpoint, map 64, %d games"
+                       % PLAY_GAMES,
+                       lambda: eval_checkpoint.main(play_argv))[0]
+    if len(games) != PLAY_GAMES:
+        raise AssertionError("eval_checkpoint: %s" % games)
+    args = eval_checkpoint.cli().parse_args(play_argv + ["--n_games", "1",
+                                                         "--max_steps", "1"])
+    ex = eval_checkpoint.setup(args)
+    hold_calls(record_launched(lambda: eval_checkpoint.play(ex, args)),
+               "examples.eval_checkpoint, one step")
+    os.makedirs("save_model/smoke-battle", exist_ok=True)
+    for side, epoch in (("l", 0), ("r", 3)):
+        shutil.copy(os.path.join(models, "trusty-battle-game-%s" % side,
+                                 "tfdqn_0.npz"),
+                    "save_model/smoke-battle/tfdqn_%d.npz" % epoch)
+    results = run_module(
+        rows, "examples.tournament, map 125, epochs 0 and 3",
+        lambda: tournament.main(["--name", "smoke-battle",
+                                 "--pick_every", "1", "--n_game",
+                                 str(PLAY_GAMES), "--max_steps",
+                                 str(PLAY_STEPS)]))[0]
+    if list(results) != [(0, 3)]:
+        raise AssertionError("tournament: %s" % results)
+
+
+def run_profilers(rows):
+    """Phase 15 (22c): the five profilers at their defaults; one iteration
+    of each kernel path they add held against the plain versions."""
+    from magent_tpu_torch import random as rnd
+    from magent_tpu_torch.tools import (profile_banded, profile_drqn,
+                                        profile_micro, profile_phases,
+                                        profile_sweep)
+
+    dev = torch.device("cuda")
+    for name, mod in (("profile_phases", profile_phases),
+                      ("profile_sweep", profile_sweep),
+                      ("profile_drqn", profile_drqn),
+                      ("profile_micro", profile_micro),
+                      ("profile_banded", profile_banded)):
+        out = run_module(rows, "tools.%s at its defaults" % name,
+                         lambda: mod.main([]))[0]
+        bad = {k: v for k, v in out.items()
+               if v is not None and not (v[0] > 0 and math.isfinite(v[1]))}
+        if bad:
+            raise AssertionError("%s: %s" % (name, bad))
+    for name in ("rank_prefix", "move_claims"):
+        def one_iteration():
+            # the variant built under the recording: it binds its kernel
+            init, body = profile_micro.variant(name)
+            body(init(rnd.PRNGKey(0, dev)))
+
+        hold_calls(record_launched(one_iteration),
+                   "tools.profile_micro %s, one iteration" % name)
+    pargs = profile_phases.cli().parse_args([])
+    venv = profile_phases.build(pargs, dev)
+    for name, (v, body) in profile_phases.variant_bodies(
+            venv, pargs.variants, profile_phases.phase_context(venv)).items():
+        state = v.reset(rnd.PRNGKey(0, dev))
+        hold_calls(record_launched(lambda: bench.run(
+            v, state, rnd.PRNGKey(1, dev), 1, body)),
+            "tools.profile_phases %s, one step" % name)
+    del venv, v, state
+    bargs = profile_banded.cli().parse_args([])
+    bodies, key = profile_banded.build(bargs, dev)
+    with torch.no_grad():
+        for name in bargs.variants:
+            if name in bodies:  # the rest are fused: no call of their own
+                hold_calls(record_launched(
+                    lambda: bodies[name](rnd.fold_in(key, 0))),
+                    "tools.profile_banded %s, one iteration" % name)
+    del bodies
+    torch.cuda.empty_cache()
+    venv, _, walls = profile_sweep.build_venv(100000, 16, device=dev)
+    state = venv.reset(rnd.PRNGKey(0, dev))
+    hold_calls(record_launched(lambda: bench.run(venv, state, rnd.PRNGKey(
+        1, dev), 1)), "tools.profile_sweep's world, one step")
+    del venv, state
+    torch.cuda.empty_cache()
+
+
+def run_diff_paths(rows):
+    """Phase 15 (22d): both fuzzers (the port's leg on the card against
+    its leg on the CPU; each leg a child process, its launches counted
+    there), diff_seg_chip at SEG_DIFF_N and search cut to one round."""
+    from magent_tpu_torch import random as rnd
+    from magent_tpu_torch.parallel import VecGridWorld
+    from magent_tpu_torch.tools import (diff_seg_chip, fuzz_reference,
+                                        fuzz_snake, search)
+
+    dev = torch.device("cuda")
+    # each fuzzer waits on its legs' child processes: the two run side by
+    # side (their launches are the children's, not counted here)
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        fuzzes = {name: pool.submit(mod.main, ["--against", "cpu", "--seeds",
+                                               str(FUZZ_SEEDS)] + extra)
+                  for name, mod, extra in (
+                      ("fuzz_reference", fuzz_reference, ["--views"]),
+                      ("fuzz_snake", fuzz_snake, []))}
+        failed = {name: f.result() for name, f in fuzzes.items()}
+    print("phase 15 tools.fuzz_reference and tools.fuzz_snake, %d seed(s) "
+          "each, the card's legs against the CPU's: %.1f s, failed seeds "
+          "%s" % (FUZZ_SEEDS, time.perf_counter() - t0, failed), flush=True)
+    if any(failed.values()):
+        raise AssertionError("the fuzzers failed: %s" % failed)
+    for n in SEG_DIFF_N:
+        out = run_module(rows, "tools.diff_seg_chip n=%d" % n,
+                         lambda: diff_seg_chip.main([str(n)]))[0]
+        if out["seg"] != (n > diff_seg_chip.ap.QUAD_MAX_SINGLE):
+            raise AssertionError("diff_seg_chip n=%d: route %s" % (
+                n, out["route"]))
+        print("phase 15 diff_seg_chip n=%d: %s, bit for bit over %d steps"
+              % (n, "the segmented sweeps engaged" if out["seg"]
+                 else "the pair kernels' gridless path", out["steps"]),
+              flush=True)
+    cfg, caps, placements, walls = diff_seg_chip.build(SEG_DIFF_N[-1])
+    venv = VecGridWorld(cfg, caps, 1, placements=placements, walls=walls)
+    state = venv.reset(rnd.PRNGKey(0, dev))
+    acts = venv.random_actions(rnd.PRNGKey(1, dev))
+    hold_calls(record_launched(lambda: venv.step(state, acts)),
+               "tools.diff_seg_chip n=%d, one gridless step" % SEG_DIFF_N[-1])
+    del venv, state
+    argv = ["--algs", "dqn", "--n_round", "1"]
+    print("phase 15 cuts: search %s (its 3 algorithms x 50 rounds)"
+          % " ".join(argv), flush=True)
+    run_module(rows, "tools.search, train_tiger dqn, 1 round",
+               lambda: search.main(argv))
+    log = open("search.log").read().splitlines()
+    if not log or not log[-1].endswith("code: 0"):
+        raise AssertionError("search: %s" % log[-1:])
+
+
+def run_driving_scripts(rows, device_name):
+    """Phase 15, in a scratch directory (the scripts write save_model/ and
+    their logs into the working directory) -> seconds."""
+    t0 = time.perf_counter()
+    check_reproducible(device_name)
+    run_bench_scripts(rows)
+    here = os.getcwd()
+    with tempfile.TemporaryDirectory() as work:
+        os.chdir(work)
+        try:
+            run_evidence_paths(rows)
+            run_profilers(rows)
+            run_diff_paths(rows)
+        finally:
+            os.chdir(here)
+    dt = time.perf_counter() - t0
+    print("phase 15 (the driving scripts) took %.1f s" % dt, flush=True)
+    return dt
+
+
 def _flat(items):
     for item in items:
         if isinstance(item, list):
@@ -5678,6 +6090,7 @@ def main() -> int:
             rows[name].setdefault("launches_by_path", {})[path] = counts[name]
     run_examples_phase(rows, f32_rate, int32_rate, device_name)
     run_sharding_phase(rows, device_name)
+    run_driving_scripts(rows, device_name)
     print("phase 4e: %d C++ goldens matched (14 GridWorld on the card, "
           "snake_basic on the host)" % n_goldens, flush=True)
     print(json.dumps({"kernels": list(rows.values())}))

@@ -16,6 +16,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..torch_model.base import deterministic_convolutions
 from .base import TorchBaseModel, build_net
 
 
@@ -80,6 +81,7 @@ class AdvantageActorCritic(TorchBaseModel):
             0, self.num_actions - 1)
 
     # ------------------------------------------------------------- training
+    @deterministic_convolutions()
     def train(self, sample_buffer, print_every=1000, **kwargs):
         episodes = list(sample_buffer.episodes())
         n = sum(len(e.rewards) for e in episodes)

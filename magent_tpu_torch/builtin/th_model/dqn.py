@@ -21,6 +21,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..common import ReplayBuffer
+from ..torch_model.base import deterministic_convolutions
 from .base import TorchBaseModel, build_net
 
 
@@ -161,6 +162,7 @@ class DeepQNetwork(TorchBaseModel):
         self.replay_buf_len = min(self.memory_size, self.replay_buf_len + n)
         return n
 
+    @deterministic_convolutions()
     def train(self, sample_buffer, print_every=1000, **kwargs):
         add_num = self._add_to_replay_buffer(sample_buffer)
         n_batches = int(self.train_freq * add_num / self.batch_size)

@@ -25,7 +25,8 @@ from torch import nn
 from ... import random as rnd
 from ...parallel.optim import ClipAdam
 from ...parallel.sharding import linear, matmul, split_of
-from .base import CheckpointModel, compute_dtype, round_up_pow2
+from .base import (CheckpointModel, compute_dtype, deterministic_convolutions,
+                   round_up_pow2)
 from .dqn import DTYPES
 from .flax_params import init_dense_, lecun_normal_
 
@@ -183,6 +184,7 @@ class AdvantageActorCritic(CheckpointModel):
         return scores.argmax(1).to(torch.int32).cpu().numpy()
 
     # ------------------------------------------------------------- training
+    @deterministic_convolutions()
     def train(self, sample_buffer, print_every=1000, **kwargs):
         episodes = list(sample_buffer.episodes())
         n = sum(len(e.rewards) for e in episodes)

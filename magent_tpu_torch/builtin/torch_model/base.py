@@ -19,6 +19,7 @@ on the live rows only.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import re
 
@@ -42,6 +43,25 @@ def latest_epoch(dir_name, name, subclass=None):
     epochs = [int(m.group(1)) for f in os.listdir(path)
               for m in [re.match(pat, f)] if m]
     return max(epochs) if epochs else None
+
+
+@contextlib.contextmanager
+def deterministic_convolutions():
+    """Run the calls inside on cuDNN's deterministic algorithms: saves
+    ``torch.backends.cudnn.deterministic`` and ``.benchmark``, sets them to
+    True and False, and restores both on exit.  Without it the convolution
+    gradients of an f32 train step sum in an order that varies run to run
+    on the card, so one seed gave different parameters; with it a train
+    step from the same key repeats bit for bit.  (Not
+    ``torch.backends.cudnn.flags(...)``: it resets every flag it takes to
+    its default, ``allow_tf32`` among them.)  Also a decorator."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
 
 
 def round_up_pow2(n, lo=64):

@@ -34,7 +34,8 @@ from ...parallel.optim import ClipAdam
 from ...parallel.sharding import linear
 from ..common import ReplayBuffer
 from ...parallel.vec_env import resolve_device
-from .base import CheckpointModel, compute_dtype, round_up_pow2
+from .base import (CheckpointModel, compute_dtype, deterministic_convolutions,
+                   round_up_pow2)
 from .flax_params import (init_dense_, params_from_flax, params_to_flax,
                           tensors_to_flax)
 
@@ -322,6 +323,7 @@ class DeepQNetwork(CheckpointModel):
         self.opt_state = self.tx.update(self.net, self.opt_state)
         return loss.detach(), target.mean()
 
+    @deterministic_convolutions()
     def train(self, sample_buffer, print_every=1000, **kwargs):
         add_num = self._add_to_replay_buffer(sample_buffer)
         batch_size = self.batch_size

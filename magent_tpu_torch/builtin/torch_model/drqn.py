@@ -33,7 +33,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ...parallel.optim import ClipAdam
 from ...parallel.sharding import linear, matmul, split_of
-from .base import CheckpointModel, compute_dtype, round_up_pow2
+from .base import (CheckpointModel, compute_dtype, deterministic_convolutions,
+                   round_up_pow2)
 from .dqn import DTYPES
 from .flax_params import init_dense_
 
@@ -344,6 +345,7 @@ class DeepRecurrentQNetwork(CheckpointModel):
         self.opt_state = self.tx.update(self.net, self.opt_state)
         return loss.detach(), target.mean()
 
+    @deterministic_convolutions()
     def train(self, sample_buffer, print_every=500, **kwargs):
         add_num = self._add_to_replay_buffer(sample_buffer)
         B, U = self.batch_size, self.unroll_step

@@ -23,7 +23,11 @@ Gumbel bits, ``log`` in PyTorch's rounding).  Metrics stay on the device,
 stacked per call; the only host reads inside a step are the env's
 auto-reset checks (one per env step, ``VecGridWorld.transition``).  Python
 loops take the place of ``lax.scan``; the env runs under
-``torch.no_grad`` and only the nets under autograd.
+``torch.no_grad`` and only the nets under autograd.  Each step's rollout
+and learn halves run on cuDNN's deterministic convolutions
+(:func:`~magent_tpu_torch.builtin.torch_model.base.deterministic_convolutions`):
+without them an f32 step's convolution gradients sum in an order that
+varies run to run on the card, so one key gave different parameters.
 
 Data parallelism (:mod:`.sharding`): with a venv on a mesh, each ``dp``
 rank rolls out its own env rows and every draw is made at the global
@@ -45,6 +49,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .. import random as rnd
+from ..builtin.torch_model.base import deterministic_convolutions
 from ..builtin.torch_model.drqn import split_unroll
 from .sharding import all_reduce_flat, sum_dp
 from .vec_env import VecGridWorld
@@ -336,6 +341,7 @@ def make_dqn_train_step(venv: VecGridWorld, tx, gamma: float = 0.99,
                                 group_slice(traj["alive_in"], g)[:-1], gamma)
         return total / sum_dp(denom, mesh).clamp_min(1.0)
 
+    @deterministic_convolutions()
     def rollout(nets, env_state, key, eps):
         def act(state, akey):
             return _egreedy_actions(venv, nets, state, akey, eps,
@@ -343,6 +349,7 @@ def make_dqn_train_step(venv: VecGridWorld, tx, gamma: float = 0.99,
         return _rollout(venv, act, env_state, key, rollout_len,
                         store_obs=True)
 
+    @deterministic_convolutions()
     def learn(nets, target_nets, opt_states, traj, key):
         opt_states = list(opt_states)
         zero = torch.zeros((), device=venv.device)
@@ -425,6 +432,7 @@ def make_dqn_train_step_remat(venv: VecGridWorld, tx, gamma: float = 0.99,
         return _td_loss(q_t, next_v, at(traj["rewards"], idx)[:, sl],
                         terminal, at(traj["alive_in"], idx)[:, sl], gamma)
 
+    @deterministic_convolutions()
     def rollout(nets, env_state, key, eps):
         template = env_state  # grids and walls for the rebuilt states
         def act(state, akey):
@@ -439,6 +447,7 @@ def make_dqn_train_step_remat(venv: VecGridWorld, tx, gamma: float = 0.99,
         traj["template"] = template
         return env_state, traj
 
+    @deterministic_convolutions()
     def learn(nets, target_nets, opt_states, traj, key):
         ts = rnd.randint(key, (sample_steps,), 0, rollout_len).long()
         samples = []
@@ -501,6 +510,7 @@ def make_a2c_train_step(venv: VecGridWorld, tx, gamma: float = 0.99,
     group_slice = _group_slicer(spec)
     mesh = venv.mesh
 
+    @deterministic_convolutions()
     def rollout(nets, env_state, key):
         def act(state, akey):
             live = (state.active & ~state.dead).float()
@@ -543,6 +553,7 @@ def make_a2c_train_step(venv: VecGridWorld, tx, gamma: float = 0.99,
         neg_ent = ent_coef * ((policy * logp).sum(-1) * mask).sum() / msum
         return pg + vf + neg_ent, (value * mask).sum() / msum
 
+    @deterministic_convolutions()
     def learn(nets, opt_states, env_state, traj):
         """The gradient steps, from the post-rollout ``env_state``."""
         opt_states = list(opt_states)
@@ -609,6 +620,7 @@ def make_drqn_train_step(venv: VecGridWorld, tx, gamma: float = 0.99,
         h2, q = net(h.reshape(-1, net.state_size), *_rows(view, feat))
         return h2.reshape(h.shape), q.reshape(h.shape[:2] + (-1,))
 
+    @deterministic_convolutions()
     def rollout(nets, env_state, hiddens, key, eps):
         """-> (env_state, hiddens, traj); with ``share_acting`` the Q values
         ``traj["qs"]`` and the hiddens carry the graph back to the
@@ -675,6 +687,7 @@ def make_drqn_train_step(venv: VecGridWorld, tx, gamma: float = 0.99,
                                 group_slice(traj["alive_in"], g)[:-1], gamma)
         return total / sum_dp(denom, mesh).clamp_min(1.0)
 
+    @deterministic_convolutions()
     def learn(nets, target_nets, opt_states, h0, traj):
         """The gradient steps on the window that started from ``h0``.  The
         groups' losses are separable (they meet only in the env, which
@@ -790,9 +803,10 @@ def _scan_q_loop(train_step, steps_per_call: int, target_update: int,
             nets, opt_states, *carry, m = train_step(
                 nets, target_nets, opt_states, *carry, skey, eps)
             if (int(step0) + t + 1) % target_update == 0:
-                with torch.no_grad():
+                with torch.no_grad():  # None: a scripted group's net
                     for tnet, net in zip(target_nets, nets):
-                        tnet.load_state_dict(net.state_dict())
+                        if tnet is not None:
+                            tnet.load_state_dict(net.state_dict())
             metrics.append(m)
         return (nets, target_nets, opt_states, *carry, _stack(metrics))
 

@@ -42,3 +42,22 @@ def device_ms(fn, reps: int) -> float:
             continue
         per_call.append(start.elapsed_time(end) / reps)
     return statistics.median(per_call)
+
+
+def elapsed_ms(fn, calls: int, device) -> float:
+    """Total ms of ``calls`` back-to-back calls of ``fn``, the profilers'
+    clock: CUDA events recorded around them on the card (read once, after
+    the last call), the host clock on the CPU."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        return (time.perf_counter() - t0) * 1e3
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)

@@ -43,6 +43,41 @@ def place_small(env, handles):
         env.add_agents(h, method="custom", pos=pos)
 
 
+def place_blocks(n, map_size):
+    """-> a ``place``: ``n`` agents a side in two square blocks at the
+    map's left and right edges, mid-height."""
+    side = int(np.ceil(np.sqrt(n)))
+
+    def place(env, handles):
+        y0 = (map_size - side) // 2
+        for h, x0 in zip(handles, (2, map_size - 2 - side)):
+            env.add_agents(h, method="custom", pos=[
+                [x0 + k % side, y0 + k // side] for k in range(n)])
+
+    return place
+
+
+# a DeepQNetwork size at which two runs of train() on cuDNN's default
+# algorithms differed on an H100 (at 3 agents a side and batch 4 none did)
+DQN_REPRO = dict(map_size=40, n=64, batch_size=64)
+
+
+def dqn_train_params(mag, model_cls, device, map_size, n, batch_size):
+    """Two rounds of 6 steps of battle at ``map_size`` with ``n`` agents a
+    side, each group's ``model_cls`` (``DeepQNetwork``) trained after each
+    round, from fixed seeds -> every parameter of both nets."""
+    np.random.seed(17)
+    env = mag.GridWorld("battle", map_size=map_size, device=device)
+    models = [model_cls(env, h, "m%d" % i, batch_size=batch_size,
+                        memory_size=2 ** 16, target_update=3, seed=17 + i,
+                        device=device)
+              for i, h in enumerate(env.get_handles())]
+    rec = play(mag, env, models, 0.5, rounds=2, steps=6,
+               place=place_blocks(n, map_size), capacity=4 * n)
+    assert all(loss != 0 for loss, _ in rec["train"])
+    return [p.detach().clone() for m in models for p in m.net.parameters()]
+
+
 def play(mag, env, models, eps, scores=None, ref=None, rounds=2, steps=6,
          place=place_small, capacity=100):
     """``test_models.py:_run_rounds`` recording every action, reward and
