@@ -280,13 +280,28 @@ Run from the repository root:  python3 chip_smoke.py
     tiger at map 64, B=16, then ``tournament_pursuit`` over pursuit's
     generations, ``eval_checkpoint`` with ``trusty-battle-game-l`` at its
     map 64 and ``tournament`` over two of its epochs at its map 125 (the
-    depth cuts printed); (22c) the five profilers at their defaults, one
-    step of each ``profile_phases`` variant and one iteration of each
-    ``profile_banded`` variant held; (22d) both
+    depth cuts printed); (22c) ``profile_phases``, ``profile_sweep``,
+    ``profile_micro`` and ``profile_banded`` at their defaults, one step of
+    each ``profile_phases`` variant and one iteration of each
+    ``profile_banded`` variant held (``profile_drqn`` runs in phase 16);
+    (22d) both
     fuzzers (the port's leg on the card against its leg on the CPU),
     ``diff_seg_chip`` at n=6000 and n=20000 (the segmented sweeps engaged
     there, bit for bit) and ``search`` cut to one round of one algorithm;
-16. prints the ``kernels`` JSON line, then ``{"ok": true, "device": ...}``
+16. runs the JAX profilers' split variants and the trainers' other forms:
+    ``tools.profile_drqn``'s 13 variants at its default width (battle
+    2x1000, B=16, rollout 8, bf16; ``--calls`` and ``--inner`` cut, as
+    printed), one iteration of each held; ``profile_phases one_group
+    view_only`` (view_only prints its skip line at battle's windows) with
+    one step of ``one_group`` held; ``profile_banded plain`` at 16 x
+    62,500, its sink equal to ``fixed_img``'s at the same positions;
+    ``profile_micro``'s four primitives; one train step of A2C with CommNet
+    nets at bench_train's geometry (ms, launches asserted, its kernel
+    calls held); then GPU = CPU at the small size for A2C with CommNet
+    and DRQN's other five forms (``share_acting`` x ``unroll_remat``),
+    each also twice on the card, bit for bit; each variant's ms printed
+    with the card's name and power limit;
+17. prints the ``kernels`` JSON line, then ``{"ok": true, "device": ...}``
     as the last line.
 
 Any failure raises (exit code 1).  Without a CUDA device it exits with 2
@@ -298,6 +313,7 @@ from __future__ import annotations
 import collections
 import concurrent.futures
 import contextlib
+import copy
 import functools
 import gc
 import json
@@ -3368,10 +3384,12 @@ def run_trainers(f32_rate, int32_rate, device_name, g4_forms, banded_1000):
     return rows, by_alg
 
 
-def small_train_step(alg, device):
+def small_train_step(alg, device, **kw):
     """One step of trainer ``alg`` at the GPU-vs-CPU size, f32, eps 1.0
     for the Q trainers (the actions do not read the Q values), from the
-    trusty weights (``a2c``, ``drqn``: fresh nets from fixed seeds) ->
+    trusty weights (``a2c``, ``drqn``: fresh nets from fixed seeds;
+    ``kw``: A2C's net keywords, DRQN's step keywords over its default
+    ``share_acting``, ``unroll_remat="all"``) ->
     (the step's rollout or, for the DQN forms, a rollout from another key;
     end state; metrics; per group (params, mu, nu) as flat flax dicts;
     the returned hiddens (``drqn``) or the top-two Gumbel score gaps of
@@ -3404,14 +3422,14 @@ def small_train_step(alg, device):
                                     key, 1.0)
     elif alg == "a2c":
         step = par.make_a2c_train_step(venv, tx, rollout_len=T)
-        nets = fresh_nets(alg, venv.spec, dev, torch.float32)
+        nets = fresh_nets(alg, venv.spec, dev, torch.float32, **kw)
         _, traj = step.rollout(nets, state, rkey)
         extra = a2c_margins(venv, nets, traj, rkey)
         nets, opts, state, m = step(nets, tuple(tx.init(n) for n in nets),
                                     state, key)
     else:
-        step = par.make_drqn_train_step(venv, tx, rollout_len=T,
-                                        share_acting=True, unroll_remat="all")
+        step = par.make_drqn_train_step(venv, tx, rollout_len=T, **dict(
+            dict(share_acting=True, unroll_remat="all"), **kw))
         nets = fresh_nets(alg, venv.spec, dev, torch.float32)
         hiddens = par.init_drqn_hiddens(venv, nets)
         with torch.no_grad():
@@ -3477,23 +3495,44 @@ def train_step_errors(got, want):
     return rel, moment_err, param_err, param_any
 
 
-def check_trainers_gpu_match_cpu():
+def assert_steps_equal(a, b, tag):
+    """Two :func:`small_train_step` results bit for bit."""
+    for name in ("actions", "rewards", "alive", "alive_in", "done"):
+        if not torch.equal(a[0][name], b[0][name]):
+            raise AssertionError("%s: rollout %s differs" % (tag, name))
+    assert_state_equal(a[1], b[1], tag)
+    same = all(torch.equal(a[2][k], b[2][k]) for k in a[2]) and all(
+        np.array_equal(x[k], y[k]) for fa, fb in zip(a[3], b[3])
+        for x, y in zip(fa, fb) for k in x) and all(
+        torch.equal(x, y) for x, y in zip(a[4], b[4]))
+    if not same:
+        raise AssertionError("%s: metrics, parameters, moments or hiddens "
+                             "differ" % tag)
+
+
+def check_trainers_gpu_match_cpu(forms=None, repeat=False):
     """Phase 9, last: one step of each fused trainer on the GPU (TF32 off)
     and on the CPU at a small size (:func:`small_train_step`): the rollouts
     and end states equal (A2C: every draw's top two scores on the CPU more
     than TRAIN_MARGIN apart, so equal draws are not luck), losses (and
     A2C's mean values) within TRAIN_LOSS_RTOL, Adam moments and
     parameters as the constants above say, DRQN's returned hiddens within
-    TRAIN_HIDDEN_ATOL."""
-    for alg in TRAINERS:
-        want = small_train_step(alg, "cpu")
-        got = small_train_step(alg, "cuda")
+    TRAIN_HIDDEN_ATOL.  ``forms``: ``{label: (alg, keywords)}`` (default:
+    each of TRAINERS as bench_train builds it); ``repeat``: each also a
+    second time on the GPU, equal to the first bit for bit."""
+    forms = forms or {alg: (alg, {}) for alg in TRAINERS}
+    for label, (alg, kw) in forms.items():
+        want = small_train_step(alg, "cpu", **kw)
+        got = small_train_step(alg, "cuda", **kw)
+        if repeat:
+            assert_steps_equal(got, small_train_step(alg, "cuda", **kw),
+                               "trainer %s, two runs on the card" % label)
         (gt, gs), (ct, cs) = got[:2], want[:2]
         for name in ("actions", "rewards", "alive", "alive_in", "done"):
             if not torch.equal(gt[name].cpu(), ct[name]):
                 raise AssertionError("trainer %s: rollout %s differs between "
-                                     "GPU and CPU" % (alg, name))
-        assert_state_equal(gs, cs, "trainer %s" % alg)
+                                     "GPU and CPU" % (label, name))
+        assert_state_equal(gs, cs, "trainer %s" % label)
         rel, moment_err, param_err, param_any = train_step_errors(got, want)
         if not (rel <= TRAIN_LOSS_RTOL and moment_err <= TRAIN_MOMENT_RTOL
                 and param_err <= TRAIN_PARAM_ATOL
@@ -3501,7 +3540,7 @@ def check_trainers_gpu_match_cpu():
             raise AssertionError(
                 "trainer %s: GPU vs CPU loss rel error %g (tol %g), moments "
                 "%g (tol %g), settled params %g (tol %g), params %g (tol %g)"
-                % (alg, rel, TRAIN_LOSS_RTOL, moment_err, TRAIN_MOMENT_RTOL,
+                % (label, rel, TRAIN_LOSS_RTOL, moment_err, TRAIN_MOMENT_RTOL,
                    param_err, TRAIN_PARAM_ATOL, param_any,
                    2 * TRAIN_LR + TRAIN_PARAM_ATOL))
         note = ""
@@ -3517,15 +3556,17 @@ def check_trainers_gpu_match_cpu():
             h_err = max(float((a.cpu() - b).abs().max())
                         for a, b in zip(got[4], want[4]))
             if not h_err <= TRAIN_HIDDEN_ATOL:
-                raise AssertionError("trainer drqn: hiddens %g apart (tol %g)"
-                                     % (h_err, TRAIN_HIDDEN_ATOL))
+                raise AssertionError("trainer %s: hiddens %g apart (tol %g)"
+                                     % (label, h_err, TRAIN_HIDDEN_ATOL))
             note = ", hiddens within %.3g" % h_err
+        if repeat:
+            note += ", two runs on the card bit for bit"
         print("GPU vs CPU: trainer %s, battle map %d, %s, B=%d, rollout %d, "
               "f32%s: rollouts and end states equal%s, losses within "
               "%.3g relative, Adam moments within %.3g of each tensor's "
               "largest, parameters with a settled gradient sign within %.3g "
               "(all within %.3g)" % (
-                  alg, TRAIN_SMALL_MAP, TRAIN_SMALL_CAPS, TRAIN_SMALL_ENVS,
+                  label, TRAIN_SMALL_MAP, TRAIN_SMALL_CAPS, TRAIN_SMALL_ENVS,
                   TRAIN_SMALL_T, "" if alg == "a2c" else ", eps 1.0", note,
                   rel, moment_err, param_err, param_any), flush=True)
 
@@ -5670,20 +5711,20 @@ def check_reproducible(device_name):
     return out
 
 
-def hold_calls(calls, label):
+def hold_calls(calls, label, phase=15):
     """Each recorded ``(counter, args, kwargs)`` kernel call held against
     its plain version (:func:`hold_call`) -> the largest error."""
     err = 0.0
     for k, (name, args, kwargs) in enumerate(calls):
         err = max(err, hold_call(name, args, kwargs,
                                  "%s, call %d" % (label, k))[2])
-    print("phase 15 %s: %d kernel calls (%s) equal their plain versions "
-          "(max abs error %g)" % (label, len(calls), json.dumps(dict(
+    print("phase %d %s: %d kernel calls (%s) equal their plain versions "
+          "(max abs error %g)" % (phase, label, len(calls), json.dumps(dict(
               collections.Counter(c[0] for c in calls))), err), flush=True)
     return err
 
 
-def run_module(rows, label, fn):
+def run_module(rows, label, fn, phase=15):
     """``fn()`` (a module's main) with the launch counters set to 0 before
     it and read after, into ``rows``' ``launches_by_path`` -> (its result,
     the counts, seconds)."""
@@ -5698,7 +5739,7 @@ def run_module(rows, label, fn):
     counts = {k: v for k, v in ops.launch_counts().items() if v}
     for name, n in counts.items():
         rows[name].setdefault("launches_by_path", {})[label] = n
-    print("phase 15 %s: %.1f s, launches %s" % (label, dt,
+    print("phase %d %s: %.1f s, launches %s" % (phase, label, dt,
                                                 json.dumps(counts)),
           flush=True)
     return result, counts, dt
@@ -5815,17 +5856,16 @@ def run_evidence_paths(rows):
 
 
 def run_profilers(rows):
-    """Phase 15 (22c): the five profilers at their defaults; one iteration
-    of each kernel path they add held against the plain versions."""
+    """Phase 15 (22c): four profilers at their defaults (``profile_drqn``
+    in phase 16); one iteration of each kernel path they add held against
+    the plain versions."""
     from magent_tpu_torch import random as rnd
-    from magent_tpu_torch.tools import (profile_banded, profile_drqn,
-                                        profile_micro, profile_phases,
-                                        profile_sweep)
+    from magent_tpu_torch.tools import (profile_banded, profile_micro,
+                                        profile_phases, profile_sweep)
 
     dev = torch.device("cuda")
     for name, mod in (("profile_phases", profile_phases),
                       ("profile_sweep", profile_sweep),
-                      ("profile_drqn", profile_drqn),
                       ("profile_micro", profile_micro),
                       ("profile_banded", profile_banded)):
         out = run_module(rows, "tools.%s at its defaults" % name,
@@ -5941,6 +5981,195 @@ def run_driving_scripts(rows, device_name):
     return dt
 
 
+# phase 16: the JAX profilers' split variants and the trainers' forms that
+# bench_train does not build.  profile_drqn runs its 13 variants at its
+# default width with its depth cut (its defaults: 4 calls of 4 iterations)
+P16_DRQN_CUT = ["--calls", "1", "--inner", "2"]
+P16_MICRO = ("row_gather", "scatter_max", "scatter_set", "rand_bits")
+P16_A2C_STEPS = 3  # timed A2C+CommNet train steps, after a warm one
+P16_FORMS = {
+    "a2c+CommNet": ("a2c", dict(use_comm=True)),
+    "drqn share_acting, unroll_remat False": (
+        "drqn", dict(share_acting=True, unroll_remat=False)),
+    "drqn share_acting, unroll_remat dots": (
+        "drqn", dict(share_acting=True, unroll_remat="dots")),
+    "drqn two unrolls, unroll_remat False": (
+        "drqn", dict(share_acting=False, unroll_remat=False)),
+    "drqn two unrolls, unroll_remat dots": (
+        "drqn", dict(share_acting=False, unroll_remat="dots")),
+    "drqn two unrolls, unroll_remat all": (
+        "drqn", dict(share_acting=False, unroll_remat="all")),
+}
+
+
+def print_variants(label, out, unit, card):
+    """Each ``{variant: (ms, sink)}`` of a profiler's ``main`` printed with
+    the card; fails on a time not above 0 or a sink not finite."""
+    for name, (ms, sink) in out.items():
+        if not (ms > 0 and math.isfinite(sink)):
+            raise AssertionError("%s %s: %s ms, sink %s" % (label, name, ms,
+                                                            sink))
+        print("phase 16 %s %-15s %9.3f %s on %s" % (label, name, ms, unit,
+                                                     card), flush=True)
+
+
+def run_drqn_split(rows, card):
+    """Phase 16: ``tools.profile_drqn``'s 13 variants at its default width,
+    then one iteration of each recorded and its kernel calls held."""
+    from magent_tpu_torch import random as rnd
+    from magent_tpu_torch.tools import profile_drqn
+
+    dev = torch.device("cuda")
+    print("phase 16 cuts: profile_drqn %s (its --calls 4 --inner 4)"
+          % " ".join(P16_DRQN_CUT), flush=True)
+    out = run_module(rows, "tools.profile_drqn, its 13 variants",
+                     lambda: profile_drqn.main(P16_DRQN_CUT), phase=16)[0]
+    if list(out) != list(profile_drqn.VARIANTS):
+        raise AssertionError("profile_drqn ran %s" % list(out))
+    print_variants("tools.profile_drqn", out, "ms per env step", card)
+    variants, _ = profile_drqn.build(profile_drqn.cli().parse_args([]), dev)
+    for name, (fn, operands) in variants.items():
+        ops_ = copy.deepcopy(operands)
+        hold_calls(record_launched(lambda: fn(rnd.PRNGKey(5, dev), *ops_)),
+                   "tools.profile_drqn %s, one iteration" % name, phase=16)
+        del ops_
+    del variants
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_opt_in_profilers(rows, card):
+    """Phase 16: ``profile_phases one_group view_only`` (one step of each
+    variant that runs held), ``profile_banded plain`` at its default 16 x
+    62,500 (its peak memory; its sink equal to ``fixed_img``'s at the same
+    moved positions, whose kernel call is held) and ``profile_micro``'s
+    primitives."""
+    from magent_tpu_torch import random as rnd
+    from magent_tpu_torch.tools import (profile_banded, profile_micro,
+                                        profile_phases)
+
+    dev = torch.device("cuda")
+    opt_in = list(profile_phases.OPT_IN)
+    out = run_module(rows, "tools.profile_phases %s" % " ".join(opt_in),
+                     lambda: profile_phases.main(opt_in), phase=16)[0]
+    if sorted(out) != ["one_group"]:  # battle's 13 x 13 x 7 windows skip
+        raise AssertionError("profile_phases ran %s" % sorted(out))
+    print_variants("tools.profile_phases", out, "ms per step", card)
+    pargs = profile_phases.cli().parse_args(opt_in)
+    venv = profile_phases.build(pargs, dev)
+    for name, (v, body) in profile_phases.variant_bodies(
+            venv, pargs.variants, profile_phases.phase_context(venv)).items():
+        state = v.reset(rnd.PRNGKey(0, dev))
+        hold_calls(record_launched(lambda: bench.run(
+            v, state, rnd.PRNGKey(1, dev), 1, body)),
+            "tools.profile_phases %s, one step" % name, phase=16)
+    del venv, v, state
+    torch.cuda.empty_cache()
+
+    out = run_module(rows, "tools.profile_banded plain, 16 x 62,500",
+                     lambda: profile_banded.main(["plain"]), phase=16)[0]
+    print_variants("tools.profile_banded", out, "ms per iteration", card)
+    bodies, key = profile_banded.build(profile_banded.cli().parse_args(
+        ["plain"]), dev)
+    k = rnd.fold_in(key, 0)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        plain = float(bodies["plain"](k))
+        peak = torch.cuda.max_memory_allocated() - base
+        kernel = float(bodies["fixed_img"](k))
+        hold_calls(record_launched(lambda: bodies["fixed_img"](k)),
+                   "tools.profile_banded fixed_img at plain's positions",
+                   phase=16)
+    if plain != kernel:
+        raise AssertionError("profile_banded: plain's sink %r, the kernel's "
+                             "%r" % (plain, kernel))
+    print("phase 16 tools.profile_banded plain: sink %r equal to the "
+          "kernel's (fixed_img) at the same positions; %.3f GB of device "
+          "memory above its operands at its peak" % (plain, peak / 1e9),
+          flush=True)
+    del bodies
+    torch.cuda.empty_cache()
+
+    out = run_module(rows, "tools.profile_micro %s" % " ".join(P16_MICRO),
+                     lambda: profile_micro.main(list(P16_MICRO)), phase=16)[0]
+    print_variants("tools.profile_micro", out, "ms per step", card)
+
+
+def run_a2c_comm(rows, card):
+    """Phase 16: the fused A2C trainer with CommNet nets (fresh, seeded) at
+    bench_train's geometry (battle 2x1000, B=16, rollout 8, bf16 views
+    and trunk): a warm train step, P16_A2C_STEPS timed ones (synchronized
+    host clock), their launches asserted, one more step's kernel calls
+    held."""
+    from magent_tpu_torch import ops
+    from magent_tpu_torch import random as rnd
+    from magent_tpu_torch.builtin.config import battle
+    from magent_tpu_torch.parallel import ClipAdam, VecGridWorld
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    venv = VecGridWorld(battle.get_config(MAP_SIZE),
+                        [N_PER_GROUP, N_PER_GROUP], n_envs=N_ENVS,
+                        obs_dtype=bf16, device=dev)
+    nets = fresh_nets("a2c", venv.spec, dev, bf16, use_comm=True)
+    loop, carry = bench_train.trainer_loop(
+        "a2c", venv, ClipAdam(TRAIN_LR, bench_train.CLIP), bf16, nets,
+        **bench_train.loop_kwargs(bench_train.cli().parse_args(["a2c"])))
+    step, key = loop.train_step, rnd.PRNGKey(2, dev)
+    float(train_once("a2c", step, carry, key)["loss"].sum())
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = torch.stack([train_once("a2c", step, carry,
+                                     rnd.fold_in(key, s + 1))["loss"]
+                          for s in range(P16_A2C_STEPS)]).cpu()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / P16_A2C_STEPS * 1e3
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    n_env = TRAIN_ROLLOUT * P16_A2C_STEPS
+    expected = dict(window_gather_bf16=2 * n_env + LEARNER_VIEWS["a2c"]
+                    * P16_A2C_STEPS, occupant=n_env, rank_prefix=n_env,
+                    move_resolve=n_env)
+    if counts != expected:
+        raise AssertionError("a2c+CommNet: launches %s, expected %s"
+                             % (counts, expected))
+    if not bool(torch.isfinite(losses).all()):
+        raise AssertionError("a2c+CommNet: losses %s" % losses.tolist())
+    label = "trainer a2c+CommNet, %d train steps" % P16_A2C_STEPS
+    for name, n in counts.items():
+        rows[name].setdefault("launches_by_path", {})[label] = n
+    print("phase 16 trainer a2c+CommNet: battle 2x%d, map %d, B=%d, rollout "
+          "%d, bf16 views and trunk, fresh nets: %.3f ms per train step "
+          "(%d synchronized steps), %.1f trained agent-steps/s on %s; "
+          "losses %s; launches per train step %s" % (
+              N_PER_GROUP, MAP_SIZE, N_ENVS, TRAIN_ROLLOUT, ms,
+              P16_A2C_STEPS, 2 * N_PER_GROUP * N_ENVS * TRAIN_ROLLOUT
+              / (ms / 1e3), card, losses[-1].tolist(), json.dumps(
+                  {k: v / P16_A2C_STEPS for k, v in counts.items()})),
+          flush=True)
+    hold_calls(record_launched(lambda: train_once(
+        "a2c", step, carry, rnd.fold_in(key, 99))),
+        "trainer a2c+CommNet, one train step", phase=16)
+    del loop, step, carry, venv, nets
+    torch.cuda.empty_cache()
+    return ms
+
+
+def run_split_phase(rows, card):
+    """Phase 16 -> seconds."""
+    t0 = time.perf_counter()
+    run_drqn_split(rows, card)
+    run_opt_in_profilers(rows, card)
+    run_a2c_comm(rows, card)
+    check_trainers_gpu_match_cpu(P16_FORMS, repeat=True)
+    dt = time.perf_counter() - t0
+    print("phase 16 (the profilers' split variants, the trainers' other "
+          "forms) took %.1f s" % dt, flush=True)
+    return dt
+
+
 def _flat(items):
     for item in items:
         if isinstance(item, list):
@@ -5961,7 +6190,8 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True, text=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
     t0 = time.perf_counter()
     log = _build.build(force=True)
     _build.lib()
@@ -6091,6 +6321,7 @@ def main() -> int:
     run_examples_phase(rows, f32_rate, int32_rate, device_name)
     run_sharding_phase(rows, device_name)
     run_driving_scripts(rows, device_name)
+    run_split_phase(rows, card)
     print("phase 4e: %d C++ goldens matched (14 GridWorld on the card, "
           "snake_basic on the host)" % n_goldens, flush=True)
     print(json.dumps({"kernels": list(rows.values())}))

@@ -183,12 +183,18 @@ def render_image(spec, group, packed, lanes):
 
 
 def window_layout(spec: speclib.GameSpec, group: int, geometry, device):
-    """Window math for one observer group: ``mask`` ([vh, vw*C] f32 on
-    ``device``) and ``pos_fn(state) -> [B, cap]`` int32 top-left cells
-    ``tl_y * Wp + tl_x`` in the padded image."""
+    """Window math and route of one observer group, as :func:`make_observe`
+    takes them (JAX ``core/observe.py:168-195``; shared with the profilers
+    so that they measure the path that runs): ``vh``, ``vw``; ``mask`` ([vh, vw*C]
+    f32 on ``device``); ``pos_fn(state) -> [B, cap]`` int32 top-left cells
+    ``tl_y * Wp + tl_x`` in the padded image; ``banded`` (the group takes
+    ``window_gather_banded``) and its ``chunk``; ``replica_ok`` (it takes
+    ``window_gather4``).  The routes read ``VMEM_IMAGE_BUDGET`` and
+    ``_BAND_BUDGET`` when called."""
     t = spec.groups[group].type
     gs = spec.groups[group]
     vr = t.view_range
+    vh, vw = vr.height, vr.width
     C = spec.n_channel
     Hp, Wp, lanes, pad_y, pad_x = geometry
     mask = torch.as_tensor(np.repeat(vr.mask.astype(np.float32), C, axis=1),
@@ -200,7 +206,14 @@ def window_layout(spec: speclib.GameSpec, group: int, geometry, device):
         tly = state.y[:, sl] + t.view_y_offset + vr.y1 + pad_y
         return (tly * Wp + tlx).to(torch.int32).contiguous()
 
-    return dict(mask=mask, pos_fn=pos_fn)
+    rows_margin = wg._ceil_to(vh + 7, 8)
+    banded = (Hp * lanes * 4 > VMEM_IMAGE_BUDGET
+              and (_BAND_ROWS + rows_margin) * lanes * 4 <= _BAND_BUDGET)
+    replica = (not banded and vh <= 13 and vw * C <= 65
+               and 4 * Hp * lanes * 4 <= VMEM_IMAGE_BUDGET
+               and Hp * Wp <= wg.PACKED_CELLS)
+    return dict(vh=vh, vw=vw, mask=mask, pos_fn=pos_fn, banded=banded,
+                chunk=min(40, -(-gs.cap // 8) * 8), replica_ok=replica)
 
 
 def _minimap_tables(spec: speclib.GameSpec, group: int, vh: int, vw: int):
@@ -334,13 +347,9 @@ def make_observe(spec: speclib.GameSpec, group: int,
     scale_h = (H + vh - 1) // vh
     scale_w = (W + vw - 1) // vw
 
-    rows_margin = wg._ceil_to(vh + 7, 8)
-    banded = (Hp * lanes * 4 > VMEM_IMAGE_BUDGET
-              and (_BAND_ROWS + rows_margin) * lanes * 4 <= _BAND_BUDGET)
-    band_chunk = min(40, -(-gs.cap // 8) * 8)
-    replica = (not banded and vh <= 13 and vw * C <= 65
-               and 4 * Hp * lanes * 4 <= VMEM_IMAGE_BUDGET
-               and Hp * Wp <= wg.PACKED_CELLS)
+    route = window_layout(spec, group, grids_fn.geometry, "cpu")
+    banded, replica = route["banded"], route["replica_ok"]
+    band_chunk = route["chunk"]
     # 1x1 bodies pool the rendered grid with binning matmuls; multi-cell
     # bodies, and can_absorb observers, which count only the agents not
     # absorbed, pool the anchors by a scatter (observe.py:291-326)

@@ -19,8 +19,9 @@ Semantics (jax/_src/prng.py, partitionable mode):
 - ``bits(key, shape)`` at flat index n = ``w0 ^ w1`` of
   ``threefry(key, (n >> 32, n & 0xFFFFFFFF))``;
 - ``uniform`` puts the top 23 bits of ``bits`` in a float's mantissa in
-  [1, 2) and subtracts 1; ``gumbel`` and ``categorical`` build on it
-  (``-log(-log(u))``, the Gumbel-max draw);
+  [1, 2) and subtracts 1; ``normal``, ``gumbel`` and ``categorical``
+  build on it (``sqrt(2) * erf_inv(u)``, ``-log(-log(u))``, the
+  Gumbel-max draw);
 - ``randint`` (int32) draws ``hi`` and ``lo`` words from the two halves of
   ``split(key)`` and returns ``minval + ((hi % span) * m + lo % span) %
   span`` with ``m = (2**16 % span)**2 % span``, every product and sum
@@ -117,6 +118,39 @@ def uniform(key: torch.Tensor, shape, minval: float = 0.0,
     lo, hi = np.float32(minval), np.float32(maxval)
     scaled = f.double() * float(hi - lo) + float(lo)
     return scaled.float().clamp_min(float(lo))
+
+
+# XLA's f32 erf_inv (M. Giles' single-precision approximation): the
+# polynomial's coefficients in w = -log1p(-x * x), for w < 5 and w >= 5
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def _erf_inv(x):
+    """XLA's float32 ``erf_inv`` on ``x`` in (-1, 1), the same polynomial
+    in the same order; its ``log1p`` is PyTorch's, and XLA may fuse a
+    multiply-add, so the two differ by an ulp or two here and there."""
+    w = -torch.log1p(-x * x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    p = None
+    for lo_c, hi_c in zip(_ERFINV_LT5, _ERFINV_GE5):
+        c = torch.where(lt, lo_c, hi_c).to(x.dtype)
+        p = c if p is None else c + p * w
+    return p * x
+
+
+def normal(key: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.normal``, float32: ``sqrt(2) * erf_inv(u)`` of ``u =
+    uniform(key, shape, nextafter(-1, 0), 1)``; ``u`` bit for bit,
+    ``erf_inv`` as :func:`_erf_inv`."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    return _erf_inv(uniform(key, shape, lo, 1.0)) * float(
+        np.float32(np.sqrt(2)))
 
 
 def gumbel(key: torch.Tensor, shape) -> torch.Tensor:

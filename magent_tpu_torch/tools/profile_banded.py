@@ -16,8 +16,14 @@ iterations per call, a warm-up call and ``--calls`` timed calls, and each
 iteration's input depends on the iteration's key (``k = fold_in(k, t)``),
 so that no call repeats the previous one's work.  ``fixed_pos`` keeps the
 positions and ``fixed_img`` the image from one iteration to the next, as
-the JAX variants do to hoist SORT or PACK out of its loop.  The JAX
-script's opt-in ``xla`` variant is not ported.
+the JAX variants do to hoist SORT or PACK out of its loop.  ``plain``,
+run only when named (the JAX script's opt-in ``xla``), is the gather's
+plain PyTorch version (``window_gather_ref``) on ``fixed_img``'s moved
+positions.  At 16 x 62,500 it holds about 17.5 GB of the card at its
+peak, beside its 0.45 GB image: PyTorch's advanced indexing broadcasts
+the env, row and lane indices to the windows' shape, 16 x 62,500 x 11 x
+55, as three int64 tensors of 4.84 GB, beside the 2.42 GB of f32 windows
+(17.489 GB measured on an H100 by ``chip_smoke.py`` phase 16).
 
     python -m magent_tpu_torch.tools.profile_banded --n_envs 16
         --per_env 62500 [variants ...] [--device cpu]
@@ -38,7 +44,7 @@ from .timing import elapsed_ms
 
 VARIANTS = ("full", "fixed_pos", "fixed_img", "kernel", "pack", "sort",
             "unsort", "unsort_flat", "unsort_lane", "unsort_scatter",
-            "unsort_bf16")
+            "unsort_bf16", "plain")
 DEFAULTS = ("full", "fixed_pos", "fixed_img", "pack", "sort", "unsort",
             "unsort_flat", "unsort_lane", "unsort_scatter", "unsort_bf16")
 FUSED = {"pack": "the kernel reads the image in place: no band slab copy",
@@ -56,7 +62,9 @@ def cli():
     ap.add_argument("--band_rows", type=int, default=32)
     ap.add_argument("--chunk", type=int, default=40)
     ap.add_argument("variants", nargs="*", default=list(DEFAULTS),
-                    help="of %s" % " ".join(VARIANTS))
+                    help="of %s (default: all but plain, which holds "
+                    "about 17.5 GB of the card at 16 x 62,500)"
+                    % " ".join(VARIANTS))
     ap.add_argument("--device", default=None,
                     help="default: the card (raises without one)")
     return ap
@@ -125,8 +133,12 @@ def build(args, device):
         return (pos_pad[:, ::64].sum() + inv[:, ::64].sum()
                 + chunk_band[:, ::8].sum())
 
+    def plain(k):
+        return sink_windows(wg.window_gather_ref(img, moved(k, pos0), mask,
+                                                 vh=vh, vw=vw, C=C, Wp=Wp))
+
     return dict(full=full, fixed_pos=fixed_pos, fixed_img=fixed_img,
-                kernel=kernel, sort=sort), key
+                kernel=kernel, sort=sort, plain=plain), key
 
 
 def main(argv=None):

@@ -10,13 +10,21 @@ input.  The phase variants call the engine's internals as
 ``core.engine.make_step`` does: ``_attack_phase`` and ``_move_phase`` on
 the route and tables of the venv's own step (the JAX script calls its
 grid-path forms; both routes give the same state), the rule plans'
-``apply``, ``observe.render_image`` on the packed grid.  The JAX script's
-opt-in ``one_group`` and ``view_only`` are not ported.  Its
+``apply``, ``observe.render_image`` on the packed grid.  Two variants
+run only when named, as in the JAX script: ``one_group``, group 0's
+observation alone (``venv.observe(state, 0)``, the JAX
+``venv._observe1[0]``), and ``view_only``, each group rendered and
+windowed by ``window_gather4`` (PERF.md §6 row 12) with no minimap,
+liveness or features, at the positions and mask of
+``observe.window_layout``, the observation's own; where a group's window
+does not take ``window_gather4`` (battle's 13 x 13 x 7: ``vw * C`` past
+65), it prints the JAX script's skip line.  The JAX script's
 ``BENCH_N_ENVS``, ``BENCH_STEPS`` and ``BENCH_CALLS`` are ``--n_envs``,
 ``--steps`` and ``--calls``.
 
     python -m magent_tpu_torch.tools.profile_phases [variant ...]
         [--device cpu]
+    python -m magent_tpu_torch.tools.profile_phases one_group view_only
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ import torch
 from .. import random as rnd
 from ..builtin.config import battle
 from ..core import engine, observe
+from ..ops import window_gather as wg
 from ..parallel import VecGridWorld, resolve_device
 from ..parallel.vec_env import _wall_map
 from . import bench
@@ -38,6 +47,9 @@ N_PER_GROUP = 1000
 MAP_SIZE = 200
 VARIANTS = ("full", "obs_only", "step_only", "attack_only", "move_only",
             "grids_only", "render_only", "kernel_only", "rules_only")
+OPT_IN = ("one_group", "view_only")  # run only when named
+VIEW_SKIPPED = ("view_only: skipped (window_gather4 size constraints not "
+                "met for this geometry)")
 
 
 def obs_sink(venv, state, full=False):
@@ -101,6 +113,19 @@ def phase_body(venv, phase, ctx):
     return body
 
 
+def view_windows(venv, layouts, state):
+    """``view_only``'s work (``profile_phases.py:165-195``): each group's
+    image rendered from one packed grid and windowed by ``window_gather4``
+    at its ``observe.window_layout`` -> per group [B, cap, vh, vw*C]."""
+    spec = venv.spec
+    _, Wp, lanes = venv._grids.geometry[:3]
+    g = venv._grids(state)
+    return [wg.window_gather4(
+        observe.render_image(spec, grp, g, lanes),
+        lo["pos_fn"](state) * 1024, lo["mask"], vh=lo["vh"], vw=lo["vw"],
+        C=spec.n_channel, Wp=Wp) for grp, lo in enumerate(layouts)]
+
+
 def variant_bodies(venv, which, ctx):
     """{name: (venv, body)} of the variants in ``which``."""
     spec = venv.spec
@@ -131,6 +156,20 @@ def variant_bodies(venv, which, ctx):
     def kernel_only(venv, state, key):
         return nudged(state), key, obs_sink(venv, state)
 
+    def one_group(venv, state, key):
+        view, feat = venv.observe(state, 0)
+        return (nudged(state), key,
+                view[:, :, 0, 0, 0].sum() + feat[:, 0, 0].sum())
+
+    def view_only(layouts):
+        def body(venv, state, key):
+            s = 0.0
+            for view in view_windows(venv, layouts, state):
+                s = s + view[:, :, 0, 0].sum()
+            return nudged(state), key, s
+
+        return body
+
     out = {}
     for name in which:
         if name == "full":
@@ -142,12 +181,23 @@ def variant_bodies(venv, which, ctx):
         elif name.endswith("_only") and name[:-5] in ("attack", "move",
                                                       "rules"):
             out[name] = (venv, phase_body(venv, name[:-5], ctx))
-        elif name in ("grids_only", "render_only") and lanes is None:
+        elif name in ("grids_only", "render_only", "one_group",
+                      "view_only") and lanes is None:
             print("%s: no grids_fn on this obs path" % name, flush=True)
         elif name == "grids_only":
             out[name] = (venv, grids_only)
         elif name == "render_only":
             out["grids+render"] = (venv, render_only)
+        elif name == "one_group":
+            out[name] = (venv, one_group)
+        elif name == "view_only":
+            layouts = [observe.window_layout(spec, grp, venv._grids.geometry,
+                                             venv.device)
+                       for grp in range(spec.n_groups)]
+            if all(lo["replica_ok"] for lo in layouts):
+                out[name] = (venv, view_only(layouts))
+            else:
+                print(VIEW_SKIPPED, flush=True)
         elif name == "kernel_only":
             # full observe minus minimap work: the spec with minimap off
             cfg2 = battle.get_config(MAP_SIZE)
@@ -180,7 +230,8 @@ def timed(name, venv, body, state, key, steps, calls, agents):
 def cli():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("variants", nargs="*", default=list(VARIANTS),
-                    help="of %s" % " ".join(VARIANTS))
+                    help="of %s (default: all but the last two)"
+                    % " ".join(VARIANTS + OPT_IN))
     ap.add_argument("--n_envs", type=int, default=16)
     ap.add_argument("--steps", type=int, default=64)
     ap.add_argument("--calls", type=int, default=3)
@@ -200,8 +251,8 @@ def main(argv=None):
     """-> {variant: (ms per step, sink)}."""
     ap = cli()
     args = ap.parse_args(argv)
-    if set(args.variants) - set(VARIANTS):
-        ap.error("variants are %s" % " ".join(VARIANTS))
+    if set(args.variants) - set(VARIANTS + OPT_IN):
+        ap.error("variants are %s" % " ".join(VARIANTS + OPT_IN))
     device = resolve_device(args.device)
     venv = build(args, device)
     agents = 2 * N_PER_GROUP * args.n_envs

@@ -943,11 +943,11 @@ def test_train_step_gpu_matches_cpu(cuda, remat):
                                 param_atol=2e-5, tag="group %d" % g)
 
 
-def _fresh(cls, spec, device):
+def _fresh(cls, spec, device, **kw):
     return tuple(cls(spec.view_space(g), spec.feature_size(g),
                      spec.groups[g].type.n_action,
-                     generator=torch.Generator().manual_seed(16 + g)).to(
-                         device) for g in range(spec.n_groups))
+                     generator=torch.Generator().manual_seed(16 + g),
+                     **kw).to(device) for g in range(spec.n_groups))
 
 
 def _a2c_gaps(venv, nets, traj, rkey):
@@ -970,47 +970,92 @@ def _a2c_gaps(venv, nets, traj, rkey):
     return torch.cat(gaps)
 
 
-@pytest.mark.parametrize("alg", ["a2c", "drqn"])
-def test_a2c_drqn_step_gpu_matches_cpu(cuda, alg):
-    """One fused A2C step (fresh nets, no CommNet) and one DRQN step
-    (fresh nets, ``share_acting``, ``unroll_remat="all"``, eps 1.0) at
-    battle map 20, [6, 6], B=4, rollout 3, f32 with TF32 off: the
-    rollouts and end states equal (A2C: every draw's top two scores on the
-    CPU more than 1e-5 apart, so the equal draws are not luck); losses
-    (A2C's mean values too) within rtol 1e-5; DRQN's hiddens within 1e-5;
-    the Adam moments and parameters by ``test_train_step_gpu_matches_cpu``'s
-    rule."""
+# the A2C and DRQN trainers' forms: (trainer, keywords); A2C's go to its
+# nets, DRQN's to make_drqn_train_step
+TRAINER_FORMS = {
+    "a2c": ("a2c", {}),
+    "a2c-comm": ("a2c", dict(use_comm=True)),
+    "drqn": ("drqn", dict(share_acting=True, unroll_remat="all")),
+    "drqn-share-none": ("drqn", dict(share_acting=True, unroll_remat=False)),
+    "drqn-share-dots": ("drqn", dict(share_acting=True, unroll_remat="dots")),
+    "drqn-noshare-none": ("drqn", dict(share_acting=False,
+                                       unroll_remat=False)),
+    "drqn-noshare-dots": ("drqn", dict(share_acting=False,
+                                       unroll_remat="dots")),
+    "drqn-noshare-all": ("drqn", dict(share_acting=False,
+                                      unroll_remat="all")),
+}
+
+
+def _trainer_step(form, d):
+    """One step of trainer form ``form`` on device ``d`` at the size below
+    -> (rollout, end state, metrics, step_flat, hiddens or A2C's gaps)."""
     from magent_tpu_torch.builtin.torch_model import A2CNet, DRQNNet
     from magent_tpu_torch.parallel import (init_drqn_hiddens,
                                            make_a2c_train_step,
                                            make_drqn_train_step)
 
-    out = {}
+    alg, kw = TRAINER_FORMS[form]
+    venv = VecGridWorld(battle.get_config(20), [6, 6], 4, device=d)
+    tx = ClipAdam(1e-4, 5.0)
+    state = venv.reset(trandom.PRNGKey(0).to(d))
+    key = trandom.PRNGKey(2).to(d)
+    rkey = trandom.split(key)[1]
+    if alg == "a2c":
+        step = make_a2c_train_step(venv, tx, rollout_len=3)
+        nets = _fresh(A2CNet, venv.spec, d, **kw)
+        _, traj = step.rollout(nets, state, rkey)
+        extra = _a2c_gaps(venv, nets, traj, rkey)
+        nets, opts, state, m = step(
+            nets, tuple(tx.init(n) for n in nets), state, key)
+    else:
+        step = make_drqn_train_step(venv, tx, rollout_len=3, **kw)
+        nets = _fresh(DRQNNet, venv.spec, d)
+        h0 = init_drqn_hiddens(venv, nets)
+        with torch.no_grad():
+            _, _, traj = step.rollout(nets, state, h0, rkey, 1.0)
+        nets, opts, state, extra, m = step(
+            nets, _fresh(DRQNNet, venv.spec, d),
+            tuple(tx.init(n) for n in nets), state, h0, key, 1.0)
+    return traj, state, m, step_flat(nets, opts), extra
+
+
+def _assert_same_step(a, b):
+    """Two :func:`_trainer_step` results bit for bit."""
+    (at, as_, am, af, ae), (bt, bs, bm, bf, be) = a, b
+    for name in ("actions", "rewards", "alive", "alive_in", "done"):
+        assert torch.equal(at[name], bt[name]), name
+    for name in FIELDS:
+        assert torch.equal(getattr(as_, name), getattr(bs, name)), name
+    for name in am:
+        assert torch.equal(am[name], bm[name]), name
+    for x, y in zip(ae, be):
+        assert torch.equal(x, y)
+    for (ap_, amom), (bp, bmom) in zip(af, bf):
+        for p, q in zip((ap_,) + amom, (bp,) + bmom):
+            assert sorted(p) == sorted(q)
+            for k in p:
+                np.testing.assert_array_equal(p[k], q[k], err_msg=k)
+
+
+@pytest.mark.parametrize("form", sorted(TRAINER_FORMS))
+def test_a2c_drqn_step_gpu_matches_cpu(cuda, form):
+    """One fused A2C step (fresh nets, without and with CommNet) and one
+    DRQN step (fresh nets, eps 1.0; ``share_acting`` with ``unroll_remat``
+    "all", False and "dots", and without it with False, "dots" and "all")
+    at battle map 20, [6, 6], B=4, rollout 3, f32 with TF32 off: the
+    rollouts and end states equal (A2C: every draw's top two scores on the
+    CPU more than 1e-5 apart, so the equal draws are not luck); losses
+    (A2C's mean values too) within rtol 1e-5; DRQN's hiddens within 1e-5;
+    the Adam moments and parameters by ``test_train_step_gpu_matches_cpu``'s
+    rule.  Two runs on the card, on cuDNN's default algorithm choice (the
+    trainers' halves run under ``deterministic_convolutions``), equal bit
+    for bit."""
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-        for d in (cuda, torch.device("cpu")):
-            venv = VecGridWorld(battle.get_config(20), [6, 6], 4, device=d)
-            tx = ClipAdam(1e-4, 5.0)
-            state = venv.reset(trandom.PRNGKey(0).to(d))
-            key = trandom.PRNGKey(2).to(d)
-            rkey = trandom.split(key)[1]
-            if alg == "a2c":
-                step = make_a2c_train_step(venv, tx, rollout_len=3)
-                nets = _fresh(A2CNet, venv.spec, d)
-                _, traj = step.rollout(nets, state, rkey)
-                extra = _a2c_gaps(venv, nets, traj, rkey)
-                nets, opts, state, m = step(
-                    nets, tuple(tx.init(n) for n in nets), state, key)
-            else:
-                step = make_drqn_train_step(venv, tx, rollout_len=3)
-                nets = _fresh(DRQNNet, venv.spec, d)
-                h0 = init_drqn_hiddens(venv, nets)
-                with torch.no_grad():
-                    _, _, traj = step.rollout(nets, state, h0, rkey, 1.0)
-                nets, opts, state, extra, m = step(
-                    nets, _fresh(DRQNNet, venv.spec, d),
-                    tuple(tx.init(n) for n in nets), state, h0, key, 1.0)
-            out[d.type] = (traj, state, m, step_flat(nets, opts), extra)
-    (gt, gs, gm, gf, ge), (ct, cs, cm, cf, ce) = out["cuda"], out["cpu"]
+        got, again, want = (_trainer_step(form, d)
+                            for d in (cuda, cuda, torch.device("cpu")))
+    _assert_same_step(got, again)
+    (gt, gs, gm, gf, ge), (ct, cs, cm, cf, ce) = got, want
     for name in ("actions", "rewards", "alive", "alive_in", "done"):
         assert torch.equal(gt[name].cpu(), ct[name]), name
     for name in FIELDS:
@@ -1018,7 +1063,7 @@ def test_a2c_drqn_step_gpu_matches_cpu(cuda, alg):
     for name in cm:
         torch.testing.assert_close(gm[name].cpu(), cm[name], rtol=1e-5,
                                    atol=0)
-    if alg == "a2c":
+    if TRAINER_FORMS[form][0] == "a2c":
         assert float(ce.min()) > 1e-5
     else:
         for a, b in zip(ge, ce):

@@ -1,9 +1,12 @@
 """The port's ``tools.profile_drqn`` and ``tools.profile_banded`` against
 ``scripts/profile_drqn.py`` and ``scripts/profile_banded.py`` (loaded with
 ``importlib``, ``jax`` swapped for one that records each jitted call) on
-the CPU at a tiny size: each ported variant's warm-up sink against the
-JAX variant's.  Integer sinks (the rollout's actions, SORT's tables) and
-sums of rewards are exact; sums over Q values, losses and windows
+the CPU at a tiny size: each variant's warm-up sink against the JAX
+variant's, profile_drqn's 13 (the fixed trajectory's TD loss, its
+gradients' flax-layout sinks, the composed and rematerialized steps
+included) and profile_banded's, its opt-in ``plain`` against JAX's
+``xla``.  Integer sinks (the rollout's actions, SORT's tables) and sums
+of rewards are exact; sums over Q values, losses, gradients and windows
 (hundreds of f32 terms summed in another order than XLA's) within rtol
 1e-5, the trainers' tolerance (PERF.md §2).  profile_drqn runs from the
 JAX script's flax init, carried across with ``params_from_flax``."""
@@ -26,7 +29,7 @@ DRQN_ARGV = ["--n_per_group", "10", "--map_size", "20", "--n_envs", "2",
              "--rollout_len", "3", "--calls", "1", "--inner", "2",
              "--dtype", "f32", "--state_size", "16"]
 # the order of the JAX script's variants (a warm-up and one timed call
-# each): the ported ones' indices
+# each), the port's VARIANTS
 JAX_DRQN_ORDER = ("env_only", "rollout", "rollout_st", "rollout+unr",
                   "loss_fwd", "grad", "grad_remat", "train_noopt",
                   "act_gradfix", "rand_grad", "full", "full_remat_dots",
@@ -74,7 +77,7 @@ def test_profile_drqn_sinks_match_jax(monkeypatch):
                 for g in range(2)]
     nets = port_nets_from_flax(template, full_args[1])
     got = profile_drqn.main(DRQN_ARGV + ["--device", "cpu"], nets=nets)
-    assert sorted(got) == sorted(profile_drqn.VARIANTS)
+    assert list(got) == list(profile_drqn.VARIANTS) == list(JAX_DRQN_ORDER)
     for name, (_, sink) in got.items():
         _close(name, sink, want[name])
     assert want["rollout"] > 0
@@ -117,3 +120,22 @@ def test_profile_banded_sinks_match_jax(monkeypatch):
         _close(name, got[name][1], want[name])
     assert torch.isfinite(torch.tensor([v[1] for k, v in got.items()
                                         if v is not None])).all()
+
+
+def test_profile_banded_plain_matches_jax_xla(monkeypatch):
+    """The port's ``plain`` (``window_gather_ref``) against the JAX
+    script's opt-in ``xla`` (``window_gather_xla``) at the size above: the
+    same moved positions, sinks within rtol 1e-5."""
+    argv = ["--n_envs", "2", "--per_env", "64", "--steps", "2", "--calls",
+            "1"]
+    jm = jax_script("scripts/profile_banded.py")
+    rec = RecordingJax()
+    monkeypatch.setattr(jm, "jax", rec)
+    monkeypatch.setattr(sys, "argv", ["profile_banded.py"] + argv + ["xla"])
+    jm.main()
+    runs = [float(out) for fn, _, out in rec.calls if fn.__name__ == "run"]
+    assert len(runs) == 2
+    got = profile_banded.main(argv + ["plain", "--device", "cpu"])
+    assert list(got) == ["plain"]
+    assert got["plain"][1] == pytest.approx(runs[0], rel=1e-5)
+    assert runs[0] > 0
