@@ -44,6 +44,7 @@ import torch
 
 from .. import spec as speclib
 from ..ops import window_gather as wg
+from ..spans import span
 from . import geometry as geo
 from .state import State
 
@@ -113,40 +114,43 @@ def _packer(spec: speclib.GameSpec, Hp: int, Wp: int, pad_y: int,
         return consts[device]
 
     def grids(state: State):
-        B = state.x.shape[0]
-        device = state.x.device
-        empty = C << _HP_SHIFT
-        base = torch.full((B, Hp, Wp), empty, dtype=torch.int32, device=device)
-        inner = torch.where(state.cell_wall, 0, empty)
-        if spec.food_mode:
-            # food cells hold code 1 unless a wall is there
-            # (observe.py:119-122)
-            inner = torch.minimum(inner, torch.where(
-                state.cell_food >= 0.0, 1 << _HP_SHIFT, empty))
-        base[:, pad_y:pad_y + H, pad_x:pad_x + W] = inner.to(torch.int32)
-        q = torch.round(state.hp * torch.as_tensor(inv_hp_max, device=device)
-                        * _HP_SCALE).to(torch.int32).clamp(0, _HP_MASK)
-        vals = (torch.as_tensor(agent_ch, device=device) << _HP_SHIFT) | q
-        ok = state.active & ~state.dead
-        # one scatter of every body cell; cells outside a body and dead
-        # agents write to a dump cell past the end (live bodies are
-        # disjoint, so only the dump cell sees duplicate writes)
-        if MB > 1:
-            i, j, width, length = body_tables(device)
-            bw, bh = geo.size_for_dir(state.dir, width, length)
-            ok = ok & (i < bw) & (j < bh)  # [MB*MB, B, A]
-            cell = torch.where(ok, (state.y + j + pad_y) * Wp
-                               + (state.x + i + pad_x), Hp * Wp)
-            cell = cell.permute(1, 0, 2).reshape(B, -1)
-            vals = vals.repeat(1, MB * MB)
-        else:
-            cell = torch.where(ok, (state.y + pad_y) * Wp
-                               + (state.x + pad_x), Hp * Wp)
-        flat = torch.cat([base.reshape(B, Hp * Wp),
-                          torch.zeros((B, 1), dtype=torch.int32,
-                                      device=device)], 1)
-        flat.scatter_(1, cell.long(), vals.to(torch.int32))
-        return flat[:, :Hp * Wp].reshape(B, Hp, Wp)
+        with span("observe.grids"):
+            B = state.x.shape[0]
+            device = state.x.device
+            empty = C << _HP_SHIFT
+            base = torch.full((B, Hp, Wp), empty, dtype=torch.int32,
+                              device=device)
+            inner = torch.where(state.cell_wall, 0, empty)
+            if spec.food_mode:
+                # food cells hold code 1 unless a wall is there
+                # (observe.py:119-122)
+                inner = torch.minimum(inner, torch.where(
+                    state.cell_food >= 0.0, 1 << _HP_SHIFT, empty))
+            base[:, pad_y:pad_y + H, pad_x:pad_x + W] = inner.to(torch.int32)
+            q = torch.round(state.hp
+                            * torch.as_tensor(inv_hp_max, device=device)
+                            * _HP_SCALE).to(torch.int32).clamp(0, _HP_MASK)
+            vals = (torch.as_tensor(agent_ch, device=device) << _HP_SHIFT) | q
+            ok = state.active & ~state.dead
+            # one scatter of every body cell; cells outside a body and dead
+            # agents write to a dump cell past the end (live bodies are
+            # disjoint, so only the dump cell sees duplicate writes)
+            if MB > 1:
+                i, j, width, length = body_tables(device)
+                bw, bh = geo.size_for_dir(state.dir, width, length)
+                ok = ok & (i < bw) & (j < bh)  # [MB*MB, B, A]
+                cell = torch.where(ok, (state.y + j + pad_y) * Wp
+                                   + (state.x + i + pad_x), Hp * Wp)
+                cell = cell.permute(1, 0, 2).reshape(B, -1)
+                vals = vals.repeat(1, MB * MB)
+            else:
+                cell = torch.where(ok, (state.y + pad_y) * Wp
+                                   + (state.x + pad_x), Hp * Wp)
+            flat = torch.cat([base.reshape(B, Hp * Wp),
+                              torch.zeros((B, 1), dtype=torch.int32,
+                                          device=device)], 1)
+            flat.scatter_(1, cell.long(), vals.to(torch.int32))
+            return flat[:, :Hp * Wp].reshape(B, Hp, Wp)
 
     return grids
 
@@ -168,18 +172,19 @@ def make_grids(spec: speclib.GameSpec):
 def render_image(spec, group, packed, lanes):
     """packed grid ``[B, Hp, Wp]`` -> observer group's padded channel image
     ``[B, Hp, lanes]`` f32."""
-    C = spec.n_channel
-    inv_has, inv_hp = (torch.as_tensor(t, device=packed.device)
-                       for t in _channel_tables(spec, group))
-    B, Hp, Wp = packed.shape
-    code = (packed >> _HP_SHIFT)[..., None]
-    hpv = (packed & _HP_MASK).to(torch.float32) * (1.0 / _HP_SCALE)
-    img = ((code == inv_has).to(torch.float32)
-           + (code == inv_hp).to(torch.float32) * hpv[..., None])
-    img = img.reshape(B, Hp, Wp * C)
-    if lanes != Wp * C:
-        img = torch.nn.functional.pad(img, (0, lanes - Wp * C))
-    return img
+    with span("observe.render"):
+        C = spec.n_channel
+        inv_has, inv_hp = (torch.as_tensor(t, device=packed.device)
+                           for t in _channel_tables(spec, group))
+        B, Hp, Wp = packed.shape
+        code = (packed >> _HP_SHIFT)[..., None]
+        hpv = (packed & _HP_MASK).to(torch.float32) * (1.0 / _HP_SCALE)
+        img = ((code == inv_has).to(torch.float32)
+               + (code == inv_hp).to(torch.float32) * hpv[..., None])
+        img = img.reshape(B, Hp, Wp * C)
+        if lanes != Wp * C:
+            img = torch.nn.functional.pad(img, (0, lanes - Wp * C))
+        return img
 
 
 def window_layout(spec: speclib.GameSpec, group: int, geometry, device):
@@ -264,32 +269,35 @@ def _minimap_channels(pooled, mm_src):
 def _features(spec: speclib.GameSpec, group: int, state: State):
     """The feature vector [B, cap, F] (GridWorld.cc:386-396), zero for
     inactive slots."""
-    t = spec.groups[group].type
-    gs = spec.groups[group]
-    sl = slice(gs.offset, gs.offset + gs.cap)
-    device = state.x.device
-    B = state.x.shape[0]
-    emb = spec.embedding_size
-    feats = []
-    if emb > 0:
-        ids = state.id[:, sl]
-        shifts = torch.arange(emb, dtype=ids.dtype, device=device)
-        feats.append(((ids[..., None] >> shifts) & 1).to(torch.float32))
-    # one-hot that maps the out-of-range reset action to all zeros
-    feats.append((state.last_action[:, sl][..., None] == torch.arange(
-        t.n_action, device=device)).to(torch.float32))
-    feats.append(state.last_reward[:, sl][..., None])
-    if spec.minimap_mode:
-        # x * f32(1/W), not x / W: the jitted JAX package's compiler folds
-        # the division by a constant into this multiply, and the features
-        # are held to it bit for bit
-        inv_w = float(np.float32(1.0 / spec.width))
-        inv_h = float(np.float32(1.0 / spec.height))
-        feats.append((state.x[:, sl].to(torch.float32) * inv_w)[..., None])
-        feats.append((state.y[:, sl].to(torch.float32) * inv_h)[..., None])
-    if spec.goal_mode:
-        feats.append(torch.zeros((B, gs.cap, 2), device=device))
-    return torch.cat(feats, -1) * state.active[:, sl, None]
+    with span("observe.features"):
+        t = spec.groups[group].type
+        gs = spec.groups[group]
+        sl = slice(gs.offset, gs.offset + gs.cap)
+        device = state.x.device
+        B = state.x.shape[0]
+        emb = spec.embedding_size
+        feats = []
+        if emb > 0:
+            ids = state.id[:, sl]
+            shifts = torch.arange(emb, dtype=ids.dtype, device=device)
+            feats.append(((ids[..., None] >> shifts) & 1).to(torch.float32))
+        # one-hot that maps the out-of-range reset action to all zeros
+        feats.append((state.last_action[:, sl][..., None] == torch.arange(
+            t.n_action, device=device)).to(torch.float32))
+        feats.append(state.last_reward[:, sl][..., None])
+        if spec.minimap_mode:
+            # x * f32(1/W), not x / W: the jitted JAX package's compiler folds
+            # the division by a constant into this multiply, and the features
+            # are held to it bit for bit
+            inv_w = float(np.float32(1.0 / spec.width))
+            inv_h = float(np.float32(1.0 / spec.height))
+            feats.append(
+                (state.x[:, sl].to(torch.float32) * inv_w)[..., None])
+            feats.append(
+                (state.y[:, sl].to(torch.float32) * inv_h)[..., None])
+        if spec.goal_mode:
+            feats.append(torch.zeros((B, gs.cap, 2), device=device))
+        return torch.cat(feats, -1) * state.active[:, sl, None]
 
 
 def make_observe(spec: speclib.GameSpec, group: int,
@@ -384,18 +392,20 @@ def make_observe(spec: speclib.GameSpec, group: int,
         """-> (mm [B, vh, vw, C] pooled minimap channels, px, py [B, A] the
         pooled cells of every slot), GridWorld.cc:327-384; dead agents are
         not counted."""
-        if not binning:
-            pooled, px, py = _pool_by_scatter(state, t.can_absorb, G, vh, vw,
-                                              scale_h, scale_w, k["gof"])
+        with span("observe.minimap"):
+            if not binning:
+                pooled, px, py = _pool_by_scatter(
+                    state, t.can_absorb, G, vh, vw, scale_h, scale_w,
+                    k["gof"])
+                return _minimap_channels(pooled, k["mm_src"]), px, py
+            px = (state.x // scale_w).clamp(0, vw - 1)
+            py = (state.y // scale_h).clamp(0, vh - 1)
+            ind = ((packed >> _HP_SHIFT)[..., None] == k["codes"]).to(
+                torch.float32)  # [B, Hp, Wp, G]
+            pooled = torch.einsum("rh,bhwg,wc->bgrc", k["Py"], ind, k["Px"])
+            totals = pooled.sum((2, 3)).clamp_min(1.0)
+            pooled = pooled / totals[:, :, None, None]  # [B, G, vh, vw]
             return _minimap_channels(pooled, k["mm_src"]), px, py
-        px = (state.x // scale_w).clamp(0, vw - 1)
-        py = (state.y // scale_h).clamp(0, vh - 1)
-        ind = ((packed >> _HP_SHIFT)[..., None] == k["codes"]).to(
-            torch.float32)  # [B, Hp, Wp, G]
-        pooled = torch.einsum("rh,bhwg,wc->bgrc", k["Py"], ind, k["Px"])
-        totals = pooled.sum((2, 3)).clamp_min(1.0)
-        pooled = pooled / totals[:, :, None, None]  # [B, G, vh, vw]
-        return _minimap_channels(pooled, k["mm_src"]), px, py
 
     def observe(state: State, grids=None):
         k = on(state.x.device)
@@ -403,38 +413,40 @@ def make_observe(spec: speclib.GameSpec, group: int,
         B = state.x.shape[0]
         packed = grids_fn(state) if grids is None else grids
         img = render_image(spec, group, packed, lanes)
-        pos = layout["pos_fn"](state)
-        act = state.active[:, sl]
         epi = {}  # the epilogue's minimap operands
         if spec.minimap_mode:
             mm, px, py = pooled_minimap(state, packed, k)
             self_cell = py[:, sl] * vw + px[:, sl]
             epi = dict(mm=mm, self_cell=self_cell, mm_maskc=k["mm_maskc"])
-        if replica:
-            mm_ops = {}
-            if spec.minimap_mode:
-                pos = pos * 1024 + self_cell
-                mm_ops = dict(mm_img=mm.reshape(B, vh, vw * C).contiguous(),
-                              mm_mask=k["mm_mask2d"])
+        with span("observe.window"):
+            pos = layout["pos_fn"](state)
+            act = state.active[:, sl]
+            if replica:
+                mm_ops = {}
+                if spec.minimap_mode:
+                    pos = pos * 1024 + self_cell
+                    mm_ops = dict(
+                        mm_img=mm.reshape(B, vh, vw * C).contiguous(),
+                        mm_mask=k["mm_mask2d"])
+                else:
+                    pos = pos * 1024
+                view = wg.window_gather4(
+                    img, pos.to(torch.int32).contiguous(), layout["mask"],
+                    act=act.to(torch.int32).contiguous(), vh=vh, vw=vw, C=C,
+                    Wp=Wp, out_dtype=obs_dtype, **mm_ops).reshape(
+                    B, gs.cap, vh, vw, C)
+            elif banded:
+                # the windows in slot order with the epilogue applied per
+                # value (rounded at the kernel's store and again after the
+                # epilogue, as the JAX route rounds)
+                view = _banded_view(img, pos, layout["mask"], act, epi,
+                                    vh=vh, vw=vw, C=C, Wp=Wp,
+                                    chunk=band_chunk, out_dtype=obs_dtype)
             else:
-                pos = pos * 1024
-            view = wg.window_gather4(
-                img, pos.to(torch.int32).contiguous(), layout["mask"],
-                act=act.to(torch.int32).contiguous(), vh=vh, vw=vw, C=C,
-                Wp=Wp, out_dtype=obs_dtype, **mm_ops).reshape(
-                B, gs.cap, vh, vw, C)
-        elif banded:
-            # the windows in slot order with the epilogue applied per value
-            # (rounded at the kernel's store and again after the epilogue,
-            # as the JAX route rounds)
-            view = _banded_view(img, pos, layout["mask"], act, epi, vh=vh,
-                                vw=vw, C=C, Wp=Wp, chunk=band_chunk,
-                                out_dtype=obs_dtype)
-        else:
-            view = wg.window_gather(img, pos, layout["mask"], vh=vh, vw=vw,
-                                    C=C, Wp=Wp, out_dtype=obs_dtype).reshape(
-                B, gs.cap, vh, vw, C)
-            view = wg.window_epilogue(view, act, **epi).to(obs_dtype)
+                view = wg.window_gather(
+                    img, pos, layout["mask"], vh=vh, vw=vw, C=C, Wp=Wp,
+                    out_dtype=obs_dtype).reshape(B, gs.cap, vh, vw, C)
+                view = wg.window_epilogue(view, act, **epi).to(obs_dtype)
         return view, _features(spec, group, state)
 
     observe.grids_fn = grids_fn
@@ -568,15 +580,16 @@ def _make_observe_stacked(spec: speclib.GameSpec, group: int, geom,
             epi = dict(mm=_minimap_channels(pooled, k["mm_src"]),
                        self_cell=py[:, sl] * vw + px[:, sl],
                        mm_maskc=k["mm_maskc"])
-        if banded:
-            view = _banded_view(img, pos, k["mask"], act, epi, vh=vh, vw=vw,
-                                C=C, Wp=Wp, chunk=band_chunk,
-                                out_dtype=obs_dtype)
-        else:
-            view = wg.window_gather(img, pos, k["mask"], vh=vh, vw=vw, C=C,
-                                    Wp=Wp, out_dtype=obs_dtype).reshape(
-                B, gs.cap, vh, vw, C)
-            view = wg.window_epilogue(view, act, **epi).to(obs_dtype)
+        with span("observe.window"):
+            if banded:
+                view = _banded_view(img, pos, k["mask"], act, epi, vh=vh,
+                                    vw=vw, C=C, Wp=Wp, chunk=band_chunk,
+                                    out_dtype=obs_dtype)
+            else:
+                view = wg.window_gather(
+                    img, pos, k["mask"], vh=vh, vw=vw, C=C, Wp=Wp,
+                    out_dtype=obs_dtype).reshape(B, gs.cap, vh, vw, C)
+                view = wg.window_epilogue(view, act, **epi).to(obs_dtype)
         return view, _features(spec, group, state)
 
     observe.grids_fn = None

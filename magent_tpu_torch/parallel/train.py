@@ -51,6 +51,7 @@ from torch.utils.checkpoint import checkpoint
 from .. import random as rnd
 from ..builtin.torch_model.base import deterministic_convolutions
 from ..builtin.torch_model.drqn import split_unroll
+from ..spans import span
 from .sharding import all_reduce_flat, sum_dp
 from .vec_env import VecGridWorld
 
@@ -108,7 +109,7 @@ def _egreedy_actions(venv: VecGridWorld, nets, state, key, eps,
             feats.append(None)
             continue
         view, feat = all_obs[g]  # [B, cap, vh, vw, C], [B, cap, F]
-        with torch.no_grad():
+        with torch.no_grad(), span("net.act"):
             q = nets[g](*_rows(view, feat)).reshape(B, gs.cap, n_act)
         actions[:, sl] = _egreedy(q, rnd.fold_in(key, g), eps, venv)
         views.append(view)
@@ -372,8 +373,11 @@ def make_dqn_train_step(venv: VecGridWorld, tx, gamma: float = 0.99,
 
     def train_step(nets, target_nets, opt_states, env_state, key, eps):
         key, rkey = rnd.split(key.to(venv.device)).unbind(-2)
-        env_state, traj = rollout(nets, env_state, rkey, eps)
-        opt_states, metrics = learn(nets, target_nets, opt_states, traj, key)
+        with span("train.rollout"):
+            env_state, traj = rollout(nets, env_state, rkey, eps)
+        with span("train.learn"):
+            opt_states, metrics = learn(nets, target_nets, opt_states, traj,
+                                        key)
         return nets, opt_states, env_state, metrics
 
     train_step.rollout = rollout
@@ -477,8 +481,11 @@ def make_dqn_train_step_remat(venv: VecGridWorld, tx, gamma: float = 0.99,
 
     def train_step(nets, target_nets, opt_states, env_state, key, eps):
         key, rkey, skey = rnd.split(key.to(venv.device), 3).unbind(-2)
-        env_state, traj = rollout(nets, env_state, rkey, eps)
-        opt_states, metrics = learn(nets, target_nets, opt_states, traj, skey)
+        with span("train.rollout"):
+            env_state, traj = rollout(nets, env_state, rkey, eps)
+        with span("train.learn"):
+            opt_states, metrics = learn(nets, target_nets, opt_states, traj,
+                                        skey)
         return nets, opt_states, env_state, metrics
 
     train_step.rollout = rollout
@@ -518,7 +525,8 @@ def make_a2c_train_step(venv: VecGridWorld, tx, gamma: float = 0.99,
                                   device=venv.device)
             all_obs = venv.observe_all(state)
             for g in range(G):
-                policy, _ = nets[g](*all_obs[g], group_slice(live, g))
+                with span("net.act"):
+                    policy, _ = nets[g](*all_obs[g], group_slice(live, g))
                 logits = policy.log()
                 # the Gumbel noise at the global batch, this rank's rows
                 noise = venv.local_rows(rnd.gumbel(
@@ -577,8 +585,10 @@ def make_a2c_train_step(venv: VecGridWorld, tx, gamma: float = 0.99,
 
     def train_step(nets, opt_states, env_state, key):
         key, rkey = rnd.split(key.to(venv.device)).unbind(-2)
-        env_state, traj = rollout(nets, env_state, rkey)
-        opt_states, metrics = learn(nets, opt_states, env_state, traj)
+        with span("train.rollout"):
+            env_state, traj = rollout(nets, env_state, rkey)
+        with span("train.learn"):
+            opt_states, metrics = learn(nets, opt_states, env_state, traj)
         return nets, opt_states, env_state, metrics
 
     train_step.rollout = rollout
@@ -635,12 +645,13 @@ def make_drqn_train_step(venv: VecGridWorld, tx, gamma: float = 0.99,
                                   device=venv.device)
             new_h, qs = [], []
             for g in range(G):
-                if share_acting:
-                    h2, q = checkpoint(net_step, nets[g], hs[g], *all_obs[g],
-                                       use_reentrant=False)
-                else:
-                    with torch.no_grad():
-                        h2, q = net_step(nets[g], hs[g], *all_obs[g])
+                with span("net.act"):
+                    if share_acting:
+                        h2, q = checkpoint(net_step, nets[g], hs[g],
+                                           *all_obs[g], use_reentrant=False)
+                    else:
+                        with torch.no_grad():
+                            h2, q = net_step(nets[g], hs[g], *all_obs[g])
                 group_slice(actions, g)[:] = _egreedy(
                     q.detach(), rnd.fold_in(akey, g), eps, venv)
                 new_h.append(h2)
@@ -711,9 +722,12 @@ def make_drqn_train_step(venv: VecGridWorld, tx, gamma: float = 0.99,
                    eps):
         key, rkey = rnd.split(key.to(venv.device)).unbind(-2)
         h0 = hiddens
-        env_state, hiddens, traj = rollout(nets, env_state, hiddens, rkey,
-                                           eps)
-        opt_states, metrics = learn(nets, target_nets, opt_states, h0, traj)
+        with span("train.rollout"):
+            env_state, hiddens, traj = rollout(nets, env_state, hiddens,
+                                               rkey, eps)
+        with span("train.learn"):
+            opt_states, metrics = learn(nets, target_nets, opt_states, h0,
+                                        traj)
         # the kept chain was the BPTT path inside the step: cut it here
         return (nets, opt_states, env_state,
                 tuple(h.detach() for h in hiddens), metrics)

@@ -24,6 +24,7 @@ from ..config import Config
 from ..core import engine, observe
 from ..core.state import FIELDS, State
 from ..spec import NORTH, OP_NULL
+from ..spans import span
 
 
 def resolve_device(device=None) -> torch.device:
@@ -242,13 +243,15 @@ class VecGridWorld:
 
     def observe(self, state: State, group: int, grids=None):
         """-> (views [B, cap, vh, vw, C], feats [B, cap, F])."""
-        return self._observe[group](state, grids)
+        with span("env.observe"):
+            return self._observe[group](state, grids)
 
     def observe_all(self, state: State):
         """Observations for every group, sharing one grid-render pass (none
         in turn mode)."""
-        grids = self._grids(state) if self._grids is not None else None
-        return [obs(state, grids) for obs in self._observe]
+        with span("env.observe"):
+            grids = self._grids(state) if self._grids is not None else None
+            return [obs(state, grids) for obs in self._observe]
 
     def step(self, state: State, actions) -> State:
         """Advance every env one step; ``actions`` is [B, A] over the full
@@ -261,34 +264,36 @@ class VecGridWorld:
         Returns (next_state, rewards [B, A], alive [B, A], done [B]);
         ``rewards``/``alive`` are reported before the auto-reset, per slot,
         with the group reward broadcast in (GridWorld.cc:694-704)."""
-        stepped = self.step(state, actions)
-        rewards = stepped.next_reward + stepped.group_reward[:, self._gof]
-        alive = stepped.active & ~stepped.dead
-        done = stepped.done
+        with span("env.transition"):
+            stepped = self.step(state, actions)
+            rewards = stepped.next_reward + stepped.group_reward[:, self._gof]
+            alive = stepped.active & ~stepped.dead
+            done = stepped.done
 
-        # reward rotation normally done by clear_dead (GridWorld.h:168-174);
-        # last_reward (the obs feature) is the individual reward only
-        nxt = stepped.replace(
-            last_reward=stepped.next_reward,
-            next_reward=torch.where(alive, self._step_reward, 0.0),
-            group_reward=torch.zeros_like(stepped.group_reward),
-            last_op=torch.full_like(stepped.last_op, OP_NULL),
-            op_obj=torch.full_like(stepped.op_obj, -1),
-        )
+            # reward rotation normally done by clear_dead
+            # (GridWorld.h:168-174); last_reward (the obs feature) is the
+            # individual reward only
+            nxt = stepped.replace(
+                last_reward=stepped.next_reward,
+                next_reward=torch.where(alive, self._step_reward, 0.0),
+                group_reward=torch.zeros_like(stepped.group_reward),
+                last_op=torch.full_like(stepped.last_op, OP_NULL),
+                op_obj=torch.full_like(stepped.op_obj, -1),
+            )
 
-        # auto-reset finished envs from their carried keys; episodes end
-        # rarely, so the reset runs only when some env is done (one host
-        # sync per step reads that flag)
-        if bool(done.any()):
-            idx = torch.nonzero(done)[:, 0]
-            fresh = self._reset_keys(rnd.fold_in(stepped.key[idx], 7))
-            merged = {}
-            for name in FIELDS:
-                t = getattr(nxt, name).clone()
-                t[idx] = getattr(fresh, name)
-                merged[name] = t
-            nxt = State(**merged)
-        return nxt, rewards, alive, done
+            # auto-reset finished envs from their carried keys; episodes end
+            # rarely, so the reset runs only when some env is done (one host
+            # sync per step reads that flag)
+            if bool(done.any()):
+                idx = torch.nonzero(done)[:, 0]
+                fresh = self._reset_keys(rnd.fold_in(stepped.key[idx], 7))
+                merged = {}
+                for name in FIELDS:
+                    t = getattr(nxt, name).clone()
+                    t[idx] = getattr(fresh, name)
+                    merged[name] = t
+                nxt = State(**merged)
+            return nxt, rewards, alive, done
 
     def random_actions(self, key, fast: bool = False):
         """Uniform random action per slot, valid for each slot's group ->

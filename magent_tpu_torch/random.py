@@ -36,6 +36,8 @@ import math
 import numpy as np
 import torch
 
+from . import spans
+
 MASK32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _KS_PARITY = 0x1BD11BDA
@@ -77,31 +79,36 @@ def _words(key: torch.Tensor):
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``jax.random.split``: ``[..., 2]`` -> ``[..., num, 2]``."""
-    k1, k2 = _words(key)
-    i = torch.arange(num, dtype=torch.int64, device=key.device)
-    b1, b2 = threefry2x32(k1[..., None], k2[..., None], torch.zeros_like(i), i)
-    return torch.stack([b1, b2], dim=-1)
+    with spans.span("rng.split"):
+        k1, k2 = _words(key)
+        i = torch.arange(num, dtype=torch.int64, device=key.device)
+        b1, b2 = threefry2x32(k1[..., None], k2[..., None],
+                              torch.zeros_like(i), i)
+        return torch.stack([b1, b2], dim=-1)
 
 
 def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     """``jax.random.fold_in`` with a Python int ``data`` (uint32)."""
-    k1, k2 = _words(key)
-    d = torch.full_like(k1, int(data) & MASK32)
-    b1, b2 = threefry2x32(k1, k2, torch.zeros_like(d), d)
-    return torch.stack([b1, b2], dim=-1)
+    with spans.span("rng.fold_in"):
+        k1, k2 = _words(key)
+        d = torch.full_like(k1, int(data) & MASK32)
+        b1, b2 = threefry2x32(k1, k2, torch.zeros_like(d), d)
+        return torch.stack([b1, b2], dim=-1)
 
 
 def bits(key: torch.Tensor, shape) -> torch.Tensor:
     """``jax.random.bits`` (uint32 words in int64): ``[..., 2]`` ->
     ``[..., *shape]``."""
     shape = tuple(int(s) for s in shape)
-    k1, k2 = _words(key)
-    n = torch.arange(math.prod(shape), dtype=torch.int64, device=key.device)
-    lead = k1.dim()
-    k1 = k1.reshape(k1.shape + (1,))
-    k2 = k2.reshape(k2.shape + (1,))
-    b1, b2 = threefry2x32(k1, k2, n >> 32, n & MASK32)
-    return (b1 ^ b2).reshape(key.shape[:lead] + shape)
+    with spans.span("rng.bits"):
+        k1, k2 = _words(key)
+        n = torch.arange(math.prod(shape), dtype=torch.int64,
+                         device=key.device)
+        lead = k1.dim()
+        k1 = k1.reshape(k1.shape + (1,))
+        k2 = k2.reshape(k2.shape + (1,))
+        b1, b2 = threefry2x32(k1, k2, n >> 32, n & MASK32)
+        return (b1 ^ b2).reshape(key.shape[:lead] + shape)
 
 
 def uniform(key: torch.Tensor, shape, minval: float = 0.0,
@@ -111,13 +118,14 @@ def uniform(key: torch.Tensor, shape, minval: float = 0.0,
     ``max(minval, floats * (maxval - minval) + minval)`` in float32, and so
     does this, with XLA's fused multiply-add: the float32 product is exact
     in float64, so the sum rounds there and once more to float32."""
-    b = bits(key, shape)
-    f = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
-    if minval == 0.0 and maxval == 1.0:
-        return f
-    lo, hi = np.float32(minval), np.float32(maxval)
-    scaled = f.double() * float(hi - lo) + float(lo)
-    return scaled.float().clamp_min(float(lo))
+    with spans.span("rng.uniform"):
+        b = bits(key, shape)
+        f = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+        if minval == 0.0 and maxval == 1.0:
+            return f
+        lo, hi = np.float32(minval), np.float32(maxval)
+        scaled = f.double() * float(hi - lo) + float(lo)
+        return scaled.float().clamp_min(float(lo))
 
 
 # XLA's f32 erf_inv (M. Giles' single-precision approximation): the
@@ -149,8 +157,9 @@ def normal(key: torch.Tensor, shape) -> torch.Tensor:
     uniform(key, shape, nextafter(-1, 0), 1)``; ``u`` bit for bit,
     ``erf_inv`` as :func:`_erf_inv`."""
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
-    return _erf_inv(uniform(key, shape, lo, 1.0)) * float(
-        np.float32(np.sqrt(2)))
+    with spans.span("rng.normal"):
+        return _erf_inv(uniform(key, shape, lo, 1.0)) * float(
+            np.float32(np.sqrt(2)))
 
 
 def gumbel(key: torch.Tensor, shape) -> torch.Tensor:
@@ -159,15 +168,17 @@ def gumbel(key: torch.Tensor, shape) -> torch.Tensor:
     two ``log``s are PyTorch's, which differ from XLA's by an ulp here and
     there."""
     tiny = float(torch.finfo(torch.float32).tiny)
-    return -torch.log(-torch.log(uniform(key, shape, tiny, 1.0)))
+    with spans.span("rng.gumbel"):
+        return -torch.log(-torch.log(uniform(key, shape, tiny, 1.0)))
 
 
 def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     """``jax.random.categorical(key, logits, axis=-1)`` for one key, as
     jax computes it: ``argmax(gumbel(key, logits.shape) + logits, -1)``
     (the first maximum on ties) -> int32 ``logits.shape[:-1]``."""
-    noise = gumbel(key, logits.shape)
-    return (noise + logits).argmax(-1).to(torch.int32)
+    with spans.span("rng.categorical"):
+        noise = gumbel(key, logits.shape)
+        return (noise + logits).argmax(-1).to(torch.int32)
 
 
 def randint(key: torch.Tensor, shape, minval: int, maxval: int) -> torch.Tensor:
@@ -183,12 +194,13 @@ def randint(key: torch.Tensor, shape, minval: int, maxval: int) -> torch.Tensor:
     span = (maxval - minval) & MASK32 if maxval > minval else 1
     # wraps too: for spans above 2**16 the square is 2**32, which is 0
     multiplier = ((2**16 % span) ** 2 & MASK32) % span
-    keys = split(key)
-    hi = bits(keys[..., 0, :], shape)
-    lo = bits(keys[..., 1, :], shape)
-    offset = ((hi % span) * multiplier) & MASK32
-    offset = ((offset + lo % span) & MASK32) % span
-    return (offset + minval).to(torch.int32)
+    with spans.span("rng.randint"):
+        keys = split(key)
+        hi = bits(keys[..., 0, :], shape)
+        lo = bits(keys[..., 1, :], shape)
+        offset = ((hi % span) * multiplier) & MASK32
+        offset = ((offset + lo % span) & MASK32) % span
+        return (offset + minval).to(torch.int32)
 
 
 def mul32(a, c: int):
