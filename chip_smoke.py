@@ -14,12 +14,21 @@ Run from the repository root:  python3 chip_smoke.py
    in every (cluster, warps) split of ``tools/profile_rect.py``'s table on
    the step's operands and on random ones at ragged A, B = 1 and 16, on
    unique and on duplicate cells;
+2b. holds the threefry kernel (each draw of ``magent_tpu_torch.random`` on
+   a CUDA key) against its plain version on the card and on the CPU, bit
+   for bit, one launch per draw, at the benchmark's shapes (``split`` of one
+   key and of 64 and 256 env keys, ``fold_in``, the e-greedy ``randint``
+   and ``uniform`` at 64 x 1600, the learner's ``randint`` over 716,800
+   rows, ``uniform`` (256, 3200) in [0, 1) and [tiny, 1), the snake's food
+   ``randint``) and prints a ``rng form`` line each (kernel ms, host us per
+   draw, the plain version's ms on the card, bound, share);
 3. runs the lockstep path — ``VecGridWorld(battle(200), [1000, 1000],
    n_envs=16)``: reset, warm-up, then timed ``observe_all -> random_actions
    -> transition`` steps — and checks from the launch counters that every
-   step went through its four kernels; times each phase synchronized, then
-   profiles a few more steps with torch.profiler (device ops and device
-   time per step, busy share, the kernels that take the most time);
+   step went through its four kernels and two threefry launches; times each
+   phase synchronized, then profiles a few more steps with torch.profiler
+   (device ops and device time per step, busy share, the kernels that take
+   the most time);
 4. runs the stateful path — ``GridWorld("battle", map_size=125)`` with the
    2x625 armies ``examples/train_battle.py`` places: warm-up, then timed
    ``get_observation x2 -> set_action x2 -> step -> get_reward x2 ->
@@ -90,10 +99,12 @@ Run from the repository root:  python3 chip_smoke.py
    the armies interleaved; the fast ``DiscreteSnake`` at the JAX package's
    defaults (map 100, view 21 x 21, 256 slots, rings of 48; 100 walls, 500
    food, 256 snakes, seed 0): 50 timed ``get_observation -> set_action ->
-   step -> clear_dead`` steps (``window_gather`` 1 per step, nothing else),
-   host syncs, the profiler, ``window_gather`` against its plain version at
-   the snake's shape, and GPU = CPU over 20 steps (every state field, the
-   threefry key included, views, features, rewards);
+   step -> clear_dead`` steps (``window_gather`` 1 and threefry 4 per step,
+   nothing else), host syncs, the profiler (device ops per step with the
+   threefry kernel fewer than with the draws' plain version on the card),
+   ``window_gather`` against its plain version at the snake's shape, and
+   GPU = CPU over 20 steps (every state field, the threefry key included,
+   views, features, rewards);
 5. runs pursuit's gridless rect path, the lockstep loop of
    ``scripts/train_evidence.py`` — ``VecGridWorld(pursuit(64), [51, 102],
    n_envs=16)`` with its placements (seed 11): holds ``occupant_rect``
@@ -331,6 +342,7 @@ import warnings
 import numpy as np
 import torch
 
+from magent_tpu_torch.ops import KERNELS
 from magent_tpu_torch.tools import bench, bench_train
 from magent_tpu_torch.tools.bench_pursuit import pursuit_config
 from magent_tpu_torch.tools.bench_pursuit import placements as pursuit_placements
@@ -548,6 +560,7 @@ SYMBOLS = {
     "window_gather_banded_bf16": "window_gather_kernel<__nv_bfloat16, 2,",
     "window_ladder": "window_ladder_kernel",
     "window_shared_tile": "window_shared_tile_kernel",
+    "threefry": "threefry_kernel",
 }
 SOURCES = {
     "window_gather": "magent_tpu_torch/csrc/window_gather.cu",
@@ -572,10 +585,28 @@ SOURCES = {
 WINDOW_KERNELS = ("window_gather", "window_gather4", "window_gather_banded",
                   "window_gather_bf16", "window_gather4_bf16",
                   "window_gather_banded_bf16")
+# the draws' kernel (magent_tpu_torch/random.py on CUDA keys): phase 2b
+# holds and times it, the lockstep and snake phases count its launches per
+# step; every other launch check covers the path kernels, PATH_KERNELS
+RNG_KERNEL = "threefry"
+PATH_KERNELS = tuple(k for k in KERNELS if k != RNG_KERNEL)
+# threefry launches per step of the main lockstep loop (random_actions'
+# uniform and the engine's attack-order split; its own key lives on the
+# host, so that key's split runs the plain version) and of the fast snake
+# (its key's split, the food key's split, two randint)
+LOCKSTEP_DRAWS, SNAKE_DRAWS = 2, 4
 # kernels whose float results equal their plain versions exactly: window
 # copies (the epilogue rounds each operation as the plain version does) and
 # the rect occupants' hp (bodies are disjoint: one non-zero term)
 EXACT = WINDOW_KERNELS + ("occupant_rect", "occupant_rect_seg")
+
+
+def launch_counts():
+    """``ops.launch_counts()`` of the path kernels (PATH_KERNELS)."""
+    from magent_tpu_torch import ops
+
+    counts = ops.launch_counts()
+    return {k: counts[k] for k in PATH_KERNELS}
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -806,15 +837,13 @@ def call_stats(name, args, kwargs, f32_rate, int32_rate, form,
     """:func:`hold_call`, then check that the call launches its kernel
     once, time both, and compute the bound: instructions at ``f32_rate`` /
     ``int32_rate`` per second against bytes at HBM_BYTES_PER_S."""
-    from magent_tpu_torch import ops
-
     kernel, plain = kernel_fns()[name]
     got, want, err = hold_call(name, args, kwargs, form, nonzero)
     n_nonzero = sum(int((w != 0).sum()) for w in want
                     if w.dtype.is_floating_point)
-    before = ops.launch_counts()[name]
+    before = launch_counts()[name]
     kernel(*args, **kwargs)
-    if ops.launch_counts()[name] != before + 1:
+    if launch_counts()[name] != before + 1:
         raise AssertionError("%s: a call did not launch its kernel once"
                              % name)
     if name.startswith("window_gather_banded") and not kwargs.get("unsort",
@@ -894,7 +923,6 @@ def kernel_row(name, calls, f32_rate, int32_rate, extra=()):
 def check_kernels(venv, state, key, f32_rate, int32_rate):
     """Phase 2: each lockstep-path kernel against its plain version on the
     operands the main path gave it."""
-    from magent_tpu_torch import ops
     from magent_tpu_torch.ops import attack_prefix as ap
     from magent_tpu_torch.ops import window_gather as wg
 
@@ -903,11 +931,11 @@ def check_kernels(venv, state, key, f32_rate, int32_rate):
         venv.transition(state, venv.random_actions(key))
 
     split = ("occupant", "rank_prefix")
-    before = ops.launch_counts()
+    before = launch_counts()
     rec = record_operands(one_step, [
         (wg, "window_gather"), (ap, "occupant"), (ap, "rank_prefix"),
         (ap, "move_resolve")])
-    per_step = {n: ops.launch_counts()[n] - before[n] for n in split}
+    per_step = {n: launch_counts()[n] - before[n] for n in split}
     rows = {}
     form = "battle 2x1000, B=16"
     for name in ("window_gather", "occupant", "rank_prefix", "move_resolve"):
@@ -921,6 +949,110 @@ def check_kernels(venv, state, key, f32_rate, int32_rate):
     del rec
     torch.cuda.empty_cache()
     return rows
+
+
+# phase 2b: the draws at the benchmark's shapes (h100bench battle_dqn: 64
+# battles of 2 x 1600 in the train cell, 256 in the env cell; the
+# learner's minibatch of 16,384 rows of 7 x 64 x 1600) and the snake's
+# food draw: (form, draw, key shape, arguments)
+THREEFRY_FORMS = (
+    ("split, one key", "split", (), ()),
+    ("split, 64 env keys", "split", (64,), ()),
+    ("split, 256 env keys", "split", (256,), ()),
+    ("fold_in, one key", "fold_in", (), (1001,)),
+    ("randint (64, 1600) over 21, e-greedy", "randint", (),
+     ((64, 1600), 0, 21)),
+    ("uniform (64, 1600), e-greedy", "uniform", (), ((64, 1600),)),
+    ("randint (16384,) over 716,800, learner", "randint", (),
+     ((16384,), 0, 716800)),
+    ("uniform (256, 3200), random actions", "uniform", (), ((256, 3200),)),
+    ("uniform (256, 3200) in [tiny, 1), gumbel's", "uniform", (),
+     ((256, 3200), float(np.finfo(np.float32).tiny), 1.0)),
+    ("randint (64,) over 100, snake food", "randint", (), ((64,), 0, 100)),
+)
+# int32 instructions per threefry evaluation, from csrc/threefry.cu: 20
+# rounds of an add, a funnel-shift rotation and a xor, 2 + 10 adds of the
+# key injections, the parity's 2 xors
+THREEFRY_OPS = 74
+# evaluations per counter: randint draws hi and lo
+THREEFRY_EVALS = {"split": 1, "fold_in": 1, "uniform": 1, "randint": 2}
+
+
+def check_threefry(int32_rate):
+    """Phase 2b: each form of THREEFRY_FORMS on a CUDA key, one launch,
+    equal bit for bit to the plain version on the card (the route set to
+    the plain version) and on the CPU; the kernel's device ms per launch
+    (CUDA events behind a spin), its host us per draw (the call's enqueue
+    alone), the plain version's ms on the card (calls back to back), and
+    the bound:
+    THREEFRY_OPS int32 instructions per evaluation at ``int32_rate``
+    against the key and output bytes at HBM_BYTES_PER_S.  Returns the
+    ``kernels`` line's row."""
+    from magent_tpu_torch import ops
+    from magent_tpu_torch import random as rnd
+    from magent_tpu_torch.ops import _build
+
+    rng = np.random.default_rng(26)
+    per_call = []
+    for form, name, key_shape, args in THREEFRY_FORMS:
+        draw = getattr(rnd, name)
+        key = torch.from_numpy(rng.integers(
+            0, 2**32, size=key_shape + (2,), dtype=np.uint64).astype(
+                np.int64))
+        want = draw(key, *args)
+        card = key.cuda()
+        route = _build.route
+        _build.route = lambda *t: "cpu"
+        try:
+            plain_card = draw(card, *args)
+            plain_ms = cuda_ms(lambda: draw(card, *args), 5)
+        finally:
+            _build.route = route
+        before = ops.launch_counts()[RNG_KERNEL]
+        got = draw(card, *args)
+        torch.cuda.synchronize()
+        if ops.launch_counts()[RNG_KERNEL] != before + 1:
+            raise AssertionError("threefry %s: not one launch" % form)
+        for other, where in ((plain_card, "the card"), (want, "the CPU")):
+            a, b = got.cpu(), other.cpu()
+            if a.dtype == torch.float32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(
+                    a, b):
+                raise AssertionError("threefry %s differs from the plain "
+                                     "version on %s" % (form, where))
+        ms = device_ms(lambda: draw(card, *args), 50)
+        t0 = time.perf_counter()
+        for _ in range(200):
+            draw(card, *args)
+        host_us = (time.perf_counter() - t0) / 200 * 1e6
+        torch.cuda.synchronize()
+        counters = got.numel() // (2 if name in ("split", "fold_in") else 1)
+        ops_ms = counters * THREEFRY_EVALS[name] * THREEFRY_OPS / \
+            int32_rate * 1e3
+        bytes_ms = (card.numel() * 8 + got.numel() * got.element_size()) / \
+            HBM_BYTES_PER_S * 1e3
+        st = dict(form=form, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                  host_us=host_us, bound_ms=max(ops_ms, bytes_ms),
+                  bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+        per_call.append(st)
+        print("rng form %-44s kernel %.4f ms device (host %.1f us per draw)"
+              "  plain %.4f ms on the card  bound %.6f ms (%s; ops -> %.6f "
+              "ms, bytes -> %.6f ms)  share %.3f" % (
+                  form, ms, host_us, plain_ms, st["bound_ms"],
+                  st["bound_by"], ops_ms, bytes_ms, st["bound_ms"] / ms),
+              flush=True)
+    return dict(
+        name=RNG_KERNEL, route="cuda",
+        source="magent_tpu_torch/csrc/threefry.cu",
+        replaces="none: magent_tpu_torch/random.py's eager threefry "
+                 "(jax.random inside XLA's programs in the JAX package)",
+        launches=None, max_abs_err=0.0,
+        ms=statistics.mean(st["ms"] for st in per_call),
+        plain_ms=statistics.mean(st["plain_ms"] for st in per_call),
+        bound_ms=statistics.mean(st["bound_ms"] for st in per_call),
+        bound_by=max(per_call, key=lambda st: st["bound_ms"])["bound_by"],
+        library_ms=None, per_call=per_call)
 
 
 def lockstep_step(venv, carry):
@@ -965,13 +1097,15 @@ def assert_bodies_disjoint(venv, state):
 
 
 def run_lockstep(label, venv, state, key, per_step, device_name,
-                 timed=contextlib.nullcontext):
+                 timed=contextlib.nullcontext, draws=None):
     """The timed lockstep loop: warm-up, launch counters set to 0, TIMED_STEPS
     unsynchronized steps (inside the context ``timed()``) ending in a
     synchronize, then the counts checked against ``per_step`` launches of
-    each kernel per step; host syncs per step, synchronized phase times,
-    output shapes and finiteness, disjoint bodies.  Returns (launch counts,
-    state, key, ms per step, host syncs per step)."""
+    each path kernel per step (and the threefry kernel's against ``draws``
+    per step, where given: an auto-reset draws more); host syncs per step,
+    synchronized phase times, output shapes and finiteness, disjoint bodies.
+    Returns (launch counts, state, key, ms per step, host syncs per
+    step)."""
     from magent_tpu_torch import ops
     from magent_tpu_torch import random as rnd
 
@@ -988,20 +1122,24 @@ def run_lockstep(label, venv, state, key, per_step, device_name,
     float(sink)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    counts = ops.launch_counts()
+    counts = launch_counts()
+    rng = ops.launch_counts()[RNG_KERNEL]
     agent_steps = venv.spec.n_agents_cap * venv.n_envs * TIMED_STEPS
     print("%s: %s slots, B=%d, %d timed steps in %.4f s: %.1f agent-steps/s, "
-          "%.3f ms/step on %s" % (
+          "%.3f ms/step on %s; %.2f threefry launches per step" % (
               label, [g.cap for g in venv.spec.groups], venv.n_envs,
               TIMED_STEPS, dt, agent_steps / dt, dt / TIMED_STEPS * 1e3,
-              device_name), flush=True)
+              device_name, rng / TIMED_STEPS), flush=True)
     if not np.isfinite(float(sink)):
         raise AssertionError("%s produced non-finite values" % label)
     expected = {name: per_step.get(name, 0) * TIMED_STEPS
-                for name in ops.KERNELS}
+                for name in PATH_KERNELS}
     if counts != expected:
         raise AssertionError("%s: launch counts %s, expected %s" % (
             label, counts, expected))
+    if draws is not None and rng != draws * TIMED_STEPS:
+        raise AssertionError("%s: %d threefry launches, expected %d per "
+                             "step" % (label, rng, draws))
 
     syncs, sites = count_host_syncs(lambda: lockstep_step(venv, carry),
                                     PROFILE_STEPS)
@@ -1230,7 +1368,7 @@ def run_gridworld_path(f32_rate, int32_rate, device_name):
         live += n
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    counts = ops.launch_counts()
+    counts = launch_counts()
     ms_per_step = dt / GW_TIMED * 1e3
     print("GridWorld path: battle map %d, %s agents placed, A=%d slots, %d "
           "timed steps in %.4f s: %.4f ms/step, %.1f agent-steps/s (%d live "
@@ -1239,7 +1377,7 @@ def run_gridworld_path(f32_rate, int32_rate, device_name):
               device_name), flush=True)
     per_step = {"window_gather": 2, "rank_prefix_hp": 1, "move_claims": 1}
     expected = {name: per_step.get(name, 0) * GW_TIMED
-                for name in ops.KERNELS}
+                for name in PATH_KERNELS}
     if counts != expected:
         raise AssertionError("GridWorld launch counts %s, expected %s" % (
             counts, expected))
@@ -1268,11 +1406,11 @@ def run_gridworld_path(f32_rate, int32_rate, device_name):
     env.reset()
     place_interleaved(env, handles)
     split = ("rank_prefix_hp", "move_claims")
-    before = ops.launch_counts()
+    before = launch_counts()
     rec = record_operands(lambda: gridworld_step(env, handles, rng),
                           [(ap, "rank_prefix"), (ap, "move_claims"),
                            (wg, "window_gather")])
-    per_step = {n: ops.launch_counts()[n] - before[n] for n in split}
+    per_step = {n: launch_counts()[n] - before[n] for n in split}
     (rp_args, rp_kw), = rec["rank_prefix"]
     (mc_args, mc_kw), = rec["move_claims"]
     tgt, tcell = rp_args[0], mc_args[0]
@@ -1504,7 +1642,7 @@ def run_tiger_path(map_size, f32_rate, int32_rate, device_name):
             fired_state = stepped
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    counts = ops.launch_counts()
+    counts = launch_counts()
     ms_per_step = dt / TIGER_TIMED * 1e3
     print("%s: %s agents placed, A=%d slots (caps %s), %s route, "
           "observation by %s; %d timed steps in %.4f s: %.4f ms/step, %.1f "
@@ -1515,7 +1653,7 @@ def run_tiger_path(map_size, f32_rate, int32_rate, device_name):
               ms_per_step, live / dt, live, device_name, pairs, fired,
               TIGER_TIMED), flush=True)
     expected = {name: per_step.get(name, 0) * TIGER_TIMED
-                for name in ops.KERNELS}
+                for name in PATH_KERNELS}
     if counts != expected:
         raise AssertionError("%s launch counts %s, expected %s" % (
             label, counts, expected))
@@ -1537,10 +1675,10 @@ def run_tiger_path(map_size, f32_rate, int32_rate, device_name):
     # the path's kernels against their plain versions on one more step
     wrappers = [(wg, obs_route)] if sort else [
         (ap, "rank_prefix"), (ap, "move_claims"), (wg, obs_route)]
-    before = ops.launch_counts()
+    before = launch_counts()
     rec = record_operands(lambda: tiger_step(env, handles, rng), wrappers)
-    launched = {n: c - before[n] for n, c in ops.launch_counts().items()}
-    if launched != {n: per_step.get(n, 0) for n in ops.KERNELS}:
+    launched = {n: c - before[n] for n, c in launch_counts().items()}
+    if launched != {n: per_step.get(n, 0) for n in PATH_KERNELS}:
         raise AssertionError("%s: the recorded step launched %s" % (
             label, launched))
     form = "%s, A=%d, B=1" % (label, A)
@@ -1722,7 +1860,7 @@ def run_pursuit_world_path(map_size, f32_rate, int32_rate, device_name):
         live += n
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    counts = ops.launch_counts()
+    counts = launch_counts()
     ms_per_step = dt / PW_TIMED * 1e3
     print("%s: %s agents placed in %.2f s, A=%d slots (caps %s), %s route, "
           "observation by window_gather_banded; %d timed steps in %.4f s: "
@@ -1733,7 +1871,7 @@ def run_pursuit_world_path(map_size, f32_rate, int32_rate, device_name):
               live / dt, live, device_name,
               torch.cuda.max_memory_allocated() / 1e9), flush=True)
     expected = {name: per_step.get(name, 0) * PW_TIMED
-                for name in ops.KERNELS}
+                for name in PATH_KERNELS}
     if counts != expected:
         raise AssertionError("%s launch counts %s, expected %s" % (
             label, counts, expected))
@@ -1763,11 +1901,11 @@ def run_pursuit_world_path(map_size, f32_rate, int32_rate, device_name):
     # the path's kernels against their plain versions on one more step
     wrappers = [(wg, "window_gather_banded")] + (
         [(ap, "rank_prefix")] if quad else [])
-    before = ops.launch_counts()
+    before = launch_counts()
     rec = record_operands(lambda: gridworld_step(env, handles, rng, place),
                           wrappers)
-    launched = {n: c - before[n] for n, c in ops.launch_counts().items()}
-    if launched != {n: per_step.get(n, 0) for n in ops.KERNELS}:
+    launched = {n: c - before[n] for n, c in launch_counts().items()}
+    if launched != {n: per_step.get(n, 0) for n in PATH_KERNELS}:
         raise AssertionError("%s: the recorded step launched %s" % (
             label, launched))
     form = "%s, A=%d, B=1" % (label, A)
@@ -2003,7 +2141,6 @@ def run_turn_path(map_size, f32_rate, int32_rate, device_name):
     versions on one more step's operands (the window kernels on the
     stacked images in f32 and in bf16).  -> ({kernel: launches in the
     timed run}, {kernel: [call_stats of the step's calls]})."""
-    from magent_tpu_torch import ops
     from magent_tpu_torch import random as rnd
     from magent_tpu_torch.core import engine
     from magent_tpu_torch.ops import attack_prefix as ap
@@ -2053,10 +2190,10 @@ def run_turn_path(map_size, f32_rate, int32_rate, device_name):
     # the path's kernels against their plain versions on one more step
     wrappers = [(wg, window)] + ([(ap, "rank_prefix")] if quad else [])
     carry = [state, key]
-    before = ops.launch_counts()
+    before = launch_counts()
     rec = record_operands(lambda: lockstep_step(venv, carry), wrappers)
-    launched = {n: c - before[n] for n, c in ops.launch_counts().items()}
-    if launched != {n: per_step.get(n, 0) for n in ops.KERNELS}:
+    launched = {n: c - before[n] for n, c in launch_counts().items()}
+    if launched != {n: per_step.get(n, 0) for n in PATH_KERNELS}:
         raise AssertionError("%s: the recorded step launched %s" % (
             label, launched))
     form = "turn map %d, A=%d, B=%d" % (map_size, spec.n_agents_cap, n_envs)
@@ -2155,7 +2292,7 @@ def check_goldens_on_card():
     ``engine_mode="sequential"`` on the card; ``snake_basic`` through
     ``run_snake_scenario`` by the port's sequential snake (host NumPy)."""
     import magent_tpu_torch
-    from magent_tpu_torch import GridWorld, gridworld, ops
+    from magent_tpu_torch import GridWorld, gridworld
 
     sc, golden_dir = golden_module()
     envs = []
@@ -2169,7 +2306,7 @@ def check_goldens_on_card():
         "num_%d", "ids_%d_data", "pos_%d_data", "alive_%d_data")}
     close = {k % g: 1e-5 for g in range(2) for k in (
         "rew_%d_data", "views_%d_data", "view0_%d", "feat0_%d")}
-    before = ops.launch_counts()
+    before = launch_counts()
     t0 = time.perf_counter()
     matched = []
     for name in sorted(sc.SCENARIOS):
@@ -2183,7 +2320,7 @@ def check_goldens_on_card():
                 name, envs[-1].device, envs[-1]._engine_mode))
         assert_golden(name, trace, golden, dict(done=None, **exact, **close))
         matched.append(name)
-    launched = {k: v - before[k] for k, v in ops.launch_counts().items()
+    launched = {k: v - before[k] for k, v in launch_counts().items()
                 if v != before[k]}
     if not launched or any(not k.startswith("window") for k in launched):
         raise AssertionError("the goldens on the card launched %s" % launched)
@@ -2259,7 +2396,7 @@ def run_sequential_path(f32_rate, int32_rate, device_name):
         live += n
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    counts = ops.launch_counts()
+    counts = launch_counts()
     if env._seq is not engine:
         raise AssertionError("%s: the engine was rebuilt" % label)
     ms_per_step = dt / SEQ_TIMED * 1e3
@@ -2272,7 +2409,7 @@ def run_sequential_path(f32_rate, int32_rate, device_name):
               label, n0, env.spec.n_agents_cap, SEQ_TIMED, dt, ms_per_step,
               live / dt, device_name, eng_ms, step_ms, step_ms - eng_ms),
           flush=True)
-    expected = {k: SEQ_PER_STEP.get(k, 0) * SEQ_TIMED for k in ops.KERNELS}
+    expected = {k: SEQ_PER_STEP.get(k, 0) * SEQ_TIMED for k in PATH_KERNELS}
     if counts != expected:
         raise AssertionError("%s: launch counts %s, expected %s" % (
             label, counts, expected))
@@ -2372,10 +2509,12 @@ def check_snake_gpu_matches_cpu(n_steps):
 
 def run_snake_path(f32_rate, int32_rate, device_name):
     """Phase 4e (3): the fast DiscreteSnake at the JAX package's defaults,
-    timed (launches, host syncs, the profiler); ``window_gather`` against
-    its plain version on one observation's operands; then GPU = CPU.  ->
-    ({kernel: launches in the timed run}, {kernel: [call_stats]})."""
+    timed (launches, host syncs, the profiler, also with the draws on their
+    plain version on the card); ``window_gather`` against its plain version
+    on one observation's operands; then GPU = CPU.  -> ({kernel: launches
+    in the timed run}, {kernel: [call_stats]})."""
     from magent_tpu_torch import ops
+    from magent_tpu_torch import random as rnd
     from magent_tpu_torch.ops import window_gather as wg
 
     label = "DiscreteSnake map 100"
@@ -2395,16 +2534,20 @@ def run_snake_path(f32_rate, int32_rate, device_name):
         live += len(view)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    counts = ops.launch_counts()
+    counts = launch_counts()
     ms_per_step = dt / SNAKE_TIMED * 1e3
     print("%s: %d snakes placed in %d slots, %d left after %d timed steps "
           "in %.4f s: %.4f ms/step wall, %.1f snake-steps/s on %s" % (
               label, n0, SNAKE_CAPS, env.get_num(), SNAKE_TIMED, dt,
               ms_per_step, live / dt, device_name), flush=True)
-    expected = {k: SNAKE_TIMED * (k == "window_gather") for k in ops.KERNELS}
+    expected = {k: SNAKE_TIMED * (k == "window_gather") for k in PATH_KERNELS}
     if counts != expected:
         raise AssertionError("%s: launch counts %s, expected %s" % (
             label, counts, expected))
+    draws = ops.launch_counts()[RNG_KERNEL]
+    if draws != SNAKE_DRAWS * SNAKE_TIMED:
+        raise AssertionError("%s: %d threefry launches, expected %d per step"
+                             % (label, draws, SNAKE_DRAWS))
     if view.shape[1:] != env.get_view_space() or \
             feat.shape[1:] != env.get_feature_space() or not (
                 np.isfinite(view).all() and np.isfinite(feat).all()
@@ -2418,8 +2561,24 @@ def run_snake_path(f32_rate, int32_rate, device_name):
               label, syncs, GW_SYNC_STEPS, json.dumps(
                   {k: v / GW_SYNC_STEPS for k, v in sites.most_common()})),
           flush=True)
-    profile_steps(label, lambda: snake_step(env, rng), PROFILE_STEPS,
-                  ms_per_step)
+    kernel = profile_steps(label, lambda: snake_step(env, rng),
+                           PROFILE_STEPS, ms_per_step)
+    on_card = rnd._on_card
+    rnd._on_card = lambda key: False  # the draws' plain version on the card
+    try:
+        plain = profile_steps(label + ", plain draws",
+                              lambda: snake_step(env, rng), PROFILE_STEPS,
+                              ms_per_step)
+    finally:
+        rnd._on_card = on_card
+    if kernel and plain:
+        print("phase 4e: the snake's device ops per step: %.1f with the "
+              "threefry kernel, %.1f with the plain draws on the card "
+              "(%.4f and %.4f device ms per step)" % (
+                  kernel[0], plain[0], kernel[1], plain[1]), flush=True)
+        if not kernel[0] < plain[0]:
+            raise AssertionError("%s: the threefry kernel did not cut the "
+                                 "device ops per step" % label)
     rec = record_operands(lambda: snake_step(env, rng),
                           [(wg, "window_gather")])
     (args, kwargs), = rec["window_gather"]
@@ -2463,15 +2622,14 @@ def record_step(venv, state, key, per_call):
     their operands; checks that the step calls each as often as
     ``per_call`` says -> ({name: [(args, kwargs, form)]}, carry [state,
     key], the step's launches by kernel from the launch counters)."""
-    from magent_tpu_torch import ops
     from magent_tpu_torch.ops import attack_prefix as ap
     from magent_tpu_torch.ops import window_gather as wg
 
     carry = [state, key]
-    before = ops.launch_counts()
+    before = launch_counts()
     rec = record_operands(lambda: lockstep_step(venv, carry), [
         (wg if name.startswith("window") else ap, name) for name in per_call])
-    launched = {n: c - before[n] for n, c in ops.launch_counts().items()}
+    launched = {n: c - before[n] for n, c in launch_counts().items()}
     shape = "map %d, A=%d, B=%d" % (venv.spec.width, venv.spec.n_agents_cap,
                                     venv.n_envs)
 
@@ -2647,7 +2805,6 @@ def check_cell_splits(name, path_args, path_form, random_a=CELL_A):
     and 16 (the occupant on unique cells, then on duplicate cells;
     move_claims with a third of the slots at one shared sentinel), the
     entry point also called once on each (one launch)."""
-    from magent_tpu_torch import ops
     from magent_tpu_torch.tools import profile_rect as pr
 
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -2673,10 +2830,10 @@ def check_cell_splits(name, path_args, path_form, random_a=CELL_A):
                 pr.launch(name, args, {}, split), want, args,
                 "%s (%s) split %s" % (name, form, split)))
             n += 1
-        before = ops.launch_counts()[name]
+        before = launch_counts()[name]
         err = max(err, assert_cell_equal(kernel(*args), want, args,
                                          "%s (%s)" % (name, form)))
-        if ops.launch_counts()[name] != before + 1:
+        if launch_counts()[name] != before + 1:
             raise AssertionError("%s: a call did not launch its kernel once"
                                  % name)
     torch.cuda.empty_cache()
@@ -3059,9 +3216,9 @@ def run_window_ladder(f32_rate):
                        wl.shared_tile_ref)
     checked = {}
     for name, (counter, kernel, plain) in forms.items():
-        before = ops.launch_counts()[counter]
+        before = launch_counts()[counter]
         got = kernel(g, pos, mask, **kw)
-        if ops.launch_counts()[counter] != before + 1:
+        if launch_counts()[counter] != before + 1:
             raise AssertionError("ladder %s: a call did not launch its "
                                  "kernel once" % name)
         want = plain(g, pos, mask, **kw)
@@ -3083,7 +3240,7 @@ def run_window_ladder(f32_rate):
     ops.reset_launch_counts()
     ms = pw.profile(pw.VARIANTS, inp, chunk)
     torch.cuda.synchronize()
-    counts = ops.launch_counts()
+    counts = launch_counts()
     ran = {k for k, v in counts.items() if v}
     if ran != {"window_ladder", "window_shared_tile", "window_gather4"}:
         raise AssertionError("the ladder's run launched %s" % counts)
@@ -3252,7 +3409,7 @@ def run_trainer(alg, venv, tx, device_name):
     loss = torch.stack([m["loss"] for m in metrics]).cpu()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    counts = ops.launch_counts()
+    counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     agent_steps = 2 * N_PER_GROUP * N_ENVS * n_env
     ms_step = dt / n_train * 1e3
@@ -3267,7 +3424,7 @@ def run_trainer(alg, venv, tx, device_name):
               TRAIN_SPC, TRAINER_NETS[alg], TRAIN_CALLS, dt,
               agent_steps / dt, ms_step, device_name, loss[-1].tolist(),
               extra, peak / 1e9), flush=True)
-    expected = {name: 0 for name in ops.KERNELS}
+    expected = {name: 0 for name in PATH_KERNELS}
     expected.update(
         window_gather_bf16=2 * n_env + LEARNER_VIEWS[alg] * n_train,
         occupant=n_env, rank_prefix=n_env, move_resolve=n_env)
@@ -3706,8 +3863,8 @@ def run_model_loop(kind, env, models, device_name, label=None):
         live += k
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    counts = ops.launch_counts()
-    expected = {name: MODEL_PER_STEP.get(name, 0) * n for name in ops.KERNELS}
+    counts = launch_counts()
+    expected = {name: MODEL_PER_STEP.get(name, 0) * n for name in PATH_KERNELS}
     if counts != expected:
         raise AssertionError("%s: launch counts %s, expected %s"
                              % (label, counts, expected))
@@ -4190,10 +4347,10 @@ def run_replay_path(tmp, device_name):
     events.clear()
     ops.reset_launch_counts()
     with_ms = timed(render)
-    counts = ops.launch_counts()
+    counts = launch_counts()
     grew = os.path.getsize(video) - size0
     expected = {name: RENDER_PER_STEP.get(name, 0) * RENDER_TIMED
-                for name in ops.KERNELS}
+                for name in PATH_KERNELS}
     if counts != expected:
         raise AssertionError("rendered GridWorld launch counts %s, expected "
                              "%s" % (counts, expected))
@@ -4310,9 +4467,9 @@ def run_battle_server(device_name):
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / SERVER_FRAMES * 1e3
     timing[0] = False
-    counts = ops.launch_counts()
+    counts = launch_counts()
     expected = {name: RENDER_PER_STEP.get(name, 0) * SERVER_FRAMES
-                for name in ops.KERNELS}
+                for name in PATH_KERNELS}
     if counts != expected:
         raise AssertionError("BattleServer launch counts %s, expected %s" % (
             counts, expected))
@@ -4392,7 +4549,7 @@ def run_arrange_server(device_name):
         drawn.append(len(marks))
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / ARRANGE_FRAMES * 1e3
-    counts = ops.launch_counts()
+    counts = launch_counts()
     print("phase 12 (b) ArrangeServer(): map %d, %d goal markers, %d "
           "seekers (%s); %d frames: %.4f ms per frame (the check's reads "
           "included); absorbed markers drawn per frame %s and no other; "
@@ -4570,7 +4727,6 @@ def record_launched(step_fn):
     copy of each call's operands and the launch counter the call moved ->
     ``[(counter name, args, kwargs)]`` in call order; fails unless every
     launch of the run was recorded."""
-    from magent_tpu_torch import ops
     from magent_tpu_torch.ops import attack_prefix as ap
     from magent_tpu_torch.ops import window_gather as wg
 
@@ -4585,9 +4741,9 @@ def record_launched(step_fn):
                      for a in args],
                     {k: v.clone() if isinstance(v, torch.Tensor) else v
                      for k, v in kwargs.items()})
-            before = ops.launch_counts()
+            before = launch_counts()
             out = fn(*args, **kwargs)
-            moved = {k: v - before[k] for k, v in ops.launch_counts().items()
+            moved = {k: v - before[k] for k, v in launch_counts().items()
                      if v != before[k]}
             if list(moved.values()) != [1]:
                 raise AssertionError("%s: one call moved the launch counts "
@@ -4597,7 +4753,7 @@ def record_launched(step_fn):
 
         return rec
 
-    before = ops.launch_counts()
+    before = launch_counts()
     for (mod, name), fn in patched.items():
         setattr(mod, name, wrap(fn))
     try:
@@ -4605,7 +4761,7 @@ def record_launched(step_fn):
     finally:
         for (mod, name), fn in patched.items():
             setattr(mod, name, fn)
-    launched = {k: v - before[k] for k, v in ops.launch_counts().items()
+    launched = {k: v - before[k] for k, v in launch_counts().items()
                 if v != before[k]}
     if launched != dict(collections.Counter(c[0] for c in calls)):
         raise AssertionError("launches %s, recorded calls %s" % (
@@ -4679,18 +4835,18 @@ def example_round(name, argv, train, device_name, tag, check=None):
         round_s = time.perf_counter() - t0
         out = (totals.tolist(), ex.runner.nums)
         if train:
-            counts_sampled = ops.launch_counts()
+            counts_sampled = launch_counts()
             t1 = time.perf_counter()
             out = out + ex.runner.train()
             torch.cuda.synchronize()
             out = out + ("train %.3f s" % (time.perf_counter() - t1),)
         observed = [s.handle.value for s in ex.runner.sides if s.observe]
     torch.cuda.synchronize()
-    counts = ops.launch_counts() if name == "train_arrange" or not train \
+    counts = launch_counts() if name == "train_arrange" or not train \
         else counts_sampled
     steps = env.steps_taken
     per = expected_launches(env, observed)
-    want = {k: per.get(k, 0) * steps for k in ops.KERNELS}
+    want = {k: per.get(k, 0) * steps for k in PATH_KERNELS}
     if counts != want or steps < 1:
         raise AssertionError("%s (%s): launch counts %s over %d steps, "
                              "expected %s" % (name, tag, counts, steps, want))
@@ -4738,8 +4894,8 @@ def run_fused_example(device_name, rows, f32_rate, int32_rate):
         metrics = ex.call(1, 1.0)
         loss = metrics["loss"].cpu().numpy()
         dt = time.perf_counter() - t0
-        counts = ops.launch_counts()
-        want = {k: 0 for k in ops.KERNELS}
+        counts = launch_counts()
+        want = {k: 0 for k in PATH_KERNELS}
         want.update(window_gather=2 * FUSED_ROLLOUT + extra[alg],
                     occupant=FUSED_ROLLOUT, rank_prefix=FUSED_ROLLOUT,
                     move_resolve=FUSED_ROLLOUT)
@@ -4818,12 +4974,12 @@ def run_scale(rows, f32_rate, int32_rate, device_name):
     t0 = time.perf_counter()
     res = t1m.run_host_loop(scale_args())
     wall = time.perf_counter() - t0
-    counts = ops.launch_counts()
+    counts = launch_counts()
     env = res["env"]
     steps = len(res["steps"])
     groups = env.get_handles()
     per = expected_launches(env, [h.value for h in groups])
-    want = {k: per.get(k, 0) * steps for k in ops.KERNELS}
+    want = {k: per.get(k, 0) * steps for k in PATH_KERNELS}
     if counts != want or res["fps"] is None:
         raise AssertionError("test_1m host loop: launches %s over %d steps, "
                              "expected %s" % (counts, steps, want))
@@ -4886,7 +5042,7 @@ def run_scale(rows, f32_rate, int32_rate, device_name):
     t0 = time.perf_counter()
     vres = t1m.run_vectorized(scale_args(vectorized=True))
     wall = time.perf_counter() - t0
-    counts = ops.launch_counts()
+    counts = launch_counts()
     venv = vres["venv"]
     print("phase 13 (e) test_1m --vectorized --n_envs 1: %d agents on map "
           "%d, engine route %s, observation routes %s: FPS %.1f, %.4f ms "
@@ -4917,7 +5073,7 @@ def run_scale(rows, f32_rate, int32_rate, device_name):
         t0 = time.perf_counter()
         mres = mega.main(["--observe", "--obs_dtype", dtype])
         wall = time.perf_counter() - t0
-        counts = ops.launch_counts()
+        counts = launch_counts()
         venv = mres["venv"]
         n_steps = 2 * mega.cli().parse_args([]).steps
         if not (math.isfinite(mres["sink"]) and any(counts.values())):
@@ -5150,7 +5306,7 @@ def shard_rank_main(argv):
         out = lm.run(shard_lm_args(mode, 2, SHARD_RANKS), mesh)
         torch.cuda.synchronize()
         r = dict(record=out["record"], rows=out["venv"].env_rows,
-                 launches={k: v for k, v in ops.launch_counts().items() if v},
+                 launches={k: v for k, v in launch_counts().items() if v},
                  state={f: getattr(out["state"], f).cpu()
                         for f in FIELDS})
         if mode == "train":
@@ -5249,7 +5405,7 @@ def check_shard_world_of_one(mesh, rows, device_name):
             metrics.append(m)
         torch.cuda.synchronize()
         runs[placed] = (carry, metrics, time.perf_counter() - t0,
-                        ops.launch_counts())
+                        launch_counts())
         del loop, venv
     (c0, m0, dt0, _), (c1, m1, dt1, counts) = runs[False], runs[True]
     for s, (a, b) in enumerate(zip(m0, m1)):
@@ -5302,7 +5458,7 @@ def check_shard_world_of_one(mesh, rows, device_name):
         ops.reset_launch_counts()
         sink = [lockstep_step(v, carry) for _ in range(SHARD_LOCKSTEP_STEPS)]
         sinks.append(torch.stack(sink))
-        counts = ops.launch_counts()
+        counts = launch_counts()
     if not torch.equal(sinks[0], sinks[1]):
         raise AssertionError("phase 14 (a) lockstep: the sums differ")
     for f in FIELDS:
@@ -5736,7 +5892,7 @@ def run_module(rows, label, fn, phase=15):
     result = fn()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    counts = {k: v for k, v in launch_counts().items() if v}
     for name, n in counts.items():
         rows[name].setdefault("launches_by_path", {})[label] = n
     print("phase %d %s: %.1f s, launches %s" % (phase, label, dt,
@@ -6127,7 +6283,7 @@ def run_a2c_comm(rows, card):
                           for s in range(P16_A2C_STEPS)]).cpu()
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / P16_A2C_STEPS * 1e3
-    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    counts = {k: v for k, v in launch_counts().items() if v}
     n_env = TRAIN_ROLLOUT * P16_A2C_STEPS
     expected = dict(window_gather_bf16=2 * n_env + LEARNER_VIEWS["a2c"]
                     * P16_A2C_STEPS, occupant=n_env, rank_prefix=n_env,
@@ -6211,12 +6367,15 @@ def main() -> int:
     print("peak at %.0f MHz max SM clock: %.4g f32 and %.4g int32 "
           "instructions/s" % (mhz, f32_rate, int32_rate), flush=True)
     rows = check_kernels(venv, state, rnd.PRNGKey(1), f32_rate, int32_rate)
+    rng_row = check_threefry(int32_rate)
     counts, state, key, ms_per_step, _ = run_lockstep(
         "main path: battle lockstep", venv, state, rnd.PRNGKey(2),
         {"window_gather": 2, "occupant": 1, "rank_prefix": 1,
-         "move_resolve": 1}, device_name)
+         "move_resolve": 1}, device_name, draws=LOCKSTEP_DRAWS)
     for name, row in rows.items():
         row["launches"] = counts[name]
+    rng_row["launches"] = LOCKSTEP_DRAWS * TIMED_STEPS
+    rows[RNG_KERNEL] = rng_row
     profile_lockstep("lockstep", venv, state, key, ms_per_step)
     del venv, state
     torch.cuda.empty_cache()

@@ -30,8 +30,8 @@ import torch
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
-SOURCES = ("pair_kernels.cu", "seg_kernels.cu", "window_gather.cu",
-           "window_ladder.cu")
+SOURCES = ("pair_kernels.cu", "seg_kernels.cu", "threefry.cu",
+           "window_gather.cu", "window_ladder.cu")
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 LIB_PATH = BUILD_DIR / "libmagent_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -39,6 +39,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_U = ctypes.c_uint
+_F = ctypes.c_float
 # argtypes of every exported launcher, before the trailing (device index,
 # stream) pair; all return a cudaError_t
 _SIGNATURES = {
@@ -60,6 +63,8 @@ _SIGNATURES = {
     "magent_window_gather_banded_bf16": (_P,) * 7 + (_I,) * 9 + (_P,),
     "magent_window_ladder": (_P,) * 4 + (_I,) * 7 + (_P,),
     "magent_window_shared_tile": (_P,) * 4 + (_I,) * 7 + (_P,),
+    "magent_threefry": (_P, _L, _L, _L, _I, _U, _U, _U, _I, _F, _F, _I, _I,
+                        _P),
 }
 
 _lib = None

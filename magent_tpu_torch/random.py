@@ -7,9 +7,13 @@ reproducing JAX's bits lets a whole trajectory of the port be held against
 the JAX package.
 
 Keys are int64 tensors of shape ``[..., 2]`` holding uint32 words (torch's
-uint32 lacks most ops), and every uint32 operation is done in int64 masked
-with ``& 0xFFFFFFFF``.  A batch of keys ``[B, 2]`` draws one independent
-stream per row, as ``jax.vmap`` over single keys would.
+uint32 lacks most ops).  A batch of keys ``[B, 2]`` draws one independent
+stream per row, as ``jax.vmap`` over single keys would.  On a CUDA key each
+public draw is one launch of ``csrc/threefry.cu`` (:mod:`.ops.threefry`),
+the draw's tail fused in; ``normal`` and ``gumbel`` apply their float tails
+to its ``uniform``, and ``categorical`` its argmax.  On a CPU key the draws
+run the plain version below, every uint32 operation done in int64 masked
+with ``& 0xFFFFFFFF``; the two give the same values, bit for bit.
 
 Semantics (jax/_src/prng.py, partitionable mode):
 
@@ -37,6 +41,8 @@ import numpy as np
 import torch
 
 from . import spans
+from .ops import _build
+from .ops import threefry as _kernel
 
 MASK32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -70,16 +76,24 @@ def PRNGKey(seed: int, device=None) -> torch.Tensor:
     return torch.tensor([0, seed], dtype=torch.int64, device=device)
 
 
-def _words(key: torch.Tensor):
+def _on_card(key: torch.Tensor) -> bool:
+    """Validate ``key``; True for a CUDA key (the kernel), False for a CPU
+    key (the plain version)."""
     if key.dtype != torch.int64 or key.shape[-1] != 2:
         raise ValueError("a key is an int64 tensor of shape [..., 2], got %s %s"
                          % (key.dtype, tuple(key.shape)))
+    return _build.route(key) == "cuda"
+
+
+def _words(key: torch.Tensor):
     return key[..., 0], key[..., 1]
 
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``jax.random.split``: ``[..., 2]`` -> ``[..., num, 2]``."""
     with spans.span("rng.split"):
+        if _on_card(key):
+            return _kernel.split(key, int(num))
         k1, k2 = _words(key)
         i = torch.arange(num, dtype=torch.int64, device=key.device)
         b1, b2 = threefry2x32(k1[..., None], k2[..., None],
@@ -90,6 +104,8 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
 def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     """``jax.random.fold_in`` with a Python int ``data`` (uint32)."""
     with spans.span("rng.fold_in"):
+        if _on_card(key):
+            return _kernel.fold_in(key, int(data) & MASK32)
         k1, k2 = _words(key)
         d = torch.full_like(k1, int(data) & MASK32)
         b1, b2 = threefry2x32(k1, k2, torch.zeros_like(d), d)
@@ -101,6 +117,8 @@ def bits(key: torch.Tensor, shape) -> torch.Tensor:
     ``[..., *shape]``."""
     shape = tuple(int(s) for s in shape)
     with spans.span("rng.bits"):
+        if _on_card(key):
+            return _kernel.bits(key, shape)
         k1, k2 = _words(key)
         n = torch.arange(math.prod(shape), dtype=torch.int64,
                          device=key.device)
@@ -118,12 +136,16 @@ def uniform(key: torch.Tensor, shape, minval: float = 0.0,
     ``max(minval, floats * (maxval - minval) + minval)`` in float32, and so
     does this, with XLA's fused multiply-add: the float32 product is exact
     in float64, so the sum rounds there and once more to float32."""
+    default = minval == 0.0 and maxval == 1.0
+    lo, hi = np.float32(minval), np.float32(maxval)
     with spans.span("rng.uniform"):
+        if _on_card(key):
+            return _kernel.uniform(key, tuple(int(s) for s in shape),
+                                   float(lo), float(hi - lo), not default)
         b = bits(key, shape)
         f = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
-        if minval == 0.0 and maxval == 1.0:
+        if default:
             return f
-        lo, hi = np.float32(minval), np.float32(maxval)
         scaled = f.double() * float(hi - lo) + float(lo)
         return scaled.float().clamp_min(float(lo))
 
@@ -195,6 +217,9 @@ def randint(key: torch.Tensor, shape, minval: int, maxval: int) -> torch.Tensor:
     # wraps too: for spans above 2**16 the square is 2**32, which is 0
     multiplier = ((2**16 % span) ** 2 & MASK32) % span
     with spans.span("rng.randint"):
+        if _on_card(key):
+            return _kernel.randint(key, tuple(int(s) for s in shape), minval,
+                                   span, multiplier)
         keys = split(key)
         hi = bits(keys[..., 0, :], shape)
         lo = bits(keys[..., 1, :], shape)
