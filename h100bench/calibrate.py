@@ -5,55 +5,36 @@
 
 For each seed, in one process, the cell's set-up and a short window (for
 ``random_policy`` cells, the steps kept for the check; for ``dqn_train``
-cells, the call after it recorded), then
-the numbers that decide ``correct``: of the program (``program``), of the
-reference computed in the precision below the configuration's put in the
-program's place (``control``, on the first ``--control-seeds`` seeds) and,
-for ``dqn_train`` cells, of the reference with half of its minibatch left
-out (``fault_half_batch``).  One JSON line per seed; the benchmark's own
-runs never run this."""
+cells, the call after it recorded), then the numbers that decide
+``correct`` (the loop's ``calibrate``, ``kinds/<kind>.py``): of the
+program (``program``), of the reference computed in the precision below
+the configuration's put in the program's place (``control``, on the
+first ``--control-seeds`` seeds) and, for ``dqn_train`` cells, of the
+reference with half of its minibatch left out (``fault_half_batch``).
+One JSON line per seed; the benchmark's own runs never run this."""
 
 from __future__ import annotations
 
 import argparse
 import json
 import sys
-import time
 
 import torch
 
-from . import check
 from .loops import KINDS
 from .run import cell_entries, has_cards, run_window, set_cache_dirs
 
 
 def readings(workload, seed, seconds, control, device):
     wl, cfg, traffic, _, _ = cell_entries(workload)
-    kind = traffic["kind"]
-    loop = KINDS[kind](cfg, traffic, seed, device)
+    loop = KINDS[traffic["kind"]](cfg, traffic, seed, device)
     loop.warm()
+    loop.before_window(seconds, run_window)
+    run_window(loop, seconds)
+    loop.after_window()
+    loop.free()
     out = dict(seed=seed)
-    if kind == "dqn_train":
-        run_window(loop, seconds)
-        loop.after_window()
-        loop.free()
-        sides = ("program",)
-        if control:
-            sides += ("control", "fault_half_batch")
-        t = time.perf_counter()
-        out.update(check.check_train(loop, cfg, traffic, seed, device, sides))
-        out["reference_s"] = time.perf_counter() - t
-        out["where"] = loop.where
-    else:
-        probe = run_window(loop, 0.25)
-        loop.plan_checks(seconds * probe["calls"] / probe["seconds"] * 0.8)
-        run_window(loop, seconds)
-        loop.free()
-        t = time.perf_counter()
-        out["program"] = check.check_env(loop, cfg, seed, device)[0]
-        out["reference_s"] = time.perf_counter() - t
-        if control:
-            out["control"] = check.check_env(loop, cfg, seed, device, control=True)[0]
+    out.update(loop.calibrate(cfg, traffic, seed, device, control))
     return out
 
 

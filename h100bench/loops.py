@@ -1,18 +1,23 @@
-"""The traffic generator: one loop per traffic ``kind``, driving the program.
+"""The traffic generator: the loops that drive the program, one traffic
+``kind`` to a file.
 
 A traffic file (``traffic/<mix>.json``) names its ``kind`` and parameters;
-the configuration file gives the world, the batch and the net.  Both loops
+the configuration file gives the world, the batch and the net.  The kind's
+file ``kinds/<kind>.py`` holds its ``Loop``: a loop of this module (or a
+new one) with what :mod:`h100bench.run` asks of every loop (its rate's
+name, its steps, the profiled stretch, the judge; ``kinds/__init__.py``
+lists them).  :data:`KINDS` finds the file by the kind's name.  The loops
 take their inputs from the seed alone: the reset key, the loop key and
 (for the trainer) the nets' initial weights, made on the device from a
 ``torch.Generator``.
 
-- ``random_policy``: ``magent_tpu_torch.tools.bench``'s loop body, frozen
-  here: observe every group, draw uniform actions, step; the sink reads one
-  value of every view and feature and env 0's reward, and the host reads
-  the summed sink once, after the window.
-- ``dqn_train``: the fused DQN trainer (``make_dqn_train_loop``) at
-  ``tools/bench_train.py``'s constants, one call of ``steps_per_call``
-  train steps at a time.
+- ``random_policy`` (:class:`EnvLoop`): ``magent_tpu_torch.tools.bench``'s
+  loop body, frozen here: observe every group, draw uniform actions, step;
+  the sink reads one value of every view and feature and env 0's reward,
+  and the host reads the summed sink once, after the window.
+- ``dqn_train`` (:class:`DqnTrainLoop`): the fused DQN trainer
+  (``make_dqn_train_loop``) at ``tools/bench_train.py``'s constants, one
+  call of ``steps_per_call`` train steps at a time.
 
 Each loop keeps what the check needs (:mod:`h100bench.check`): the env
 loop the states, actions and outputs of a few steps drawn from the seed;
@@ -20,12 +25,17 @@ the trainer two recorded calls, set-up's first and the first after the
 window, through wrappers that the window's calls do not carry: each
 call's start (env state, nets, target nets, Adam moments and count), the
 transitions, losses, Adam's first moments after the first update and the
-parameters after the last of its first checked train steps."""
+parameters after the last of its first checked train steps.
+
+A new world needs no code here: its configuration (``configs/``), its
+placement kind (``layouts/``) and, where the reference lacks its rules, a
+file of ``reference/``.  A new trainer or loop is a file of ``kinds/``."""
 
 from __future__ import annotations
 
 import contextlib
 import copy
+import importlib
 
 import numpy as np
 import torch
@@ -38,16 +48,19 @@ DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 def make_venv(cfg, device, n_envs):
     """The configuration's ``VecGridWorld`` of ``n_envs`` lockstep envs on
-    its layout (:func:`h100bench.world.layout`: border walls, which the
-    program adds itself, and the start places)."""
+    its layout (:func:`h100bench.world.layout`: the wall map, whose border
+    the program adds itself and whose interior cells it is given, and the
+    start places)."""
     from magent_tpu_torch import config as gw
     from magent_tpu_torch.parallel import VecGridWorld
 
     w = cfg["world"]
-    _, placed = worldlib.layout(w)
+    wall, placed = worldlib.layout(w)
     return VecGridWorld(worldlib.build_config(w, gw), worldlib.caps(w),
                         n_envs=n_envs, placements=[p.tolist() for p in placed],
-                        obs_dtype=DTYPES[cfg["obs_dtype"]], device=device)
+                        obs_dtype=DTYPES[cfg["obs_dtype"]],
+                        walls=worldlib.interior_walls(wall).tolist(),
+                        device=device)
 
 
 def _ranges(trace):
@@ -308,4 +321,11 @@ class DqnTrainLoop:
         self.nets = self.targets = self.opts = None
 
 
-KINDS = {"random_policy": EnvLoop, "dqn_train": DqnTrainLoop}
+class _Kinds:
+    """``KINDS[kind]``: the ``Loop`` of ``kinds/<kind>.py``."""
+
+    def __getitem__(self, kind):
+        return importlib.import_module(".kinds." + kind, __package__).Loop
+
+
+KINDS = _Kinds()

@@ -4,17 +4,28 @@
         --trace <0|1>
 
 The cell names a configuration (``configs/<config>.json``) and a traffic
-mix (``traffic/<mix>.json``), whose ``kind`` picks the loop of
-:mod:`h100bench.loops`.  Set-up builds the world and nets from the seed,
-loads the kernels from the checkout's build directory and warms the cell's
-shapes; the window then runs the loop's calls for ``--seconds`` and reads
-the device once at its end.  With ``--trace 0`` the result carries the
-cell's end-to-end metrics; with ``--trace 1`` its per-layer metrics, read
-from the window (CUDA events, host clock), a count of host syncs over one
-call, and a profiled stretch after it.  After the window the reference
-(:mod:`h100bench.check`) decides ``correct``; each compared number and its
-limit (``limits/<cell>.json``) are printed last on standard error and
-last in the result line.
+mix (``traffic/<mix>.json``), whose ``kind`` picks the loop
+(``kinds/<kind>.py``, :data:`h100bench.loops.KINDS`).  Set-up builds the
+world and nets from the seed, loads the kernels from the checkout's build
+directory and warms the cell's shapes; the window then runs the loop's
+calls for ``--seconds`` and reads the device once at its end.  With
+``--trace 0`` the result carries the cell's end-to-end metrics; with
+``--trace 1`` its per-layer metrics, read from the window (CUDA events,
+host clock), what the loop counts before the profiled stretch (host
+syncs) and the profiled stretch after it.  After the window the loop's
+judge (:mod:`h100bench.check`, against the plain reference) decides
+``correct``; each compared number and its limit (``limits/<cell>.json``)
+are printed last on standard error and last in the result line.  This
+module asks the loop for all that it reports (the rate's name, the
+steps, the stretch, the judge) and never tests the kind's name.
+
+Everything of one cell is a file found by name, so a world, a trainer or
+a metric is added without an edit here: a configuration in ``configs/``,
+its placement kind in ``layouts/``, a traffic mix in ``traffic/``, a loop
+kind in ``kinds/``, the rules the reference lacks in ``reference/``, a
+cell's limits in ``limits/``, a per-layer metric's reader in
+``metrics/<metric>.py`` and a kernel entry point's work in
+``rooflines/<entry point>.py``; then the entries of ``BENCHMARK.json``.
 
 A run without a CUDA device, or with fewer than the cell's chips, fails.
 Nothing of JAX or of the JAX package may be loaded when the window has
@@ -200,8 +211,9 @@ def count_syncs(loop):
     return sum(1 for w in caught if "synchroniz" in str(w.message))
 
 
-def profile_stretch(loop, traffic, kind, tmpdir):
-    """Profile a short steady stretch -> (Trace, steps, Recorder)."""
+def profile_stretch(loop, tmpdir):
+    """Profile the loop's short steady stretch -> (Trace, steps,
+    Recorder)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -212,14 +224,7 @@ def profile_stretch(loop, traffic, kind, tmpdir):
     with Recorder() as recorder, profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         with rf("stretch"):
-            if kind == "dqn_train":
-                steps = int(traffic["profiled_train_steps"])
-                for _ in range(steps):
-                    loop.profiled_step(rf)
-            else:
-                steps = int(traffic["profiled_steps"])
-                for _ in range(steps):
-                    loop.call(rf)
+            steps = loop.profile(rf)
             torch.cuda.synchronize()
     loop.read_sink()
     path = os.path.join(tmpdir, "h100bench_trace_%d.json" % os.getpid())
@@ -248,15 +253,6 @@ def power_limit():
         return "unknown"
 
 
-def judge(kind, loop, cfg, traffic, seed, device):
-    from . import check
-
-    if kind == "dqn_train":
-        got = check.check_train(loop, cfg, traffic, seed, device)["program"]
-        return got, sum(r["checked"] for r in loop.records)
-    return check.check_env(loop, cfg, seed, device)
-
-
 def run_cell(args, device=None, out=sys.stdout, err=sys.stderr):
     """One run of cell ``args.workload`` -> the result dict (printed as the
     last line of ``out``), or None when the run cannot start.  ``device``
@@ -279,49 +275,38 @@ def run_cell(args, device=None, out=sys.stdout, err=sys.stderr):
     torch.set_num_threads(min(4, torch.get_num_threads()))
     limits = (getattr(args, "limits", None)
               or load_json("limits", args.workload + ".json"))
-    kind = traffic["kind"]
     from .loops import KINDS
 
-    loop = KINDS[kind](cfg, traffic, args.seed, device)
+    loop = KINDS[traffic["kind"]](cfg, traffic, args.seed, device)
     loop.warm()
     if on_card:
         torch.cuda.synchronize()
-    if kind == "random_policy":
-        # steps the window should reach, for the steps kept for the check
-        probe = run_window(loop, 0.25)
-        loop.plan_checks(args.seconds * probe["calls"] / probe["seconds"] * 0.8)
+    loop.before_window(args.seconds, run_window)
     setup_s = time.time() - t_start
 
     ctx = Context()
     ctx.chips = chips
     window = run_window(loop, args.seconds, bool(args.trace) and on_card)
-    if kind == "dqn_train":
-        loop.after_window()
+    loop.after_window()
     work = window["calls"] * loop.work_per_call()
-    ctx.window = dict(seconds=window["seconds"])
-    if kind == "dqn_train":
-        ctx.window["train_steps"] = window["calls"] * loop.spc
-        ctx.flops_per_train_step = loop.flops_per_train_step()
-    else:
-        ctx.window["env_steps"] = window["calls"]
-        ctx.step_bytes = loop.step_bytes()
+    ctx.window = {"seconds": window["seconds"],
+                  loop.window_steps: window["calls"] * loop.steps_per_call}
+    for k, v in loop.context().items():
+        setattr(ctx, k, v)
     metrics, breakdown, info = {}, None, {}
     rate = work / window["seconds"]
     if not args.trace:
-        rate_name = ("train_agent_steps_per_s" if kind == "dqn_train"
-                     else "env_agent_steps_per_s")
-        metrics[rate_name] = dict(value=rate, unit="agent-steps/s")
+        metrics[loop.rate] = dict(value=rate, unit="agent-steps/s")
         metrics["setup_s"] = dict(value=setup_s, unit="s")
     elif on_card:
         ctx.step_gaps_ms = window["gaps_ms"]
-        if kind == "dqn_train":
-            ctx.syncs_per_train_step = count_syncs(loop) / loop.spc
+        for k, v in loop.traced_context(count_syncs).items():
+            setattr(ctx, k, v)
         tmp = os.environ.get("TMPDIR") or str(ROOT / "build")
-        tr, steps, recorder = profile_stretch(loop, traffic, kind, tmp)
+        tr, steps, recorder = profile_stretch(loop, tmp)
         ctx.trace, ctx.steps = tr, steps
         ctx.least_s = recorder.least_s()
-        traced_rate = steps * (loop.agents_per_train_step if kind == "dqn_train"
-                               else loop.agents_per_step) / tr.window_s
+        traced_rate = steps * loop.agents_per_profiled_step / tr.window_s
         print("h100bench: tracing overhead: %.6g agent-steps/s in the "
               "profiled stretch vs %.6g in the window (%s)"
               % (traced_rate, rate, power_limit()), file=err)
@@ -337,14 +322,14 @@ def run_cell(args, device=None, out=sys.stdout, err=sys.stderr):
     loop.free()
     if on_card:
         torch.cuda.empty_cache()
-    return judged(args, kind, loop, cfg, traffic, device, limits, window,
-                  metrics, dev, breakdown, out, err)
+    return judged(args, loop, cfg, traffic, device, limits, window, metrics,
+                  dev, breakdown, out, err)
 
 
-def judged(args, kind, loop, cfg, traffic, device, limits, window, metrics,
-           dev, breakdown, out, err):
+def judged(args, loop, cfg, traffic, device, limits, window, metrics, dev,
+           breakdown, out, err):
     """The check, the no-JAX check and the result line."""
-    got, n_checked = judge(kind, loop, cfg, traffic, args.seed, device)
+    got, n_checked = loop.judge(cfg, traffic, args.seed, device)
     checks = {k: dict(value=got[k], limit=limits[k]) for k in limits}
     correct = all(c["value"] <= c["limit"] for c in checks.values())
     found = forbidden_modules()
@@ -352,15 +337,14 @@ def judged(args, kind, loop, cfg, traffic, device, limits, window, metrics,
         print("h100bench: modules of JAX or the JAX package are loaded: %s"
               % ", ".join(found), file=err)
         return None
-    attempted = window["calls"] * (loop.spc if kind == "dqn_train" else 1)
+    attempted = window["calls"] * loop.steps_per_call
     result = dict(correct=correct, attempted=attempted,
                   failed=0 if correct else attempted, metrics=metrics, device=dev)
     if breakdown is not None:
         result["breakdown"] = breakdown
     result["checked"] = checks
     print("h100bench: %s seed %d: %d checked %s, %s" % (
-        args.workload, args.seed, n_checked,
-        "train steps" if kind == "dqn_train" else "env steps", power_limit()),
+        args.workload, args.seed, n_checked, loop.unit, power_limit()),
         file=err)
     for k, c in checks.items():
         print("check %s %.9g limit %.9g %s" % (

@@ -53,7 +53,7 @@ def test_everything_is_found_by_name():
         assert callable(run.load_module("metrics", m["name"]).read)
     names = [p.stem for p in (ROOT / "h100bench/rooflines").glob("*.py")
              if p.stem != "__init__"]
-    assert len(names) == 4
+    assert len(names) == 5
     for name in names:
         assert callable(run.load_module("rooflines", name).work)
 

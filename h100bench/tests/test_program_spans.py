@@ -192,10 +192,12 @@ def test_the_env_cells_trace_keeps_its_ranges_and_holds_the_spans(tmp_path):
 def test_the_readers_are_in_the_benchmark_as_the_cells_report_them():
     bench = json.loads((run.ROOT / "BENCHMARK.json").read_text())
     per_layer = {m["name"]: m for m in bench["per_layer"]}
+    end_to_end = {m["name"]: m for m in bench["end_to_end"]}
     for names, cell, rate in (
             (TRAIN_METRICS, "battle_dqn.train", "train_agent_steps_per_s"),
             (ENV_METRICS, "battle_dqn.env", "env_agent_steps_per_s")):
         for n in names:
             m = per_layer[n]
-            assert m["workloads"] == [cell] and m["moves"] == rate
+            assert m["workloads"][0] == cell and m["moves"] == rate
+            assert set(m["workloads"]) <= set(end_to_end[rate]["workloads"])
             assert m["source"] == "device_trace" and m["better"] == "lower"

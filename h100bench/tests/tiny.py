@@ -11,13 +11,13 @@ from h100bench import run, world
 
 def entries(cell, net_dtype="f32"):
     """``cell``'s entries of ``BENCHMARK.json`` with its world cut to a 24
-    x 24 map at the configuration's shares, two envs, a short rollout and
-    minibatch."""
+    x 24 map at the configuration's shares (each group as many as its
+    layout places there), two envs, a short rollout and minibatch."""
     wl, cfg, traffic, per_layer, e2e = run.cell_entries(cell)
     cfg, traffic = copy.deepcopy(cfg), copy.deepcopy(traffic)
     w = cfg["world"]
     w["map_size"] = 24
-    for g, placed in zip(w["groups"], world.facing_squares(w)):
+    for g, placed in zip(w["groups"], world.layout(w)[1]):
         g["n"] = len(placed)
     cfg["n_envs"] = 2
     traffic.pop("n_envs", None)

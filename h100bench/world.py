@@ -2,11 +2,8 @@
 program.
 
 ``layout(world)`` makes the wall map and the start positions that the
-benchmark hands to both the program and the reference, with NumPy.  Its
-one kind, ``facing_squares``, is ``examples/train_battle.py``'s
-``generate_map``: each group a square of agents two cells apart,
-``density`` of the cells per group, the two squares ``gap`` cells either
-side of the middle column, border walls only.
+benchmark hands to both the program and the reference, with NumPy, in the
+file of the world's placement kind (``layouts/<kind>.py``).
 
 ``build_config(world, gw)`` turns the ``world`` object into a gridworld
 ``Config`` of the program's DSL module ``gw`` (MAgent's
@@ -14,7 +11,7 @@ side of the middle column, border walls only.
 
 from __future__ import annotations
 
-import math
+import importlib
 
 import numpy as np
 
@@ -51,31 +48,20 @@ def caps(world):
     return [g["n"] for g in world["groups"]]
 
 
-def border(m):
-    wall = np.zeros((m, m), bool)  # [y, x]
-    wall[0, :] = wall[-1, :] = wall[:, 0] = wall[:, -1] = True
-    return wall
-
-
-def facing_squares(world):
-    m, p = world["map_size"], world["placement"]
-    side = int(math.sqrt(int(m * m * p["density"]))) * 2
-    y0 = (m - side) // 2
-
-    def square(x0):
-        return np.array([(x, y) for x in range(x0, x0 + side, 2)
-                         for y in range(y0, y0 + side, 2)], np.int64)
-
-    return [square(m // 2 - p["gap"] - side), square(m // 2 + p["gap"])]
-
-
 def layout(world):
     """-> (wall [H, W] bool, border included; per group [n, 2] int64 (x,
-    y) top-left cells)."""
+    y) top-left cells) of the placement kind's file
+    ``layouts/<kind>.py``."""
     kind = world["placement"]["kind"]
-    if kind == "facing_squares":
-        return border(world["map_size"]), facing_squares(world)
-    raise ValueError("no placement %r" % kind)
+    return importlib.import_module(".layouts." + kind, __package__).layout(world)
+
+
+def interior_walls(wall):
+    """The (x, y) cells of a full wall map that are not on its border."""
+    inner = wall.copy()
+    inner[0, :] = inner[-1, :] = inner[:, 0] = inner[:, -1] = False
+    ys, xs = np.nonzero(inner)
+    return np.stack([xs, ys], 1)
 
 
 def seed_key(rnd, seed, device):
