@@ -33,6 +33,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ...parallel.optim import ClipAdam
 from ...parallel.sharding import linear, matmul, split_of
+from ...spans import span
 from .base import (CheckpointModel, compute_dtype, deterministic_convolutions,
                    round_up_pow2)
 from .dqn import DTYPES
@@ -82,12 +83,13 @@ class GRUCell(nn.Module):
     def forward(self, h, x):
         """-> the new state in ``dtype``."""
         dt = self.dtype
-        h, x = h.to(dt), x.to(dt)
-        lin = lambda k, v: linear(self.get_submodule(k), v, dt)  # noqa: E731
-        r = torch.sigmoid(lin("ir", x) + lin("hr", h))
-        z = torch.sigmoid(lin("iz", x) + lin("hz", h))
-        n = torch.tanh(lin("in", x) + r * lin("hn", h))
-        return (1.0 - z) * n + z * h
+        with span("net.gru"):
+            h, x = h.to(dt), x.to(dt)
+            lin = lambda k, v: linear(self.get_submodule(k), v, dt)  # noqa: E731
+            r = torch.sigmoid(lin("ir", x) + lin("hr", h))
+            z = torch.sigmoid(lin("iz", x) + lin("hz", h))
+            n = torch.tanh(lin("in", x) + r * lin("hn", h))
+            return (1.0 - z) * n + z * h
 
 
 class DRQNNet(nn.Module):
@@ -162,43 +164,46 @@ def split_unroll(net: DRQNNet, views, features, h0, keep=None, remat=False):
     matmuls and recomputes the elementwise gates; False stores all."""
     if remat not in REMAT:
         raise ValueError("remat must be one of %s, got %r" % (REMAT, remat))
-    T, N = views.shape[:2]
-    H, dt = net.state_size, net.dtype
-    x = net.trunk(views.reshape((T * N,) + tuple(views.shape[2:])),
-                  features.reshape(T * N, -1)).to(dt)
-    g = net.gru
-    # each projection rounds to dt before its bias add, as JAX's does
-    xr, xz, xn = ((matmul(x, *_cols(g.get_submodule(k), dt))
-                   + g.get_submodule(k).bias.to(dt)).reshape(T, N, H)
-                  for k in ("ir", "iz", "in"))
-    khr, khz, khn = (_cols(g.get_submodule(k), dt)
-                     for k in ("hr", "hz", "hn"))
-    hn_bias = g.hn.bias
-    # under no_grad nothing is stored: every form runs plain
-    remat = torch.is_grad_enabled() and remat
+    with span("net.unroll"):
+        T, N = views.shape[:2]
+        H, dt = net.state_size, net.dtype
+        x = net.trunk(views.reshape((T * N,) + tuple(views.shape[2:])),
+                      features.reshape(T * N, -1)).to(dt)
+        g = net.gru
+        # each projection rounds to dt before its bias add, as JAX's does
+        xr, xz, xn = ((matmul(x, *_cols(g.get_submodule(k), dt))
+                       + g.get_submodule(k).bias.to(dt)).reshape(T, N, H)
+                      for k in ("ir", "iz", "in"))
+        khr, khz, khn = (_cols(g.get_submodule(k), dt)
+                         for k in ("hr", "hz", "hn"))
+        hn_bias = g.hn.bias
+        # under no_grad nothing is stored: every form runs plain
+        remat = torch.is_grad_enabled() and remat
 
-    def step(h, t):
-        k = None if keep is None else keep[t]
-        if remat == "all":
-            def whole(h, xr, xz, xn, k):
+        def step(h, t):
+            k = None if keep is None else keep[t]
+            if remat == "all":
+                def whole(h, xr, xz, xn, k):
+                    with span("net.gru"):  # inside: the recompute counts too
+                        hd = h.to(dt)
+                        return _carry_step(h, xr, xz, xn, matmul(hd, *khr),
+                                           matmul(hd, *khz), matmul(hd, *khn),
+                                           hn_bias, k)
+                return checkpoint(whole, h, xr[t], xz[t], xn[t], k,
+                                  use_reentrant=False)
+            with span("net.gru"):
                 hd = h.to(dt)
-                return _carry_step(h, xr, xz, xn, matmul(hd, *khr),
-                                   matmul(hd, *khz), matmul(hd, *khn),
-                                   hn_bias, k)
-            return checkpoint(whole, h, xr[t], xz[t], xn[t], k,
-                              use_reentrant=False)
-        hd = h.to(dt)
-        args = (h, xr[t], xz[t], xn[t], matmul(hd, *khr), matmul(hd, *khz),
-                matmul(hd, *khn), hn_bias, k)
-        if remat:  # "dots" / True: the matmul outputs stay stored
-            return checkpoint(_carry_step, *args, use_reentrant=False)
-        return _carry_step(*args)
+                args = (h, xr[t], xz[t], xn[t], matmul(hd, *khr),
+                        matmul(hd, *khz), matmul(hd, *khn), hn_bias, k)
+                if remat:  # "dots" / True: the matmul outputs stay stored
+                    return checkpoint(_carry_step, *args, use_reentrant=False)
+                return _carry_step(*args)
 
-    h, outs = h0, []
-    for t in range(T):
-        h, out = step(h, t)
-        outs.append(out)
-    return net.heads(torch.stack(outs).reshape(T * N, H)).reshape(T, N, -1)
+        h, outs = h0, []
+        for t in range(T):
+            h, out = step(h, t)
+            outs.append(out)
+        return net.heads(torch.stack(outs).reshape(T * N, H)).reshape(T, N, -1)
 
 
 class DeepRecurrentQNetwork(CheckpointModel):

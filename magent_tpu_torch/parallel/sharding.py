@@ -40,6 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.state import FIELDS, State
+from ..spans import span
 from .optim import AdamState
 from .vec_env import resolve_device
 
@@ -177,7 +178,9 @@ def all_reduce_flat(tensors, mesh: Mesh, axis: str):
     ``axis`` in one collective on their flat concatenation."""
     if mesh.groups[axis] is None:
         return list(tensors)
-    flat = all_reduce(torch.cat([t.reshape(-1) for t in tensors]), mesh, axis)
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    with span("mesh.all_reduce"):
+        flat = all_reduce(flat, mesh, axis)
     return [part.view_as(t) for part, t in
             zip(flat.split([t.numel() for t in tensors]), tensors)]
 

@@ -12,14 +12,19 @@ A span's name is ``<layer>.<part>``, with a dot and no ``::`` (PyTorch's
 own operators have ``::``):
 
 - ``train``: a fused trainer's ``rollout`` and ``learn`` halves;
-- ``net``: the acting forward (``net.act``);
+- ``net``: the acting forward (``net.act``); the recurrent cell
+  (``net.gru``: a ``GRUCell`` step, and each carry step of
+  ``split_unroll``, inside what a checkpoint recomputes) and a whole
+  ``split_unroll`` (``net.unroll``);
 - ``observe``: the packed grid pass, the channel render, the pooled
   minimap, the window gather with its epilogue, and the feature vector
   (``observe.grids``, ``.render``, ``.minimap``, ``.window``,
   ``.features``);
 - ``env``: ``VecGridWorld``'s ``observe`` and ``transition``;
 - ``rng``: each public draw of :mod:`magent_tpu_torch.random`, nested
-  where one draw calls another."""
+  where one draw calls another;
+- ``mesh``: the gradients' collective over a mesh axis
+  (``mesh.all_reduce``, in ``sharding.all_reduce_flat``)."""
 
 from __future__ import annotations
 
