@@ -22,6 +22,14 @@ Run from the repository root:  python3 chip_smoke.py
    rows, ``uniform`` (256, 3200) in [0, 1) and [tiny, 1), the snake's food
    ``randint``) and prints a ``rng form`` line each (kernel ms, host us per
    draw, the plain version's ms on the card, bound, share);
+2c. holds the GRU cell's kernels (``ops/gru_cell.py``: the gates forward,
+   acting and carry forms, and their backward) against their plain
+   versions at battle_drqn's [102,400, 512] with bf16 projections, one
+   launch each, times each beside its bound (bytes / 3.35 TB/s) and the
+   plain version's ms (a ``gru form`` line each), and counts their
+   launches over one train step of battle_drqn's own loop (map 200, 64
+   worlds of 2x1600, GRU 512 in bf16, rollout 8): 48 forwards and 16
+   backwards, 3 and 1 per acting step and group;
 3. runs the lockstep path — ``VecGridWorld(battle(200), [1000, 1000],
    n_envs=16)``: reset, warm-up, then timed ``observe_all -> random_actions
    -> transition`` steps — and checks from the launch counters that every
@@ -561,6 +569,8 @@ SYMBOLS = {
     "window_ladder": "window_ladder_kernel",
     "window_shared_tile": "window_shared_tile_kernel",
     "threefry": "threefry_kernel",
+    "gru_cell": "gru_cell_kernel<",
+    "gru_cell_backward": "gru_cell_backward_kernel<",
 }
 SOURCES = {
     "window_gather": "magent_tpu_torch/csrc/window_gather.cu",
@@ -589,7 +599,11 @@ WINDOW_KERNELS = ("window_gather", "window_gather4", "window_gather_banded",
 # holds and times it, the lockstep and snake phases count its launches per
 # step; every other launch check covers the path kernels, PATH_KERNELS
 RNG_KERNEL = "threefry"
-PATH_KERNELS = tuple(k for k in KERNELS if k != RNG_KERNEL)
+# the GRU cell's kernels (the nets' gates, on no env path): phase 2c holds,
+# times and counts them
+GRU_KERNELS = ("gru_cell", "gru_cell_backward")
+PATH_KERNELS = tuple(k for k in KERNELS
+                     if k != RNG_KERNEL and k not in GRU_KERNELS)
 # threefry launches per step of the main lockstep loop (random_actions'
 # uniform and the engine's attack-order split; its own key lives on the
 # host, so that key's split runs the plain version) and of the fast snake
@@ -1053,6 +1067,198 @@ def check_threefry(int32_rate):
         bound_ms=statistics.mean(st["bound_ms"] for st in per_call),
         bound_by=max(per_call, key=lambda st: st["bound_ms"])["bound_by"],
         library_ms=None, per_call=per_call)
+
+
+# phase 2c: the GRU cell at battle_drqn's shape (h100bench/configs/
+# battle_drqn.json: 64 worlds x a group's 1600 agents, state 512, bf16
+# projections, f32 state) and its train loop (h100bench/traffic/
+# train_drqn.json)
+DRQN_MAP, DRQN_GROUP, DRQN_ENVS, DRQN_ROLLOUT = 200, 1600, 64, 8
+GRU_ROWS, GRU_WIDTH = DRQN_ENVS * DRQN_GROUP, 512
+
+
+def _gru_close(got, want, what):
+    """f32 within rtol 1e-5 / atol 1e-6 (gradients rtol 1e-4), bf16 within
+    one ulp of the plain version -> the largest absolute difference."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError("%s: %s %s, the plain version %s %s" % (
+            what, got.dtype, tuple(got.shape), want.dtype, tuple(want.shape)))
+    a, b = got.float(), want.float()
+    diff = (a - b).abs()
+    if want.dtype == torch.float32:
+        rtol = 1e-4 if "gradient" in what else 1e-5
+        bad = diff > 1e-6 + rtol * b.abs()
+    else:
+        mag = torch.maximum(a.abs(), b.abs()).clamp_min(1e-30)
+        bad = diff > torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    if bool(bad.any()):
+        raise AssertionError("%s: %d of %d values differ from the plain "
+                             "version beyond the tolerance (max %.3g)"
+                             % (what, int(bad.sum()), bad.numel(),
+                                float(diff.max())))
+    return float(diff.max())
+
+
+def check_gru_cell(card):
+    """Phase 2c: each form of the GRU cell's two kernels at GRU_ROWS x
+    GRU_WIDTH against its plain version on the card (``_gru_close``), one
+    launch per call; device ms per launch (CUDA events behind a spin), the
+    plain version's ms, and the bound: the bytes a launch must move (each
+    operand read once, each result written once) at HBM_BYTES_PER_S.  Then
+    the launches of one train step of battle_drqn's loop
+    (:func:`drqn_cell_launches`).  Returns the ``kernels`` line's two
+    rows."""
+    from magent_tpu_torch import ops
+    from magent_tpu_torch.ops import gru_cell as gc
+
+    dev, N, H = torch.device("cuda"), GRU_ROWS, GRU_WIDTH
+    gen = torch.Generator(device=dev).manual_seed(29)
+
+    def normal(scale, dtype=torch.float32):
+        return (scale * torch.randn((N, H), generator=gen, device=dev)).to(
+            dtype)
+
+    h = normal(0.7)
+    proj = [normal(1.5, torch.bfloat16) for _ in range(6)]
+    bias = 0.2 * torch.randn((H,), generator=gen, device=dev)
+    keep = torch.rand((N, 1), generator=gen, device=dev) > 0.1
+    g32, g_out, g_dt = normal(1.0), normal(1.0), normal(1.0, torch.bfloat16)
+    # (kernel, form, kernel call, plain call, result names, bytes per
+    # element: state 4 and six bf16 projections 12 read, then as named)
+    forms = (
+        ("gru_cell", "acting, f32 state out (DRQNNet's cell and recompute)",
+         lambda: (gc.gru_cell(h, *proj),),
+         lambda: (gc.gru_cell_ref(gc.ACT, h, *proj),),
+         ("state",), 16 + 4),
+        ("gru_cell", "carry with resets (split_unroll's step)",
+         lambda: gc.gru_carry(h, *proj, bias, keep),
+         lambda: gc.gru_cell_ref(gc.CARRY, h, *proj, bias, keep),
+         ("carry", "output", "carry bf16"), 16 + 1 / H + 4 + 4 + 2),
+        ("gru_cell_backward", "acting, f32 gradient (BPTT, the acting cells)",
+         lambda: gc.gru_cell_backward(gc.ACT, h, *proj, None, None, g32,
+                                      None, None, False)[:5],
+         lambda: gc.gru_cell_backward_ref(gc.ACT, h, *proj, None, None,
+                                          g32)[:5],
+         ("r gradient", "z gradient", "in gradient", "hn gradient",
+          "state gradient"), 16 + 4 + 8 + 4),
+        ("gru_cell_backward", "carry with resets, three gradients in, hn's "
+         "f32 out",
+         lambda: gc.gru_cell_backward(gc.CARRY, h, *proj, bias, keep, g32,
+                                      g_out, g_dt, True),
+         lambda: gc.gru_cell_backward_ref(gc.CARRY, h, *proj, bias, keep, g32,
+                                          g_out, g_dt),
+         ("r gradient", "z gradient", "in gradient", "hn gradient",
+          "state gradient", "hn f32 gradient"),
+         16 + 1 / H + 4 + 4 + 2 + 8 + 4 + 4),
+    )
+    per_call = {name: [] for name in GRU_KERNELS}
+    for name, form, kernel, plain, results, per_elem in forms:
+        before = ops.launch_counts()[name]
+        got = kernel()
+        torch.cuda.synchronize()
+        if ops.launch_counts()[name] != before + 1:
+            raise AssertionError("%s %s: not one launch" % (name, form))
+        want = plain()
+        err = max(_gru_close(a, b, "%s %s %s" % (name, form, what))
+                  for a, b, what in zip(got, want, results))
+        del got, want
+        ms = device_ms(kernel, 20)
+        plain_ms = cuda_ms(plain, 3)
+        bound_ms = N * H * per_elem / HBM_BYTES_PER_S * 1e3
+        per_call[name].append(dict(form=form, max_abs_err=err, ms=ms,
+                                   plain_ms=plain_ms, bound_ms=bound_ms,
+                                   bound_by="bytes"))
+        print("gru form %-18s %-62s kernel %.4f ms  plain %.4f ms on the "
+              "card  bound %.4f ms (bytes, %.2f per value)  share %.3f  "
+              "max abs err %.3g  (%s)" % (
+                  name, form, ms, plain_ms, bound_ms, per_elem,
+                  bound_ms / ms, err, card), flush=True)
+    del h, proj, g32, g_out, g_dt
+    torch.cuda.empty_cache()
+
+    launched = drqn_cell_launches(dev)
+    rows = {}
+    for name in GRU_KERNELS:
+        calls = per_call[name]
+        rows[name] = dict(
+            name=name, route="cuda",
+            source="magent_tpu_torch/csrc/gru_cell.cu",
+            replaces="none: flax's GRUCell, which XLA fuses in the JAX "
+                     "package",
+            launches=launched[name],
+            path="one train step of battle_drqn's loop: battle map %d, %d "
+                 "worlds of 2x%d, GRU %d in bf16, rollout %d" % (
+                     DRQN_MAP, DRQN_ENVS, DRQN_GROUP, GRU_WIDTH,
+                     DRQN_ROLLOUT),
+            max_abs_err=max(st["max_abs_err"] for st in calls),
+            ms=statistics.mean(st["ms"] for st in calls),
+            plain_ms=statistics.mean(st["plain_ms"] for st in calls),
+            bound_ms=statistics.mean(st["bound_ms"] for st in calls),
+            bound_by="bytes", library_ms=None, per_call=calls)
+    return rows
+
+
+def drqn_cell_launches(dev):
+    """The GRU kernels' launches over one train step of battle_drqn's own
+    loop (``make_drqn_train_loop`` at battle map DRQN_MAP, DRQN_ENVS worlds
+    of 2 x DRQN_GROUP, bf16 views, ``DRQNNet`` with dueling heads and a GRU
+    of GRU_WIDTH in bf16, a window of DRQN_ROLLOUT, ``share_acting``,
+    ``unroll_remat`` "all", as h100bench's battle_drqn.train runs it):
+    asserts 3 forwards (the acting cell, its recompute in the backward,
+    the target re-unroll's carry step) and one backward per acting step and
+    group, and a finite loss; returns the counts."""
+    from magent_tpu_torch import ops
+    from magent_tpu_torch import random as rnd
+    from magent_tpu_torch.builtin.config import battle
+    from magent_tpu_torch.builtin.torch_model import DRQNNet
+    from magent_tpu_torch.parallel import (ClipAdam, VecGridWorld,
+                                           init_drqn_hiddens,
+                                           make_drqn_train_loop)
+
+    T = DRQN_ROLLOUT
+    venv = VecGridWorld(battle.get_config(DRQN_MAP), [DRQN_GROUP] * 2,
+                        DRQN_ENVS, obs_dtype=torch.bfloat16, device=dev)
+    spec, G = venv.spec, venv.spec.n_groups
+
+    def nets(seed):
+        return tuple(DRQNNet(spec.view_space(g), spec.feature_size(g),
+                             spec.groups[g].type.n_action, use_dueling=True,
+                             state_size=GRU_WIDTH, dtype=torch.bfloat16,
+                             generator=torch.Generator().manual_seed(seed + g)
+                             ).to(dev) for g in range(G))
+
+    tx = ClipAdam(1e-4, 5.0)
+    loop = make_drqn_train_loop(venv, tx, steps_per_call=1, target_update=40,
+                                rollout_len=T, gamma=0.99, use_double=True,
+                                unroll_remat="all", share_acting=True)
+    online = nets(0)
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = ops.launch_counts()
+    t0 = time.perf_counter()
+    out = loop(online, nets(9), tuple(tx.init(n) for n in online),
+               venv.reset(rnd.PRNGKey(0, dev)),
+               init_drqn_hiddens(venv, online), rnd.PRNGKey(2, dev), 0.3, 0)
+    loss = out[-1]["loss"]
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    after = ops.launch_counts()
+    launched = {k: after[k] - before[k] for k in GRU_KERNELS}
+    want = {"gru_cell": 3 * T * G, "gru_cell_backward": T * G}
+    if launched != want:
+        raise AssertionError("one train step of battle_drqn's loop launched "
+                             "%s, expected %s" % (launched, want))
+    if not bool(torch.isfinite(loss).all()):
+        raise AssertionError("battle_drqn's train step: loss %s" % loss)
+    print("gru launches over one train step of battle_drqn's loop (map %d, "
+          "%d worlds of 2x%d, GRU %d bf16, rollout %d, %d groups, "
+          "share_acting, unroll_remat all): %s = 4 per acting step and "
+          "group; the step's first call %.3f s, peak %.1f GB" % (
+              DRQN_MAP, DRQN_ENVS, DRQN_GROUP, GRU_WIDTH, T, G, launched,
+              wall_s, torch.cuda.max_memory_allocated(dev) / 1e9),
+          flush=True)
+    del venv, out, online, loss
+    torch.cuda.empty_cache()
+    return launched
 
 
 def lockstep_step(venv, carry):
@@ -6368,6 +6574,7 @@ def main() -> int:
           "instructions/s" % (mhz, f32_rate, int32_rate), flush=True)
     rows = check_kernels(venv, state, rnd.PRNGKey(1), f32_rate, int32_rate)
     rng_row = check_threefry(int32_rate)
+    gru_rows = check_gru_cell(card)
     counts, state, key, ms_per_step, _ = run_lockstep(
         "main path: battle lockstep", venv, state, rnd.PRNGKey(2),
         {"window_gather": 2, "occupant": 1, "rank_prefix": 1,
@@ -6376,6 +6583,7 @@ def main() -> int:
         row["launches"] = counts[name]
     rng_row["launches"] = LOCKSTEP_DRAWS * TIMED_STEPS
     rows[RNG_KERNEL] = rng_row
+    rows.update(gru_rows)
     profile_lockstep("lockstep", venv, state, key, ms_per_step)
     del venv, state
     torch.cuda.empty_cache()

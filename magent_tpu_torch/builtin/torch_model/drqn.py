@@ -15,9 +15,11 @@ carried state and the heads stay f32.
 :func:`split_unroll` evaluates a stored window: the trunk, the input
 projections and the heads batched over ``[T, N]``, only the carry half of
 the cell stepped over T, its pre-activations in f32 (JAX ``drqn.py:
-125-131``).  Parameter names are the flax paths (:mod:`.flax_params`);
-``in`` is a keyword, so that module is reached as ``gru.get_submodule
-("in")``.
+125-131``).  On the card the gates of both (everything between the six
+projections and the new state) are one kernel, forward and backward
+(:mod:`~magent_tpu_torch.ops.gru_cell`).  Parameter names are the flax
+paths (:mod:`.flax_params`); ``in`` is a keyword, so that module is
+reached as ``gru.get_submodule("in")``.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ...ops.gru_cell import gru_carry, gru_cell
 from ...parallel.optim import ClipAdam
 from ...parallel.sharding import linear, matmul, split_of
 from ...spans import span
@@ -81,15 +84,15 @@ class GRUCell(nn.Module):
         self.hn = nn.Linear(state_size, state_size)
 
     def forward(self, h, x):
-        """-> the new state in ``dtype``."""
+        """-> the new state in ``dtype``, widened to f32: the six
+        projections, then the gates (:func:`~...ops.gru_cell.gru_cell`, one
+        kernel on the card)."""
         dt = self.dtype
         with span("net.gru"):
-            h, x = h.to(dt), x.to(dt)
+            hd, x = h.to(dt), x.to(dt)
             lin = lambda k, v: linear(self.get_submodule(k), v, dt)  # noqa: E731
-            r = torch.sigmoid(lin("ir", x) + lin("hr", h))
-            z = torch.sigmoid(lin("iz", x) + lin("hz", h))
-            n = torch.tanh(lin("in", x) + r * lin("hn", h))
-            return (1.0 - z) * n + z * h
+            return gru_cell(h, lin("ir", x), lin("iz", x), lin("in", x),
+                            lin("hr", hd), lin("hz", hd), lin("hn", hd))
 
 
 class DRQNNet(nn.Module):
@@ -135,19 +138,8 @@ class DRQNNet(nn.Module):
         return self.value(out) + adv - adv.mean(1, keepdim=True)
 
     def forward(self, state, view, feature):
-        new_state = self.gru(state, self.trunk(view, feature)).float()
+        new_state = self.gru(state, self.trunk(view, feature))
         return new_state, self.heads(new_state)
-
-
-def _carry_step(h, xr, xz, xn, ar, az, an, hn_bias, keep):
-    """The carry half of the cell from the projections ``x*`` of the input
-    and ``a*`` of the state, in f32 -> (carry, output)."""
-    f32 = torch.float32
-    r = torch.sigmoid(xr.to(f32) + ar.to(f32))
-    z = torch.sigmoid(xz.to(f32) + az.to(f32))
-    n = torch.tanh(xn.to(f32) + r * (an.to(f32) + hn_bias))
-    h2 = (1.0 - z) * n + z * h
-    return (h2 if keep is None else torch.where(keep, h2, 0.0)), h2
 
 
 def split_unroll(net: DRQNNet, views, features, h0, keep=None, remat=False):
@@ -180,28 +172,28 @@ def split_unroll(net: DRQNNet, views, features, h0, keep=None, remat=False):
         # under no_grad nothing is stored: every form runs plain
         remat = torch.is_grad_enabled() and remat
 
-        def step(h, t):
+        def step(h, hd, t):
+            """-> (carry, output, carry in ``dt``) of frame ``t`` from the
+            carry ``h`` and ``hd``, it in ``dt``."""
             k = None if keep is None else keep[t]
             if remat == "all":
-                def whole(h, xr, xz, xn, k):
+                def whole(h, hd, xr, xz, xn, k):
                     with span("net.gru"):  # inside: the recompute counts too
-                        hd = h.to(dt)
-                        return _carry_step(h, xr, xz, xn, matmul(hd, *khr),
-                                           matmul(hd, *khz), matmul(hd, *khn),
-                                           hn_bias, k)
-                return checkpoint(whole, h, xr[t], xz[t], xn[t], k,
+                        return gru_carry(h, xr, xz, xn, matmul(hd, *khr),
+                                         matmul(hd, *khz), matmul(hd, *khn),
+                                         hn_bias, k)
+                return checkpoint(whole, h, hd, xr[t], xz[t], xn[t], k,
                                   use_reentrant=False)
             with span("net.gru"):
-                hd = h.to(dt)
                 args = (h, xr[t], xz[t], xn[t], matmul(hd, *khr),
                         matmul(hd, *khz), matmul(hd, *khn), hn_bias, k)
                 if remat:  # "dots" / True: the matmul outputs stay stored
-                    return checkpoint(_carry_step, *args, use_reentrant=False)
-                return _carry_step(*args)
+                    return checkpoint(gru_carry, *args, use_reentrant=False)
+                return gru_carry(*args)
 
-        h, outs = h0, []
+        h, hd, outs = h0, h0.to(dt), []
         for t in range(T):
-            h, out = step(h, t)
+            h, out, hd = step(h, hd, t)
             outs.append(out)
         return net.heads(torch.stack(outs).reshape(T * N, H)).reshape(T, N, -1)
 

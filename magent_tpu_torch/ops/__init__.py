@@ -10,7 +10,8 @@ KERNELS = ("window_gather", "occupant", "rank_prefix", "move_resolve",
            "rect_first_overlap", "window_gather4", "occupant_rect_seg",
            "rect_first_overlap_seg", "rank_prefix_seg", "window_gather_banded",
            "window_ladder", "window_shared_tile", "window_gather_bf16",
-           "window_gather4_bf16", "window_gather_banded_bf16", "threefry")
+           "window_gather4_bf16", "window_gather_banded_bf16", "threefry",
+           "gru_cell", "gru_cell_backward")
 
 
 def launch_counts() -> dict:

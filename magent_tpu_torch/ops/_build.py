@@ -30,7 +30,7 @@ import torch
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
-SOURCES = ("pair_kernels.cu", "seg_kernels.cu", "threefry.cu",
+SOURCES = ("gru_cell.cu", "pair_kernels.cu", "seg_kernels.cu", "threefry.cu",
            "window_gather.cu", "window_ladder.cu")
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 LIB_PATH = BUILD_DIR / "libmagent_kernels.so"
@@ -65,6 +65,8 @@ _SIGNATURES = {
     "magent_window_shared_tile": (_P,) * 4 + (_I,) * 7 + (_P,),
     "magent_threefry": (_P, _L, _L, _L, _I, _U, _U, _U, _I, _F, _F, _I, _I,
                         _P),
+    "magent_gru_cell": (_I, _I, _L, _I) + (_P,) * 12 + (_I,),
+    "magent_gru_cell_backward": (_I, _I, _L, _I) + (_P,) * 18 + (_I,),
 }
 
 _lib = None

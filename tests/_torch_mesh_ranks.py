@@ -4,7 +4,9 @@ each joining a gloo group and running every case of a job on its part of a
 for ``tests/test_torch_port_sharding.py`` to hold against the unsharded
 runs.  Started by :func:`run_job` through the port's launcher
 (``examples/launch_multihost.run_ranks``), each rank under its own
-``timeout``.
+``timeout``.  A job may name its cases and put every rank on one card
+(``tests/test_torch_port_gru_cell_gpu.py``: the gloo ranks copy their
+collectives through host memory).
 
 The cases' settings are the JAX tests' (``tests/test_sharding.py``: battle
 map 24, [8, 8], B=8) and the fused example test's arguments."""
@@ -45,9 +47,11 @@ JOBS = {2: ("rollout", "dqn", "dqn_unplaced", "dqnremat", "a2c", "drqn",
         4: ("rollout", "dqn_tp", "a2c_tp", "drqn_tp")}
 
 
-def venv_of(mesh=None):
+def venv_of(mesh=None, device="cpu"):
+    """The cases' venv on ``mesh``'s device, else on ``device``."""
     return VecGridWorld(battle.get_config(MAP), CAPS, n_envs=B,
-                        device="cpu", mesh=mesh)
+                        device=device if mesh is None else mesh.device,
+                        mesh=mesh)
 
 
 def rollout(venv, state):
@@ -85,7 +89,7 @@ def fresh_nets(kind, venv):
     return tuple(cls(spec.view_space(g), spec.feature_size(g),
                      spec.groups[g].type.n_action,
                      generator=torch.Generator().manual_seed(g), **kw)
-                 for g in range(2))
+                 .to(venv.device) for g in range(2))
 
 
 def train_case(kind, venv, flat_params=None, place=True):
@@ -111,7 +115,7 @@ def train_case(kind, venv, flat_params=None, place=True):
         tgt = device_put(tgt, placement)
         opts = device_put(opts, placement)
     state = venv.reset(rnd.PRNGKey(1))
-    key = rnd.PRNGKey(2)
+    key = rnd.PRNGKey(2).to(venv.device)
     if kind == "dqn":
         step = make_dqn_train_step(venv, tx, rollout_len=2)
         nets, opts, state, metrics = step(nets, tgt, opts, state, key, 0.5)
@@ -149,7 +153,7 @@ def net_arrays(nets, opts, placement=None):
 
 
 def state_arrays(state):
-    return {"state/" + f: getattr(state, f).numpy() for f in FIELDS}
+    return {"state/" + f: getattr(state, f).cpu().numpy() for f in FIELDS}
 
 
 def run_case(case, mesh, out_dir):
@@ -173,7 +177,8 @@ def run_case(case, mesh, out_dir):
         venv = venv_of(mesh)
         nets, opts, placement, state, metrics = train_case(
             kind, venv, flat, place=not case.endswith("_unplaced"))
-        out.update({"metric/" + k: v.numpy() for k, v in metrics.items()})
+        out.update({"metric/" + k: v.cpu().numpy()
+                    for k, v in metrics.items()})
         out.update(state_arrays(state))
         out["rows"] = np.asarray(venv.env_rows)
         out["dense_view_rows"] = np.asarray(
@@ -224,16 +229,20 @@ def fused_case(work_dir):
     return out
 
 
-def run_job(world, out_dir):
+def run_job(world, out_dir, device="cpu", cases=None):
     """Start ``world`` ranks of this script on ``out_dir`` (each under its
-    own ``timeout``) and wait for them; raises if any rank fails."""
+    own ``timeout``), every rank's part of the mesh on ``device``, running
+    ``cases`` (default: the world's ``JOBS``), and wait for them; raises if
+    any rank fails."""
     from magent_tpu_torch.examples.launch_multihost import (free_port,
                                                             run_ranks)
 
     coord = "127.0.0.1:%d" % free_port()
     cmds = [["timeout", "-k", "5", str(RANK_TIMEOUT_S), sys.executable,
              os.path.abspath(__file__), "--rank", str(r), "--world",
-             str(world), "--coordinator", coord, "--out", str(out_dir)]
+             str(world), "--coordinator", coord, "--out", str(out_dir),
+             "--device", str(device)]
+            + ["--case=" + c for c in (cases or ())]
             for r in range(world)]
     run_ranks(cmds)
 
@@ -244,14 +253,16 @@ def main():
     p.add_argument("--world", type=int, required=True)
     p.add_argument("--coordinator", required=True)
     p.add_argument("--out", required=True)
+    p.add_argument("--device", default="cpu")
+    p.add_argument("--case", action="append", dest="cases")
     args = p.parse_args()
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method="tcp://" + args.coordinator,
                             rank=args.rank, world_size=args.world)
     try:
-        for case in JOBS[args.world]:
+        for case in args.cases or JOBS[args.world]:
             mesh = make_mesh(tp=2 if case.endswith("_tp") else 1,
-                             devices="cpu")
+                             devices=args.device)
             run_case(case, mesh, args.out)
     finally:
         dist.destroy_process_group()

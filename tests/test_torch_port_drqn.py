@@ -141,8 +141,10 @@ def test_gru_cell_matches_flax(dtype):
     assert set(flatten_tree(p)) == set(params_to_flax(tcell))
     with torch.no_grad():
         got = tcell(torch.from_numpy(h), torch.from_numpy(x))
-    assert got.dtype == tdt
-    _close(got.float().numpy(), want, dtype)
+    # the state in the cell's dtype, widened to the carried state's f32
+    assert got.dtype == torch.float32
+    assert torch.equal(got, got.to(tdt).float())
+    _close(got.numpy(), want, dtype)
 
 
 @pytest.mark.parametrize("dueling", [True, False])
